@@ -5,7 +5,9 @@
 
 * ``mx.nd`` — NDArray over torch tensors, and the "TPUARRA" container
 * ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``
-* ``mx.mod`` — Module (single device, inference in this slice)
+* ``mx.mod`` — Module (single device): bind, predict, ``fit``
+* ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
+  ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
 * ``mx.Predictor`` — the deployment predict API
 * ``mx.interop`` — weights carried across from ``mxnet_tpu``
@@ -17,7 +19,7 @@ hand-written Hopper kernels live in ``ops/kernels.py`` (sources in
 """
 from __future__ import annotations
 
-from .base import MXNetError, DeviceUnavailableError, TrainingNotPortedError
+from .base import MXNetError, DeviceUnavailableError
 from .context import Context, cpu, gpu, current_context
 from . import ndarray
 from . import ndarray as nd
@@ -32,6 +34,12 @@ from . import executor
 from . import initializer
 from . import initializer as init
 from . import io
+from . import lr_scheduler
+from . import optimizer
+from . import metric
+from . import callback
+from . import kvstore
+from . import kvstore as kv
 from . import module
 from . import module as mod
 from . import fused_step

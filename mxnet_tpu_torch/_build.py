@@ -32,18 +32,28 @@ _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"norm_act": "norm_act.cu"}
+SOURCES: Dict[str, str] = {"norm_act": "norm_act.cu",
+                           "conv_gemm": "conv_gemm.cu"}
 
 NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler",
                          "-fPIC", "-Xptxas=-v"]
 
-# C signatures of the exported functions, declared on load
+# C signatures of the exported functions, declared on load: name ->
+# (argument types, return type). Every pointer and the stream are c_void_p
+# and every 64-bit size c_longlong, or ctypes would pass a 32-bit int.
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "norm_act": {
-        "norm_act_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "norm_act_fwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+        "norm_act_bwd_row_blocks": ([_LL, _I], _I),
+        "norm_act_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                          _I, _P], _I),
+    },
+    "conv_gemm": {
+        "conv_gemm_k_chunk": ([_LL, _LL, _LL], _LL),
+        "conv_gemm": ([_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _LL, _I, _P],
+                      _I),
     },
 }
 
@@ -118,8 +128,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(library_path(name))
-            for fn, argtypes in _SIGNATURES[name].items():
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             _loaded[name] = lib
     return lib

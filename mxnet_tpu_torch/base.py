@@ -12,8 +12,8 @@ from typing import Callable, Dict, Generic, Optional, TypeVar
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "DeviceUnavailableError", "TrainingNotPortedError",
-           "mx_real_t", "DTYPE_TORCH_TO_ID", "DTYPE_ID_TO_TORCH",
+__all__ = ["MXNetError", "DeviceUnavailableError", "mx_real_t",
+           "DTYPE_TORCH_TO_ID", "DTYPE_ID_TO_TORCH",
            "torch_dtype", "Registry"]
 
 
@@ -26,12 +26,6 @@ class DeviceUnavailableError(MXNetError):
     ``gpu(0)``) on a machine where ``torch.cuda.is_available()`` is
     false. The port never falls back to the CPU on its own: pass
     ``ctx=mx.cpu()`` / ``context=mx.cpu()`` or enter ``with mx.cpu():``."""
-
-
-class TrainingNotPortedError(MXNetError):
-    """The training half of the port (backward, the fused train step,
-    the norm+act backward kernel) is the next slice of ROADMAP.md
-    (Queue A item 5, Queue B items 1-2); this slice serves only."""
 
 
 mx_real_t = np.float32

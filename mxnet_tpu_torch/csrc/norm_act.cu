@@ -1,14 +1,16 @@
-// Fused per-channel scale/shift + activation, forward: y = act(x * scale + shift).
+// Fused per-channel scale/shift + activation: the forward y = act(x * scale + shift)
+// (K4) and its backward (K5).
 //
-// Replaces the TPU kernel `_norm_act_fwd_call` in mxnet_tpu/ops/pallas_kernels.py
-// (reached through `fused_norm_act`), which BatchNorm's channels-last apply runs
-// with act="none": 53 launches per ResNet-50 forward.
+// Forward. Replaces the TPU kernel `_norm_act_fwd_call` in
+// mxnet_tpu/ops/pallas_kernels.py (reached through `fused_norm_act`), which
+// BatchNorm's channels-last apply runs with act="none": 53 launches per ResNet-50
+// forward.
 //
 // What bounds it on an H100: HBM bytes. Each element is read once and written
 // once and takes two flops, so the kernel sits ~100x below the float32 ridge
 // point; the only lever is moving those bytes at the full memory rate.
 //
-// What the design does about that:
+// What the forward's design does about that:
 //  * x is viewed as (rows, C) channels-last; C is the innermost, contiguous axis.
 //  * Vector path: when C is a multiple of the 16-byte vector width (4 float32 or
 //    8 bfloat16 values) and every pointer is 16-byte aligned, each thread moves
@@ -34,9 +36,33 @@
 //    __float2bfloat16 (round to nearest even), as torch's own casts do.
 //  * ReLU is `y < 0 ? 0 : y`, so a NaN propagates as it does through torch.relu.
 //
-// Interface: a plain C function, launched on the caller's stream, allocating
-// nothing and never synchronising. It returns cudaGetLastError() after the
-// launch; 0 means the launch was accepted.
+// Backward. Replaces `_norm_act_bwd_call` (pallas_kernels.py:610), the backward
+// of all 53 BatchNorms of a ResNet-50 training step. One pass over x and the
+// cotangent g gives dx = g' * scale and the per-channel sums dscale = sum g' * x and
+// dshift = sum g', where g' is g with the ReLU mask applied (act="relu").
+//
+// What bounds it: HBM bytes again (x and g read once, dx written once, ~6 flops an
+// element). What the backward's design does:
+//  * The TPU kernel carries the per-channel sums across an ordered grid. A GPU
+//    grid has no order, so the sums take two launches and no atomics: stage 1
+//    gives each block a (32 channels x a run of rows) tile, one channel per lane
+//    and eight warps over the rows, so a warp reads 32 consecutive channels of a
+//    row (128 contiguous bytes in float32). Each block writes its per-channel
+//    partial sums to a (row blocks, 2, C) float32 scratch that the caller
+//    allocates; stage 2 sums the partials of each channel in a fixed order. The
+//    work split depends only on the shape and the card's SM count, so a rerun is
+//    bit-identical.
+//  * The ReLU mask is recomputed with the forward's rounding (__fmul_rn then
+//    __fadd_rn), so it matches the forward's output exactly: g' = pre > 0 ? g : 0.
+//  * dx = __fmul_rn(g', scale) rounds as the plain version's `g * scale` does, so
+//    float32 dx is bit-equal to it. The sums accumulate in float32 with fused
+//    multiply-adds; they agree with a float64 sum within the rounding of the
+//    accumulation order.
+//  * No 128-row or 128-channel tiling condition: every edge is masked.
+//
+// Interface: plain C functions, launched on the caller's stream, allocating
+// nothing and never synchronising. Each returns cudaGetLastError() after its
+// launches; 0 means the launches were accepted.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +250,105 @@ void launch(const void* x, const float* sc, const float* sh, void* y, long long 
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+constexpr int kBwdLanes = 32;          // channels of a block, one per lane
+constexpr int kBwdWarps = 8;           // warps of a block, striding over its rows
+constexpr int kBwdBlocksPerSm = 8;     // 8 x 256 threads fill an SM
+constexpr int kReduceThreads = 256;
+
+// Row blocks of stage 1 for (rows, C): enough blocks to fill the card, at least
+// one row per warp. The caller sizes the partials scratch with this.
+int bwd_row_blocks(long long rows, int C) {
+  if (rows <= 0 || C <= 0) return 0;
+  const long long col_blocks = (C + kBwdLanes - 1) / kBwdLanes;
+  const long long target = (long long)num_sms() * kBwdBlocksPerSm;
+  long long rb = (target + col_blocks - 1) / col_blocks;
+  const long long most = (rows + kBwdWarps - 1) / kBwdWarps;
+  if (rb > most) rb = most;
+  if (rb < 1) rb = 1;
+  if (rb > 65535) rb = 65535;
+  const long long rows_per_block = (rows + rb - 1) / rb;
+  return (int)((rows + rows_per_block - 1) / rows_per_block);
+}
+
+// Stage 1: dx for the block's tile, and the tile's per-channel partial sums,
+// written to partial[blockIdx.y][0][c] (sum g'x) and partial[blockIdx.y][1][c]
+// (sum g').
+template <class E, bool RELU>
+__global__ void __launch_bounds__(kBwdLanes * kBwdWarps)
+norm_act_bwd_partial_kernel(const void* __restrict__ x, const float* __restrict__ scale,
+                            const float* __restrict__ shift, const void* __restrict__ g,
+                            void* __restrict__ dx, float* __restrict__ partial,
+                            long long rows, int C, long long rows_per_block) {
+  __shared__ float red[2][kBwdWarps][kBwdLanes];
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int c = blockIdx.x * kBwdLanes + lane;
+  const long long r0 = (long long)blockIdx.y * rows_per_block;
+  long long r1 = r0 + rows_per_block;
+  if (r1 > rows) r1 = rows;
+  float sgx = 0.f, sg = 0.f;
+  if (c < C) {
+    const float s = scale[c];
+    const float b = shift[c];
+#pragma unroll 4
+    for (long long r = r0 + warp; r < r1; r += kBwdWarps) {
+      const long long i = r * C + c;
+      const float xv = E::load1(x, i);
+      float gv = E::load1(g, i);
+      if (RELU && !(__fadd_rn(__fmul_rn(xv, s), b) > 0.f)) gv = 0.f;
+      E::store1(dx, i, __fmul_rn(gv, s));
+      sgx = __fmaf_rn(gv, xv, sgx);
+      sg = __fadd_rn(sg, gv);
+    }
+  }
+  red[0][warp][lane] = sgx;
+  red[1][warp][lane] = sg;
+  __syncthreads();
+  if (warp == 0 && c < C) {
+    float a = red[0][0][lane];
+    float d = red[1][0][lane];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w) {
+      a = __fadd_rn(a, red[0][w][lane]);
+      d = __fadd_rn(d, red[1][w][lane]);
+    }
+    float* p = partial + (long long)blockIdx.y * 2 * C;
+    p[c] = a;
+    p[C + c] = d;
+  }
+}
+
+// Stage 2: one thread per (sum, channel) adds the row blocks' partials in order.
+__global__ void __launch_bounds__(kReduceThreads)
+norm_act_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
+                           float* __restrict__ dshift, int row_blocks, int C) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;   // j < C: dscale, else dshift
+  if (j >= 2 * C) return;
+  float s = 0.f;
+  for (int b = 0; b < row_blocks; ++b) s = __fadd_rn(s, partial[(long long)b * 2 * C + j]);
+  if (j < C)
+    dscale[j] = s;
+  else
+    dshift[j - C] = s;
+}
+
+template <class E, bool RELU>
+void launch_bwd(const void* x, const float* sc, const float* sh, const void* g, void* dx,
+                float* dscale, float* dshift, float* partial, long long rows, int C,
+                int row_blocks, cudaStream_t stream) {
+  const long long rows_per_block = (rows + row_blocks - 1) / row_blocks;
+  const dim3 grid((unsigned int)((C + kBwdLanes - 1) / kBwdLanes), (unsigned int)row_blocks);
+  const dim3 block(kBwdLanes, kBwdWarps);
+  norm_act_bwd_partial_kernel<E, RELU><<<grid, block, 0, stream>>>(
+      x, sc, sh, g, dx, partial, rows, C, rows_per_block);
+  const int rgrid = (2 * C + kReduceThreads - 1) / kReduceThreads;
+  norm_act_bwd_reduce_kernel<<<rgrid, kReduceThreads, 0, stream>>>(partial, dscale, dshift,
+                                                                    row_blocks, C);
+}
+
 }  // namespace
 
 // x, y: (rows, channels) contiguous, float32 (dtype 0) or bfloat16 (dtype 1).
@@ -245,6 +370,39 @@ extern "C" int norm_act_fwd(const void* x, const void* scale, const void* shift,
   } else {
     if (relu) launch<BF16, true>(x, sc, sh, y, n, channels, vec, s);
     else launch<BF16, false>(x, sc, sh, y, n, channels, vec, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Row blocks of norm_act_bwd's first stage for (rows, channels) on the current
+// device: the caller allocates partial as (row_blocks, 2, channels) float32.
+extern "C" int norm_act_bwd_row_blocks(long long rows, int channels) {
+  return bwd_row_blocks(rows, channels);
+}
+
+// x, g, dx: (rows, channels) contiguous, float32 (dtype 0) or bfloat16 (dtype 1).
+// scale, shift: (channels,) float32. dscale, dshift: (channels,) float32 outputs.
+// partial: (row_blocks, 2, channels) float32 scratch, row_blocks as
+// norm_act_bwd_row_blocks gives it. relu: 0 = none, 1 = relu.
+extern "C" int norm_act_bwd(const void* x, const void* scale, const void* shift, const void* g,
+                            void* dx, void* dscale, void* dshift, void* partial,
+                            long long rows, int channels, int row_blocks, int dtype, int relu,
+                            void* stream) {
+  if (rows <= 0 || channels <= 0 || (dtype != 0 && dtype != 1) ||
+      row_blocks != bwd_row_blocks(rows, channels))
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  float* dsc = static_cast<float*>(dscale);
+  float* dsh = static_cast<float*>(dshift);
+  float* part = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (relu) launch_bwd<F32, true>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
+    else launch_bwd<F32, false>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
+  } else {
+    if (relu) launch_bwd<BF16, true>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
+    else launch_bwd<BF16, false>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
   }
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,14 @@ walk and the same auxiliary-state slot order as the JAX package's
 ``make_graph_eval``). PyTorch runs eagerly, so there is nothing to
 compile: each forward launches the ops' kernels on the current stream.
 
-This slice serves: ``forward`` runs under ``torch.inference_mode()``,
-and ``backward`` raises :class:`TrainingNotPortedError` (the training
-slice, ROADMAP.md Queue A item 5). As in the JAX package, a train-mode
-forward computes batch statistics but does not commit the BatchNorm
-moving statistics (they commit on backward there).
+An inference forward runs under ``torch.inference_mode()``. A train
+forward (``forward(is_train=True)``) records the autograd graph on
+detached leaves of the bound arrays, ``requires_grad`` set where
+``grad_req`` is not ``"null"``; ``backward`` runs autograd from the
+heads (ones, or the given head gradients), writes or adds the
+gradients into ``grad_arrays``, and only then commits the BatchNorm
+moving statistics that the train forward computed, as the JAX package
+commits them in its fused forward+backward (``executor.py:515-576``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .base import MXNetError, TrainingNotPortedError
+from .base import MXNetError
 from .context import Context
 from .ndarray import NDArray
 from .ops.registry import OpContext
@@ -59,15 +62,31 @@ def make_graph_eval(symbol):
     return eval_graph, n_aux
 
 
+def grad_req_dict(grad_req, names) -> Dict[str, str]:
+    """``grad_req`` (one string, a list in ``names`` order, or a dict by
+    name whose missing names are ``"null"``) as a dict over ``names``."""
+    if isinstance(grad_req, str):
+        reqs = {n: grad_req for n in names}
+    elif isinstance(grad_req, (list, tuple)):
+        reqs = dict(zip(names, grad_req))
+    else:
+        reqs = {n: grad_req.get(n, "null") for n in names}
+    bad = sorted({r for r in reqs.values()
+                  if r not in ("write", "add", "null")})
+    if bad:
+        raise MXNetError("grad_req must be write, add or null, got %s" % bad)
+    return reqs
+
+
 class Executor:
-    """A symbol bound to arrays on one device."""
+    """A symbol bound to arrays on one device. ``args_grad`` (a list in
+    ``list_arguments`` order or a dict by name, entries may be missing)
+    holds the gradient arrays; ``grad_req`` is ``"write"``, ``"add"`` or
+    ``"null"``, as one string, a list or a dict by name. An argument
+    without a gradient array gets ``"null"``."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
-                 grad_req="null", aux_states=None, seed: int = 0):
-        if args_grad:
-            raise TrainingNotPortedError(
-                "binding gradient arrays needs backward, which comes "
-                "with the training slice (ROADMAP.md Queue A item 5)")
+                 grad_req="write", aux_states=None, seed: int = 0):
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device()
@@ -84,17 +103,27 @@ class Executor:
         self.aux_names = symbol.list_auxiliary_states()
         self.arg_arrays = self._to_list(args, self.arg_names, "args")
         self.arg_dict = dict(zip(self.arg_names, self.arg_arrays))
+        self.grad_arrays = self._to_list(args_grad or {}, self.arg_names,
+                                         "args_grad", allow_missing=True)
+        self.grad_dict = {n: g for n, g in zip(self.arg_names,
+                                               self.grad_arrays)
+                          if g is not None}
+        reqs = grad_req_dict(grad_req, self.arg_names)
+        self._grad_req = {n: reqs[n] if n in self.grad_dict else "null"
+                          for n in self.arg_names}
         self.aux_arrays = self._to_list(aux_states or [], self.aux_names,
                                         "aux_states")
         self.aux_dict = dict(zip(self.aux_names, self.aux_arrays))
         self._eval_graph, _ = make_graph_eval(symbol)
         self._outputs: Optional[List[NDArray]] = None
+        # the pending train forward: (heads, leaves by arg index, new aux)
+        self._train = None
 
-    def _to_list(self, arrays, names, what) -> List[NDArray]:
+    def _to_list(self, arrays, names, what, allow_missing=False):
         if isinstance(arrays, dict):
             out = [arrays.get(n) for n in names]
             missing = [n for n, a in zip(names, out) if a is None]
-            if missing:
+            if missing and not allow_missing:
                 raise MXNetError("%s: missing arrays for %s"
                                  % (what, missing))
         else:
@@ -103,6 +132,8 @@ class Executor:
                 raise MXNetError("%s: expected %d arrays, got %d"
                                  % (what, len(names), len(out)))
         for n, a in zip(names, out):
+            if a is None and allow_missing:
+                continue
             if not isinstance(a, NDArray):
                 raise MXNetError("%s: '%s' must be an NDArray" % (what, n))
             if a.handle.device != self._device:
@@ -118,8 +149,9 @@ class Executor:
         return self._rng
 
     def run(self, arg_tensors, aux_tensors, is_train=False):
-        """Evaluate the graph on the given tensors (the fused inference
-        step calls this with its packed params)."""
+        """Evaluate the graph on the given tensors without recording a
+        graph (the fused inference step calls this with its packed
+        params)."""
         rng = self._generator() if is_train else None
         with torch.inference_mode():
             outs, _ = self._eval_graph(arg_tensors, aux_tensors, rng,
@@ -127,20 +159,68 @@ class Executor:
         return outs
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
-        """Run the forward pass; ``kwargs`` update named input arrays."""
+        """Run the forward pass; ``kwargs`` update named input arrays.
+        ``is_train=True`` records the graph for :meth:`backward`."""
         for name, arr in kwargs.items():
             if name not in self.arg_dict:
                 raise MXNetError("forward: unknown argument '%s'" % name)
             self.arg_dict[name][:] = arr
-        outs = self.run([a.handle for a in self.arg_arrays],
-                        [a.handle for a in self.aux_arrays], is_train)
-        self._outputs = [NDArray(o, self._ctx) for o in outs]
+        self._train = None
+        aux = [a.handle for a in self.aux_arrays]
+        if not is_train:
+            outs = self.run([a.handle for a in self.arg_arrays], aux)
+        else:
+            leaves = [a.handle.detach().requires_grad_(
+                self._grad_req[n] != "null")
+                for n, a in zip(self.arg_names, self.arg_arrays)]
+            with torch.enable_grad():
+                outs, new_aux = self._eval_graph(leaves, aux,
+                                                 self._generator(), True)
+            self._train = (outs, leaves, new_aux)
+        self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         return self._outputs
 
     def backward(self, out_grads=None):
-        raise TrainingNotPortedError(
-            "Executor.backward is not ported yet: gradients come with the "
-            "training slice (ROADMAP.md Queue A item 5)")
+        """Gradients of the heads of the last train forward into
+        ``grad_arrays`` (by ``grad_req``), then the moving statistics
+        into ``aux_arrays``. ``out_grads`` (an NDArray or a list, one per
+        output) default to ones; SoftmaxOutput ignores its head
+        gradient."""
+        if self._train is None:
+            raise MXNetError("backward called without forward(is_train=True)")
+        outs, leaves, new_aux = self._train
+        self._train = None
+        if out_grads is None:
+            heads = [torch.ones_like(o) for o in outs]
+        else:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            if len(out_grads) != len(outs):
+                raise MXNetError("backward: %d head gradients for %d outputs"
+                                 % (len(out_grads), len(outs)))
+            heads = [g.handle.to(o.device, o.dtype)
+                     for g, o in zip(out_grads, outs)]
+        want = [i for i, n in enumerate(self.arg_names)
+                if self._grad_req[n] != "null"]
+        pairs = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+        grads = [None] * len(want)
+        if want and pairs:
+            grads = torch.autograd.grad([o for o, _ in pairs],
+                                        [leaves[i] for i in want],
+                                        [h for _, h in pairs],
+                                        allow_unused=True)
+        for i, g in zip(want, grads):
+            dst = self.grad_arrays[i].handle
+            if self._grad_req[self.arg_names[i]] == "add":
+                if g is not None:
+                    dst.add_(g)
+            elif g is None:
+                dst.zero_()
+            else:
+                dst.copy_(g)
+        for arr, new in zip(self.aux_arrays, new_aux):
+            if new is not arr.handle:
+                arr.handle.copy_(new)
 
     @property
     def outputs(self) -> List[NDArray]:
@@ -179,5 +259,5 @@ class Executor:
                    else nd.zeros(shape, ctx=self._ctx,
                                  dtype=arr.handle.dtype)
                    for shape, arr in zip(aux_shapes, self.aux_arrays)]
-        return Executor(self._symbol, self._ctx, new_args,
+        return Executor(self._symbol, self._ctx, new_args, grad_req="null",
                         aux_states=new_aux, seed=self._seed)

@@ -1,5 +1,5 @@
 """Data descriptors and the in-memory iterator, counterpart of the part
-of ``mxnet_tpu/io.py`` that Module's inference path reads. Batches stay
+of ``mxnet_tpu/io.py`` that Module's predict and fit read. Batches stay
 host numpy arrays; the executor group copies them onto the device."""
 from __future__ import annotations
 
@@ -55,18 +55,31 @@ def _init_data(data, allow_empty, default_name):
 
 
 class NDArrayIter:
-    """Iterate over in-memory arrays in batches; the last partial batch
-    wraps around and reports the wrapped rows in ``pad``."""
+    """Iterate over in-memory arrays in batches. ``shuffle`` permutes the
+    rows once, with ``np.random`` (seed it for a fixed order).
+    ``last_batch_handle="pad"`` wraps the last partial batch around and
+    reports the wrapped rows in ``pad``; ``"discard"`` drops it."""
 
-    def __init__(self, data, label=None, batch_size=1,
-                 data_name="data", label_name="softmax_label"):
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label"):
+        if last_batch_handle not in ("pad", "discard"):
+            raise MXNetError("last_batch_handle must be pad or discard, got "
+                             "%r" % (last_batch_handle,))
         self.data = _init_data(data, False, data_name)
         self.label = _init_data(label, True, label_name)
         self.num_data = self.data[0][1].shape[0]
         self.batch_size = batch_size
-        self.cursor = -batch_size
+        self.last_batch_handle = last_batch_handle
+        if shuffle:
+            idx = np.random.permutation(self.num_data)
+            self.data = [(k, v[idx]) for k, v in self.data]
+            self.label = [(k, v[idx]) for k, v in self.label]
+        if last_batch_handle == "discard":
+            self.num_data -= self.num_data % batch_size
         if self.num_data < batch_size:
             raise MXNetError("batch_size larger than dataset")
+        self.cursor = -batch_size
 
     @property
     def provide_data(self) -> List[DataDesc]:
@@ -97,5 +110,5 @@ class NDArrayIter:
         if end <= self.num_data:
             return [v[self.cursor:end] for _, v in source]
         pad = end - self.num_data
-        return [np.concatenate([v[self.cursor:], v[:pad]], axis=0)
-                for _, v in source]
+        return [np.concatenate([v[self.cursor:self.num_data], v[:pad]],
+                               axis=0) for _, v in source]

@@ -1,17 +1,37 @@
-"""BaseModule: the high-level predict interface, counterpart of
-``mxnet_tpu/module/base_module.py`` (inference half; ``fit`` and the
-optimizer come with the training slice)."""
+"""BaseModule: the high-level train and predict interface, counterpart of
+``mxnet_tpu/module/base_module.py``.
+
+``fit`` is the JAX package's default training loop, the classic three
+phases per batch (``forward_backward``, ``update``, ``update_metric``;
+``base_module.py:317-421`` there). The fused train step and the loop's
+extras that the JAX package arms from environment knobs (feed
+scheduler, device staging, tracing, checkpoint manager, numerics
+watch) are not ported yet: ROADMAP.md Queue A items 7, 9 and 11.
+"""
 from __future__ import annotations
 
 import logging
+import time
+from collections import namedtuple
 
 import numpy as np
 
 from ..base import MXNetError
+from .. import metric as _metric
 from .. import ndarray as nd
+from ..initializer import Uniform
 from ..io import NDArrayIter
 
-__all__ = ["BaseModule"]
+__all__ = ["BaseModule", "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParam",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return list(obj) if isinstance(obj, (list, tuple)) else [obj]
 
 
 class BaseModule:
@@ -19,7 +39,9 @@ class BaseModule:
         self.logger = logger
         self.binded = False
         self.for_training = False
+        self.inputs_need_grad = False
         self.params_initialized = False
+        self.optimizer_initialized = False
         self._symbol = None
 
     # -- interface ---------------------------------------------------------
@@ -32,7 +54,21 @@ class BaseModule:
                     aux_params=None, allow_missing=False, force_init=False):
         raise NotImplementedError
 
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError
+
     def forward(self, data_batch, is_train=None):
+        raise NotImplementedError
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError
+
+    def update(self):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
         raise NotImplementedError
 
     def get_outputs(self):
@@ -46,11 +82,38 @@ class BaseModule:
         return self._symbol
 
     # -- derived -----------------------------------------------------------
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, reset=True, epoch=0):
+        """Run inference over ``eval_data`` and return the metric's
+        ``[(name, value)]``."""
+        if not self.binded or not self.params_initialized:
+            raise MXNetError("module must be binded and initialized")
+        eval_metric = _metric.create(eval_metric)
+        if reset:
+            eval_data.reset()
+        eval_metric.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(params)
+        return eval_metric.get_name_value()
 
     def predict(self, eval_data, num_batch=None, merge_batches=True,
                 reset=True, always_output_list=False):
@@ -80,3 +143,72 @@ class BaseModule:
         if num_outputs == 1 and not always_output_list:
             return merged[0]
         return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
+        """Train: bind for training, init params and the optimizer, then
+        per epoch run every batch through ``forward_backward``,
+        ``update`` and ``update_metric``, call the batch-end callbacks,
+        log the metric, call the epoch-end callbacks with the params and
+        score ``eval_data``."""
+        if num_epoch is None:
+            raise MXNetError("num_epoch must be specified")
+        if monitor is not None:
+            raise MXNetError("monitor is not ported yet (ROADMAP.md Queue A "
+                             "item 8)")
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        eval_metric = _metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            train_data.reset()
+            nbatch = -1
+            for data_batch in train_data:
+                nbatch += 1
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for cb in _as_list(batch_end_callback):
+                        cb(params)
+            if batch_end_callback is not None and nbatch >= 0:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    ep_end = getattr(cb, "epoch_end", None)
+                    if callable(ep_end):
+                        ep_end(params)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            for cb in _as_list(epoch_end_callback):
+                cb(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data is not None:
+                res = self.score(eval_data, validation_metric,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f",
+                                     epoch, name, val)

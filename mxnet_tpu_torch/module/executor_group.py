@@ -1,9 +1,12 @@
 """Executor group, counterpart of ``mxnet_tpu/module/executor_group.py``.
 
-This slice binds one executor on one device, for inference. The data
-and label arrays are the per-batch slots; every other argument is a
-parameter whose array the group owns. Parameter and batch writes copy
-into the bound arrays in place.
+One executor on one device. The data and label arrays are the
+per-batch slots; every other argument is a parameter whose array the
+group owns. Parameter and batch writes copy into the bound arrays in
+place. Bound for training, each parameter (and, with
+``inputs_need_grad``, each data input) gets a gradient array that
+``backward`` fills by ``grad_req``; labels and ``fixed_param_names``
+get none.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..base import MXNetError, TrainingNotPortedError
+from ..base import MXNetError
 from ..context import Context
 from ..executor import Executor
 from ..io import DataDesc
@@ -22,19 +25,17 @@ __all__ = ["DataParallelExecutorGroup"]
 
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts: Sequence[Context], data_shapes,
-                 label_shapes, param_names: List[str], for_training: bool):
-        if for_training:
-            raise TrainingNotPortedError(
-                "bind(for_training=True) needs backward and the fused "
-                "train step: the training slice, ROADMAP.md Queue A "
-                "item 5. Bind with for_training=False to serve")
+                 label_shapes, param_names: List[str], for_training: bool,
+                 inputs_need_grad: bool = False, grad_req: str = "write",
+                 fixed_param_names=()):
         if len(contexts) != 1:
-            raise MXNetError("this slice binds one device; got %s"
+            raise MXNetError("the port binds one device; got %s"
                              % list(contexts))
         self.symbol = symbol
         self.context = contexts[0]
         self.param_names = param_names
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.data_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
@@ -46,12 +47,26 @@ class DataParallelExecutorGroup:
         self.batch_size = self.data_shapes[0].shape[
             DataDesc.get_batch_axis(self.data_shapes[0].layout)]
 
+        reqs = {}
+        for name in self.arg_names:
+            if name in self.data_names:
+                reqs[name] = "write" if inputs_need_grad else "null"
+            elif name in self.label_names or not for_training \
+                    or name in fixed_param_names:
+                reqs[name] = "null"
+            else:
+                reqs[name] = grad_req
+        self.grad_req = reqs
+
         shapes = {d.name: d.shape for d in self.data_shapes + self.label_shapes}
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
         ctx = self.context
         args = [zeros(s, ctx=ctx) for s in arg_shapes]
+        grads = {n: zeros(s, ctx=ctx)
+                 for n, s in zip(self.arg_names, arg_shapes)
+                 if reqs[n] != "null"}
         aux = [zeros(s, ctx=ctx) for s in aux_shapes]
-        self.executor = Executor(symbol, ctx, args, aux_states=aux)
+        self.executor = Executor(symbol, ctx, args, grads, reqs, aux)
         self.execs = [self.executor]
 
     def set_params(self, arg_params: Dict[str, NDArray],
@@ -84,7 +99,22 @@ class DataParallelExecutorGroup:
 
     def forward(self, data_batch, is_train=None):
         self.load_data_batch(data_batch)
-        self.executor.forward(is_train=bool(is_train))
+        if is_train is None:
+            is_train = self.for_training
+        self.executor.forward(is_train=is_train)
+
+    def backward(self, out_grads=None):
+        if not self.for_training:
+            raise MXNetError("executor group bound for inference only")
+        self.executor.backward(out_grads)
 
     def get_outputs(self) -> List[NDArray]:
         return self.executor.outputs
+
+    def get_input_grads(self) -> List[NDArray]:
+        if not self.inputs_need_grad:
+            raise MXNetError("bound with inputs_need_grad=False")
+        return [self.executor.grad_dict[n] for n in self.data_names]
+
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update(labels, self.get_outputs())

@@ -1,5 +1,6 @@
 """Module: the standard unit over one symbol, counterpart of
-``mxnet_tpu/module/module.py`` (single device, inference)."""
+``mxnet_tpu/module/module.py`` (single device): bind, params, the
+optimizer, and the forward/backward/update steps that ``fit`` runs."""
 from __future__ import annotations
 
 import logging
@@ -9,7 +10,9 @@ from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..initializer import Uniform
 from ..io import DataDesc
+from .. import kvstore as kvs
 from .. import ndarray as nd
+from .. import optimizer as opt
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -23,7 +26,7 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None):
+                 context=None, fixed_param_names=None):
         super().__init__(logger=logger)
         if context is None:
             context = current_context()
@@ -35,6 +38,7 @@ class Module(BaseModule):
         self._symbol = symbol
         self._data_names = list(data_names)
         self._label_names = list(label_names or [])
+        self._fixed_param_names = list(fixed_param_names or [])
         input_names = self._data_names + self._label_names
         self._param_names = [n for n in symbol.list_arguments()
                              if n not in input_names]
@@ -43,6 +47,9 @@ class Module(BaseModule):
         self._arg_params: Optional[Dict[str, nd.NDArray]] = None
         self._aux_params: Optional[Dict[str, nd.NDArray]] = None
         self._exec_group: Optional[DataParallelExecutorGroup] = None
+        self._optimizer = None
+        self._kvstore = None
+        self._updater = None
 
     @property
     def data_names(self):
@@ -68,22 +75,28 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        """Bind for inference (``for_training=False``). Training binds
-        raise :class:`~mxnet_tpu_torch.base.TrainingNotPortedError`."""
+        """Bind the executor; ``for_training`` gives every parameter a
+        gradient array (by ``grad_req``), ``inputs_need_grad`` the data
+        inputs too."""
         if force_rebind:
             self._exec_group = None
             self.binded = False
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        if shared_module is not None:
+            raise MXNetError("shared_module is not ported yet (the bucketing "
+                             "module, ROADMAP.md Queue A item 8)")
         self._data_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
                              for d in data_shapes]
         self._label_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
                               for d in (label_shapes or [])]
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
-            self._label_shapes, self._param_names, for_training)
+            self._label_shapes, self._param_names, for_training,
+            inputs_need_grad, grad_req, self._fixed_param_names)
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self.binded = True
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
@@ -126,6 +139,35 @@ class Module(BaseModule):
         self._exec_group.get_params(self._arg_params, self._aux_params)
         return self._arg_params, self._aux_params
 
+    # -- optimizer ---------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """Create the optimizer (``rescale_grad`` defaults to one over the
+        batch size) and its updater, and ``init`` every parameter in the
+        kvstore."""
+        if not self.binded or not self.params_initialized:
+            raise MXNetError("bind and init_params before init_optimizer")
+        if self.optimizer_initialized and not force_init:
+            return
+        if isinstance(kvstore, str):
+            kvstore = kvs.create(kvstore) if kvstore else None
+        self._kvstore = kvstore
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault(
+                "rescale_grad", 1.0 / self._exec_group.batch_size)
+            optimizer = opt.create(
+                optimizer, sym=self._symbol,
+                param_idx2name=dict(enumerate(self._param_names)),
+                **optimizer_params)
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+        if kvstore:
+            for i, name in enumerate(self._param_names):
+                kvstore.init(i, self._arg_params[name])
+        self.optimizer_initialized = True
+
     # -- compute -----------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         if not self.binded or not self.params_initialized:
@@ -133,7 +175,25 @@ class Module(BaseModule):
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
-        self._exec_group.executor.backward(out_grads)
+        self._exec_group.backward(out_grads)
+
+    def update(self):
+        """Apply the optimizer to the gradients, every parameter in one
+        multi-tensor update (the local store needs no push/pull: the one
+        device's gradients are already the reduced ones)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("init_optimizer before update")
+        ex = self._exec_group.executor
+        self._updater.update_multi(
+            [(i, ex.grad_dict[name], ex.arg_dict[name])
+             for i, name in enumerate(self._param_names)
+             if name in ex.grad_dict])
+
+    def update_metric(self, eval_metric, labels):
+        self._exec_group.update_metric(eval_metric, labels)
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs()
+
+    def get_input_grads(self, merge_multi_context=True):
+        return self._exec_group.get_input_grads()

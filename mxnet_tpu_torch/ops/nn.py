@@ -1,17 +1,23 @@
-"""Neural-network layer operators, forward only.
+"""Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
 Convolution, Pooling, BatchNorm, Dropout and SoftmaxOutput, with the
 same parameters (names, defaults, string forms) so the JSON of a graph
-reads the same in both packages.
+reads the same in both packages. Every op is differentiable under
+autograd, which is how the executor's backward runs.
 
-Convolution and the matrix products stay plain torch (cuDNN and cuBLAS),
-as the JAX package leaves them to XLA. BatchNorm's channels-last apply
-goes through the hand-written kernel ``kernels.fused_norm_act`` every
-time; NCHW keeps the plain ``x * scale + shift``.
+The forward of a convolution and the matrix products stay plain torch
+(cuDNN and cuBLAS), as the JAX package leaves them to XLA. The backward
+of every 2-D convolution runs the hand-written GEMM kernel through
+``kernels.conv2d``; 1-D and 3-D convolutions keep torch's autograd, as
+the JAX package routes only 2-D ones to Pallas. BatchNorm's
+channels-last apply goes through the hand-written kernels
+``kernels.fused_norm_act`` (forward K4, backward K5) every time; NCHW
+keeps the plain ``x * scale + shift``. SoftmaxOutput's gradient is its
+own autograd.Function, ``(softmax - onehot) * grad_scale``.
 
 Layouts: NCHW is the default; ``layout="NHWC"`` keeps channels last.
-An NHWC tensor is handed to ``F.conv2d`` as the permuted view
+An NHWC tensor is handed to the convolution as the permuted view
 ``x.movedim(-1, 1)``, which for a contiguous NHWC tensor already has
 ``channels_last`` memory, so cuDNN reads it in place and writes a
 ``channels_last`` result whose ``movedim(1, -1)`` is contiguous NHWC
@@ -28,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .kernels import fused_norm_act
+from .kernels import conv2d, fused_norm_act
 from .registry import Operator, Param, REQUIRED, register_op
 
 #: NHWC results that needed a ``.contiguous()`` copy after a conv or pool
@@ -187,9 +193,14 @@ class Convolution(Operator):
         nhwc = self._is_nhwc()
         if nhwc:
             x = x.movedim(-1, 1)
-        out = conv(x, inputs[1], None if self.no_bias else inputs[2],
-                   stride=stride, padding=pad, dilation=dilate,
-                   groups=self.num_group)
+        if len(kernel) == 2:
+            out = conv2d(x, inputs[1], stride, pad, dilate, self.num_group)
+            if not self.no_bias:
+                out = out + inputs[2].reshape(1, -1, 1, 1)
+        else:
+            out = conv(x, inputs[1], None if self.no_bias else inputs[2],
+                       stride=stride, padding=pad, dilation=dilate,
+                       groups=self.num_group)
         return [_nhwc_out(out) if nhwc else out], []
 
 
@@ -292,7 +303,9 @@ class BatchNorm(Operator):
     E[x]^2, biased), the moving statistics otherwise. The affine is
     folded into one per-channel scale/shift rounded to x.dtype, as the
     JAX op does (``ops/nn.py:487-498``); channels-last applies it with
-    the fused_norm_act kernel, which widens scale/shift back to f32."""
+    the fused_norm_act kernels, which widen scale/shift back to f32.
+    Gradients flow through the batch statistics; the new moving
+    statistics are detached, and the executor commits them on backward."""
 
     name_hint = "batchnorm"
     PARAMS = {
@@ -330,8 +343,10 @@ class BatchNorm(Operator):
             meansq = (x32 * x32).mean(dim=axes)
             var = torch.clamp_min(meansq - mean * mean, 0.0)
             m = self.momentum
-            new_aux = [moving_mean * m + mean.to(moving_mean.dtype) * (1 - m),
-                       moving_var * m + var.to(moving_var.dtype) * (1 - m)]
+            new_aux = [moving_mean * m
+                       + mean.detach().to(moving_mean.dtype) * (1 - m),
+                       moving_var * m
+                       + var.detach().to(moving_var.dtype) * (1 - m)]
         else:
             mean, var = moving_mean, moving_var
             new_aux = [moving_mean, moving_var]
@@ -369,11 +384,56 @@ class Dropout(Operator):
 # ---------------------------------------------------------------------------
 # SoftmaxOutput
 # ---------------------------------------------------------------------------
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; backward ``(softmax - onehot(label)) *
+    grad_scale`` with ignore_label and the null/batch/valid
+    normalizations, ignoring the head gradient; the label's gradient is
+    zero (``mxnet_tpu/ops/nn.py:588-619``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, op):
+        axis = 1 if op.multi_output else -1
+        out = torch.softmax(data, dim=axis)
+        ctx.op = op
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        op = ctx.op
+        caxis = 1 if op.multi_output else out.dim() - 1
+        lab = label.to(torch.int64).unsqueeze(caxis)
+        shape = [1] * out.dim()
+        shape[caxis] = out.shape[caxis]
+        classes = torch.arange(out.shape[caxis], device=out.device)
+        # an out-of-range label (ignore_label -1) gives a zero row, as
+        # jax.nn.one_hot does
+        onehot = (lab == classes.reshape(shape)).to(out.dtype)
+        grad = out - onehot
+        valid = None
+        if op.use_ignore:
+            valid = label != op.ignore_label
+            grad = grad * valid.unsqueeze(caxis).to(out.dtype)
+        if op.normalization == "batch":
+            grad = grad / out.shape[0]
+        elif op.normalization == "valid":
+            if valid is None:
+                valid = torch.ones(label.shape, dtype=torch.bool,
+                                   device=label.device)
+            grad = grad / torch.clamp_min(valid.to(out.dtype).sum(), 1.0)
+        grad = grad * op.grad_scale
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(out.dtype), dlabel, None
+
+
 @register_op("SoftmaxOutput", aliases=["Softmax"])
 class SoftmaxOutput(Operator):
     """Forward is softmax(data) over the last axis (axis 1 with
-    multi_output). Its cross-entropy gradient comes with the training
-    slice."""
+    multi_output); backward is the fused cross-entropy gradient
+    ``(softmax - one_hot(label)) * grad_scale``, ignoring the head
+    gradient (which is why training loops call ``backward()`` with no
+    head grads)."""
 
     name_hint = "softmax"
     PARAMS = {
@@ -403,5 +463,4 @@ class SoftmaxOutput(Operator):
         return [data, label], [data], []
 
     def apply(self, ctx, inputs, aux):
-        axis = 1 if self.multi_output else -1
-        return [torch.softmax(inputs[0], dim=axis)], []
+        return [_SoftmaxOutput.apply(inputs[0], inputs[1], self)], []

@@ -1,7 +1,9 @@
 """Elementwise and structural operators, counterpart of the part of
-``mxnet_tpu/ops/tensor.py`` the serving slice needs: the binary and
-scalar ops behind Symbol's operator overloading (``_Plus``,
-``_PlusScalar`` and siblings), Flatten, ElementWiseSum and Concat."""
+``mxnet_tpu/ops/tensor.py`` the serving and training slices need: the
+binary and scalar ops behind Symbol's operator overloading (``_Plus``,
+``_PlusScalar`` and siblings), Flatten, ElementWiseSum and Concat. All
+are plain torch, so autograd differentiates them (the residual ``+``
+of a ResNet is ``_Plus``)."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,0 +1,173 @@
+"""Optimizers, counterpart of the SGD half of ``mxnet_tpu/optimizer.py``.
+
+The reference's imperative ``update(index, weight, grad, state)``
+interface, per-parameter lr/wd multipliers (symbol attrs
+``__lr_mult__``/``__wd_mult__``), ``rescale_grad`` and gradient
+clipping, over the bound arrays. SGD's form is the JAX package's
+(``optimizer.py:101-112``), not ``torch.optim.SGD``'s::
+
+    g = clip(rescale_grad * grad) + wd * w
+    m = momentum * m - lr * g
+    w = w + m
+
+Each product is rounded on its own, as the JAX package's elementwise
+math is. Weights and momenta are updated in place (the JAX package
+donates their buffers instead); ``update_multi`` updates every
+parameter with a handful of ``torch._foreach_*`` launches per step
+instead of a few kernels per parameter.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from .base import MXNetError, Registry
+from .lr_scheduler import LRScheduler
+from .ndarray import NDArray
+
+__all__ = ["Optimizer", "SGD", "create", "get_updater", "Updater"]
+
+_REG: Registry = Registry.get_registry("optimizer")
+
+
+class Optimizer:
+    """Base optimizer: update counts, the learning-rate schedule and the
+    per-parameter multipliers."""
+
+    def __init__(self, rescale_grad: float = 1.0, param_idx2name=None,
+                 wd: float = 0.0, clip_gradient: Optional[float] = None,
+                 learning_rate: float = 0.01,
+                 lr_scheduler: Optional[LRScheduler] = None,
+                 sym=None, begin_num_update: int = 0):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count: Dict[int, int] = {}
+        self.idx2name = dict(param_idx2name or {})
+        self.lr_mult: Dict[str, float] = {}
+        self.wd_mult: Dict[str, float] = {}
+        if sym is not None:
+            attrs = sym.attr_dict()
+            for name in sym.list_arguments():
+                a = attrs.get(name, {})
+                if "__lr_mult__" in a:
+                    self.lr_mult[name] = float(a["__lr_mult__"])
+                if "__wd_mult__" in a:
+                    self.wd_mult[name] = float(a["__wd_mult__"])
+
+    @staticmethod
+    def create_optimizer(name: str, **kwargs) -> "Optimizer":
+        return _REG.get(name)(**kwargs)
+
+    def create_state(self, index: int, weight: NDArray):
+        return None
+
+    def update(self, index: int, weight: NDArray, grad: NDArray, state):
+        self.update_multi([(index, weight, grad, state)])
+
+    def update_multi(self, items):
+        """Update many params at once; ``items`` are ``(index, weight,
+        grad, state)``."""
+        raise NotImplementedError
+
+    def set_lr_mult(self, args_lr_mult: Dict[str, float]):
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult: Dict[str, float]):
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index: int):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index: int) -> float:
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
+        return lr * self.lr_mult.get(self.idx2name.get(index, str(index)),
+                                     1.0)
+
+    def _get_wd(self, index: int) -> float:
+        return self.wd * self.wd_mult.get(self.idx2name.get(index,
+                                                            str(index)), 1.0)
+
+
+@_REG.register("sgd")
+class SGD(Optimizer):
+    """SGD with momentum (the state is the momentum, zeros like the
+    weight; none when ``momentum`` is 0)."""
+
+    def __init__(self, momentum: float = 0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return NDArray(torch.zeros_like(weight.handle), weight.context)
+
+    def update_multi(self, items):
+        if not items:
+            return
+        lrs, wds = [], []
+        for index, _, _, _ in items:
+            self._update_count(index)
+            lrs.append(self._get_lr(index))
+            wds.append(self._get_wd(index))
+        ws = [w.handle for _, w, _, _ in items]
+        g = torch._foreach_mul([gr.handle for _, _, gr, _ in items],
+                               self.rescale_grad)
+        if self.clip_gradient is not None:
+            torch._foreach_clamp_min_(g, -self.clip_gradient)
+            torch._foreach_clamp_max_(g, self.clip_gradient)
+        torch._foreach_add_(g, torch._foreach_mul(ws, wds))
+        step = torch._foreach_mul(g, lrs)
+        if self.momentum == 0.0:
+            torch._foreach_sub_(ws, step)
+            return
+        ms = [s.handle for _, _, _, s in items]
+        torch._foreach_mul_(ms, self.momentum)
+        torch._foreach_sub_(ms, step)
+        torch._foreach_add_(ws, ms)
+
+
+def create(name: str, **kwargs) -> Optimizer:
+    return Optimizer.create_optimizer(name, **kwargs)
+
+
+class Updater:
+    """An optimizer with its per-index states."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[int, Any] = {}
+
+    def _state(self, index, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        return self.states[index]
+
+    def __call__(self, index: int, grad: NDArray, weight: NDArray):
+        self.optimizer.update(index, weight, grad, self._state(index, weight))
+
+    def update_multi(self, items):
+        """All of ``items`` (``(index, grad, weight)``, the argument order
+        of ``__call__``) in one multi-tensor update."""
+        self.optimizer.update_multi([(i, w, g, self._state(i, w))
+                                     for i, g, w in items])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    if not isinstance(optimizer, Optimizer):
+        raise MXNetError("get_updater needs an Optimizer, got %r"
+                         % (optimizer,))
+    return Updater(optimizer)

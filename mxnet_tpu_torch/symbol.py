@@ -252,22 +252,37 @@ class Symbol:
                            "heads": heads}, indent=2)
 
     # -- binding -----------------------------------------------------------
-    def simple_bind(self, ctx, grad_req="null", type_dict=None, **kwargs):
-        """Infer shapes, allocate zero arrays on ``ctx`` and bind.
-        Arrays are float32 unless ``type_dict`` names another dtype."""
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """Node name -> its attributes, for every node that has some
+        (the optimizer reads ``__lr_mult__``/``__wd_mult__`` here)."""
+        return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Infer shapes, allocate zero arrays on ``ctx`` (and a gradient
+        array for every argument whose ``grad_req`` is not ``"null"``)
+        and bind. Arrays are float32 unless ``type_dict`` names another
+        dtype."""
         from . import ndarray as nd
+        from .executor import grad_req_dict
 
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        names = self.list_arguments()
         type_dict = type_dict or {}
-        args = [nd.zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
-                for n, s in zip(self.list_arguments(), arg_shapes)]
+        dtypes = [type_dict.get(n, "float32") for n in names]
+        args = [nd.zeros(s, ctx=ctx, dtype=t)
+                for s, t in zip(arg_shapes, dtypes)]
+        reqs = grad_req_dict(grad_req, names)
+        grads = {n: nd.zeros(s, ctx=ctx, dtype=t)
+                 for n, s, t in zip(names, arg_shapes, dtypes)
+                 if reqs[n] != "null"}
         aux = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
-        return self.bind(ctx, args, grad_req=grad_req, aux_states=aux)
+        return self.bind(ctx, args, grads, grad_req=grad_req, aux_states=aux)
 
-    def bind(self, ctx, args, args_grad=None, grad_req="null",
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
         """Bind arrays (a list in ``list_arguments`` order, or a dict by
-        name) to this graph on ``ctx``."""
+        name) to this graph on ``ctx``; ``args_grad`` receives the
+        gradients of ``backward`` by ``grad_req``."""
         from .executor import Executor
 
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)

@@ -70,11 +70,20 @@ def test_fused_norm_act_refuses_what_it_cannot_do():
     s = torch.ones(8)
     with pytest.raises(tmx.MXNetError, match="act must be one of"):
         tk.fused_norm_act(x, s, s, "tanh")
-    with pytest.raises(tmx.TrainingNotPortedError, match="backward"):
-        tk.fused_norm_act(x.clone().requires_grad_(), s, s, "none")
+    with pytest.raises(tmx.MXNetError, match="scale/shift must be"):
+        tk.fused_norm_act(x, s[:4], s, "none")
+    # a leaf with requires_grad now trains: the backward (K5's plain
+    # version on the CPU) gives g*scale and the per-channel sums
+    xg = torch.randn(4, 8).requires_grad_()
+    sg = torch.rand(8).requires_grad_()
+    hg = torch.randn(8).requires_grad_()
+    tk.fused_norm_act(xg, sg, hg, "none").sum().backward()
+    assert torch.equal(xg.grad, sg.detach().expand(4, 8))
+    assert torch.allclose(sg.grad, xg.detach().sum(0))
+    assert torch.equal(hg.grad, torch.full((8,), 4.0))
     # under no_grad a leaf with requires_grad is just data
     with torch.no_grad():
-        tk.fused_norm_act(x.clone().requires_grad_(), s, s, "none")
+        assert not tk.fused_norm_act(xg, s, s, "none").requires_grad
 
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
@@ -83,7 +92,10 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     s = torch.rand(8)
     out = tk.fused_norm_act(x, s, s, "relu")
     assert torch.equal(out, tk.fused_norm_act_plain(x, s, s, "relu"))
-    assert tk.launch_counts() == {"norm_act_fwd": 0}
+    tk.fused_norm_act_bwd(x, s, s, torch.ones_like(x), "relu")
+    tk.matmul_f32acc(x, x, transpose_a=True)
+    assert tk.launch_counts() == {"norm_act_fwd": 0, "norm_act_bwd": 0,
+                                  "conv_gemm": 0}
 
 
 def _bn_pair(dtype_j, dtype_t, shape, monkeypatch):

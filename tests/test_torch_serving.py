@@ -145,11 +145,27 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_training_entry_points_name_the_training_slice():
-    net = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=2)
+    """The training slice is ported: a train bind gets gradient arrays
+    and backward fills them; what is still to port (a dist kvstore)
+    raises naming ROADMAP.md."""
+    net = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=2,
+                                 name="fc")
     mod = tmx.mod.Module(net, label_names=(), context=tmx.cpu())
-    with pytest.raises(tmx.TrainingNotPortedError, match="ROADMAP"):
-        mod.bind([("data", (2, 3))], for_training=True)
+    mod.bind([("data", (2, 3))], for_training=True)
+    assert set(mod._exec_group.executor.grad_dict) == {"fc_weight",
+                                                       "fc_bias"}
     ex = net.simple_bind(tmx.cpu(), data=(2, 3))
-    ex.forward()
-    with pytest.raises(tmx.TrainingNotPortedError, match="ROADMAP"):
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with pytest.raises(tmx.MXNetError, match="without forward"):
         ex.backward()
+    ex.forward(is_train=True, data=x)
+    ex.backward()
+    # d(sum of fc)/d weight = column sums of x; / d bias = batch size
+    np.testing.assert_allclose(ex.grad_dict["fc_weight"].asnumpy(),
+                               np.tile(x.sum(0), (2, 1)))
+    np.testing.assert_allclose(ex.grad_dict["fc_bias"].asnumpy(), [2, 2])
+    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
+        tmx.kv.create("dist_sync")
+    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
+        mod.init_params()
+        mod.init_optimizer(kvstore="dist_async")

@@ -22,7 +22,10 @@ SHAPE = (BATCH, 32, 32, 3)
 def reference():
     """JAX-initialised params (Xavier, then BatchNorm gamma/beta/moving
     stats drawn from a seed so the layers do real work), test rows, and
-    the JAX Module.predict probabilities on them."""
+    the JAX Module.predict probabilities on them. The JAX package's
+    global PRNG is seeded first: its draws otherwise depend on what ran
+    before in the process."""
+    jmx.random.seed(0)
     jsym = small_resnet(jmx)
     mod = jmx.mod.Module(jsym, context=jmx.cpu())
     mod.bind(data_shapes=[("data", SHAPE)], for_training=False)
