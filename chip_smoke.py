@@ -14,11 +14,20 @@ Phases, in order; any failure exits non-zero before the last line:
    against their plain PyTorch versions, K3 (conv_gemm) against a
    float64 product of the same operands; reruns of K3 and K5 must be
    bit-identical.
+   K2 (flash_attn) against its plain version (reference attention,
+   mask -1e30) at the demo shape of examples/long_context, each head
+   width the kernel instantiates and ragged T and D, reruns
+   bit-identical; K1 (linear) against a float64 act(x @ w.T + b), reruns
+   bit-identical; K6 (Rtc, NVRTC): an axpy body bit-equal to 2*x+y, a
+   gelu-like body within rtol 1e-4, a bad body raising with NVRTC's log.
 4. kernel timing: median of CUDA-event times with the L2 cache flushed
    before each launch, beside the plain version, the one-call PyTorch
    yardstick where there is one and the bound (bytes at 3.35 TB/s or
    operations at the data-sheet rate, whichever is longer), summed over
-   the launches of one ResNet-50 forward (K4) or training step (K3, K5).
+   the launches of one ResNet-50 forward (K4) or training step (K3, K5);
+   K2 at the demo shape and at T=16384 (beside
+   scaled_dot_product_attention), K1 at three layers (beside addmm),
+   the Rtc axpy (beside 2*x+y).
 5. serving at full width: ResNet-50, 224x224, 1000 classes, NHWC,
    random seeded weights, served through Module -> InferenceServer ->
    FusedInfer from two client threads; kernel launch counts are zeroed
@@ -30,7 +39,14 @@ Phases, in order; any failure exits non-zero before the last line:
    K4 53 and K5 53 per step); finite losses, every param and moving
    statistic changed; step time and img/s, a torch.profiler breakdown;
    one step at batch 2 on the card against the port on the CPU.
-7. report: one JSON line of kernel records, the card line, then
+7. entry points at full width, launch counts zeroed just before and
+   read just after: parallel.make_ring_attention over a one-rank "sp"
+   mesh at the demo's (1, 4096, 8, 32), causal, impl "ulysses" (K2 once
+   a call) and "ring" (K2 never), each against reference_attention, and
+   one backward through ulysses against autograd through the reference;
+   fused_linear at ResNet-50's head on the card's ResNet features
+   against the FullyConnected output; two Rtc pushes.
+8. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -65,6 +81,21 @@ RAGGED_SHAPES = [(1000, 100, 0), (7, 3, 0), (4096, 66, 0), (64, 5000, 0),
 # (M, N, K, transpose_a): ragged edges, one split, many splits, a bare 1x1x1
 RAGGED_GEMMS = [(257, 33, 1001, True), (129, 65, 7, False), (1, 1, 1, True),
                 (1000, 130, 4099, False)]
+# (B, T, H, D) of attention: examples/long_context/ring_attention_demo.py's
+# shape, each head width K2 instantiates, and ragged T with D between them
+DEMO_ATTN = (1, 4096, 8, 32)
+FLASH_SHAPES = [DEMO_ATTN, (2, 1024, 4, 64), (1, 512, 2, 128),
+                (1, 256, 2, 256), (2, 100, 2, 48), (1, 1000, 4, 96)]
+FLASH_TIMED = [DEMO_ATTN + (False,), DEMO_ATTN + (True,),
+               (1, 16384, 8, 128, True)]
+# (M, K, N, acts) of the fused linear: the JAX test's shape, ResNet-50's
+# classifier head (which the TPU gate refuses), a large layer, a ragged one
+LINEAR_ACTS = ("none", "relu", "tanh", "sigmoid")
+LINEAR_CASES = [(128, 256, 128, LINEAR_ACTS), (BATCH, 2048, 1000, ("none",)),
+                (8192, 4096, 4096, ("relu",)), (257, 1001, 33, LINEAR_ACTS)]
+LINEAR_TIMED = [(128, 256, 128, "none"), (BATCH, 2048, 1000, "none"),
+                (8192, 4096, 4096, "relu")]
+RTC_N = 1 << 24                # elements of each array of the Rtc bodies
 
 
 def check(cond, msg):
@@ -399,6 +430,337 @@ def conv_gemm_timing(torch, kernels, counts):
     return rows_out, tot
 
 
+def flash_parity(torch, kernels):
+    """K2 against its plain version on the card (TF32 off), causal and
+    not: every element within rtol 2e-4 / atol 2e-5
+    (tests/test_pallas_rtc.py:119-133), a rerun bit-identical."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst, cases = 0.0, 0
+    for shape in FLASH_SHAPES:
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        for causal in (False, True):
+            got = kernels.flash_attention(q, k, v, causal=causal)
+            again = kernels.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            where = "flash_attn %s causal=%s" % (shape, causal)
+            check(torch.equal(got, again), where + ": a rerun differs")
+            want = kernels.flash_attention_plain(q, k, v, causal=causal)
+            err = (got - want).abs()
+            bad = int((err > 2e-5 + 2e-4 * want.abs()).sum())
+            check(bad == 0 and bool(torch.isfinite(got).all()),
+                  where + ": %d values beyond rtol 2e-4 / atol 2e-5 (max abs "
+                  "err %g)" % (bad, float(err.max())))
+            worst = max(worst, float(err.max()))
+            cases += 1
+        del q, k, v, got, again, want, err
+    return worst, cases
+
+
+def _act64(torch, pre, act):
+    return {"none": pre, "relu": torch.relu(pre), "tanh": torch.tanh(pre),
+            "sigmoid": torch.sigmoid(pre)}[act]
+
+
+def linear_parity(torch, kernels):
+    """K1 against act(x @ w.T + b) in float64: every element within 1e-6
+    of sum|x||w| + |b| (K3's bound), plus 2e-7 (one libm ulp) for tanh
+    and sigmoid; a rerun bit-identical."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst, cases = {"abs": 0.0, "rel": 0.0}, 0
+    for m, k, n, acts in LINEAR_CASES:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(n, k, generator=gen, device="cuda")
+        b = torch.randn(n, generator=gen, device="cuda")
+        pre = x.double() @ w.double().t() + b.double()
+        mag = x.double().abs() @ w.double().abs().t() + b.double().abs()
+        for act in acts:
+            got = kernels.fused_linear(x, w, b, act)
+            again = kernels.fused_linear(x, w, b, act)
+            torch.cuda.synchronize()
+            where = "linear (%d, %d) -> %d act=%s" % (m, k, n, act)
+            check(torch.equal(got, again), where + ": a rerun differs")
+            err = (got.double() - _act64(torch, pre, act)).abs()
+            slack = 2e-7 if act in ("tanh", "sigmoid") else 0.0
+            check(bool((err <= 1e-6 * mag + slack).all()),
+                  where + ": error %g above 1e-6 * (sum|x||w| + |b|)"
+                  % float((err - 1e-6 * mag - slack).max()))
+            worst["abs"] = max(worst["abs"], float(err.max()))
+            worst["rel"] = max(worst["rel"], float((err / mag).max()))
+            cases += 1
+        del x, w, b, pre, mag, got, again, err
+    return worst, cases
+
+
+def rtc_bodies(torch, mx, n):
+    """The two Rtc kernels of tests/test_pallas_rtc.py:82-107 as CUDA
+    bodies over n float32 elements, with their arrays."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def nd(t):
+        return mx.nd.NDArray(t, mx.gpu(0))
+
+    x = nd(torch.randn(n, generator=gen, device="cuda"))
+    y = nd(torch.randn(n, generator=gen, device="cuda"))
+    out = nd(torch.zeros(n, device="cuda"))
+    index = "long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;\n"
+    axpy = Rtc("axpy", [("x", x), ("y", y)], [("out", out)],
+               index + "if (i < %dLL) out[i] = 2.0f * x[i] + y[i];" % n)
+    gelu = Rtc("gelu_ish", [("x", x)], [("out", out)],
+               index + "if (i < %dLL) {\n  float v = x[i];\n"
+               "  out[i] = v / (1.0f + expf(-1.702f * v));\n}" % n)
+    return axpy, gelu, x, y, out
+
+
+def rtc_dims(n):
+    return (-(-n // 256),), (256,)
+
+
+def rtc_parity(torch, mx):
+    """The axpy body bit-equal to 2*x+y, the gelu-like body within rtol
+    1e-4 of the plain torch expression, a bad body raising with NVRTC's
+    log."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    axpy, gelu, x, y, out = rtc_bodies(torch, mx, RTC_N)
+    grid, block = rtc_dims(RTC_N)
+    axpy.push([x, y], [out], grid, block)
+    torch.cuda.synchronize()
+    check(torch.equal(out.handle, 2 * x.handle + y.handle),
+          "Rtc axpy differs from 2*x+y")
+    gelu.push([x], [out], grid, block)
+    torch.cuda.synchronize()
+    v = x.handle
+    want = v / (1 + torch.exp(-1.702 * v))
+    rel = float(((out.handle - want).abs() / want.abs().clamp(min=1e-30))
+                .max())
+    check(rel <= 1e-4, "Rtc gelu_ish off by rtol %g" % rel)
+    try:
+        Rtc("bad", [("x", x)], [("out", out)], "this is not CUDA !!!")
+    except mx.MXNetError as e:
+        check("NVRTC failed to compile" in str(e) and "error" in str(e),
+              "a bad Rtc body raised without NVRTC's log: %s" % e)
+        log_head = str(e).splitlines()[1][:120]
+    else:
+        raise RuntimeError("chip_smoke check failed: a bad Rtc body compiled")
+    return {"axpy_max_abs_err": 0.0, "gelu_max_rel_err": rel,
+            "bad_body_log": log_head}
+
+
+def flash_timing(torch, kernels):
+    """K2 beside its plain version and scaled_dot_product_attention on
+    (B, H, T, D) f32 (timed, never called by the port). The bound: 4 *
+    B*H*D flops a (query, key) pair the mask keeps (T*T, or T*(T+1)/2
+    causal) at the f32 rate, or q, k, v, o at the memory rate."""
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for b, t, h, d, causal in FLASH_TIMED:
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                   for _ in range(3))
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        kern = time_ms(torch, lambda: kernels.flash_attention(
+            q, k, v, causal=causal), flush)
+        plain = time_ms(torch, lambda: kernels.flash_attention_plain(
+            q, k, v, causal=causal), flush)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal), flush)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        flops = 4 * b * h * d * pairs
+        nbytes = 4 * b * t * h * d * 4
+        bound = 1e3 * max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        rows.append({"shape": [b, t, h, d], "causal": causal, "ms": kern,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "flops": flops, "tflops": flops / kern / 1e9})
+        print("  flash_attn %s causal=%-5s kernel %.4f ms  plain %.4f ms  "
+              "sdpa %.4f ms  bound %.4f ms  (%.1f TFLOP/s)"
+              % ((b, t, h, d), causal, kern, plain, lib, bound,
+                 flops / kern / 1e9))
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def linear_timing(torch, kernels):
+    """K1 beside its plain version and addmm plus the activation (timed,
+    never called by the port); the bound is the longer of 2MNK at the
+    f32 rate and x, w, b read and out written at the memory rate."""
+    flush = torch.empty(64 << 20, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for m, k, n, act in LINEAR_TIMED:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(n, k, generator=gen, device="cuda")
+        b = torch.randn(n, generator=gen, device="cuda")
+        wt = w.t()
+        kern = time_ms(torch, lambda: kernels.fused_linear(x, w, b, act),
+                       flush)
+        plain = time_ms(torch, lambda: kernels.fused_linear_plain(x, w, b,
+                                                                  act), flush)
+        if act == "relu":
+            lib = time_ms(torch, lambda: torch.relu(torch.addmm(b, x, wt)),
+                          flush)
+        else:
+            lib = time_ms(torch, lambda: torch.addmm(b, x, wt), flush)
+        flops = 2 * m * n * k
+        nbytes = (m * k + n * k + n + m * n) * 4
+        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        rows.append({"m": m, "k": k, "n": n, "act": act, "ms": kern,
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "tflops": flops / kern / 1e9})
+        print("  linear (%5d, %4d) -> %4d %-4s kernel %.4f ms  plain %.4f ms"
+              "  addmm %.4f ms  bound %.4f ms (%s)  (%.1f TFLOP/s)"
+              % (m, k, n, act, kern, plain, lib, rows[-1]["bound_ms"],
+                 rows[-1]["bound_by"], flops / kern / 1e9))
+        del x, w, b, wt
+    return rows
+
+
+def rtc_timing(torch, mx):
+    """The axpy body over RTC_N elements beside 2*x+y and beside the one
+    PyTorch call that computes it, torch.add(y, x, alpha=2); bytes bound
+    it (x and y read, out written)."""
+    flush = torch.empty(64 << 20, device="cuda")
+    axpy, _, x, y, out = rtc_bodies(torch, mx, RTC_N)
+    grid, block = rtc_dims(RTC_N)
+    kern = time_ms(torch, lambda: axpy.push([x, y], [out], grid, block),
+                   flush)
+    plain = time_ms(torch, lambda: 2 * x.handle + y.handle, flush)
+    lib = time_ms(torch, lambda: torch.add(y.handle, x.handle, alpha=2.0),
+                  flush)
+    bound = 1e3 * 3 * RTC_N * 4 / HBM_BYTES_PER_S
+    print("  rtc axpy (%d elements) kernel %.4f ms  2*x+y %.4f ms  "
+          "torch.add %.4f ms  bound %.4f ms"
+          % (RTC_N, kern, plain, lib, bound))
+    return {"n": RTC_N, "ms": kern, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound}
+
+
+def resnet_head_inputs(mx, batch):
+    """ResNet-50's pooled features and fc1 output on the card for one
+    seeded batch, with fc1's weight and bias (the served module's seeded
+    params): the head's (batch, 2048) -> 1000 layer."""
+    ctx = mx.gpu(0)
+    sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
+    internals = sym.get_internals()
+    names = internals.list_outputs()
+    flat = [n for n in names if n.startswith("flatten")]
+    check(len(flat) == 1, "expected one Flatten before fc1, got %s" % flat)
+
+    def pick(name):
+        return mx.sym.Symbol([internals._outputs[names.index(name)]])
+
+    head = mx.sym.Group([pick(flat[0]), pick("fc1_output")])
+    args, aux = build_module(mx, ctx, batch).get_params()
+    arrays = {k: a.as_in_context(ctx) for k, a in args.items()}
+    rng = np.random.RandomState(21)
+    arrays["data"] = mx.nd.array(
+        rng.randn(batch, *IMAGE).astype(np.float32), ctx=ctx)
+    ex = head.bind(ctx, arrays, grad_req="null",
+                   aux_states={k: a.as_in_context(ctx)
+                               for k, a in aux.items()})
+    feats, logits = ex.forward()
+    return (feats.handle, logits.handle, arrays["fc1_weight"].handle,
+            arrays["fc1_bias"].handle)
+
+
+def entry_points_main_path(torch, mx, kernels):
+    """Phase 7: the slice's three entry points on the card at full
+    width, launch counts zeroed just before and read just after."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel
+
+    rng = np.random.RandomState(20)
+    q, k, v = (torch.from_numpy(rng.randn(*DEMO_ATTN).astype(np.float32))
+               .to("cuda") for _ in range(3))
+    want = parallel.reference_attention(q, k, v, causal=True)
+    feats, fc_out, weight, bias = resnet_head_inputs(mx, BATCH)
+    axpy, gelu, x, y, out = rtc_bodies(torch, mx, RTC_N)
+    grid, block = rtc_dims(RTC_N)
+    res = {"attention": {}}
+    mesh = parallel.make_mesh({"sp": 1})
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for impl in ("ulysses", "ring"):
+            attn = parallel.make_ring_attention(mesh, "sp", causal=True,
+                                                impl=impl)
+            before = kernels.flash_attn_launches
+            t0 = time.perf_counter()
+            got = attn(q, k, v)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launched = kernels.flash_attn_launches - before
+            err = (got - want).abs()
+            bad = int((err > 2e-5 + 2e-4 * want.abs()).sum())
+            check(bad == 0, "make_ring_attention impl=%s: %d values beyond "
+                  "rtol 2e-4 / atol 2e-5 of reference_attention" % (impl, bad))
+            res["attention"][impl] = {"flash_attn_launches": launched,
+                                      "max_abs_err": float(err.max()),
+                                      "host_ms": ms}
+        check(res["attention"]["ulysses"]["flash_attn_launches"] == 1
+              and res["attention"]["ring"]["flash_attn_launches"] == 0,
+              "flash_attn launches a call: ulysses %d (want 1), ring %d (want "
+              "0)" % (res["attention"]["ulysses"]["flash_attn_launches"],
+                      res["attention"]["ring"]["flash_attn_launches"]))
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        attn = parallel.make_ring_attention(mesh, "sp", causal=True,
+                                            impl="ulysses")
+        (attn(*leaves) ** 2).sum().backward()
+        ref = [a.clone().requires_grad_() for a in (q, k, v)]
+        (parallel.reference_attention(*ref, causal=True) ** 2).sum() \
+            .backward()
+        worst = 0.0
+        for name, a, r in zip("qkv", leaves, ref):
+            err = (a.grad - r.grad).abs()
+            check(bool((err <= 1e-4 + 1e-3 * r.grad.abs()).all()),
+                  "ulysses d%s differs from autograd through the reference "
+                  "beyond rtol 1e-3 / atol 1e-4 (max %g)"
+                  % (name, float(err.max())))
+            worst = max(worst, float(err.max()))
+        res["attention"]["ulysses_grad_max_abs_err"] = worst
+        logits = kernels.fused_linear(feats, weight, bias)
+        axpy.push([x, y], [out], grid, block)
+        gelu.push([x], [out], grid, block)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    fd, wd = feats.double(), weight.double()
+    ref = fd @ wd.t() + bias.double()
+    mag = fd.abs() @ wd.abs().t() + bias.double().abs()
+    err = (logits.double() - ref).abs()
+    check(bool((err <= 1e-6 * mag).all()), "fused_linear at the ResNet-50 "
+          "head: error above 1e-6 * (sum|x||w| + |b|)")
+    fc_diff = (logits - fc_out).abs()
+    fc_err = float(fc_diff.max())
+    check(bool((fc_diff <= 4e-6 * mag).all()), "fused_linear and the "
+          "FullyConnected output differ beyond 4e-6 * (sum|x||w| + |b|)")
+    print("entry points: ulysses (K2 x%d) and ring (K2 x%d) at %s causal, "
+          "max abs err vs reference %.3g / %.3g, ulysses grads %.3g; "
+          "fused_linear at the ResNet-50 head %s -> 1000 vs FullyConnected "
+          "%.3g; launches %s"
+          % (res["attention"]["ulysses"]["flash_attn_launches"],
+             res["attention"]["ring"]["flash_attn_launches"], DEMO_ATTN,
+             res["attention"]["ulysses"]["max_abs_err"],
+             res["attention"]["ring"]["max_abs_err"], worst,
+             tuple(feats.shape), fc_err, launches))
+    want_counts = {"norm_act_fwd": 0, "norm_act_bwd": 0, "conv_gemm": 0,
+                   "linear": 1, "flash_attn": 2, "rtc": 2}
+    check(launches == want_counts, "entry-point launches %s, want %s (K2 "
+          "once for each ulysses forward, the forward and the one under the "
+          "backward)" % (launches, want_counts))
+    res.update({"launches": launches, "head_vs_fc_max_abs": fc_err,
+                "head_max_abs_err": float(err.max())})
+    return res
+
+
 def build_module(mx, ctx, batch, arg_np=None, aux_np=None):
     sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
     mod = mx.mod.Module(sym, context=ctx)
@@ -666,7 +1028,8 @@ def train_main_path(torch, mx, kernels, card):
           % (len(losses), BATCH, launches, ["%.4f" % v for v in losses]))
     want = {"norm_act_fwd": BN_LAYERS * TRAIN_STEPS,
             "norm_act_bwd": BN_LAYERS * TRAIN_STEPS,
-            "conv_gemm": CONV_GEMMS * TRAIN_STEPS}
+            "conv_gemm": CONV_GEMMS * TRAIN_STEPS,
+            "linear": 0, "flash_attn": 0, "rtc": 0}
     check(launches == want, "training launches %s, want %s (53, 53 and 105 "
           "a step)" % (launches, want))
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -850,6 +1213,18 @@ def main():
           "1e-6)" % (cases, len(gemms), len(RAGGED_GEMMS),
                      gemm_worst["abs_float32"], gemm_worst["abs_bfloat16"],
                      gemm_worst["rel"]))
+    flash_worst, cases = flash_parity(torch, kernels)
+    print("flash_attn parity: %d cases (%d shapes, causal and not), reruns "
+          "bit-identical, max abs err vs plain %g (bound rtol 2e-4 / atol "
+          "2e-5)" % (cases, len(FLASH_SHAPES), flash_worst))
+    linear_worst, cases = linear_parity(torch, kernels)
+    print("linear parity: %d cases, reruns bit-identical, max abs err vs "
+          "float64 %g; max %.3g of sum|x||w|+|b| (bound 1e-6)"
+          % (cases, linear_worst["abs"], linear_worst["rel"]))
+    rtc_check = rtc_parity(torch, mx)
+    print("rtc parity: axpy bit-equal to 2*x+y, gelu_ish max rel err %.3g "
+          "(bound 1e-4), bad body refused: %s"
+          % (rtc_check["gelu_max_rel_err"], rtc_check["bad_body_log"]))
 
     # 4. timing at the main paths' shapes
     fwd_shapes, fwd_tot = norm_act_fwd_timing(torch, kernels, counts)
@@ -867,12 +1242,19 @@ def main():
           "[%s]" % (gemm_tot["ms"], gemm_tot["plain_ms"],
                     gemm_tot["library_ms"], gemm_tot["bound_ms"],
                     gemm_tot["bound_by"], gemm_tot["flops"] / 1e12, card))
+    flash_rows = flash_timing(torch, kernels)
+    linear_rows = linear_timing(torch, kernels)
+    rtc_time = rtc_timing(torch, mx)
+    print("timed on [%s]" % card)
 
     # 5. serving, 6. training: the main paths
     serve = serve_main_path(torch, mx, kernels, card)
     train = train_main_path(torch, mx, kernels, card)
 
-    # 7. report
+    # 7. the slice's entry points at full width
+    entry = entry_points_main_path(torch, mx, kernels)
+
+    # 8. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     records = [{
@@ -917,6 +1299,48 @@ def main():
         "library_ms": gemm_tot["library_ms"],
         "library_call": "torch.matmul on the same operands",
         "scope": train_scope % CONV_GEMMS,
+    }, {
+        "name": "linear", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/linear.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:56",
+        "launches": entry["launches"]["linear"],
+        "max_abs_err": linear_worst["abs"],
+        "max_err_of_abs_product": linear_worst["rel"],
+        "ms": linear_rows[1]["ms"], "plain_ms": linear_rows[1]["plain_ms"],
+        "bound_ms": linear_rows[1]["bound_ms"],
+        "bound_by": linear_rows[1]["bound_by"],
+        "library_ms": linear_rows[1]["library_ms"],
+        "library_call": "torch.addmm (plus the activation)",
+        "scope": "one call at ResNet-50's head, (%d, 2048) -> 1000, f32, "
+                 "the entry-point path's shape" % BATCH,
+    }, {
+        "name": "flash_attn", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attn.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:154",
+        "launches": entry["launches"]["flash_attn"],
+        "max_abs_err": flash_worst,
+        "ms": flash_rows[1]["ms"], "plain_ms": flash_rows[1]["plain_ms"],
+        "bound_ms": flash_rows[1]["bound_ms"], "bound_by": "operations",
+        "library_ms": flash_rows[1]["library_ms"],
+        "library_call": "F.scaled_dot_product_attention on (B, H, T, D)",
+        "scope": "one call at the demo's %s, causal, f32, the ulysses "
+                 "path's shape" % (DEMO_ATTN,),
+    }, {
+        "name": "rtc", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py (NVRTC, body compiled at run "
+                  "time)",
+        "replaces": "mxnet_tpu/rtc.py:71",
+        "launches": entry["launches"]["rtc"],
+        "max_abs_err": rtc_check["axpy_max_abs_err"],
+        "gelu_max_rel_err": rtc_check["gelu_max_rel_err"],
+        "ms": rtc_time["ms"], "plain_ms": rtc_time["plain_ms"],
+        "bound_ms": rtc_time["bound_ms"], "bound_by": "bytes",
+        "library_ms": rtc_time["library_ms"],
+        "library_call": "torch.add(y, x, alpha=2), the axpy body's function",
+        "library_note": "a user kernel: the body timed is one choice of "
+                        "many; every time here is the axpy body's",
+        "scope": "one push of the axpy body over %d float32 elements"
+                 % RTC_N,
     }]
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),
@@ -927,7 +1351,10 @@ def main():
                        "norm_act_fwd_shapes": fwd_shapes,
                        "norm_act_bwd_shapes": bwd_shapes,
                        "conv_gemm_shapes": gemm_shapes,
-                       "main_path": serve, "train_path": train}, f,
+                       "flash_attn_shapes": flash_rows,
+                       "linear_shapes": linear_rows, "rtc_timing": rtc_time,
+                       "main_path": serve, "train_path": train,
+                       "entry_points": entry}, f,
                       indent=1)
     print(json.dumps({"kernels": records}))
     print(card)

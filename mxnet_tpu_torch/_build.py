@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to
-``mxnet_tpu_torch/_build/`` (git-ignored), named by a hash of the source
-and the flags, so an edited source never loads a stale build. The build
+``mxnet_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+never loads a stale build. The build
 happens at first use; :func:`build_all` starts one ``nvcc`` per source,
 all at once, and waits for them together.
 
@@ -33,7 +34,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {"norm_act": "norm_act.cu",
-                           "conv_gemm": "conv_gemm.cu"}
+                           "conv_gemm": "conv_gemm.cu",
+                           "linear": "linear.cu",
+                           "flash_attn": "flash_attn.cu"}
 
 NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -42,7 +45,7 @@ NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
 # C signatures of the exported functions, declared on load: name ->
 # (argument types, return type). Every pointer and the stream are c_void_p
 # and every 64-bit size c_longlong, or ctypes would pass a 32-bit int.
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "norm_act": {
         "norm_act_fwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
@@ -54,6 +57,14 @@ _SIGNATURES = {
         "conv_gemm_k_chunk": ([_LL, _LL, _LL], _LL),
         "conv_gemm": ([_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _LL, _I, _P],
                       _I),
+    },
+    "linear": {
+        "linear_k_chunk": ([_LL, _LL, _LL], _LL),
+        "linear_fwd": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _LL, _I, _P],
+                       _I),
+    },
+    "flash_attn": {
+        "flash_attn_fwd": ([_P, _P, _P, _P, _LL, _LL, _LL, _F, _I, _P], _I),
     },
 }
 
@@ -79,9 +90,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(_SRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    # the source, every header of csrc/ (gemm_tile.cuh) and the flags name
+    # the build
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [SOURCES[name]] + sorted(
+            f for f in os.listdir(_SRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(_SRC_DIR, path), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                    digest.hexdigest()[:12]))
 

@@ -12,31 +12,23 @@
 // cores, so its ceiling is the 67 TFLOP/s float32 rate, not the tensor cores'
 // (wgmma with TMA is later work).
 //
-// What the design does:
+// What the design does (the tile, the double-buffered mainloop and split K are
+// gemm_tile.cuh's, shared with the fused linear layer, K1):
 //  * A block computes a BM x BN tile of C (128 x 128, or 128 x 64 when N <= 64, as
-//    ResNet's 64-channel layers have it, so half the tile is not wasted on masked
-//    columns). Each thread holds an 8 x 8 register tile of C and, per step of
-//    BK = 8 along K, reads 8 values of A and 8 of B from shared memory for 64
-//    fused multiply-adds. Its 8 rows are two runs of 4, BM / 2 apart, and so are
-//    its 8 columns (BN / 2 apart): the 16-byte shared loads of a quarter warp then
-//    fall on distinct banks.
+//    ResNet's 64-channel layers have it); each thread an 8 x 8 register tile, 64 fused
+//    multiply-adds a step of BK = 8 along K.
 //  * The transpose of A is folded into the tile load: for A^T @ B the tile is read
 //    along A's rows, which are C's M axis, so the loads stay coalesced and A^T is
 //    never materialised, as `_matmul` never materialises it. Shared memory holds A
-//    k-major in both cases, padded by 4 floats a row against bank conflicts.
-//  * Two shared-memory buffers: the next K tile is loaded from global memory into
-//    registers while the current one is multiplied, then stored into the other
-//    buffer; one __syncthreads a step.
+//    k-major in both cases, padded by 4 floats a row against bank conflicts; B is
+//    read along its rows (N) and stored as it lies.
 //  * __launch_bounds__ asks for two blocks a SM, which holds a 256-thread block to
 //    128 registers a thread (no spills): 16 resident warps instead of 8 hide more
 //    of the load latency.
 //  * Ragged M, N and K edges are masked in the loads (zeros) and in the stores:
 //    there is no 128-multiple condition as in the TPU kernel.
 //  * Split K for products with few output tiles and a long K (the weight
-//    gradients: M*N small, K = N*HO*WO large): blockIdx.z takes one K range and
-//    writes its partial tile to a (splits, M, N) float32 scratch that the caller
-//    allocates; a second launch sums the splits in a fixed order. No atomics, so a
-//    rerun is bit-identical.
+//    gradients: M*N small, K = N*HO*WO large), in chunks of at least 256.
 //  * Operands float32 or bfloat16 (widened to float32 on the way into shared
 //    memory; a bfloat16 product is exact in float32), accumulator and output
 //    float32, as `preferred_element_type=jnp.float32` has it.
@@ -49,43 +41,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int BM = 128;
-constexpr int BK = 8;
-constexpr int TM = 8;
-constexpr int TN = 8;
-constexpr int A_PAD = 4;
+using namespace gemm_tile;
+
 constexpr long long kMinSplitK = 256;   // least K a split takes
-constexpr int kMaxSplits = 256;
-constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-int num_sms() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-      n = 132;
-    cached[dev] = n;
-  }
-  return cached[dev];
-}
-
-int tile_n(long long n) { return n <= 64 ? 64 : 128; }
 
 // C[z] = op(A)[:, kz] @ B[kz, :] over K range kz = [z * k_chunk, (z + 1) * k_chunk) of
 // blockIdx.z = z; C[z] is C itself when there is one split, else slice z of the
 // scratch. A is (M, K) row-major, or (K, M) row-major when TRANS_A; B is (K, N).
 template <typename T, int BN, bool TRANS_A>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN), 2)
+__global__ void __launch_bounds__(threads<BN>(), 2)
 conv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ C,
                  int M, int N, int K, int k_chunk) {
-  constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int NT = threads<BN>();
   constexpr int A_PER = BM * BK / NT;
   constexpr int B_PER = BK * BN / NT;
   __shared__ __align__(16) float As[2][BK][BM + A_PAD];
@@ -147,47 +121,17 @@ conv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __rest
   };
 
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
-  if (ntiles > 0) {
-    load(kbeg);
-    store(0);
-    __syncthreads();
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    const bool more = t + 1 < ntiles;
-    if (more) load(kbeg + (t + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4 + BM / 2]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4 + BN / 2]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-  }
+  mainloop<BN, 0>(As, Bs, load, store, kbeg, kend, tx, ty, acc);
 
   const bool vec4 = (N % 4) == 0;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    const int m = m0 + tile_row(i, ty);
     if (m >= M) continue;
     float* crow = Cz + (long long)m * N;
 #pragma unroll
     for (int j = 0; j < TN; j += 4) {
-      const int n = n0 + (j == 0 ? tx * 4 : BN / 2 + tx * 4);
+      const int n = n0 + tile_col<BN>(j, tx);
       if (vec4 && n + 3 < N) {
         *reinterpret_cast<float4*>(crow + n) =
             make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
@@ -200,22 +144,21 @@ conv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __rest
   }
 }
 
+struct RawSum {
+  __device__ __forceinline__ float operator()(float s, long long) const { return s; }
+};
+
 // C[i] = sum over z of ws[z][i], z in order.
 __global__ void __launch_bounds__(kReduceThreads)
 conv_gemm_splitk_reduce_kernel(const float* __restrict__ ws, float* __restrict__ C, long long mn,
                                int splits) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn; i += stride) {
-    float s = ws[i];
-    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[(long long)z * mn + i]);
-    C[i] = s;
-  }
+  splitk_reduce(ws, C, mn, splits, RawSum());
 }
 
 template <typename T, int BN>
 void launch_gemm(const void* a, const void* b, float* out, int m, int n, int k, bool trans_a,
                  int k_chunk, int splits, cudaStream_t stream) {
-  constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int NT = threads<BN>();
   const dim3 grid((unsigned int)((n + BN - 1) / BN), (unsigned int)((m + BM - 1) / BM),
                   (unsigned int)splits);
   const T* A = static_cast<const T*>(a);
@@ -242,18 +185,7 @@ void launch_typed(const void* a, const void* b, float* out, int m, int n, int k,
 // card. The caller runs ceil(k / k_chunk) splits and, for more than one, allocates
 // a (splits, m, n) float32 scratch.
 extern "C" long long conv_gemm_k_chunk(long long m, long long n, long long k) {
-  if (m <= 0 || n <= 0 || k <= 0) return BK;
-  const long long tiles = ((m + BM - 1) / BM) * ((n + tile_n(n) - 1) / tile_n(n));
-  const long long target = 2LL * num_sms();
-  long long splits = 1;
-  if (tiles < target) {
-    splits = (target + tiles - 1) / tiles;
-    if (splits > k / kMinSplitK) splits = k / kMinSplitK;
-    if (splits > kMaxSplits) splits = kMaxSplits;
-    if (splits < 1) splits = 1;
-  }
-  const long long per = (k + splits - 1) / splits;
-  return (per + BK - 1) / BK * BK;
+  return k_chunk(m, n, k, kMinSplitK);
 }
 
 // a: (m, k) row-major, or (k, m) when trans_a; b: (k, n) row-major; both float32
@@ -278,10 +210,7 @@ extern "C" int conv_gemm(const void* a, const void* b, void* c, void* ws, long l
                                 splits, s);
   if (splits > 1) {
     const long long mn = m * n;
-    long long blocks = (mn + kReduceThreads - 1) / kReduceThreads;
-    const long long cap = 4LL * num_sms();
-    if (blocks > cap) blocks = cap;
-    conv_gemm_splitk_reduce_kernel<<<(unsigned int)blocks, kReduceThreads, 0, s>>>(
+    conv_gemm_splitk_reduce_kernel<<<reduce_blocks(mn), kReduceThreads, 0, s>>>(
         static_cast<const float*>(ws), static_cast<float*>(c), mn, splits);
   }
   return (int)cudaGetLastError();

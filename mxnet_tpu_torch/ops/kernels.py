@@ -17,12 +17,18 @@ Ported so far (``csrc/``):
   backward launches K5;
 * K3, the float32-accumulating GEMM of the convolution backward
   (``conv_gemm.cu``): :func:`matmul_f32acc`, under :func:`conv_dgrad`,
-  :func:`conv_wgrad` and the differentiable :func:`conv2d`.
+  :func:`conv_wgrad` and the differentiable :func:`conv2d`;
+* K1, the fused linear layer (``linear.cu``): :func:`fused_linear`;
+* K2, flash attention (``flash_attn.cu``): :func:`flash_attention`,
+  which ``parallel.ulysses_attention`` runs;
+* K6's launches, the runtime-compiled kernels of ``rtc.Rtc``, are
+  counted here too (``rtc``).
 
-The other TPU kernels are listed in ROADMAP.md, Queue B.
+Every TPU kernel of the JAX package now has its counterpart here.
 """
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -32,33 +38,48 @@ from ..base import MXNetError
 
 __all__ = ["fused_norm_act", "fused_norm_act_plain", "fused_norm_act_bwd",
            "fused_norm_act_bwd_plain", "matmul_f32acc", "matmul_f32acc_plain",
-           "conv_dgrad", "conv_wgrad", "conv2d", "reset_launch_counts",
-           "launch_counts"]
+           "conv_dgrad", "conv_wgrad", "conv2d", "fused_linear",
+           "fused_linear_plain", "flash_attention", "flash_attention_plain",
+           "reference_attention", "FLASH_MAX_D", "reset_launch_counts", "launch_counts"]
 
 #: kernel launches since the last reset, one per wrapper call that
 #: launched its kernel
 norm_act_fwd_launches = 0
 norm_act_bwd_launches = 0
 conv_gemm_launches = 0
+linear_launches = 0
+flash_attn_launches = 0
+rtc_launches = 0
 _count_lock = threading.Lock()
 
 _ACTS = {"none": 0, "relu": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LINEAR_ACTS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
+#: the widest head dimension K2 takes (pallas_kernels.py:253)
+FLASH_MAX_D = 256
+_FLASH_MASK = -1e30
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count, by kernel name."""
     return {"norm_act_fwd": norm_act_fwd_launches,
             "norm_act_bwd": norm_act_bwd_launches,
-            "conv_gemm": conv_gemm_launches}
+            "conv_gemm": conv_gemm_launches,
+            "linear": linear_launches,
+            "flash_attn": flash_attn_launches,
+            "rtc": rtc_launches}
 
 
 def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
+    global linear_launches, flash_attn_launches, rtc_launches
     with _count_lock:
         norm_act_fwd_launches = 0
         norm_act_bwd_launches = 0
         conv_gemm_launches = 0
+        linear_launches = 0
+        flash_attn_launches = 0
+        rtc_launches = 0
 
 
 def _count(name: str) -> None:
@@ -406,3 +427,225 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride=(1, 1), pad=(0, 0),
     K3 kernel, for every geometry: no applicability gate."""
     return _Conv2d.apply(x, w, tuple(stride), tuple(pad), tuple(dilate),
                          int(groups))
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused linear layer
+# ---------------------------------------------------------------------------
+def _act_plain(y: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "relu":
+        return torch.relu(y)
+    if act == "tanh":
+        return torch.tanh(y)
+    if act == "sigmoid":
+        return torch.sigmoid(y)
+    return y
+
+
+def fused_linear_plain(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor = None, act: str = "none"):
+    """``act(x @ weight.T + bias)`` in float32: the JAX kernel's
+    arithmetic (``pallas_kernels.py:67-85``) in plain torch."""
+    y = x @ weight.t()
+    if bias is not None:
+        y = y + bias
+    return _act_plain(y, act)
+
+
+def _linear_fwd(x, w, b, act):
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return fused_linear_plain(x, w, b, act)
+    _check_cuda("fused_linear", *[t for t in (x, w, b) if t is not None])
+    m, k = x.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    from .. import _build
+
+    lib = _build.load("linear")
+    with torch.cuda.device(x.device):
+        chunk = lib.linear_k_chunk(m, n, k)
+        splits = -(-k // chunk)
+        ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        rc = lib.linear_fwd(x.data_ptr(), w.data_ptr(),
+                            None if b is None else b.data_ptr(),
+                            out.data_ptr(),
+                            None if ws is None else ws.data_ptr(), m, n, k,
+                            _LINEAR_ACTS[act], chunk, splits, _stream(x))
+    if rc != 0:
+        raise MXNetError("linear_fwd launch failed: CUDA error %d" % rc)
+    _count("linear_launches")
+    return out
+
+
+class _Linear(torch.autograd.Function):
+    """Forward K1; backward the JAX package's plain products with the
+    activation's derivative taken from the output
+    (``pallas_kernels.py:128-139``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        out = _linear_fwd(x, w, b, act)
+        ctx.act = act
+        ctx.has_bias = b is not None
+        ctx.save_for_backward(x, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        if ctx.act == "relu":
+            g = torch.where(out > 0, g, torch.zeros_like(g))
+        elif ctx.act == "tanh":
+            g = g * (1.0 - out * out)
+        elif ctx.act == "sigmoid":
+            g = g * out * (1.0 - out)
+        gx = g @ w if ctx.needs_input_grad[0] else None
+        gw = g.t() @ x if ctx.needs_input_grad[1] else None
+        gb = g.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return gx, gw, gb, None
+
+
+def fused_linear(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor = None, act: str = "none") -> torch.Tensor:
+    """``act(x @ weight.T + bias)`` for x (M, K), ``weight`` (N, K) (the
+    framework's layout) and ``bias`` (N,) or None, all float32 (as the
+    JAX wrapper requires, ``pallas_kernels.py:115-117``); act is none,
+    relu, tanh or sigmoid. Any M, N and K >= 1: there is no 128-multiple
+    condition and no None return.
+
+    Differentiable in all three inputs. On CUDA tensors the forward
+    launches ``linear`` (contiguous operands) or raises; on CPU tensors
+    it takes :func:`fused_linear_plain`."""
+    if act not in _LINEAR_ACTS:
+        raise MXNetError("fused_linear: act must be one of %s, got %r"
+                         % (sorted(_LINEAR_ACTS), act))
+    if x.dim() != 2 or weight.dim() != 2 or x.shape[1] != weight.shape[1]:
+        raise MXNetError("fused_linear: x (M, K) and weight (N, K) expected, "
+                         "got %s and %s" % (tuple(x.shape), tuple(weight.shape)))
+    n, k = weight.shape
+    if bias is not None and tuple(bias.shape) != (n,):
+        raise MXNetError("fused_linear: bias must be (%d,), got %s"
+                         % (n, tuple(bias.shape)))
+    for t in (x, weight, bias):
+        if t is not None and t.dtype != torch.float32:
+            raise MXNetError("fused_linear: float32 inputs only, got %s"
+                             % t.dtype)
+    if k == 0:
+        raise MXNetError("fused_linear: x has no columns (K = 0)")
+    return _Linear.apply(x, weight, bias, act)
+
+
+# ---------------------------------------------------------------------------
+# K2: flash attention
+# ---------------------------------------------------------------------------
+def reference_attention(q, k, v, causal: bool = False, scale=None,
+                        mask_value=-math.inf):
+    """Plain full attention over (B, T, H, D): the correctness oracle of
+    ``parallel.ring_attention``, and the recompute path of the flash
+    kernel's backward (which passes its own scale and finite
+    ``mask_value``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        t_q, t_k = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones((t_q, t_k), dtype=torch.bool,
+                          device=logits.device).tril()
+        logits = logits.masked_fill(~mask, mask_value)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False, scale: float = None):
+    """The plain attention that K2 computes: :func:`reference_attention`
+    at the kernel's scale (1/sqrt(D) by default) and finite mask value
+    -1e30, as the JAX VJP pins it (``pallas_kernels.py:269-275``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return reference_attention(q, k, v, causal=causal, scale=scale,
+                               mask_value=_FLASH_MASK)
+
+
+def _flash_fwd(q, k, v, causal, scale):
+    """K2 on CUDA tensors, the plain version on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal, scale)
+    b, t, h, d = q.shape
+    if b * h > 65535:
+        raise MXNetError("flash_attention: B*H = %d above the kernel grid's "
+                         "limit of 65535" % (b * h))
+
+    def pack(x):   # (B, T, H, D) -> (B*H, T, D)
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    qp, kp, vp = pack(q), pack(k), pack(v)
+    _check_cuda("flash_attention", qp, kp, vp)
+    o = torch.empty_like(qp)
+    if qp.numel():
+        from .. import _build
+
+        lib = _build.load("flash_attn")
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attn_fwd(qp.data_ptr(), kp.data_ptr(),
+                                    vp.data_ptr(), o.data_ptr(), b * h, t, d,
+                                    scale, int(causal), _stream(q))
+        if rc != 0:
+            raise MXNetError("flash_attn launch failed: CUDA error %d" % rc)
+        _count("flash_attn_launches")
+    return o.reshape(b, h, t, d).transpose(1, 2)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward K2; backward recomputes through the plain reference under
+    autograd, as ``f_bwd`` does (``pallas_kernels.py:280-283``): the
+    JAX package has no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v)
+        return _flash_fwd(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = flash_attention_plain(qd, kd, vd, ctx.causal, ctx.scale)
+        return torch.autograd.grad(out, (qd, kd, vd), g) + (None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, scale: float = None) -> torch.Tensor:
+    """Attention over (B, T, H, D) float32 inputs of one shape (the layout
+    of :mod:`mxnet_tpu_torch.parallel.ring_attention`), scale 1/sqrt(D)
+    by default. Any T; D up to :data:`FLASH_MAX_D`; other dtypes and
+    wider heads raise, naming the limit (the JAX wrapper returns None
+    for them, and for a T that is not a multiple of 128).
+
+    Differentiable: the backward recomputes through the plain reference.
+    On CUDA tensors the forward launches ``flash_attn`` (one launch over
+    all B*H rows) or raises; on CPU tensors it takes
+    :func:`flash_attention_plain`."""
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
+            or tuple(v.shape) != tuple(q.shape):
+        raise MXNetError("flash_attention: q, k, v must be (B, T, H, D) of one "
+                         "shape, got %s, %s, %s" % (tuple(q.shape),
+                                                    tuple(k.shape),
+                                                    tuple(v.shape)))
+    for t in (q, k, v):
+        if t.dtype != torch.float32:
+            raise MXNetError("flash_attention: float32 inputs only, got %s"
+                             % t.dtype)
+    d = q.shape[-1]
+    if not 0 < d <= FLASH_MAX_D:
+        raise MXNetError("flash_attention: head dimension %d outside the "
+                         "kernel's 1..%d" % (d, FLASH_MAX_D))
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    return _Flash.apply(q, k, v, bool(causal), scale)

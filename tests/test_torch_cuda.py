@@ -231,8 +231,128 @@ def test_small_resnet_training_step_on_card_matches_cpu(card):
                     counts))
     # 17 convolutions, each followed by a BatchNorm; the stem needs no dgrad
     assert res[0][2] == {"norm_act_fwd": 17, "norm_act_bwd": 17,
-                         "conv_gemm": 33}
+                         "conv_gemm": 33, "linear": 0, "flash_attn": 0,
+                         "rtc": 0}
     np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-4)
     for k in res[1][1]:
         np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=1e-3,
                                    atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 8, 32), (2, 1024, 4, 64),
+                                   (1, 512, 2, 128), (1, 256, 2, 256),
+                                   (2, 100, 2, 48), (1, 1000, 4, 96),
+                                   (3, 1, 2, 5), (1, 65, 3, 33)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attn_matches_plain(card, shape, causal):
+    """K2 against its plain version (reference attention, mask -1e30)
+    within rtol 2e-4 / atol 2e-5; a rerun bit-identical (no atomics)."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    q, k, v = (torch.randn(*shape, generator=gen, device=card)
+               for _ in range(3))
+    before = kernels.flash_attn_launches
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    again = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_attn_launches == before + 2
+    assert torch.equal(got, again)
+    want = kernels.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (32, 2048, 1000),
+                                   (257, 1001, 33), (3, 5, 2)])
+@pytest.mark.parametrize("act", ["none", "relu", "tanh", "sigmoid"])
+def test_linear_matches_float64(card, m, k, n, act):
+    """K1 against act(x @ w.T + b) in float64: within 1e-6 of
+    sum|x||w| + |b| (plus one libm ulp, 2e-7, for tanh and sigmoid); a
+    rerun bit-identical (split K sums in order, the epilogue once)."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(m, k, generator=gen, device=card)
+    w = torch.randn(n, k, generator=gen, device=card)
+    b = torch.randn(n, generator=gen, device=card)
+    before = kernels.linear_launches
+    got = kernels.fused_linear(x, w, b, act)
+    again = kernels.fused_linear(x, w, b, act)
+    torch.cuda.synchronize()
+    assert kernels.linear_launches == before + 2
+    assert torch.equal(got, again)
+    pre = x.double() @ w.double().t() + b.double()
+    want = {"none": pre, "relu": torch.relu(pre), "tanh": torch.tanh(pre),
+            "sigmoid": torch.sigmoid(pre)}[act]
+    bound = 1e-6 * (x.double().abs() @ w.double().abs().t() + b.double().abs())
+    if act in ("tanh", "sigmoid"):
+        bound = bound + 2e-7
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+def _nd(t):
+    return tmx.nd.NDArray(t, tmx.gpu(0))
+
+
+def test_rtc_axpy_bit_equal(card):
+    """tests/test_pallas_rtc.py:82-92 with a CUDA body."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    x = _nd(torch.arange(64, dtype=torch.float32, device=card).reshape(8, 8))
+    y = _nd(torch.ones(8, 8, device=card))
+    out = _nd(torch.zeros(8, 8, device=card))
+    kern = Rtc("axpy", [("x", x), ("y", y)], [("out", out)],
+               "int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+               "if (i < 64) out[i] = 2.0f * x[i] + y[i];")
+    before = kernels.rtc_launches
+    kern.push([x, y], [out], grid_dims=(1,), block_dims=(64,))
+    torch.cuda.synchronize()
+    assert kernels.rtc_launches == before + 1
+    assert torch.equal(out.handle, 2 * x.handle + y.handle)
+
+
+def test_rtc_multiline_kernel(card):
+    """tests/test_pallas_rtc.py:95-107: the gelu-like body."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    v = torch.from_numpy(np.random.RandomState(8).randn(16, 16)
+                         .astype(np.float32)).to(card)
+    x, out = _nd(v), _nd(torch.zeros(16, 16, device=card))
+    kern = Rtc("gelu_ish", [("x", x)], [("out", out)],
+               "int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+               "if (i < 256) {\n"
+               "  float v = x[i];\n"
+               "  out[i] = v / (1.0f + expf(-1.702f * v));\n"
+               "}")
+    kern.push([x], [out], grid_dims=(2,), block_dims=(128,))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.handle, v / (1 + torch.exp(-1.702 * v)),
+                               rtol=1e-4, atol=0)
+
+
+def test_rtc_bad_source_raises_with_nvrtc_log(card):
+    from mxnet_tpu_torch.rtc import Rtc
+
+    x = _nd(torch.ones(4, 4, device=card))
+    with pytest.raises(tmx.MXNetError, match="NVRTC failed to compile"):
+        Rtc("bad", [("x", x)], [("out", x)], "this is not CUDA !!!")
+
+
+def test_ulysses_at_one_rank_launches_flash_once(card):
+    """make_ring_attention over a one-rank cuda mesh: ulysses runs K2
+    once a call, the ring never; both match the reference."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    q, k, v = (torch.randn(1, 512, 4, 32, generator=gen, device=card)
+               for _ in range(3))
+    want = parallel.reference_attention(q, k, v, causal=True)
+    mesh = parallel.make_mesh({"sp": 1})
+    try:
+        for impl, launches in (("ulysses", 1), ("ring", 0)):
+            attn = parallel.make_ring_attention(mesh, "sp", causal=True,
+                                                impl=impl)
+            before = kernels.flash_attn_launches
+            out = attn(q, k, v)
+            torch.cuda.synchronize()
+            assert kernels.flash_attn_launches == before + launches
+            torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-5)
+    finally:
+        dist.destroy_process_group()

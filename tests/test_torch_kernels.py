@@ -94,8 +94,12 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     assert torch.equal(out, tk.fused_norm_act_plain(x, s, s, "relu"))
     tk.fused_norm_act_bwd(x, s, s, torch.ones_like(x), "relu")
     tk.matmul_f32acc(x, x, transpose_a=True)
+    tk.fused_linear(x, x, act="tanh")
+    q = x.reshape(1, 16, 1, 8)
+    tk.flash_attention(q, q, q, causal=True)
     assert tk.launch_counts() == {"norm_act_fwd": 0, "norm_act_bwd": 0,
-                                  "conv_gemm": 0}
+                                  "conv_gemm": 0, "linear": 0,
+                                  "flash_attn": 0, "rtc": 0}
 
 
 def _bn_pair(dtype_j, dtype_t, shape, monkeypatch):
