@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
 1. environment: the card's name and power limit (nvidia-smi), CUDA and
    torch versions; TF32 off for convolutions and matmuls.
 2. build: every hand-written kernel from mxnet_tpu_torch/csrc, one nvcc
-   per source, all at once.
+   per source, all at once; the K3, K1 and K2 libraries must hold TF32
+   tensor-core MMA instructions (HMMA with TF32 operands in cuobjdump
+   -sass).
 3. kernel parity on the card, at the shapes the main paths give each
    kernel plus ragged ones: K4 (norm_act_fwd) and K5 (norm_act_bwd)
    against their plain PyTorch versions, K3 (conv_gemm) against a
@@ -23,7 +25,9 @@ Phases, in order; any failure exits non-zero before the last line:
 4. kernel timing: median of CUDA-event times with the L2 cache flushed
    before each launch, beside the plain version, the one-call PyTorch
    yardstick where there is one and the bound (bytes at 3.35 TB/s or
-   operations at the data-sheet rate, whichever is longer), summed over
+   operations at the data-sheet rate, whichever is longer: K1, K2 and K3
+   at 495/3 TFLOP/s, three TF32 passes for float32 accuracy, with the
+   67 TFLOP/s CUDA-core bound beside it as simt_bound_ms), summed over
    the launches of one ResNet-50 forward (K4) or training step (K3, K5);
    K2 at the demo shape and at T=16384 (beside
    scaled_dot_product_attention), K1 at three layers (beside addmm),
@@ -64,6 +68,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM data sheet, float32 without tensor cores
+# H100 SXM data sheet, dense TF32 on the tensor cores over three passes: the
+# least time for float32-accurate products (hi*lo + lo*hi + hi*hi)
+TF32X3_FLOPS_PER_S = 495e12 / 3
+TF32_KERNELS = ("conv_gemm", "linear", "flash_attn")
 BATCH = 32
 IMAGE = (224, 224, 3)
 BN_LAYERS = 53                 # BatchNorm layers of ResNet-50
@@ -388,8 +396,9 @@ def conv_gemm_parity(torch, kernels, shapes):
 def conv_gemm_timing(torch, kernels, counts):
     """K3 at the (M, N, K, transpose) products of one training step,
     float32 operands, beside the plain version and torch.matmul on the
-    same operands; the bound is the longer of 2MNK at the float32 rate
-    and the bytes (A and B read, C written) at the memory rate."""
+    same operands; the bound is the longer of 2MNK at the 3xTF32 rate
+    and the bytes (A and B read, C written) at the memory rate, and the
+    CUDA-core bound (2MNK at the float32 rate) stands beside it."""
     flush = torch.empty(64 << 20, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows_out = []
@@ -408,15 +417,17 @@ def conv_gemm_timing(torch, kernels, counts):
         lib = time_ms(torch, lambda: torch.matmul(at, b), flush)
         nbytes = (m * k + k * n + m * n) * 4
         flops = 2 * m * n * k
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / TF32X3_FLOPS_PER_S)
+        simt = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
         rows_out.append({"m": m, "n": n, "k": k, "transpose_a": trans,
                          "per_step": cnt, "ms": kern, "plain_ms": plain,
                          "library_ms": lib, "bound_ms": bound,
+                         "simt_bound_ms": simt,
                          "tflops": flops / kern / 1e9})
         print("  conv_gemm (%6d, %4d, %6d, %s) x%-2d kernel %.4f ms  plain "
-              "%.4f ms  matmul %.4f ms  bound %.4f ms  (%.1f TFLOP/s)"
-              % (m, n, k, "T" if trans else "N", cnt, kern, plain, lib,
-                 bound, flops / kern / 1e9))
+              "%.4f ms  matmul %.4f ms  bound %.4f ms (simt %.4f)  (%.1f "
+              "TFLOP/s)" % (m, n, k, "T" if trans else "N", cnt, kern, plain,
+                            lib, bound, simt, flops / kern / 1e9))
         tot["ms"] += cnt * kern
         tot["plain_ms"] += cnt * plain
         tot["library_ms"] += cnt * lib
@@ -424,9 +435,11 @@ def conv_gemm_timing(torch, kernels, counts):
         tot["flops"] += cnt * flops
         del a, b, at
     t_bytes = tot["bytes"] / HBM_BYTES_PER_S
-    t_flops = tot["flops"] / F32_FLOPS_PER_S
+    t_flops = tot["flops"] / TF32X3_FLOPS_PER_S
     tot["bound_ms"] = 1e3 * max(t_bytes, t_flops)
     tot["bound_by"] = "operations" if t_flops >= t_bytes else "bytes"
+    tot["simt_bound_ms"] = 1e3 * max(t_bytes,
+                                     tot["flops"] / F32_FLOPS_PER_S)
     return rows_out, tot
 
 
@@ -553,7 +566,8 @@ def flash_timing(torch, kernels):
     """K2 beside its plain version and scaled_dot_product_attention on
     (B, H, T, D) f32 (timed, never called by the port). The bound: 4 *
     B*H*D flops a (query, key) pair the mask keeps (T*T, or T*(T+1)/2
-    causal) at the f32 rate, or q, k, v, o at the memory rate."""
+    causal) at the 3xTF32 rate, or q, k, v, o at the memory rate; the
+    CUDA-core bound (the flops at the f32 rate) beside it."""
     import torch.nn.functional as F
 
     flush = torch.empty(64 << 20, device="cuda")
@@ -572,13 +586,16 @@ def flash_timing(torch, kernels):
         pairs = t * (t + 1) // 2 if causal else t * t
         flops = 4 * b * h * d * pairs
         nbytes = 4 * b * t * h * d * 4
-        bound = 1e3 * max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        bound = 1e3 * max(flops / TF32X3_FLOPS_PER_S,
+                          nbytes / HBM_BYTES_PER_S)
+        simt = 1e3 * max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
         rows.append({"shape": [b, t, h, d], "causal": causal, "ms": kern,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                     "flops": flops, "tflops": flops / kern / 1e9})
+                     "simt_bound_ms": simt, "flops": flops,
+                     "tflops": flops / kern / 1e9})
         print("  flash_attn %s causal=%-5s kernel %.4f ms  plain %.4f ms  "
-              "sdpa %.4f ms  bound %.4f ms  (%.1f TFLOP/s)"
-              % ((b, t, h, d), causal, kern, plain, lib, bound,
+              "sdpa %.4f ms  bound %.4f ms (simt %.4f)  (%.1f TFLOP/s)"
+              % ((b, t, h, d), causal, kern, plain, lib, bound, simt,
                  flops / kern / 1e9))
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
@@ -588,7 +605,8 @@ def flash_timing(torch, kernels):
 def linear_timing(torch, kernels):
     """K1 beside its plain version and addmm plus the activation (timed,
     never called by the port); the bound is the longer of 2MNK at the
-    f32 rate and x, w, b read and out written at the memory rate."""
+    3xTF32 rate and x, w, b read and out written at the memory rate; the
+    CUDA-core bound (2MNK at the f32 rate) beside it."""
     flush = torch.empty(64 << 20, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(14)
     rows = []
@@ -608,10 +626,12 @@ def linear_timing(torch, kernels):
             lib = time_ms(torch, lambda: torch.addmm(b, x, wt), flush)
         flops = 2 * m * n * k
         nbytes = (m * k + n * k + n + m * n) * 4
-        t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = flops / TF32X3_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
         rows.append({"m": m, "k": k, "n": n, "act": act, "ms": kern,
                      "plain_ms": plain, "library_ms": lib,
                      "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "simt_bound_ms": 1e3 * max(flops / F32_FLOPS_PER_S,
+                                                t_bytes),
                      "bound_by": "operations" if t_ops >= t_bytes
                      else "bytes", "tflops": flops / kern / 1e9})
         print("  linear (%5d, %4d) -> %4d %-4s kernel %.4f ms  plain %.4f ms"
@@ -1191,6 +1211,11 @@ def main():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
+    sass = {name: _build.tf32_mma_count(name) for name in TF32_KERNELS}
+    print("TF32 tensor-core MMA instructions (cuobjdump -sass, HMMA ... "
+          "TF32): %s" % sass)
+    check(all(sass.values()), "a kernel that must run on the tensor cores "
+          "holds no TF32 MMA instruction: %s" % sass)
 
     # 3. parity on the card
     counts = bn_shapes(mx)
@@ -1238,10 +1263,11 @@ def main():
           % (bwd_tot["ms"], bwd_tot["plain_ms"], bwd_tot["bound_ms"], card))
     gemm_shapes, gemm_tot = conv_gemm_timing(torch, kernels, gemms)
     print("conv_gemm per step (105 launches, f32): kernel %.4f ms, plain "
-          "%.4f ms, torch.matmul %.4f ms, bound %.4f ms (%s), %.1f TFLOP  "
-          "[%s]" % (gemm_tot["ms"], gemm_tot["plain_ms"],
-                    gemm_tot["library_ms"], gemm_tot["bound_ms"],
-                    gemm_tot["bound_by"], gemm_tot["flops"] / 1e12, card))
+          "%.4f ms, torch.matmul %.4f ms, bound %.4f ms (%s; simt %.4f), "
+          "%.1f TFLOP  [%s]"
+          % (gemm_tot["ms"], gemm_tot["plain_ms"], gemm_tot["library_ms"],
+             gemm_tot["bound_ms"], gemm_tot["bound_by"],
+             gemm_tot["simt_bound_ms"], gemm_tot["flops"] / 1e12, card))
     flash_rows = flash_timing(torch, kernels)
     linear_rows = linear_timing(torch, kernels)
     rtc_time = rtc_timing(torch, mx)
@@ -1296,6 +1322,8 @@ def main():
         "max_err_of_abs_product": gemm_worst["rel"],
         "ms": gemm_tot["ms"], "plain_ms": gemm_tot["plain_ms"],
         "bound_ms": gemm_tot["bound_ms"], "bound_by": gemm_tot["bound_by"],
+        "simt_bound_ms": gemm_tot["simt_bound_ms"],
+        "tf32_mma_sass": sass["conv_gemm"],
         "library_ms": gemm_tot["library_ms"],
         "library_call": "torch.matmul on the same operands",
         "scope": train_scope % CONV_GEMMS,
@@ -1309,6 +1337,8 @@ def main():
         "ms": linear_rows[1]["ms"], "plain_ms": linear_rows[1]["plain_ms"],
         "bound_ms": linear_rows[1]["bound_ms"],
         "bound_by": linear_rows[1]["bound_by"],
+        "simt_bound_ms": linear_rows[1]["simt_bound_ms"],
+        "tf32_mma_sass": sass["linear"],
         "library_ms": linear_rows[1]["library_ms"],
         "library_call": "torch.addmm (plus the activation)",
         "scope": "one call at ResNet-50's head, (%d, 2048) -> 1000, f32, "
@@ -1321,6 +1351,8 @@ def main():
         "max_abs_err": flash_worst,
         "ms": flash_rows[1]["ms"], "plain_ms": flash_rows[1]["plain_ms"],
         "bound_ms": flash_rows[1]["bound_ms"], "bound_by": "operations",
+        "simt_bound_ms": flash_rows[1]["simt_bound_ms"],
+        "tf32_mma_sass": sass["flash_attn"],
         "library_ms": flash_rows[1]["library_ms"],
         "library_call": "F.scaled_dot_product_attention on (B, H, T, D)",
         "scope": "one call at the demo's %s, causal, f32, the ulysses "

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 from .base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "library_path",
-           "find_nvcc"]
+           "find_nvcc", "tf32_mma_count"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,6 +46,7 @@ NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
 # (argument types, return type). Every pointer and the stream are c_void_p
 # and every 64-bit size c_longlong, or ctypes would pass a 32-bit int.
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "norm_act": {
         "norm_act_fwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
@@ -64,7 +65,8 @@ _SIGNATURES = {
                        _I),
     },
     "flash_attn": {
-        "flash_attn_fwd": ([_P, _P, _P, _P, _LL, _LL, _LL, _F, _I, _P], _I),
+        "flash_attn_fwd": ([_P, _P, _P, _P, _LL, _LL, _LL, _LL, _PLL, _F, _I,
+                            _P], _I),
     },
 }
 
@@ -90,8 +92,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    # the source, every header of csrc/ (gemm_tile.cuh) and the flags name
-    # the build
+    # the source, every header of csrc/ (gemm_tile.cuh, tf32x3.cuh) and the
+    # flags name the build
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [SOURCES[name]] + sorted(
             f for f in os.listdir(_SRC_DIR) if f.endswith(".cuh")):
@@ -148,3 +150,17 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _loaded[name] = lib
     return lib
+
+
+def tf32_mma_count(name: str) -> int:
+    """Tensor-core MMA instructions with TF32 operands (``HMMA ... TF32``
+    lines of ``cuobjdump -sass``) in kernel ``name``'s library, built first
+    if needed: the proof that a kernel runs on the tensor cores."""
+    build_all([name])
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", library_path(name)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise MXNetError("cuobjdump failed for %s: %s" % (name, res.stderr))
+    return sum(1 for line in res.stdout.splitlines()
+               if "HMMA" in line and "TF32" in line)

@@ -24,10 +24,14 @@ Ported so far (``csrc/``):
 * K6's launches, the runtime-compiled kernels of ``rtc.Rtc``, are
   counted here too (``rtc``).
 
-Every TPU kernel of the JAX package now has its counterpart here.
+Every TPU kernel of the JAX package now has its counterpart here. K1, K2
+and K3 run on the tensor cores at float32 accuracy (three TF32 products a
+fragment, ``csrc/tf32x3.cuh``), so their results keep the float32
+contracts of their plain versions.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 
@@ -573,32 +577,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_fwd(q, k, v, causal, scale):
-    """K2 on CUDA tensors, the plain version on CPU tensors."""
+    """K2 on CUDA tensors, the plain version on CPU tensors. The kernel
+    reads (B, T, H, D) by strides (any layout with a unit stride on D: a
+    head slice or a transposed view goes in without a copy) and writes a
+    contiguous (B, T, H, D) output."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal, scale)
     b, t, h, d = q.shape
-    if b * h > 65535:
-        raise MXNetError("flash_attention: B*H = %d above the kernel grid's "
-                         "limit of 65535" % (b * h))
-
-    def pack(x):   # (B, T, H, D) -> (B*H, T, D)
-        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
-
-    qp, kp, vp = pack(q), pack(k), pack(v)
-    _check_cuda("flash_attention", qp, kp, vp)
-    o = torch.empty_like(qp)
-    if qp.numel():
+    if b > 65535 or h > 65535:
+        raise MXNetError("flash_attention: B = %d, H = %d; the kernel grid "
+                         "takes at most 65535 of each" % (b, h))
+    dev = q.device
+    if dev.type != "cuda":
+        raise MXNetError("flash_attention: unsupported device %s" % dev)
+    for x in (k, v):
+        if x.device != dev:
+            raise MXNetError("flash_attention: tensors on %s and %s"
+                             % (dev, x.device))
+    for x in (q, k, v):
+        if d > 1 and x.stride(3) != 1:
+            raise MXNetError("flash_attention: the head dimension must have "
+                             "stride 1, got strides %s" % (x.stride(),))
+    o = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
+    if o.numel():
         from .. import _build
 
         lib = _build.load("flash_attn")
-        with torch.cuda.device(q.device):
-            rc = lib.flash_attn_fwd(qp.data_ptr(), kp.data_ptr(),
-                                    vp.data_ptr(), o.data_ptr(), b * h, t, d,
-                                    scale, int(causal), _stream(q))
+        strides = (ctypes.c_longlong * 12)(*[
+            x.stride(i) for x in (q, k, v, o) for i in (0, 1, 2)])
+        with torch.cuda.device(dev):
+            rc = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    o.data_ptr(), b, t, h, d, strides, scale,
+                                    int(causal), _stream(q))
         if rc != 0:
             raise MXNetError("flash_attn launch failed: CUDA error %d" % rc)
         _count("flash_attn_launches")
-    return o.reshape(b, h, t, d).transpose(1, 2)
+    return o
 
 
 class _Flash(torch.autograd.Function):
@@ -631,7 +645,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Differentiable: the backward recomputes through the plain reference.
     On CUDA tensors the forward launches ``flash_attn`` (one launch over
-    all B*H rows) or raises; on CPU tensors it takes
+    all B*H rows, reading any layout whose head dimension has stride 1,
+    B and H up to 65535 each) or raises; on CPU tensors it takes
     :func:`flash_attention_plain`."""
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape):

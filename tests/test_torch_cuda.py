@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
+import torch_tf32x3_model
 from mxnet_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -258,6 +259,80 @@ def test_flash_attn_matches_plain(card, shape, causal):
     assert torch.equal(got, again)
     want = kernels.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256, 48])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attn_reads_a_head_slice_by_strides(card, d, causal):
+    """K2 on a non-contiguous (B, T, H, D) head slice, as ulysses_attention
+    can hand it over, at each head-width instantiation: within rtol 2e-4
+    / atol 2e-5 of the plain version on contiguous copies, a rerun
+    bit-identical, one launch a call, no copy of the inputs."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    full = [torch.randn(2, 300, 5, d, generator=gen, device=card)
+            for _ in range(3)]
+    q, k, v = (x[:, :, 1:4] for x in full)
+    assert not q.is_contiguous()
+    before = kernels.flash_attn_launches
+    got = kernels.flash_attention(q, k, v, causal=causal)
+    again = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.flash_attn_launches == before + 2
+    assert torch.equal(got, again)
+    want = kernels.flash_attention_plain(*(x.contiguous() for x in (q, k, v)),
+                                         causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_attn_refuses_a_strided_head_dimension(card):
+    x = torch.randn(1, 64, 2, 32, device=card).transpose(2, 3)
+    with pytest.raises(tmx.MXNetError, match="stride 1"):
+        kernels.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_conv_gemm_misaligned_operands(card, trans):
+    """Operands one float off the 16-byte alignment take the 4-byte copies:
+    within 1e-6 * sum|a||b| of float64, a rerun bit-identical."""
+    m, n, k = 257, 96, 4099
+    gen = torch.Generator(device=card).manual_seed(11)
+    a = torch.randn(m * k + 1, generator=gen, device=card)[1:]
+    a = a.view(k, m) if trans else a.view(m, k)
+    b = torch.randn(k * n + 1, generator=gen, device=card)[1:].view(k, n)
+    got = kernels.matmul_f32acc(a, b, trans)
+    again = kernels.matmul_f32acc(a, b, trans)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ad = a.double().t() if trans else a.double()
+    bound = 1e-6 * (ad.abs() @ b.double().abs())
+    assert bool(((got.double() - ad @ b.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("name,fn,min_split", [
+    ("conv_gemm", "conv_gemm_k_chunk", torch_tf32x3_model.CONV_MIN_SPLIT),
+    ("linear", "linear_k_chunk", torch_tf32x3_model.LINEAR_MIN_SPLIT)])
+def test_k_chunk_matches_the_cpu_model(card, name, fn, min_split):
+    """The built split-K rule gives the K ranges that the CPU model of the
+    kernels' arithmetic (tests/torch_tf32x3_model.py) splits by."""
+    from mxnet_tpu_torch import _build
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rule = getattr(_build.load(name), fn)
+    for m, n, k in [(147, 64, 401408), (147, 64, 65536), (100352, 64, 576),
+                    (4608, 512, 1568), (2304, 256, 6272), (257, 33, 1001),
+                    (1000, 130, 4099), (129, 65, 7), (1, 1, 1), (32, 1000, 2048),
+                    (128, 128, 256), (8192, 4096, 4096), (0, 5, 5)]:
+        assert rule(m, n, k) == torch_tf32x3_model.k_chunk(
+            m, n, k, min_split, sms), (m, n, k)
+
+
+@pytest.mark.parametrize("name", ["conv_gemm", "linear", "flash_attn"])
+def test_kernels_run_tf32_tensor_core_mma(card, name):
+    """K3, K1 and K2 are built on the tensor cores: their libraries hold
+    HMMA instructions with TF32 operands (cuobjdump -sass)."""
+    from mxnet_tpu_torch import _build
+
+    assert _build.tf32_mma_count(name) > 0
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 256, 128), (32, 2048, 1000),
