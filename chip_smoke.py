@@ -19,9 +19,13 @@ Phases, in order; any failure exits non-zero before the last line:
    K2 (flash_attn) against its plain version (reference attention,
    mask -1e30) at the demo shape of examples/long_context, each head
    width the kernel instantiates and ragged T and D, reruns
-   bit-identical; K1 (linear) against a float64 act(x @ w.T + b), reruns
-   bit-identical; K6 (Rtc, NVRTC): an axpy body bit-equal to 2*x+y, a
-   gelu-like body within rtol 1e-4, a bad body raising with NVRTC's log.
+   bit-identical; K1 (linear) against a float64 act(x @ w.T + b), one
+   CUDA launch a call (torch.profiler), reruns bit-identical, and a
+   sha256 digest of its output at each shape on seeded inputs; K6 (Rtc,
+   NVRTC): an axpy body and the same body with float4 loads and with
+   read-only (__ldg) loads bit-equal to 2*x+y, a gelu-like body within
+   rtol 1e-4, an in-place push equal to 2*x, a bad body raising with
+   NVRTC's log.
 4. kernel timing: median of CUDA-event times with the L2 cache flushed
    before each launch, beside the plain version, the one-call PyTorch
    yardstick where there is one and the bound (bytes at 3.35 TB/s or
@@ -30,8 +34,10 @@ Phases, in order; any failure exits non-zero before the last line:
    67 TFLOP/s CUDA-core bound beside it as simt_bound_ms), summed over
    the launches of one ResNet-50 forward (K4) or training step (K3, K5);
    K2 at the demo shape and at T=16384 (beside
-   scaled_dot_product_attention), K1 at three layers (beside addmm),
-   the Rtc axpy (beside 2*x+y).
+   scaled_dot_product_attention), K1 at three layers and the MNIST
+   MLP's three and five around the narrow tile's limit (beside addmm),
+   the Rtc axpy and its float4 and __ldg bodies beside 2*x+y and
+   torch.add.
 5. serving at full width: ResNet-50, 224x224, 1000 classes, NHWC,
    random seeded weights, served through Module -> InferenceServer ->
    FusedInfer from two client threads; kernel launch counts are zeroed
@@ -57,6 +63,7 @@ Phases, in order; any failure exits non-zero before the last line:
 breakdowns to PATH as JSON.
 """
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -101,8 +108,16 @@ FLASH_TIMED = [DEMO_ATTN + (False,), DEMO_ATTN + (True,),
 LINEAR_ACTS = ("none", "relu", "tanh", "sigmoid")
 LINEAR_CASES = [(128, 256, 128, LINEAR_ACTS), (BATCH, 2048, 1000, ("none",)),
                 (8192, 4096, 4096, ("relu",)), (257, 1001, 33, LINEAR_ACTS)]
+# timed: the first three cases, the MNIST MLP's layers at batch 128
+# (mxnet_tpu/models/mlp.py: 784 -> 128 relu -> 64 relu -> 10), then
+# layers with 32, 64, 96 and 128 wide tiles, around the narrow tile's
+# limit (two thirds of a wave: 88 on 132 SMs)
 LINEAR_TIMED = [(128, 256, 128, "none"), (BATCH, 2048, 1000, "none"),
-                (8192, 4096, 4096, "relu")]
+                (8192, 4096, 4096, "relu"), (128, 784, 128, "relu"),
+                (128, 128, 64, "relu"), (128, 64, 10, "none"),
+                (512, 1024, 1024, "none"), (1024, 1024, 1024, "none"),
+                (768, 2048, 2048, "none"), (1024, 2048, 2048, "none"),
+                (4096, 1024, 512, "none")]
 RTC_N = 1 << 24                # elements of each array of the Rtc bodies
 
 
@@ -475,12 +490,44 @@ def _act64(torch, pre, act):
             "sigmoid": torch.sigmoid(pre)}[act]
 
 
+def cuda_kernels(torch, fn):
+    """Names of the kernels the card ran for fn(), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def linear_digests(torch, kernels):
+    """sha256 (first 16 hex digits) of K1's output bytes at every
+    LINEAR_CASES shape and act on fixed seeded inputs: two trees whose K1
+    splits K alike give equal digests on one card."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for m, k, n, acts in LINEAR_CASES:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(n, k, generator=gen, device="cuda")
+        b = torch.randn(n, generator=gen, device="cuda")
+        for act in acts:
+            y = kernels.fused_linear(x, w, b, act).cpu().numpy()
+            out["(%d, %d) -> %d %s" % (m, k, n, act)] = hashlib.sha256(
+                y.tobytes()).hexdigest()[:16]
+        del x, w, b
+    return out
+
+
 def linear_parity(torch, kernels):
     """K1 against act(x @ w.T + b) in float64: every element within 1e-6
     of sum|x||w| + |b| (K3's bound), plus 2e-7 (one libm ulp) for tanh
-    and sigmoid; a rerun bit-identical."""
+    and sigmoid; a rerun bit-identical; one CUDA launch a call (one more
+    call at every shape and act under one torch.profiler session)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst, cases = {"abs": 0.0, "rel": 0.0}, 0
+    calls = []
     for m, k, n, acts in LINEAR_CASES:
         x = torch.randn(m, k, generator=gen, device="cuda")
         w = torch.randn(n, k, generator=gen, device="cuda")
@@ -491,6 +538,7 @@ def linear_parity(torch, kernels):
             got = kernels.fused_linear(x, w, b, act)
             again = kernels.fused_linear(x, w, b, act)
             torch.cuda.synchronize()
+            calls.append((x, w, b, act))
             where = "linear (%d, %d) -> %d act=%s" % (m, k, n, act)
             check(torch.equal(got, again), where + ": a rerun differs")
             err = (got.double() - _act64(torch, pre, act)).abs()
@@ -501,7 +549,12 @@ def linear_parity(torch, kernels):
             worst["abs"] = max(worst["abs"], float(err.max()))
             worst["rel"] = max(worst["rel"], float((err / mag).max()))
             cases += 1
-        del x, w, b, pre, mag, got, again, err
+        del pre, mag, got, again, err
+    ran = cuda_kernels(torch, lambda: [kernels.fused_linear(*c)
+                                       for c in calls])
+    check(len(ran) == len(calls) and all("linear_kernel" in r for r in ran),
+          "%d fused_linear calls ran %d kernels, want one linear_kernel "
+          "each: %s" % (len(calls), len(ran), sorted(set(ran))))
     return worst, cases
 
 
@@ -531,6 +584,31 @@ def rtc_dims(n):
     return (-(-n // 256),), (256,)
 
 
+def rtc_yardsticks(x, y, out, n):
+    """The axpy body written two other ways, as yardsticks of what the
+    launch route allows, not kernels the port calls: "float4", four
+    elements a thread by 16-byte loads, and "ldg", one element a thread
+    read through the read-only path (what __restrict__ parameters let the
+    compiler choose). Each maps to its Rtc, grid and block."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    check(n % 4 == 0, "the float4 body takes a multiple of 4 elements")
+    index = "long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;\n"
+    float4 = ("long long i = ((long long)blockIdx.x * blockDim.x + "
+              "threadIdx.x) * 4;\nif (i < %dLL) {\n"
+              "  float4 a = *reinterpret_cast<const float4*>(x + i);\n"
+              "  float4 c = *reinterpret_cast<const float4*>(y + i);\n"
+              "  *reinterpret_cast<float4*>(out + i) = make_float4(2.0f * a.x"
+              " + c.x, 2.0f * a.y + c.y, 2.0f * a.z + c.z, 2.0f * a.w + c.w);"
+              "\n}" % n)
+    ldg = index + ("if (i < %dLL) out[i] = 2.0f * __ldg(x + i) + "
+                   "__ldg(y + i);" % n)
+    arrays = ([("x", x), ("y", y)], [("out", out)])
+    return {"float4": (Rtc("axpy4", *arrays, float4), (-(-n // 1024),),
+                       (256,)),
+            "ldg": (Rtc("axpy_ldg", *arrays, ldg),) + rtc_dims(n)}
+
+
 def rtc_parity(torch, mx):
     """The axpy body bit-equal to 2*x+y, the gelu-like body within rtol
     1e-4 of the plain torch expression, a bad body raising with NVRTC's
@@ -550,6 +628,22 @@ def rtc_parity(torch, mx):
     rel = float(((out.handle - want).abs() / want.abs().clamp(min=1e-30))
                 .max())
     check(rel <= 1e-4, "Rtc gelu_ish off by rtol %g" % rel)
+    # in place: x is the input and the output
+    z = mx.nd.NDArray(x.handle.clone(), mx.gpu(0))
+    scale2 = Rtc("scale2", [("x", z)], [("out", z)],
+                 "long long i = (long long)blockIdx.x * blockDim.x + "
+                 "threadIdx.x;\nif (i < %dLL) out[i] = 2.0f * x[i];" % RTC_N)
+    scale2.push([z], [z], grid, block)
+    torch.cuda.synchronize()
+    check(torch.equal(z.handle, 2 * x.handle), "in-place Rtc push of "
+          "out[i] = 2.0f * x[i] differs from 2*x")
+    for name, (body, grid_, block_) in rtc_yardsticks(x, y, out,
+                                                      RTC_N).items():
+        out.handle.zero_()
+        body.push([x, y], [out], grid_, block_)
+        torch.cuda.synchronize()
+        check(torch.equal(out.handle, 2 * x.handle + y.handle),
+              "the %s axpy body differs from 2*x+y" % name)
     try:
         Rtc("bad", [("x", x)], [("out", out)], "this is not CUDA !!!")
     except mx.MXNetError as e:
@@ -643,23 +737,28 @@ def linear_timing(torch, kernels):
 
 
 def rtc_timing(torch, mx):
-    """The axpy body over RTC_N elements beside 2*x+y and beside the one
-    PyTorch call that computes it, torch.add(y, x, alpha=2); bytes bound
-    it (x and y read, out written)."""
+    """The axpy body over RTC_N elements beside its rtc_yardsticks bodies,
+    2*x+y and the one PyTorch call that computes it,
+    torch.add(y, x, alpha=2); bytes bound it (x and y read, out
+    written)."""
     flush = torch.empty(64 << 20, device="cuda")
     axpy, _, x, y, out = rtc_bodies(torch, mx, RTC_N)
     grid, block = rtc_dims(RTC_N)
     kern = time_ms(torch, lambda: axpy.push([x, y], [out], grid, block),
                    flush)
+    yard = {name: time_ms(torch, lambda: body.push([x, y], [out], g, b),
+                          flush)
+            for name, (body, g, b) in rtc_yardsticks(x, y, out,
+                                                     RTC_N).items()}
     plain = time_ms(torch, lambda: 2 * x.handle + y.handle, flush)
     lib = time_ms(torch, lambda: torch.add(y.handle, x.handle, alpha=2.0),
                   flush)
     bound = 1e3 * 3 * RTC_N * 4 / HBM_BYTES_PER_S
-    print("  rtc axpy (%d elements) kernel %.4f ms  2*x+y %.4f ms  "
-          "torch.add %.4f ms  bound %.4f ms"
-          % (RTC_N, kern, plain, lib, bound))
-    return {"n": RTC_N, "ms": kern, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound}
+    print("  rtc axpy (%d elements) kernel %.4f ms  float4 body %.4f ms  "
+          "ldg body %.4f ms  2*x+y %.4f ms  torch.add %.4f ms  bound %.4f ms"
+          % (RTC_N, kern, yard["float4"], yard["ldg"], plain, lib, bound))
+    return {"n": RTC_N, "ms": kern, "yardstick_ms": yard,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bound}
 
 
 def resnet_head_inputs(mx, batch):
@@ -1243,12 +1342,17 @@ def main():
           "bit-identical, max abs err vs plain %g (bound rtol 2e-4 / atol "
           "2e-5)" % (cases, len(FLASH_SHAPES), flash_worst))
     linear_worst, cases = linear_parity(torch, kernels)
-    print("linear parity: %d cases, reruns bit-identical, max abs err vs "
-          "float64 %g; max %.3g of sum|x||w|+|b| (bound 1e-6)"
+    print("linear parity: %d cases, one launch a call, reruns "
+          "bit-identical, max abs err vs float64 %g; max %.3g of "
+          "sum|x||w|+|b| (bound 1e-6)"
           % (cases, linear_worst["abs"], linear_worst["rel"]))
+    digests = linear_digests(torch, kernels)
+    print("linear digests (sha256 of the output, seed 15): %s"
+          % json.dumps(digests))
     rtc_check = rtc_parity(torch, mx)
-    print("rtc parity: axpy bit-equal to 2*x+y, gelu_ish max rel err %.3g "
-          "(bound 1e-4), bad body refused: %s"
+    print("rtc parity: axpy and its float4 and ldg bodies bit-equal to "
+          "2*x+y, gelu_ish max rel err %.3g (bound 1e-4), an in-place push "
+          "equal to 2*x, bad body refused: %s"
           % (rtc_check["gelu_max_rel_err"], rtc_check["bad_body_log"]))
 
     # 4. timing at the main paths' shapes
@@ -1341,8 +1445,13 @@ def main():
         "tf32_mma_sass": sass["linear"],
         "library_ms": linear_rows[1]["library_ms"],
         "library_call": "torch.addmm (plus the activation)",
+        "small_layer_ms": linear_rows[0]["ms"],
+        "small_layer_library_ms": linear_rows[0]["library_ms"],
+        "small_layer_bound_ms": linear_rows[0]["bound_ms"],
+        "digests": digests,
         "scope": "one call at ResNet-50's head, (%d, 2048) -> 1000, f32, "
-                 "the entry-point path's shape" % BATCH,
+                 "the entry-point path's shape; small_layer_*: (128, 256) "
+                 "-> 128" % BATCH,
     }, {
         "name": "flash_attn", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn.cu",
@@ -1368,6 +1477,7 @@ def main():
         "ms": rtc_time["ms"], "plain_ms": rtc_time["plain_ms"],
         "bound_ms": rtc_time["bound_ms"], "bound_by": "bytes",
         "library_ms": rtc_time["library_ms"],
+        "yardstick_ms": rtc_time["yardstick_ms"],
         "library_call": "torch.add(y, x, alpha=2), the axpy body's function",
         "library_note": "a user kernel: the body timed is one choice of "
                         "many; every time here is the axpy body's",

@@ -61,7 +61,7 @@ _SIGNATURES = {
     },
     "linear": {
         "linear_k_chunk": ([_LL, _LL, _LL], _LL),
-        "linear_fwd": ([_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _LL, _I, _P],
+        "linear_fwd": ([_P, _P, _P, _P, _LL, _LL, _LL, _I, _LL, _I, _P],
                        _I),
     },
     "flash_attn": {

@@ -21,9 +21,13 @@
 //    conflicts: held [row][k] (a row-major A, K1's w) with rows of BK + 4 floats, whose
 //    fragments ldmatrix reads, or [k][row] (A^T, a row-major B) with rows of ROWS + 8 floats,
 //    read by 32-bit loads.
-//  * Split K for products with few output tiles and a long K: blockIdx.z takes one K range
-//    and writes its partial tile to a (splits, M, N) float32 scratch that the caller
-//    allocates; a second launch sums the splits in a fixed order. No atomics, so a rerun is
+//  * A kernel may take a narrower tile with fewer warps (TM x BN by NW warps; K1's small
+//    layers take 32 x 64 by 4): every warp's tile stays 32 columns wide, and a product's
+//    arithmetic for one output element does not depend on the tile.
+//  * Split K for products with few output tiles and a long K: blockIdx.z takes one K range.
+//    K3 writes its partial tile to a (splits, M, N) float32 scratch that the caller
+//    allocates, and a second launch sums the splits in a fixed order (splitk_reduce); K1
+//    sums them in the same order across a thread block cluster (linear.cu). A rerun is
 //    bit-identical.
 
 #pragma once
@@ -44,15 +48,16 @@ constexpr int MIN_BLOCKS = 1; // blocks an SM (__launch_bounds__): up to 255 reg
 constexpr int kMaxSplits = 256;
 constexpr int kReduceThreads = 256;
 
-// The warp grid of a BN-wide tile.
-template <int BN>
+// The warp grid of a TM x BN tile computed by NW warps.
+template <int BN, int TM = BM, int NW = 8>
 struct Warps {
   static constexpr int N = BN / 32;       // warps along N
-  static constexpr int M = 8 / N;         // warps along M
-  static constexpr int WM = BM / M;       // rows of a warp's tile
+  static constexpr int M = NW / N;        // warps along M
+  static constexpr int WM = TM / M;       // rows of a warp's tile
   static constexpr int WN = 32;           // columns of a warp's tile
   static constexpr int MI = WM / 16;      // m16 products along M
   static constexpr int NI = WN / 8;       // n8 products along N
+  static_assert(M * N == NW && WM % 16 == 0, "the warps do not tile the block");
 };
 
 // A BK-deep tile of ROWS rows (A's m, B's n) held [row][k] or, KMAJOR, [k][row].
@@ -62,9 +67,9 @@ struct Tile {
   static constexpr int floats = KMAJOR ? BK * stride : ROWS * stride;
 };
 
-template <int BN, bool A_KMAJOR, bool B_KMAJOR>
+template <int BN, bool A_KMAJOR, bool B_KMAJOR, int TM = BM>
 struct Smem {
-  using A = Tile<A_KMAJOR, BM>;
+  using A = Tile<A_KMAJOR, TM>;
   using B = Tile<B_KMAJOR, BN>;
   static constexpr int stage = A::floats + B::floats;
   static constexpr size_t bytes = sizeof(float) * (size_t)STAGES * stage;
@@ -126,11 +131,11 @@ __host__ __device__ inline bool rows_aligned16(const T* p, long long ld) {
 }
 
 // Copy the ROWS x COLS block at (row0, col0) of a row-major float32 matrix into a stage by
-// cp.async, zeros outside it (tf32x3::copy_tile).
-template <int ROWS, int COLS, int SS>
+// cp.async with the NTH threads of a block, zeros outside it (tf32x3::copy_tile).
+template <int ROWS, int COLS, int SS, int NTH = NT>
 __device__ __forceinline__ void copy_tile(float* s, const float* __restrict__ g, long long ld,
                                           int row0, int rend, int col0, int cend, bool vec) {
-  tf32x3::copy_tile<ROWS, COLS, SS, NT>(s, g, ld, row0, rend, col0, cend, vec);
+  tf32x3::copy_tile<ROWS, COLS, SS, NTH>(s, g, ld, row0, rend, col0, cend, vec);
 }
 
 // The same for bfloat16, loaded through registers and widened (exact) into a float32 tile.
@@ -154,15 +159,17 @@ __device__ __forceinline__ void copy_tile(float* s, const __nv_bfloat16* __restr
   }
 }
 
-// acc = A[:, kbeg:kend] @ B[kbeg:kend, :] for the block's tile. load(As, Bs, k0) copies the
-// K step at k0 into a stage's A and B tiles (copy_tile), zero outside the operands and
-// [kbeg, kend); it may issue cp.async copies, which the loop commits and waits for. EXACT:
-// the operands are exact in TF32, one product a fragment.
-template <int BN, bool A_KMAJOR, bool B_KMAJOR, bool EXACT, typename Load>
-__device__ __forceinline__ void mainloop(float* smem, Load&& load, int kbeg, int kend,
-                                         float (&acc)[Warps<BN>::MI][Warps<BN>::NI][4]) {
-  using W = Warps<BN>;
-  using S = Smem<BN, A_KMAJOR, B_KMAJOR>;
+// acc = A[:, kbeg:kend] @ B[kbeg:kend, :] for the block's TM x BN tile, NW warps. load(As,
+// Bs, k0) copies the K step at k0 into a stage's A and B tiles (copy_tile), zero outside the
+// operands and [kbeg, kend); it may issue cp.async copies, which the loop commits and waits
+// for. EXACT: the operands are exact in TF32, one product a fragment.
+template <int BN, bool A_KMAJOR, bool B_KMAJOR, bool EXACT, int TM = BM, int NW = 8,
+          typename Load>
+__device__ __forceinline__ void mainloop(
+    float* smem, Load&& load, int kbeg, int kend,
+    float (&acc)[Warps<BN, TM, NW>::MI][Warps<BN, TM, NW>::NI][4]) {
+  using W = Warps<BN, TM, NW>;
+  using S = Smem<BN, A_KMAJOR, B_KMAJOR, TM>;
   constexpr int SA = S::A::stride, SB = S::B::stride;
 #pragma unroll
   for (int i = 0; i < W::MI; ++i)
@@ -252,10 +259,11 @@ __device__ __forceinline__ void mainloop(float* smem, Load&& load, int kbeg, int
 
 // st(m, n, acc[.][.][r], acc[.][.][r + 1]) for every pair of neighbouring columns (n even)
 // a thread holds, at the block tile's origin (m0, n0).
-template <int BN, typename Store>
-__device__ __forceinline__ void for_each_pair(const float (&acc)[Warps<BN>::MI][Warps<BN>::NI][4],
-                                              int m0, int n0, Store&& st) {
-  using W = Warps<BN>;
+template <int BN, int TM = BM, int NW = 8, typename Store>
+__device__ __forceinline__ void for_each_pair(
+    const float (&acc)[Warps<BN, TM, NW>::MI][Warps<BN, TM, NW>::NI][4], int m0, int n0,
+    Store&& st) {
+  using W = Warps<BN, TM, NW>;
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const int rm = m0 + (warp / W::N) * W::WM + g;

@@ -471,14 +471,10 @@ def _linear_fwd(x, w, b, act):
     lib = _build.load("linear")
     with torch.cuda.device(x.device):
         chunk = lib.linear_k_chunk(m, n, k)
-        splits = -(-k // chunk)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None)
         rc = lib.linear_fwd(x.data_ptr(), w.data_ptr(),
                             None if b is None else b.data_ptr(),
-                            out.data_ptr(),
-                            None if ws is None else ws.data_ptr(), m, n, k,
-                            _LINEAR_ACTS[act], chunk, splits, _stream(x))
+                            out.data_ptr(), m, n, k, _LINEAR_ACTS[act], chunk,
+                            -(-k // chunk), _stream(x))
     if rc != 0:
         raise MXNetError("linear_fwd launch failed: CUDA error %d" % rc)
     _count("linear_launches")
@@ -522,8 +518,9 @@ def fused_linear(x: torch.Tensor, weight: torch.Tensor,
     condition and no None return.
 
     Differentiable in all three inputs. On CUDA tensors the forward
-    launches ``linear`` (contiguous operands) or raises; on CPU tensors
-    it takes :func:`fused_linear_plain`."""
+    launches ``linear`` once at every shape (contiguous operands; a
+    split K is summed inside that launch, across a thread block cluster)
+    or raises; on CPU tensors it takes :func:`fused_linear_plain`."""
     if act not in _LINEAR_ACTS:
         raise MXNetError("fused_linear: act must be one of %s, got %r"
                          % (sorted(_LINEAR_ACTS), act))

@@ -17,6 +17,16 @@ reads the inputs and writes the outputs by their declared names, as
 flat arrays, and computes its own index from ``blockIdx``/``threadIdx``.
 ``push`` launches it over ``grid_dims`` x ``block_dims``, which are
 required. There is no CPU path: a CUDA body needs a card.
+
+The body, grid and block are the user's, and so is what bounds the
+kernel on the card: the source is compiled with NVRTC's defaults (no
+fast math), and a push is one driver launch on PyTorch's stream. A
+streaming body such as an axpy is bound by bytes, and how near it comes
+to the card's memory rate depends on the bytes each thread keeps in
+flight, which the body's own loads decide. Declaring the pointers
+``__restrict__``, or NVRTC's vectorizing options, do not change that
+for a body of one 4-byte load an array (PERF.md, K6); an output may
+also be an input, as in an in-place push.
 """
 from __future__ import annotations
 

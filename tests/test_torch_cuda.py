@@ -308,10 +308,16 @@ def test_conv_gemm_misaligned_operands(card, trans):
     assert bool(((got.double() - ad @ b.double()).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("name,fn,min_split", [
-    ("conv_gemm", "conv_gemm_k_chunk", torch_tf32x3_model.CONV_MIN_SPLIT),
-    ("linear", "linear_k_chunk", torch_tf32x3_model.LINEAR_MIN_SPLIT)])
-def test_k_chunk_matches_the_cpu_model(card, name, fn, min_split):
+def _conv_gemm_model(m, n, k, sms):
+    return torch_tf32x3_model.k_chunk(m, n, k,
+                                      torch_tf32x3_model.CONV_MIN_SPLIT, sms)
+
+
+@pytest.mark.parametrize("name,fn,model", [
+    ("conv_gemm", "conv_gemm_k_chunk", _conv_gemm_model),
+    ("linear", "linear_k_chunk", torch_tf32x3_model.linear_k_chunk)],
+    ids=["conv_gemm", "linear"])
+def test_k_chunk_matches_the_cpu_model(card, name, fn, model):
     """The built split-K rule gives the K ranges that the CPU model of the
     kernels' arithmetic (tests/torch_tf32x3_model.py) splits by."""
     from mxnet_tpu_torch import _build
@@ -321,9 +327,10 @@ def test_k_chunk_matches_the_cpu_model(card, name, fn, min_split):
     for m, n, k in [(147, 64, 401408), (147, 64, 65536), (100352, 64, 576),
                     (4608, 512, 1568), (2304, 256, 6272), (257, 33, 1001),
                     (1000, 130, 4099), (129, 65, 7), (1, 1, 1), (32, 1000, 2048),
-                    (128, 128, 256), (8192, 4096, 4096), (0, 5, 5)]:
-        assert rule(m, n, k) == torch_tf32x3_model.k_chunk(
-            m, n, k, min_split, sms), (m, n, k)
+                    (128, 128, 256), (8192, 4096, 4096), (0, 5, 5),
+                    (128, 128, 784), (128, 64, 128), (128, 10, 64),
+                    (1024, 2048, 2048), (1536, 1408, 512)]:
+        assert rule(m, n, k) == model(m, n, k, sms), (m, n, k)
 
 
 @pytest.mark.parametrize("name", ["conv_gemm", "linear", "flash_attn"])
@@ -335,22 +342,38 @@ def test_kernels_run_tf32_tensor_core_mma(card, name):
     assert _build.tf32_mma_count(name) > 0
 
 
-@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (32, 2048, 1000),
-                                   (257, 1001, 33), (3, 5, 2)])
+def cuda_kernels(fn):
+    """Names of the kernels the card ran for fn() (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 5, 2), (128, 256, 128),
+                                   (128, 784, 128), (32, 2048, 1000),
+                                   (257, 1001, 33)])
 @pytest.mark.parametrize("act", ["none", "relu", "tanh", "sigmoid"])
 def test_linear_matches_float64(card, m, k, n, act):
     """K1 against act(x @ w.T + b) in float64: within 1e-6 of
-    sum|x||w| + |b| (plus one libm ulp, 2e-7, for tanh and sigmoid); a
-    rerun bit-identical (split K sums in order, the epilogue once)."""
+    sum|x||w| + |b| (plus one libm ulp, 2e-7, for tanh and sigmoid); one
+    CUDA launch a call; a rerun bit-identical (split K sums in order, the
+    epilogue once)."""
     gen = torch.Generator(device=card).manual_seed(7)
     x = torch.randn(m, k, generator=gen, device=card)
     w = torch.randn(n, k, generator=gen, device=card)
     b = torch.randn(n, generator=gen, device=card)
     before = kernels.linear_launches
     got = kernels.fused_linear(x, w, b, act)
+    ran = cuda_kernels(lambda: kernels.fused_linear(x, w, b, act))
     again = kernels.fused_linear(x, w, b, act)
     torch.cuda.synchronize()
-    assert kernels.linear_launches == before + 2
+    assert len(ran) == 1 and "linear_kernel" in ran[0], ran
+    assert kernels.linear_launches == before + 3
     assert torch.equal(got, again)
     pre = x.double() @ w.double().t() + b.double()
     want = {"none": pre, "relu": torch.relu(pre), "tanh": torch.tanh(pre),
@@ -399,6 +422,24 @@ def test_rtc_multiline_kernel(card):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.handle, v / (1 + torch.exp(-1.702 * v)),
                                rtol=1e-4, atol=0)
+
+
+def test_rtc_in_place_push(card):
+    """x declared as input and output: the push computes what a fresh
+    output would hold, as the JAX reference's fresh outputs do."""
+    from mxnet_tpu_torch.rtc import Rtc
+
+    v = torch.randn(4096, generator=torch.Generator(device=card)
+                    .manual_seed(3), device=card)
+    x = _nd(v.clone())
+    kern = Rtc("scale2", [("x", x)], [("out", x)],
+               "int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+               "if (i < 4096) out[i] = 2.0f * x[i];")
+    before = kernels.rtc_launches
+    kern.push([x], [x], grid_dims=(16,), block_dims=(256,))
+    torch.cuda.synchronize()
+    assert kernels.rtc_launches == before + 1
+    assert torch.equal(x.handle, 2 * v)
 
 
 def test_rtc_bad_source_raises_with_nvrtc_log(card):

@@ -14,7 +14,8 @@ import torch
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import pallas_kernels as pk
-from torch_tf32x3_model import (attention_model, gemm_model, split, tf32,
+from torch_tf32x3_model import (attention_model, gemm_model,
+                                linear_k_chunk, linear_model, split, tf32,
                                 within_k2_contract, within_k3_contract)
 
 
@@ -77,3 +78,53 @@ def test_three_tf32_attention_matches_pallas_interpret(d, causal):
                           32 if d >= 128 else 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-5)
+
+
+# (M, K, N) of chip_smoke.py's fused linear (LINEAR_CASES, the MNIST MLP's
+# layers at batch 128, layers of 32-128 wide tiles) and K1's K range a
+# split on a 132-SM card
+@pytest.mark.parametrize("m,k,n,chunk", [
+    (128, 256, 128, 64), (32, 2048, 1000, 256), (8192, 4096, 4096, 4096),
+    (257, 1001, 33, 128), (128, 784, 128, 128), (128, 128, 64, 64),
+    (128, 64, 10, 64), (3, 5, 2, 32), (1, 1, 1, 32),
+    (512, 1024, 1024, 1024), (1024, 1024, 1024, 1024),
+    (768, 2048, 2048, 2048), (4096, 1024, 512, 1024),
+    (256, 1024, 256, 256)])
+def test_linear_split_rule(m, k, n, chunk):
+    assert linear_k_chunk(m, n, k) == chunk
+
+
+@pytest.mark.parametrize("m,k,n,act", [(128, 256, 128, "tanh"),
+                                       (32, 2048, 1000, "none"),
+                                       (128, 784, 128, "sigmoid"),
+                                       (257, 1001, 33, "none")])
+def test_three_tf32_linear_keeps_the_k1_contract(m, k, n, act):
+    """K1's arithmetic, split as linear_k_chunk splits it, within 1e-6 of
+    sum|x||w| + |b| of a float64 act(x @ w.T + b) (plus one libm ulp,
+    2e-7, for tanh and sigmoid)."""
+    rng = np.random.RandomState(m + k + n)
+    x, w = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+            for s in ((m, k), (n, k)))
+    b = torch.from_numpy(rng.randn(n).astype(np.float32))
+    pre = x.double() @ w.double().t() + b.double()
+    want = {"none": pre, "tanh": torch.tanh(pre),
+            "sigmoid": torch.sigmoid(pre)}[act]
+    bound = 1e-6 * (x.double().abs() @ w.double().abs().t()
+                    + b.double().abs()) + (0.0 if act == "none" else 2e-7)
+    got = linear_model(x, w, b, act)
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "tanh", "sigmoid"])
+def test_three_tf32_linear_matches_pallas_interpret(act):
+    """The K1 model against the JAX package's fused_linear, its Pallas
+    kernel run in interpret mode on the CPU, at the JAX test's shape."""
+    rng = np.random.RandomState(5)
+    x, w, b = (rng.randn(*s).astype(np.float32)
+               for s in ((128, 256), (128, 256), (128,)))
+    want = pk.fused_linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                           act=act)
+    assert want is not None
+    got = linear_model(*(torch.from_numpy(a) for a in (x, w, b)), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)

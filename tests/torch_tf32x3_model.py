@@ -13,7 +13,8 @@ hi*lo, lo*hi, hi*hi. In K3 a BK-deep step's products, in K2's P V a key
 tile's, chain into a fragment from zero that is then added to the running
 sum with rounding to nearest; K2's scores chain from zero over D. K3 splits
 K as ``gemm_tile.cuh``'s k_chunk does and sums the splits in order in
-float32. K2 walks key tiles with the online softmax in base 2."""
+float32. K1 splits K as ``linear.cu``'s linear_k_chunk does and sums its splits
+the same way. K2 walks key tiles with the online softmax in base 2."""
 import math
 
 import torch
@@ -24,6 +25,9 @@ from mxnet_tpu_torch.ops import kernels as tk
 BM, BK, MAX_SPLITS, SMS = 128, 32, 256, 132
 # conv_gemm.cu's and linear.cu's kMinSplitK
 CONV_MIN_SPLIT, LINEAR_MIN_SPLIT = 256, 64
+# linear.cu's narrow tile (kNarrowM x kNarrowN) and its most splits
+# (kMaxClusterSplits: the splits of a tile are one cluster)
+LINEAR_NARROW_M, LINEAR_NARROW_N, LINEAR_MAX_SPLITS = 32, 64, 8
 LOG2E = 1.4426950408889634
 
 
@@ -113,12 +117,32 @@ def k_chunk(m, n, k, min_split=CONV_MIN_SPLIT, sms=SMS):
     return -(-per // BK) * BK
 
 
-def gemm_model(a, b, passes=3):
+def linear_k_chunk(m, n, k, sms=SMS):
+    """linear.cu's split-K rule (``linear_k_chunk``) on a card of ``sms``
+    SMs: one split for a layer with two thirds of a wave of wide tiles
+    (one block an SM), else narrow tiles and as many splits as fill about
+    one wave of one block an SM, between one and k / LINEAR_MIN_SPLIT, at
+    most LINEAR_MAX_SPLITS. tests/test_torch_cuda.py holds it to the
+    built library."""
+    if m <= 0 or n <= 0 or k <= 0:
+        return BK
+    tn = 64 if n <= 64 else 128
+    splits = 1
+    if 3 * (-(-m // BM) * -(-n // tn)) < 2 * sms:
+        most = min(k // LINEAR_MIN_SPLIT, LINEAR_MAX_SPLITS)
+        tiles = -(-m // LINEAR_NARROW_M) * -(-n // LINEAR_NARROW_N)
+        splits = max(min(sms // tiles, most), 1)
+    per = -(-k // splits)
+    return -(-per // BK) * BK
+
+
+def gemm_model(a, b, passes=3, chunk=None):
     """K3's float32 result for a (M, K) @ b (K, N): each split's K range
-    through :func:`mma_sum`, then the splits summed in order."""
+    (``chunk``, by default K3's :func:`k_chunk`) through :func:`mma_sum`,
+    then the splits summed in order."""
     m, k = a.shape
     n = b.shape[1]
-    chunk = k_chunk(m, n, k)
+    chunk = k_chunk(m, n, k) if chunk is None else chunk
     splits = -(-k // chunk)
     pad = splits * chunk - k
     a = torch.nn.functional.pad(a, (0, pad)).reshape(m, splits, chunk)
@@ -129,6 +153,16 @@ def gemm_model(a, b, passes=3):
     for z in range(1, splits):
         out = out + ws[z]
     return out
+
+
+def linear_model(x, w, b, act="none"):
+    """K1's float32 result: :func:`gemm_model` of x @ w.T split by
+    :func:`linear_k_chunk`, then the bias and the activation once."""
+    m, k = x.shape
+    y = gemm_model(x, w.t().contiguous(),
+                   chunk=linear_k_chunk(m, w.shape[0], k)) + b
+    return {"none": y, "relu": torch.relu(y), "tanh": torch.tanh(y),
+            "sigmoid": torch.sigmoid(y)}[act]
 
 
 def attention_model(q, k, v, causal, bkv, passes=3):
