@@ -45,10 +45,28 @@ Phases, in order; any failure exits non-zero before the last line:
    Executor.forward; card probabilities against the port on the CPU.
 6. training at full width: the same network through Module.fit (SGD,
    momentum 0.9, wd 1e-4, rescale_grad 1/32) over 5 batches of 32 from
-   seed 0; launch counts zeroed just before and read just after (K3 105,
-   K4 53 and K5 53 per step); finite losses, every param and moving
-   statistic changed; step time and img/s, a torch.profiler breakdown;
-   one step at batch 2 on the card against the port on the CPU.
+   seed 0, first through the classic loop, then through the fused step
+   (fit(fused_step=True): one eager step, one CUDA graph capture, a
+   replay a batch after the first) from the same weights; for each,
+   launch counts zeroed just before and read just after (K3 105, K4 53
+   and K5 53 a step: in the classic loop every step, in the fused loop
+   the eager step and the launches the capture records, since a replay
+   runs no wrapper), finite losses, every param and moving statistic
+   changed; the fused loop's params, moving statistics, losses and
+   metric equal the classic loop's bit for bit; both loops' host step
+   time (median of steps 2-5 between batch-end callbacks, card
+   synchronised), img/s, peak allocated memory and a torch.profiler
+   breakdown over two steps (device ms a step, busy share, and the
+   launches the card ran, counted from the kernel events: 105, 53 and
+   53 a step in both loops; the fused replay also by CUDA events); one
+   classic step at batch 2 on the card against the port on the CPU.
+   Then the MNIST path: idx files written from seeded numpy (separable
+   class templates), the MLP and LeNet through
+   FeedForward(fused_step=True) over MNISTIter batches of 128 for 2
+   epochs (LeNet runs K3 three times a step), losses falling and
+   held-out accuracy >= 0.97, two more replays under torch.profiler
+   (LeNet: K3 three times a replay), and three fused steps of each at
+   batch 2 on the card against the port on the CPU.
 7. entry points at full width, launch counts zeroed just before and
    read just after: parallel.make_ring_attention over a one-rank "sp"
    mesh at the demo's (1, 4096, 8, 32), causal, impl "ulysses" (K2 once
@@ -66,8 +84,10 @@ import argparse
 import hashlib
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -119,6 +139,13 @@ LINEAR_TIMED = [(128, 256, 128, "none"), (BATCH, 2048, 1000, "none"),
                 (768, 2048, 2048, "none"), (1024, 2048, 2048, "none"),
                 (4096, 1024, 512, "none")]
 RTC_N = 1 << 24                # elements of each array of the Rtc bodies
+MNIST_TRAIN = 5120             # 40 batches of 128
+MNIST_TEST = 1024
+MNIST_BATCH = 128
+MNIST_EPOCHS = 2
+# separable templates at 40/255 pixel noise: both networks should reach
+# every held-out digit; 0.97 leaves room for a few hard samples
+MNIST_MIN_ACC = 0.97
 
 
 def check(cond, msg):
@@ -1115,14 +1142,32 @@ def _host(params):
     return {k: v.asnumpy().copy() for k, v in params.items()}
 
 
-def train_main_path(torch, mx, kernels, card):
-    """Module.fit over one epoch of TRAIN_STEPS batches of 32 on the card,
-    launch counts zeroed just before and read just after."""
+def train_data():
+    """TRAIN_STEPS batches of 32 images and labels from seed 0."""
     rng = np.random.RandomState(0)
     images = rng.randn(TRAIN_STEPS * BATCH, *IMAGE).astype(np.float32)
     labels = rng.randint(0, 1000, TRAIN_STEPS * BATCH).astype(np.float32)
+    return images, labels
+
+
+def _resnet_launches(steps):
+    """The compiled kernels' launches of ``steps`` ResNet-50 training
+    steps, by wrapper."""
+    return {"norm_act_fwd": BN_LAYERS * steps,
+            "norm_act_bwd": BN_LAYERS * steps,
+            "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0}
+
+
+def fit_resnet(torch, mx, kernels, images, labels, fused):
+    """Module.fit over one epoch of TRAIN_STEPS batches of 32 on the card
+    from train_module's seed-0 weights, the classic loop or the fused
+    step; launch counts and the peak of allocated memory zeroed just
+    before and read just after. Per step: the loss of the forward's
+    probabilities and the host clock at the batch-end callback, with
+    the card synchronised."""
     mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
     args0, aux0 = (_host(p) for p in mod.get_params())
+    metric = mx.metric.Accuracy()
     losses, marks = [], []
 
     def on_batch(param):
@@ -1134,70 +1179,170 @@ def train_main_path(torch, mx, kernels, card):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
             num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
-            batch_end_callback=on_batch)
+            eval_metric=metric, batch_end_callback=on_batch,
+            fused_step=fused)
     launches = kernels.launch_counts()
-    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
     args1, aux1 = (_host(p) for p in mod.get_params())
     steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     step_ms = float(np.median(steps_ms))
-    print("training main path: %d steps of %d, launches %s, losses %s"
-          % (len(losses), BATCH, launches, ["%.4f" % v for v in losses]))
-    want = {"norm_act_fwd": BN_LAYERS * TRAIN_STEPS,
-            "norm_act_bwd": BN_LAYERS * TRAIN_STEPS,
-            "conv_gemm": CONV_GEMMS * TRAIN_STEPS,
-            "linear": 0, "flash_attn": 0, "rtc": 0}
-    check(launches == want, "training launches %s, want %s (53, 53 and 105 "
-          "a step)" % (launches, want))
+    # a replay runs no wrapper: the fused loop's wrappers count the eager
+    # step and the capture (fused_train_path counts the replays)
+    counted = 2 if fused else TRAIN_STEPS
+    want = dict(_resnet_launches(counted), rtc=0)
+    loop = "fused" if fused else "classic"
+    losses = [float(v) for v in losses]
+    print("training main path (%s loop): %d steps of %d, launches %s, "
+          "losses %s" % (loop, len(losses), BATCH, launches,
+                         ["%.4f" % v for v in losses]))
+    check(launches == want, "%s training launches %s, want %s (53, 53 and "
+          "105 a step, %d steps)" % (loop, launches, want, counted))
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-          "training losses %s" % losses)
+          "%s training losses %s" % (loop, losses))
     unchanged = [k for k in args0 if np.array_equal(args0[k], args1[k])]
     check(not unchanged, "params unchanged by training: %s" % unchanged)
     stale = [k for k in aux0 if np.array_equal(aux0[k], aux1[k])]
     check(not stale, "moving statistics unchanged: %s" % stale)
     check(all(np.all(np.isfinite(v)) for v in args1.values()),
           "non-finite params after training")
-    print("training step (median of steps 2-%d): %.3f ms, %.1f img/s  [%s]"
-          % (TRAIN_STEPS, step_ms, BATCH * 1e3 / step_ms, card))
-    breakdown = train_breakdown(torch, mx, mod, images[:BATCH],
-                                labels[:BATCH])
-    print("training step breakdown: %.3f ms on the card per step (device "
-          "busy %.1f%% under the profiler)  [%s]"
-          % (breakdown["device_ms_per_step"], 100 * breakdown["busy_share"],
-             card))
+    return {"mod": mod, "metric": metric, "launches": launches,
+            "losses": losses, "steps_ms": steps_ms, "step_ms": step_ms,
+            "img_per_s": BATCH * 1e3 / step_ms, "peak_bytes": peak,
+            "peak_above_start_bytes": peak - base, "args": args1,
+            "aux": aux1, "accuracy": metric.get()[1]}
+
+
+def print_breakdown(loop, breakdown, card):
+    print("%s step breakdown: %.3f ms on the card per step (device busy "
+          "%.1f%% under the profiler, %.3f ms a step on the host clock)  "
+          "[%s]" % (loop, breakdown["device_ms_per_step"],
+                    100 * breakdown["busy_share"],
+                    breakdown["profiled_wall_ms_per_step"], card))
     for group, ms in sorted(breakdown["by_group_ms"].items(),
                             key=lambda kv: -kv[1]):
         print("  %-30s %.4f ms per step" % (group, ms))
-    return {"launches": launches, "losses": losses, "steps_ms": steps_ms,
-            "step_ms": step_ms, "img_per_s": BATCH * 1e3 / step_ms,
-            "breakdown": breakdown, "gate": train_gate(mx, images, labels)}
 
 
-def train_breakdown(torch, mx, mod, images, labels):
+def train_main_path(torch, mx, kernels, card, images, labels):
+    """The classic loop (forward_backward, update, update_metric)."""
+    run = fit_resnet(torch, mx, kernels, images, labels, fused=False)
+    del run["metric"]
+    print("classic step (median of steps 2-%d): %.3f ms, %.1f img/s, peak "
+          "allocated %.3f GB (%.3f above the start)  [%s]"
+          % (TRAIN_STEPS, run["step_ms"], run["img_per_s"],
+             run["peak_bytes"] / 1e9, run["peak_above_start_bytes"] / 1e9,
+             card))
+    run["breakdown"] = train_breakdown(torch, mx, kernels, run.pop("mod"),
+                                       images[:BATCH], labels[:BATCH])
+    print_breakdown("classic", run["breakdown"], card)
+    check_profiled_launches("classic", run["breakdown"])
+    run["gate"] = train_gate(mx, images, labels)
+    return run
+
+
+def fused_train_path(torch, mx, kernels, card, images, labels, classic):
+    """The fused loop: Module.fit(fused_step=True) from the same weights,
+    data and optimizer as the classic loop. One eager step, one capture,
+    a replay a batch after the first; the classic loop's launches a step;
+    params and moving statistics after 5 steps bit-equal to the classic
+    loop's."""
+    run = fit_resnet(torch, mx, kernels, images, labels, fused=True)
+    mod = run.pop("mod")
+    step = mod._fused_step
+    counters = {"eager_steps": step.eager_steps, "captures": step.captures,
+                "dispatches": step.dispatches}
+    print("fused step counters: %s" % counters)
+    check(counters == {"eager_steps": 1, "captures": 1,
+                       "dispatches": TRAIN_STEPS - 1},
+          "fused step counters %s, want one eager step, one capture and "
+          "a replay a batch after the first" % counters)
+    diffs = {}
+    for name, mine, theirs in (("params", run["args"], classic["args"]),
+                               ("aux", run["aux"], classic["aux"])):
+        diffs[name] = max(float(np.max(np.abs(mine[k] - theirs[k])))
+                          for k in theirs)
+        unequal = [k for k in theirs if not np.array_equal(mine[k],
+                                                           theirs[k])]
+        check(not unequal, "fused and classic %s differ after %d steps at "
+              "%s (max abs diff %g)" % (name, TRAIN_STEPS, unequal[:5],
+                                        diffs[name]))
+    check(run["losses"] == classic["losses"], "fused losses %s, classic %s"
+          % (run["losses"], classic["losses"]))
+    check(run["accuracy"] == classic["accuracy"], "fused metric %r, classic "
+          "%r" % (run["accuracy"], classic["accuracy"]))
+    print("fused vs classic after %d steps: params and moving statistics "
+          "bit-equal (max abs diff %g / %g), losses and accuracy equal"
+          % (TRAIN_STEPS, diffs["params"], diffs["aux"]))
+    print("fused step (median of steps 2-%d): %.3f ms, %.1f img/s, peak "
+          "allocated %.3f GB (%.3f above the start)  [%s]"
+          % (TRAIN_STEPS, run["step_ms"], run["img_per_s"],
+             run["peak_bytes"] / 1e9, run["peak_above_start_bytes"] / 1e9,
+             card))
+    run["breakdown"] = fused_breakdown(torch, mx, kernels, step,
+                                       run["metric"], images[:BATCH],
+                                       labels[:BATCH])
+    print_breakdown("fused", run["breakdown"], card)
+    check_profiled_launches("fused", run["breakdown"])
+    print("fused replay: %.3f ms a step on the card by CUDA events, %.3f ms "
+          "of host time to enqueue a step on an idle card (copy in, "
+          "hyperparameters, replay)  [%s]"
+          % (run["breakdown"]["event_ms_per_step"],
+             run["breakdown"]["host_enqueue_ms"], card))
+    run.pop("metric")
+    run.update(counters=counters, max_abs_diff_vs_classic=diffs)
+    return run
+
+
+def check_profiled_launches(loop, breakdown):
+    """The launches the card ran in the profiled steps, counted from the
+    kernel events: 105 K3, 53 K4 and 53 K5 a step."""
+    want = _resnet_launches(breakdown["steps"])
+    print("%s: launches the card ran in %d profiled steps (kernel events): "
+          "%s" % (loop, breakdown["steps"], breakdown["launches"]))
+    check(breakdown["launches"] == want, "%s: the card ran %s in %d "
+          "profiled steps, want %s" % (loop, breakdown["launches"],
+                                       breakdown["steps"], want))
+
+
+def train_breakdown(torch, mx, kernels, mod, images, labels):
     """Kernel time by group and the device's busy share over two
     training steps (forward_backward + update) under torch.profiler."""
+    batch = mx.io.DataBatch([images], [labels])
+
+    def classic_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    classic_step()
+    torch.cuda.synchronize()
+    return _profile_steps(torch, kernels, classic_step)
+
+
+def _profile_steps(torch, kernels, run_step, reps=2):
+    """Kernel time by group, the busy share and the compiled kernels'
+    launches (``kernels.launches_in`` over the kernel events) of ``reps``
+    calls of ``run_step`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batch = mx.io.DataBatch([images], [labels])
-    mod.forward_backward(batch)
-    mod.update()
-    torch.cuda.synchronize()
-    reps = 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            mod.forward_backward(batch)
-            mod.update()
+            run_step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    groups, kernels_us = {}, []
+    groups, kernels_us, names = {}, [], []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        names += [e.key] * e.count
         us = float(e.self_device_time_total)
         kernels_us.append((us, e.key))
         g = _train_group(e.key)
@@ -1205,13 +1350,44 @@ def train_breakdown(torch, mx, mod, images, labels):
     busy_us = sum(us for us, _ in kernels_us)
     check(busy_us > 0, "the profiler saw no device time")
     kernels_us.sort(reverse=True)
-    return {"profiled_wall_ms_per_step": wall_s * 1e3 / reps,
+    return {"steps": reps, "launches": kernels.launches_in(names),
+            "profiled_wall_ms_per_step": wall_s * 1e3 / reps,
             "device_ms_per_step": busy_us / 1e3 / reps,
             "busy_share": busy_us / 1e6 / wall_s,
             "by_group_ms": {g: us / 1e3 / reps for g, us in groups.items()},
             "top_kernels": [{"name": n[:160], "ms_per_step": us / 1e3 / reps,
                              "group": _train_group(n)}
                             for us, n in kernels_us[:20]]}
+
+
+def fused_breakdown(torch, mx, kernels, step, metric, images, labels,
+                    reps=2):
+    """Two replays of the captured step under torch.profiler; then the
+    device time of 10 back-to-back steps by CUDA events, and the host
+    time to enqueue one step on an idle card (median of 10, each after a
+    synchronise: with work queued, the step waits for the copy out of
+    its pinned buffer two steps back)."""
+    batch = mx.io.DataBatch([images], [labels])
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    res = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
+                         reps)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        step.step(batch, metric)
+    end.record()
+    torch.cuda.synchronize()
+    res["event_ms_per_step"] = start.elapsed_time(end) / 10
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.step(batch, metric)
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    res["host_enqueue_ms"] = 1e3 * float(np.median(host))
+    return res
 
 
 def gate_module(mx, ctx, gamma_b3=None):
@@ -1262,6 +1438,162 @@ def train_gate(mx, images, labels):
     check(worst[0] <= 1e-5, "param %s differs beyond rtol 1e-3 / atol 1e-5"
           % worst[1])
     return {"loss_card": lg, "loss_cpu": lc, "worst_param": worst[1],
+            "worst_excess": worst[0]}
+
+
+def write_mnist_idx(out_dir, seed=0):
+    """MNIST-format idx files (train-images-idx3-ubyte and the rest) from
+    seeded numpy: a 28x28 template of bright strokes a class, each sample
+    its class's template shifted by up to two pixels with Gaussian pixel
+    noise. The classes are separable; no PIL, no download."""
+    rng = np.random.RandomState(seed)
+    templates = (rng.rand(10, 28, 28) < 0.2) * 200.0
+    for prefix, n in (("train", MNIST_TRAIN), ("t10k", MNIST_TEST)):
+        labels = rng.randint(0, 10, n)
+        shifts = rng.randint(-2, 3, (n, 2))
+        images = np.stack([np.roll(templates[c], tuple(d), axis=(0, 1))
+                           for c, d in zip(labels, shifts)])
+        images = np.clip(images + rng.randn(n, 28, 28) * 40.0, 0, 255)
+        with open(os.path.join(out_dir, "%s-images-idx3-ubyte" % prefix),
+                  "wb") as f:
+            f.write(struct.pack(">IIII", 0x803, n, 28, 28))
+            f.write(images.astype(np.uint8).tobytes())
+        with open(os.path.join(out_dir, "%s-labels-idx1-ubyte" % prefix),
+                  "wb") as f:
+            f.write(struct.pack(">II", 0x801, n))
+            f.write(labels.astype(np.uint8).tobytes())
+
+
+def mnist_iter(mx, data_dir, split, net, batch, shuffle=True):
+    return mx.io.MNISTIter(
+        image=os.path.join(data_dir, "%s-images-idx3-ubyte" % split),
+        label=os.path.join(data_dir, "%s-labels-idx1-ubyte" % split),
+        batch_size=batch, flat=net == "mlp", shuffle=shuffle, seed=0)
+
+
+def mnist_main_path(torch, mx, kernels, card):
+    """The MLP and LeNet through FeedForward(fused_step=True) over
+    MNISTIter batches of 128 for MNIST_EPOCHS epochs, launch counts zeroed
+    just before each fit and read just after (LeNet: K3 three times a
+    step, the weight gradients of both convolutions and conv2's input
+    gradient; a replay runs no wrapper, so the wrappers count the eager
+    step and the capture); losses fall, held-out accuracy reaches
+    MNIST_MIN_ACC; two more replays under torch.profiler run K3 three
+    times each for LeNet (kernel events); then three fused steps at batch
+    2 on the card against the port on the CPU."""
+    res = {}
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_mnist_idx(data_dir)
+        for net in ("mlp", "lenet"):
+            losses = []
+
+            def on_batch(param, losses=losses):
+                probs = param.locals["self"].get_outputs()[0].handle
+                lab = param.locals["data_batch"].label[0].handle.to(
+                    probs.device, torch.int64)
+                losses.append(-torch.log(probs.gather(1, lab[:, None]))
+                              .mean())
+
+            sym = getattr(mx.models, "get_" + net)()
+            model = mx.model.FeedForward(
+                sym, ctx=mx.gpu(0), num_epoch=MNIST_EPOCHS,
+                learning_rate=0.1, momentum=0.9, wd=1e-4,
+                initializer=mx.init.Xavier(magnitude=2.0, seed=3),
+                fused_step=True)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            model.fit(mnist_iter(mx, data_dir, "train", net, MNIST_BATCH),
+                      batch_end_callback=on_batch)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            step = model._module._fused_step
+            steps = len(losses)
+            losses = [float(v) for v in losses]
+            acc = model.score(mnist_iter(mx, data_dir, "t10k", net,
+                                         MNIST_BATCH, shuffle=False))
+            head = float(np.mean(losses[:5]))
+            tail = float(np.mean(losses[-5:]))
+            print("mnist %s: %d fused steps of %d in %.2f s (eager %d, "
+                  "captures %d, replays %d), launches %s, loss %.4f -> "
+                  "%.4f (mean of the first and last 5), held-out accuracy "
+                  "%.4f  [%s]" % (net, steps, MNIST_BATCH, fit_s,
+                                  step.eager_steps, step.captures,
+                                  step.dispatches, launches, head, tail, acc,
+                                  card))
+            check((step.eager_steps, step.captures, step.dispatches)
+                  == (1, 1, steps - 1), "mnist %s fused counters" % net)
+            gemms = 3 if net == "lenet" else 0
+            want = {"norm_act_fwd": 0, "norm_act_bwd": 0,
+                    "conv_gemm": 2 * gemms, "linear": 0, "flash_attn": 0}
+            check(launches == dict(want, rtc=0), "mnist %s launches %s "
+                  "(the eager step and the capture), want %s"
+                  % (net, launches, want))
+            batch = mnist_iter(mx, data_dir, "train", net,
+                               MNIST_BATCH).next()
+            metric = mx.metric.Accuracy()
+            ran = _profile_steps(torch, kernels,
+                                 lambda: step.step(batch, metric))
+            want["conv_gemm"] = ran["steps"] * gemms
+            print("mnist %s: launches the card ran in %d profiled replays "
+                  "(kernel events): %s" % (net, ran["steps"],
+                                           ran["launches"]))
+            check(ran["launches"] == want, "mnist %s: the card ran %s in "
+                  "%d profiled replays, want %s"
+                  % (net, ran["launches"], ran["steps"], want))
+            check(all(np.isfinite(losses)) and tail < 0.5 * head,
+                  "mnist %s losses did not fall: %.4f -> %.4f"
+                  % (net, head, tail))
+            check(acc >= MNIST_MIN_ACC, "mnist %s held-out accuracy %.4f < "
+                  "%.2f" % (net, acc, MNIST_MIN_ACC))
+            res[net] = {"steps": steps, "fit_s": fit_s, "launches": launches,
+                        "replays_profiled": ran["steps"],
+                        "replay_launches": ran["launches"],
+                        "loss_first5": head, "loss_last5": tail,
+                        "heldout_accuracy": acc,
+                        "gate": mnist_gate(mx, data_dir, net)}
+    return res
+
+
+def mnist_gate(mx, data_dir, net):
+    """Three fused steps at batch 2 (eager, capture and replay on the
+    card) against the port on the CPU from the same weights and data:
+    per-step losses within rtol 1e-4, params within rtol 1e-3 / atol
+    1e-5."""
+    it = mnist_iter(mx, data_dir, "train", net, 6, shuffle=False)
+    batch = it.next()
+    x, y = batch.data[0].asnumpy(), batch.label[0].asnumpy()
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        losses = []
+
+        def on_batch(param, losses=losses):
+            probs = param.locals["self"].get_outputs()[0].asnumpy()
+            lab = y[2 * param.nbatch:2 * param.nbatch + 2].astype(int)
+            losses.append(-np.log(probs.astype(np.float64)[
+                np.arange(2), lab]).mean())
+
+        mod = mx.mod.Module(getattr(mx.models, "get_" + net)(), context=ctx)
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=2), num_epoch=1,
+                initializer=mx.init.Xavier(magnitude=2.0, seed=5),
+                optimizer_params=(("learning_rate", 0.01), ("momentum", 0.9)),
+                batch_end_callback=on_batch, fused_step=True)
+        res.append((losses, _host(mod.get_params()[0]), mod._fused_step))
+    (lg, pg, sg), (lc, pc, _) = res
+    check((sg.eager_steps, sg.captures, sg.dispatches) == (1, 1, 2),
+          "mnist gate: fused counters on the card")
+    worst = max((float(np.max(np.abs(pg[k] - pc[k])
+                              - 1e-3 * np.abs(pc[k]))), k) for k in pc)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    print("mnist %s gate (3 fused steps of 2, card vs CPU): losses %s vs "
+          "%s, params worst excess over rtol 1e-3 %.3g (atol 1e-5) at %s"
+          % (net, ["%.6f" % v for v in lg], ["%.6f" % v for v in lc],
+             worst[0], worst[1]))
+    check(loss_err <= 1e-4, "mnist %s losses on the card %s, on the CPU %s"
+          % (net, lg, lc))
+    check(worst[0] <= 1e-5, "mnist %s param %s differs beyond rtol 1e-3 / "
+          "atol 1e-5" % (net, worst[1]))
+    return {"losses_card": lg, "losses_cpu": lc, "worst_param": worst[1],
             "worst_excess": worst[0]}
 
 
@@ -1379,7 +1711,21 @@ def main():
 
     # 5. serving, 6. training: the main paths
     serve = serve_main_path(torch, mx, kernels, card)
-    train = train_main_path(torch, mx, kernels, card)
+    images, labels = train_data()
+    train = train_main_path(torch, mx, kernels, card, images, labels)
+    fused = fused_train_path(torch, mx, kernels, card, images, labels, train)
+    for run in (train, fused):
+        del run["args"], run["aux"]
+    print("classic vs fused, ResNet-50 NHWC batch 32 f32: host step %.3f / "
+          "%.3f ms, %.1f / %.1f img/s, device busy %.1f%% / %.1f%%, device "
+          "%.3f / %.3f ms a step, peak allocated %.3f / %.3f GB  [%s]"
+          % (train["step_ms"], fused["step_ms"], train["img_per_s"],
+             fused["img_per_s"], 100 * train["breakdown"]["busy_share"],
+             100 * fused["breakdown"]["busy_share"],
+             train["breakdown"]["device_ms_per_step"],
+             fused["breakdown"]["device_ms_per_step"],
+             train["peak_bytes"] / 1e9, fused["peak_bytes"] / 1e9, card))
+    mnist = mnist_main_path(torch, mx, kernels, card)
 
     # 7. the slice's entry points at full width
     entry = entry_points_main_path(torch, mx, kernels)
@@ -1387,13 +1733,23 @@ def main():
     # 8. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
+    fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
+                  "eager step and the launches its CUDA graph capture "
+                  "recorded (a replay runs no wrapper); "
+                  "*_2_replays_profiled: the launches the card ran in two "
+                  "replays, counted from torch.profiler's kernel events")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:579",
         "launches": train["launches"]["norm_act_fwd"],
-        "launches_by_path": {"serve": serve["launches"],
-                             "train": train["launches"]["norm_act_fwd"]},
+        "launches_by_path": {
+            "serve": serve["launches"],
+            "train": train["launches"]["norm_act_fwd"],
+            "train_fused": fused["launches"]["norm_act_fwd"],
+            "train_fused_2_replays_profiled":
+                fused["breakdown"]["launches"]["norm_act_fwd"]},
+        "launches_note": fused_note,
         "max_abs_err": fwd_worst["float32"],
         "max_err_f32": fwd_worst["float32"],
         "max_err_bf16": fwd_worst["bfloat16"],
@@ -1406,6 +1762,12 @@ def main():
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:610",
         "launches": train["launches"]["norm_act_bwd"],
+        "launches_by_path": {
+            "train": train["launches"]["norm_act_bwd"],
+            "train_fused": fused["launches"]["norm_act_bwd"],
+            "train_fused_2_replays_profiled":
+                fused["breakdown"]["launches"]["norm_act_bwd"]},
+        "launches_note": fused_note,
         "max_abs_err": max(bwd_worst["dx_float32"], bwd_worst["sums_abs"]),
         "max_err_dx_f32": bwd_worst["dx_float32"],
         "max_err_dx_bf16": bwd_worst["dx_bfloat16"],
@@ -1421,6 +1783,15 @@ def main():
         "source": "mxnet_tpu_torch/csrc/conv_gemm.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:319",
         "launches": train["launches"]["conv_gemm"],
+        "launches_by_path": {
+            "train": train["launches"]["conv_gemm"],
+            "train_fused": fused["launches"]["conv_gemm"],
+            "train_fused_2_replays_profiled":
+                fused["breakdown"]["launches"]["conv_gemm"],
+            "mnist_lenet_fused": mnist["lenet"]["launches"]["conv_gemm"],
+            "mnist_lenet_fused_2_replays_profiled":
+                mnist["lenet"]["replay_launches"]["conv_gemm"]},
+        "launches_note": fused_note,
         "max_abs_err": gemm_worst["abs_float32"],
         "max_err_bf16": gemm_worst["abs_bfloat16"],
         "max_err_of_abs_product": gemm_worst["rel"],
@@ -1496,6 +1867,7 @@ def main():
                        "flash_attn_shapes": flash_rows,
                        "linear_shapes": linear_rows, "rtc_timing": rtc_time,
                        "main_path": serve, "train_path": train,
+                       "train_fused_path": fused, "mnist_path": mnist,
                        "entry_points": entry}, f,
                       indent=1)
     print(json.dumps({"kernels": records}))

@@ -5,7 +5,9 @@
 
 * ``mx.nd`` — NDArray over torch tensors, and the "TPUARRA" container
 * ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``
-* ``mx.mod`` — Module (single device): bind, predict, ``fit``
+* ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
+  classic loop, or ``fused_step=True``: one CUDA graph a batch)
+* ``mx.model`` — the FeedForward estimator and checkpoint files
 * ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
@@ -43,6 +45,7 @@ from . import kvstore as kv
 from . import module
 from . import module as mod
 from . import fused_step
+from . import model
 from . import serving
 from . import predictor
 from .predictor import Predictor

@@ -148,6 +148,12 @@ class Executor:
             self._rng.manual_seed(self._seed)
         return self._rng
 
+    def draws_random(self) -> bool:
+        """True where a train forward draws from the executor's
+        generator (a Dropout with p > 0)."""
+        return any(n.op.draws_random for n in self._symbol._topo()
+                   if not n.is_variable)
+
     def run(self, arg_tensors, aux_tensors, is_train=False):
         """Evaluate the graph on the given tensors without recording a
         graph (the fused inference step calls this with its packed

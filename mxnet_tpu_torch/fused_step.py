@@ -1,6 +1,19 @@
-"""Fused inference step, counterpart of ``FusedInfer`` in
-``mxnet_tpu/fused_step.py`` (single device; the mesh and tensor-parallel
-parts wait for the distribution slice).
+"""Fused steps, counterparts of ``mxnet_tpu/fused_step.py``: the train
+step (single device) and the inference step (the mesh and
+tensor-parallel parts wait for the distribution slice).
+
+:class:`FusedTrainStep` runs a training batch as one unit: the train
+forward, the backward, the SGD update and the metric fold, on the bound
+arrays in place. On a card that unit is one CUDA graph, captured by the
+step that ``fit`` builds and replayed for every batch, where the JAX
+package compiles one donated XLA dispatch. The first batch runs eagerly
+(a real training step, which builds the kernels' libraries, sets their
+one-time attributes and lets cuDNN choose its algorithms), the second
+is captured on a side stream and replayed at once, and every later
+batch is an in-place copy of the batch into the bound data and label
+arrays, the hyperparameter refresh (``optimizer.SGD.plan``, on the
+host) and one ``replay()``. On the CPU, which only a caller who asks
+for it gets, the same step function runs eagerly.
 
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
@@ -13,8 +26,196 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .kvstore import _LOCAL
+from .ndarray import NDArray
+from .optimizer import SGD
 
-__all__ = ["make_fused_infer", "FusedInfer"]
+__all__ = ["make_fused_step", "FusedTrainStep", "make_fused_infer",
+           "FusedInfer"]
+
+
+def make_fused_step(module, eval_metric, monitor=None):
+    """A :class:`FusedTrainStep` over a Module bound for training with
+    its params and optimizer initialised. A configuration the step cannot
+    run raises :class:`MXNetError` naming the reason (the JAX package
+    warns and falls back to the classic loop; the port has no fallback):
+    a kvstore other than ``local``, ``inputs_need_grad``, a monitor, a
+    grad_req other than ``"write"``, or an optimizer without a fusable
+    update (SGD's)."""
+    if not (module.binded and module.for_training
+            and module.params_initialized and module.optimizer_initialized):
+        raise MXNetError("fused train step: the module must be bound for "
+                         "training with its params and optimizer "
+                         "initialised")
+    kv = module._kvstore
+    if kv is not None and kv.type not in _LOCAL:
+        raise MXNetError("fused train step: kvstore %r moves gradients "
+                         "between dispatches; use 'local' or None" % kv.type)
+    if module.inputs_need_grad:
+        raise MXNetError("fused train step: inputs_need_grad=True needs "
+                         "input gradients that the step does not keep")
+    if monitor is not None:
+        raise MXNetError("fused train step: a monitor reads every internal "
+                         "tensor, which the step keeps inside its graph")
+    ex = module._exec_group.executor
+    adds = sorted(n for n, r in ex._grad_req.items()
+                  if r not in ("write", "null"))
+    if adds:
+        raise MXNetError("fused train step: grad_req %s on %s accumulates "
+                         "across batches; the step needs \"write\""
+                         % (sorted({ex._grad_req[n] for n in adds}), adds))
+    opt = module._optimizer
+    if not isinstance(opt, SGD) or type(opt).update_multi \
+            is not SGD.update_multi:
+        raise MXNetError("fused train step: optimizer %s has no fusable "
+                         "update (the port fuses SGD's)"
+                         % type(opt).__name__)
+    return FusedTrainStep(module, eval_metric)
+
+
+class FusedTrainStep:
+    """Forward, backward, SGD update and metric fold as one CUDA graph
+    (one eager step function on the CPU), over the bind the module has
+    when the step is built: ``fit`` builds one a call, so each ``fit`` on
+    a card runs its first batch eagerly and captures on its second.
+
+    ``eager_steps`` counts the batches run eagerly (the first on a card,
+    every one on the CPU), ``captures`` the graphs captured (one, and one
+    more only if the update's structure changes, ``SGD.structure``) and
+    ``dispatches`` the replays, one a batch after the first on a card.
+    The kernels' wrappers count the launches of the eager step and those
+    the capture records; a replay moves no count
+    (``ops.kernels.launches_in`` counts a replay's launches from a
+    profiler's kernel events).
+
+    ``get_outputs()`` returns fixed output tensors that every batch
+    overwrites: a batch-end callback that keeps them across batches must
+    copy them. The metric folds on the device when it has a device fold
+    (Accuracy, TopKAccuracy, CrossEntropy, or a composite of them) and
+    there is one label an output; otherwise it updates on the host from
+    the outputs after each batch, as the JAX package does."""
+
+    def __init__(self, module, eval_metric):
+        self._module = module
+        self._optimizer = module._optimizer
+        self._updater = module._updater
+        group = module._exec_group
+        self._ex = group.executor
+        n_labels = len(group.label_names)
+        foldable = (eval_metric.has_device_fold and n_labels > 0
+                    and n_labels == len(self._ex.output_names))
+        #: the metric folded inside the step, or None (host update)
+        self._fold = eval_metric if foldable else None
+        self._stream = None
+        self._outs = None
+        self._graph = None
+        self._structure = None
+        self.eager_steps = 0
+        self.captures = 0
+        self.dispatches = 0
+
+    def _params(self):
+        """(updater index, weight, grad, momentum or None) of every
+        parameter with a gradient, in the updater's order."""
+        ex, items = self._ex, []
+        for i, name in enumerate(self._module._param_names):
+            if name in ex.grad_dict:
+                w = ex.arg_dict[name]
+                state = self._updater._state(i, w)
+                items.append((i, w.handle, ex.grad_dict[name].handle,
+                              None if state is None else state.handle))
+        return items
+
+    def _body(self, items, structure, hyper):
+        """The step function: everything between the batch's copy in and
+        the host's next look, with no host sync."""
+        ex = self._ex
+        ex.forward(is_train=True)
+        ex.backward()
+        if self._outs is None:
+            self._outs = [torch.empty_like(o.handle) for o in ex._outputs]
+        for dst, o in zip(self._outs, ex._outputs):
+            dst.copy_(o.handle)
+        SGD.apply(structure, hyper, [w for _, w, _, _ in items],
+                  [g for _, _, g, _ in items], [m for _, _, _, m in items])
+        if self._fold is not None:
+            labels = self._module._exec_group.label_names
+            self._fold.device_fold([ex.arg_dict[n].handle for n in labels],
+                                   self._outs)
+
+    def step(self, data_batch, eval_metric):
+        """One training batch; ``eval_metric`` is updated on the host
+        when the metric the step was built with does not fold."""
+        group = self._module._exec_group
+        ex = self._ex
+        if group.executor is not ex:
+            raise MXNetError("fused train step: the module was bound again "
+                             "after the step was built; build a new step")
+        group.load_data_batch(data_batch)
+        items = self._params()
+        indices = [i for i, _, _, _ in items]
+        structure = self._optimizer.structure(indices)
+        rows = self._optimizer.plan(indices, structure)
+        hyper = self._optimizer.scalars(ex._device, len(rows)).copy(rows)
+        if ex._device.type != "cuda":
+            self._body(items, structure, hyper)
+            self.eager_steps += 1
+        elif self.eager_steps == 0:
+            self._warm_up(items, structure, hyper)
+        else:
+            self._replay(items, structure, hyper)
+        ex._outputs = [NDArray(t, ex._ctx) for t in self._outs]
+        if self._fold is None:
+            eval_metric.update(data_batch.label, ex._outputs)
+
+    # -- the card ----------------------------------------------------------
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self._ex._device)
+        return self._stream
+
+    def _warm_up(self, *args):
+        """The first batch, eagerly on the stream that will capture."""
+        s = self._side_stream()
+        main = torch.cuda.current_stream(self._ex._device)
+        s.wait_stream(main)
+        with torch.cuda.stream(s):
+            self._body(*args)
+        main.wait_stream(s)
+        self.eager_steps += 1
+
+    def _replay(self, items, structure, hyper):
+        if structure != self._structure:
+            self._graph = self._capture(items, structure, hyper)
+            self._structure = structure
+        try:
+            self._graph.replay()
+        except RuntimeError as e:
+            raise MXNetError("fused train step: CUDA graph replay failed: %s"
+                             % e) from e
+        self.dispatches += 1
+
+    def _capture(self, *args):
+        """Record the step function as a CUDA graph (it does not run:
+        the caller replays it for this batch)."""
+        graph = torch.cuda.CUDAGraph()
+        if self._ex.draws_random():
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise MXNetError(
+                    "fused train step: the graph draws random numbers "
+                    "(Dropout) and this PyTorch (%s) cannot register the "
+                    "executor's generator with a CUDA graph, so every "
+                    "replay would reuse one mask" % torch.__version__)
+            register(self._ex._generator())
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream()):
+                self._body(*args)
+        except RuntimeError as e:
+            raise MXNetError("fused train step: CUDA graph capture failed: "
+                             "%s" % e) from e
+        self.captures += 1
+        return graph
 
 
 def make_fused_infer(executor, data_names, top_k=0):

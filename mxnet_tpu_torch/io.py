@@ -1,17 +1,26 @@
-"""Data descriptors and the in-memory iterator, counterpart of the part
-of ``mxnet_tpu/io.py`` that Module's predict and fit read. Batches stay
-host numpy arrays; the executor group copies them onto the device."""
+"""Data iterators, counterpart of ``mxnet_tpu/io.py``: the ``DataIter``
+protocol (``reset``/``next``/``iter_next``/``getdata``/``getlabel``/
+``getindex``/``getpad``), batching with pad semantics, and the
+in-memory, MNIST idx and CSV iterators.
+
+Batches are port NDArrays on the CPU (the reference's are NDArrays on
+its default device); the executor group copies them onto the card.
+"""
 from __future__ import annotations
 
+import gzip
+import struct
 from collections import namedtuple
 from typing import List, Optional
 
 import numpy as np
 
 from .base import MXNetError
-from .ndarray import NDArray
+from .context import cpu
+from .ndarray import NDArray, _host_tensor, array
 
-__all__ = ["DataDesc", "DataBatch", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "MNISTIter",
+           "CSVIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -29,10 +38,67 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
 
 
 class DataBatch:
-    def __init__(self, data, label=None, pad=0):
+    """One batch: ``data`` and ``label`` lists, ``pad`` (rows at the end
+    that are filler), ``index`` (the rows' indices, where the iterator
+    knows them), and the optional ``bucket_key``/``provide_data``/
+    ``provide_label`` of bucketing iterators."""
+
+    def __init__(self, data, label=None, pad=0, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label or []
         self.pad = pad
+        self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+
+class DataIter:
+    """The iterator protocol: ``iter_next`` advances, ``getdata``/
+    ``getlabel``/``getindex``/``getpad`` read the current batch, ``next``
+    packs them into a :class:`DataBatch` or raises ``StopIteration``."""
+
+    def __init__(self):
+        self.batch_size = 0
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> DataBatch:
+        return self.next()
+
+    def next(self) -> DataBatch:
+        if self.iter_next():
+            return DataBatch(self.getdata(), self.getlabel(),
+                             self.getpad(), self.getindex())
+        raise StopIteration
+
+    def iter_next(self) -> bool:
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        return 0
+
+    @property
+    def provide_data(self) -> List[DataDesc]:
+        raise NotImplementedError
+
+    @property
+    def provide_label(self) -> List[DataDesc]:
+        raise NotImplementedError
 
 
 def _init_data(data, allow_empty, default_name):
@@ -54,15 +120,27 @@ def _init_data(data, allow_empty, default_name):
             for k, v in data.items()]
 
 
-class NDArrayIter:
-    """Iterate over in-memory arrays in batches. ``shuffle`` permutes the
-    rows once, with ``np.random`` (seed it for a fixed order).
-    ``last_batch_handle="pad"`` wraps the last partial batch around and
-    reports the wrapped rows in ``pad``; ``"discard"`` drops it."""
+def _batch_array(rows: np.ndarray) -> NDArray:
+    """A CPU NDArray of a batch's rows: a view of ``rows`` where
+    :func:`~mxnet_tpu_torch.ndarray.array` would not change its dtype
+    (the executor group copies it onto the card once), else
+    ``array``'s float32 copy."""
+    if rows.dtype in (np.float64, np.int64):
+        return array(rows, ctx=cpu())
+    return NDArray(_host_tensor(rows), cpu())
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays in batches of CPU NDArrays.
+    ``shuffle`` permutes the rows once, with ``np.random`` (seed it for a
+    fixed order). ``last_batch_handle="pad"`` wraps the last partial
+    batch around and reports the wrapped rows in ``getpad``;
+    ``"discard"`` drops it."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
                  label_name="softmax_label"):
+        super().__init__()
         if last_batch_handle not in ("pad", "discard"):
             raise MXNetError("last_batch_handle must be pad or discard, got "
                              "%r" % (last_batch_handle,))
@@ -94,21 +172,131 @@ class NDArrayIter:
     def reset(self):
         self.cursor = -self.batch_size
 
-    def __iter__(self):
-        return self
-
-    def __next__(self) -> DataBatch:
+    def iter_next(self) -> bool:
         self.cursor += self.batch_size
-        if self.cursor >= self.num_data:
-            raise StopIteration
-        pad = max(0, self.cursor + self.batch_size - self.num_data)
-        return DataBatch(self._slice(self.data), self._slice(self.label),
-                         pad=pad)
+        return self.cursor < self.num_data
 
-    def _slice(self, source):
+    def _getdata(self, source):
         end = self.cursor + self.batch_size
         if end <= self.num_data:
-            return [v[self.cursor:end] for _, v in source]
+            return [_batch_array(v[self.cursor:end]) for _, v in source]
+        # the last partial batch wraps around to the first rows
         pad = end - self.num_data
-        return [np.concatenate([v[self.cursor:self.num_data], v[:pad]],
-                               axis=0) for _, v in source]
+        return [_batch_array(np.concatenate([v[self.cursor:self.num_data],
+                                             v[:pad]], axis=0))
+                for _, v in source]
+
+    def getdata(self):
+        return self._getdata(self.data)
+
+    def getlabel(self):
+        return self._getdata(self.label)
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" \
+                and self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0
+
+
+def _read_idx_file(path: str) -> np.ndarray:
+    """An idx-format (MNIST) file as a numpy array; ``.gz`` is read
+    through gzip."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        zero, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        if zero != 0:
+            raise MXNetError("invalid idx file %s" % path)
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        dtype = {0x08: np.uint8, 0x09: np.int8, 0x0B: np.int16,
+                 0x0C: np.int32, 0x0D: np.float32,
+                 0x0E: np.float64}.get(dtype_code)
+        if dtype is None:
+            raise MXNetError("invalid idx file %s: unknown type code 0x%02x"
+                             % (path, dtype_code))
+        data = np.frombuffer(f.read(),
+                             dtype=np.dtype(dtype).newbyteorder(">"))
+        return data.reshape(shape).astype(dtype)
+
+
+class _Wrapped(DataIter):
+    """A DataIter that hands every call to an inner NDArrayIter."""
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+    def getdata(self):
+        return self._inner.getdata()
+
+    def getlabel(self):
+        return self._inner.getlabel()
+
+    def getpad(self):
+        return self._inner.getpad()
+
+
+class MNISTIter(_Wrapped):
+    """MNIST idx files (``image``, ``label``; gzip or plain) in batches:
+    pixels scaled to [0, 1], ``(N, 1, 28, 28)`` or ``flat`` ``(N, 784)``
+    or ``input_shape``; rows ``part_index::num_parts`` for one worker of
+    ``num_parts``; shuffled once from ``seed``; the last partial batch
+    dropped."""
+
+    def __init__(self, image: str, label: str, batch_size: int = 128,
+                 shuffle: bool = True, flat: bool = False, seed: int = 0,
+                 silent: bool = False, num_parts: int = 1,
+                 part_index: int = 0, input_shape=None, **kwargs):
+        super().__init__()
+        images = _read_idx_file(image).astype(np.float32) / 255.0
+        labels = _read_idx_file(label).astype(np.float32)
+        if flat:
+            images = images.reshape(images.shape[0], -1)
+        else:
+            images = images.reshape(images.shape[0], 1, images.shape[1],
+                                    images.shape[2])
+            if input_shape is not None:
+                images = images.reshape((images.shape[0],)
+                                        + tuple(input_shape))
+        if num_parts > 1:
+            images = images[part_index::num_parts]
+            labels = labels[part_index::num_parts]
+        if shuffle:
+            idx = np.random.RandomState(seed).permutation(images.shape[0])
+            images, labels = images[idx], labels[idx]
+        self._inner = NDArrayIter(images, labels, batch_size=batch_size,
+                                  last_batch_handle="discard")
+        self.batch_size = batch_size
+
+
+class CSVIter(_Wrapped):
+    """Rows of ``data_csv`` reshaped to ``data_shape`` (labels from
+    ``label_csv`` reshaped to ``label_shape``, zeros without one), in
+    batches; the last partial batch wraps around with ``pad``."""
+
+    def __init__(self, data_csv: str, data_shape,
+                 label_csv: Optional[str] = None, label_shape=(1,),
+                 batch_size: int = 1, **kwargs):
+        super().__init__()
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32,
+                          ndmin=2).reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2).reshape((-1,) + tuple(label_shape))
+            if label.shape[1:] == (1,):
+                label = label[:, 0]
+        else:
+            label = np.zeros(data.shape[0], dtype=np.float32)
+        self._inner = NDArrayIter(data, label, batch_size=batch_size,
+                                  last_batch_handle="pad")
+        self.batch_size = batch_size

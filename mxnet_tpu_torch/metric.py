@@ -1,10 +1,13 @@
 """Evaluation metrics, counterpart of ``mxnet_tpu/metric.py`` (the
 metrics the training loop uses).
 
-Accumulation stays on the device: ``update`` adds the batch's sum to a
-tensor beside the predictions and counts instances on the host, so a
-training step does not wait for the device; ``get`` reads the sum back.
-Labels may be NDArrays, tensors or host arrays.
+Accuracy, TopKAccuracy and CrossEntropy fold on the device
+(``has_device_fold``, as ``device_fold`` in ``mxnet_tpu/metric.py:
+205-216``): :meth:`EvalMetric.device_fold` adds a batch's (sum, count)
+into a fixed float64 accumulator beside the predictions, in place and
+without a host sync, so the fused train step can run it inside its CUDA
+graph; the host reads the accumulator only in ``get()``, and ``reset()``
+zeroes it in place. Labels may be NDArrays, tensors or host arrays.
 """
 from __future__ import annotations
 
@@ -37,33 +40,76 @@ def check_label_shapes(labels, preds):
 
 
 class EvalMetric:
-    """Base: a running ``sum_metric`` (a device tensor once a batch has
-    been seen) over ``num_inst`` instances."""
+    """Base: a running ``sum_metric`` over ``num_inst`` instances on the
+    host, plus, for a metric with a device fold, the device accumulator
+    ``(sum, count)`` that :meth:`get` adds in."""
+
+    #: True where :meth:`_batch` is torch code that needs no host sync
+    has_device_fold = False
 
     def __init__(self, name: str):
         self.name = name
+        self._acc: Optional[torch.Tensor] = None
         self.reset()
 
     def reset(self):
         self.num_inst = 0
         self.sum_metric = 0.0
+        if self._acc is not None:
+            self._acc.zero_()
 
     def _batch(self, label: torch.Tensor, pred: torch.Tensor):
-        """``(sum, count)`` of one (label, pred) pair; ``sum`` a 0-d
-        tensor on pred's device."""
+        """``(sum, count)`` of one (label, pred) pair: ``sum`` a 0-d
+        tensor on pred's device, ``count`` an int from the shapes."""
         raise NotImplementedError
+
+    def accumulator(self, device: torch.device) -> torch.Tensor:
+        """The float64 ``(sum, count)`` accumulator on ``device``. It
+        moves only when the device does: what it held is added to the
+        host totals first."""
+        if self._acc is not None and self._acc.device != device:
+            s, n = self._acc.tolist()
+            self.sum_metric += s
+            self.num_inst += int(n)
+            self._acc = None
+        if self._acc is None:
+            self._acc = torch.zeros(2, dtype=torch.float64, device=device)
+        return self._acc
+
+    def device_fold(self, labels: Sequence[torch.Tensor],
+                    preds: Sequence[torch.Tensor]) -> None:
+        """Add a batch into the accumulator, in place, with no host
+        sync: the labels must lie on the predictions' device."""
+        acc = self.accumulator(preds[0].device)
+        for label, pred in zip(labels, preds):
+            s, n = self._batch(label, pred)
+            acc[0].add_(s.double())
+            acc[1].add_(n)
 
     def update(self, labels: Sequence, preds: Sequence[NDArray]):
         check_label_shapes(labels, preds)
-        for label, pred in zip(labels, preds):
-            p = _tensor(pred)
-            s, n = self._batch(_tensor(label, p.device), p)
-            self.sum_metric = self.sum_metric + s.double()
+        ps = [_tensor(p) for p in preds]
+        if not ps:
+            return
+        ls = [_tensor(lab, p.device) for lab, p in zip(labels, ps)]
+        if self.has_device_fold:
+            self.device_fold(ls, ps)
+            return
+        for label, pred in zip(ls, ps):
+            s, n = self._batch(label, pred)
+            self.sum_metric += float(s)
             self.num_inst += n
 
+    def _totals(self):
+        s, n = self.sum_metric, self.num_inst
+        if self._acc is not None:
+            acc_s, acc_n = self._acc.tolist()
+            s, n = s + acc_s, n + int(acc_n)
+        return s, n
+
     def get(self):
-        s = float(self.sum_metric)
-        return self.name, s / self.num_inst if self.num_inst else float("nan")
+        s, n = self._totals()
+        return self.name, s / n if n else float("nan")
 
     def get_name_value(self):
         name, value = self.get()
@@ -75,6 +121,8 @@ class EvalMetric:
 @_REG.register("acc")
 @_REG.register("accuracy")
 class Accuracy(EvalMetric):
+    has_device_fold = True
+
     def __init__(self):
         super().__init__("accuracy")
 
@@ -86,6 +134,8 @@ class Accuracy(EvalMetric):
 
 @_REG.register("top_k_accuracy")
 class TopKAccuracy(EvalMetric):
+    has_device_fold = True
+
     def __init__(self, top_k: int = 1):
         self.top_k = top_k
         super().__init__("top_k_accuracy_%d" % top_k)
@@ -101,6 +151,8 @@ class TopKAccuracy(EvalMetric):
 @_REG.register("ce")
 @_REG.register("cross-entropy")
 class CrossEntropy(EvalMetric):
+    has_device_fold = True
+
     def __init__(self, eps: float = 1e-8):
         super().__init__("cross-entropy")
         self.eps = eps
@@ -112,9 +164,17 @@ class CrossEntropy(EvalMetric):
 
 
 class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together; it folds on the device when
+    every one of them does."""
+
     def __init__(self, metrics: Optional[List[EvalMetric]] = None):
         self.metrics = list(metrics or [])
         super().__init__("composite")
+
+    @property
+    def has_device_fold(self):
+        return bool(self.metrics) and all(m.has_device_fold
+                                          for m in self.metrics)
 
     def add(self, metric: EvalMetric):
         self.metrics.append(metric)
@@ -125,6 +185,10 @@ class CompositeEvalMetric(EvalMetric):
     def reset(self):
         for m in self.metrics:
             m.reset()
+
+    def device_fold(self, labels, preds):
+        for m in self.metrics:
+            m.device_fold(labels, preds)
 
     def update(self, labels, preds):
         for m in self.metrics:

@@ -1,12 +1,16 @@
 """BaseModule: the high-level train and predict interface, counterpart of
 ``mxnet_tpu/module/base_module.py``.
 
-``fit`` is the JAX package's default training loop, the classic three
-phases per batch (``forward_backward``, ``update``, ``update_metric``;
-``base_module.py:317-421`` there). The fused train step and the loop's
-extras that the JAX package arms from environment knobs (feed
-scheduler, device staging, tracing, checkpoint manager, numerics
-watch) are not ported yet: ROADMAP.md Queue A items 7, 9 and 11.
+``fit`` is the JAX package's training loop: per batch either the
+classic three phases (``forward_backward``, ``update``,
+``update_metric``; ``base_module.py:317-421`` there) or, with
+``fused_step=True``, one :class:`~mxnet_tpu_torch.fused_step.
+FusedTrainStep` (one CUDA graph replay a batch on a card). The port
+reads no environment knobs, so the argument stands in for
+``MXNET_TPU_FUSED_STEP``. The loop's other extras that the JAX package
+arms from knobs (feed scheduler, device staging, tracing, checkpoint
+manager, numerics watch) are not ported yet: ROADMAP.md Queue A items 3,
+4 and 9.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ import numpy as np
 from ..base import MXNetError
 from .. import metric as _metric
 from .. import ndarray as nd
+from ..context import cpu
 from ..initializer import Uniform
-from ..io import NDArrayIter
+from ..io import DataBatch, NDArrayIter
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -81,6 +86,11 @@ class BaseModule:
     def symbol(self):
         return self._symbol
 
+    def _fused_train_step(self, eval_metric, monitor=None):
+        """The fused train step that ``fit(fused_step=True)`` runs; a
+        module without one raises."""
+        raise MXNetError("%s has no fused train step" % type(self).__name__)
+
     # -- derived -----------------------------------------------------------
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
@@ -92,10 +102,40 @@ class BaseModule:
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
 
+    def _pad_partial_batch(self, eval_batch):
+        """A batch with fewer rows than the bound batch size, padded with
+        zero rows up to it and ``pad`` extended, so that the bound
+        executor takes it and ``score``/``predict`` slice the filler back
+        off (``mxnet_tpu/module/base_module.py:137-172``). Returns
+        ``(batch, extra_rows)``: the batch itself and 0 when it is
+        full."""
+        shapes = getattr(self, "_data_shapes", None)
+        if not shapes or not eval_batch.data:
+            return eval_batch, 0
+        bound = shapes[0].shape[0]
+        rows = eval_batch.data[0].shape[0]
+        if rows >= bound:
+            return eval_batch, 0
+        extra = bound - rows
+
+        def _pad(arrs):
+            out = []
+            for a in arrs or []:
+                h = a.asnumpy() if hasattr(a, "asnumpy") else np.asarray(a)
+                out.append(nd.array(np.concatenate(
+                    [h, np.zeros((extra,) + h.shape[1:], h.dtype)], axis=0),
+                    ctx=cpu(), dtype=h.dtype))
+            return out
+
+        padded = DataBatch(_pad(eval_batch.data), _pad(eval_batch.label),
+                           pad=eval_batch.pad + extra, index=eval_batch.index)
+        return padded, extra
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, reset=True, epoch=0):
         """Run inference over ``eval_data`` and return the metric's
-        ``[(name, value)]``."""
+        ``[(name, value)]``; a short last batch is padded to the bound
+        batch size and the metric sees only its real rows."""
         if not self.binded or not self.params_initialized:
             raise MXNetError("module must be binded and initialized")
         eval_metric = _metric.create(eval_metric)
@@ -105,8 +145,14 @@ class BaseModule:
         for nbatch, eval_batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
-            self.forward(eval_batch, is_train=False)
-            self.update_metric(eval_metric, eval_batch.label)
+            padded, extra = self._pad_partial_batch(eval_batch)
+            self.forward(padded, is_train=False)
+            if extra:
+                outs = [out[0:out.shape[0] - extra]
+                        for out in self.get_outputs()]
+                eval_metric.update(eval_batch.label, outs)
+            else:
+                self.update_metric(eval_metric, eval_batch.label)
             if batch_end_callback is not None:
                 params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                        eval_metric=eval_metric,
@@ -119,7 +165,8 @@ class BaseModule:
                 reset=True, always_output_list=False):
         """Forward every batch of ``eval_data`` (an iterator of
         DataBatch, or host arrays batched at the bound batch size) and
-        return the outputs with the padded rows sliced off."""
+        return the outputs with the padded rows sliced off; a short last
+        batch is padded to the bound batch size first."""
         if not self.binded or not self.params_initialized:
             raise MXNetError("module must be binded and initialized")
         if isinstance(eval_data, (np.ndarray, nd.NDArray)):
@@ -131,8 +178,9 @@ class BaseModule:
         for nbatch, batch in enumerate(eval_data):
             if num_batch is not None and nbatch == num_batch:
                 break
-            self.forward(batch, is_train=False)
-            outputs = [out[0:out.shape[0] - batch.pad]
+            padded, _ = self._pad_partial_batch(batch)
+            self.forward(padded, is_train=False)
+            outputs = [out[0:out.shape[0] - padded.pad]
                        for out in self.get_outputs()]
             output_list.append(outputs)
         if not output_list or not merge_batches:
@@ -151,17 +199,21 @@ class BaseModule:
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None):
+            monitor=None, fused_step=False):
         """Train: bind for training, init params and the optimizer, then
         per epoch run every batch through ``forward_backward``,
-        ``update`` and ``update_metric``, call the batch-end callbacks,
-        log the metric, call the epoch-end callbacks with the params and
-        score ``eval_data``."""
+        ``update`` and ``update_metric`` (or, with ``fused_step=True``,
+        through one fused train step, which raises naming the reason
+        where the configuration cannot fuse), call the batch-end
+        callbacks, log the metric, call the epoch-end callbacks with the
+        params and score ``eval_data``. Under the fused step,
+        ``get_outputs()`` in a batch-end callback is overwritten by the
+        next batch: copy what you keep."""
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
-        if monitor is not None:
+        if monitor is not None and not fused_step:
             raise MXNetError("monitor is not ported yet (ROADMAP.md Queue A "
-                             "item 8)")
+                             "item 7)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -173,6 +225,9 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _metric.create(eval_metric)
+        fused = (self._fused_train_step(eval_metric, monitor)
+                 if fused_step else None)
+        self._fused_step_active = fused is not None
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -181,9 +236,12 @@ class BaseModule:
             nbatch = -1
             for data_batch in train_data:
                 nbatch += 1
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
+                if fused is not None:
+                    fused.step(data_batch, eval_metric)
+                else:
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

@@ -3,22 +3,21 @@
 One executor on one device. The data and label arrays are the
 per-batch slots; every other argument is a parameter whose array the
 group owns. Parameter and batch writes copy into the bound arrays in
-place. Bound for training, each parameter (and, with
-``inputs_need_grad``, each data input) gets a gradient array that
-``backward`` fills by ``grad_req``; labels and ``fixed_param_names``
-get none.
+place (a batch through a pinned buffer on a card, so that a CUDA graph
+over the bound arrays sees each batch). Bound for training, each
+parameter (and, with ``inputs_need_grad``, each data input) gets a
+gradient array that ``backward`` fills by ``grad_req``; labels and
+``fixed_param_names`` get none.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
-import numpy as np
-
 from ..base import MXNetError
 from ..context import Context
 from ..executor import Executor
 from ..io import DataDesc
-from ..ndarray import NDArray, zeros
+from ..ndarray import HostToDevice, NDArray, zeros
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -68,6 +67,7 @@ class DataParallelExecutorGroup:
         aux = [zeros(s, ctx=ctx) for s in aux_shapes]
         self.executor = Executor(symbol, ctx, args, grads, reqs, aux)
         self.execs = [self.executor]
+        self._loaders = None
 
     def set_params(self, arg_params: Dict[str, NDArray],
                    aux_params: Dict[str, NDArray]):
@@ -88,14 +88,19 @@ class DataParallelExecutorGroup:
                 aux_params[name][:] = arr
 
     def load_data_batch(self, data_batch):
+        """Copy a batch's data and labels (NDArrays, tensors or host
+        arrays) into the bound arrays, in place."""
         descs = self.data_shapes + self.label_shapes
+        if self._loaders is None:
+            self._loaders = [HostToDevice(self.executor.arg_dict[d.name]
+                                          .handle) for d in descs]
         arrays = list(data_batch.data) + list(data_batch.label or [])
-        for desc, arr in zip(descs, arrays):
-            dst = self.executor.arg_dict[desc.name]
-            if tuple(arr.shape) != dst.shape:
+        for desc, loader, arr in zip(descs, self._loaders, arrays):
+            if tuple(arr.shape) != tuple(loader.dst.shape):
                 raise MXNetError("batch '%s' has shape %s, bound for %s"
-                                 % (desc.name, tuple(arr.shape), dst.shape))
-            dst[:] = arr if isinstance(arr, NDArray) else np.asarray(arr)
+                                 % (desc.name, tuple(arr.shape),
+                                    tuple(loader.dst.shape)))
+            loader.copy(arr)
 
     def forward(self, data_batch, is_train=None):
         self.load_data_batch(data_batch)

@@ -50,6 +50,8 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._updater = None
+        self._fused_step = None
+        self._fused_step_active = False
 
     @property
     def data_names(self):
@@ -191,6 +193,16 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
+
+    def _fused_train_step(self, eval_metric, monitor=None):
+        """The fused train step over this module's bind
+        (:func:`~mxnet_tpu_torch.fused_step.make_fused_step`), kept as
+        ``_fused_step``; raises naming the reason where the
+        configuration cannot fuse."""
+        from ..fused_step import make_fused_step
+
+        self._fused_step = make_fused_step(self, eval_metric, monitor)
+        return self._fused_step
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs()

@@ -22,8 +22,9 @@ from .base import (DTYPE_ID_TO_TORCH, DTYPE_TORCH_TO_ID, MXNetError,
                    mx_real_t, torch_dtype)
 from .context import Context, current_context
 
-__all__ = ["NDArray", "array", "empty", "zeros", "ones", "concatenate",
-           "load", "save", "load_from_stream", "save_to_stream"]
+__all__ = ["NDArray", "HostToDevice", "array", "empty", "zeros", "ones",
+           "concatenate", "load", "save", "load_from_stream",
+           "save_to_stream"]
 
 
 def _np_dtype(dt: torch.dtype):
@@ -138,6 +139,42 @@ class NDArray:
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self._ctx)
+
+
+class HostToDevice:
+    """Copies host data into one fixed tensor ``dst``, which keeps its
+    storage, so a CUDA graph that reads ``dst`` sees the new values on
+    its next replay. On a card the data go through one of two pinned
+    host buffers, used in turn, and one asynchronous copy on the current
+    stream; :meth:`copy` waits for the copy out of its buffer two calls
+    back before it rewrites it, so the host may run two copies ahead of
+    the card. On the CPU it is a plain copy."""
+
+    def __init__(self, dst: torch.Tensor):
+        self.dst = dst
+        self._slots = []
+        self._turn = 0
+        if dst.is_cuda:
+            self._slots = [(torch.empty(dst.shape, dtype=dst.dtype,
+                                        pin_memory=True), torch.cuda.Event())
+                           for _ in range(2)]
+
+    def copy(self, src) -> torch.Tensor:
+        """``src`` (numpy, a CPU tensor or NDArray) into ``dst``."""
+        if isinstance(src, NDArray):
+            src = src._data
+        elif not isinstance(src, torch.Tensor):
+            src = _host_tensor(np.asarray(src))
+        if not self._slots or src.is_cuda:
+            self.dst.copy_(src)
+            return self.dst
+        host, done = self._slots[self._turn]
+        self._turn ^= 1
+        done.synchronize()
+        host.copy_(src)
+        self.dst.copy_(host, non_blocking=True)
+        done.record()
+        return self.dst
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``. Each kernel has:
 * the plain version, the same function in plain torch, used by the CPU
   tests and held against the kernel on the card by ``chip_smoke.py``;
 * a launch count, a plain integer that the wrapper raises by one where it
-  launches the kernel and nowhere else.
+  launches the kernel and nowhere else. A CUDA graph's capture runs the
+  wrappers, which count the launches it records; its replays run no
+  wrapper and move no count (:func:`launches_in` counts them from a
+  profiler's kernel events).
 
 Ported so far (``csrc/``):
 
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 import threading
 
 import torch
@@ -44,7 +48,8 @@ __all__ = ["fused_norm_act", "fused_norm_act_plain", "fused_norm_act_bwd",
            "fused_norm_act_bwd_plain", "matmul_f32acc", "matmul_f32acc_plain",
            "conv_dgrad", "conv_wgrad", "conv2d", "fused_linear",
            "fused_linear_plain", "flash_attention", "flash_attention_plain",
-           "reference_attention", "FLASH_MAX_D", "reset_launch_counts", "launch_counts"]
+           "reference_attention", "FLASH_MAX_D", "reset_launch_counts",
+           "launch_counts", "LAUNCH_KERNELS", "launches_in"]
 
 #: kernel launches since the last reset, one per wrapper call that
 #: launched its kernel
@@ -89,6 +94,33 @@ def reset_launch_counts() -> None:
 def _count(name: str) -> None:
     with _count_lock:
         globals()[name] += 1
+
+
+#: the CUDA kernel that each wrapper's launch starts with (K3 and K5 may
+#: add a reduce kernel after it): a CUDA graph's replay runs the launches
+#: its capture recorded without any wrapper, so a replay's launches are
+#: counted from a profiler's kernel events by these names
+#: (:func:`launches_in`)
+LAUNCH_KERNELS = {"norm_act_fwd": ("norm_act_vec_kernel",
+                                   "norm_act_scalar_kernel"),
+                  "norm_act_bwd": ("norm_act_bwd_partial_kernel",),
+                  "conv_gemm": ("conv_gemm_kernel",),
+                  "linear": ("linear_kernel",),
+                  "flash_attn": ("flash_attn_kernel",)}
+_LAUNCH_RE = {wrapper: re.compile(r"\b(%s)[<(]" % "|".join(names))
+              for wrapper, names in LAUNCH_KERNELS.items()}
+
+
+def launches_in(kernel_names) -> dict:
+    """The launches of each compiled kernel's wrapper among the names of
+    the CUDA kernels that ran (a profiler's device events, one name a
+    kernel run), by :data:`LAUNCH_KERNELS`."""
+    out = dict.fromkeys(LAUNCH_KERNELS, 0)
+    for name in kernel_names:
+        for wrapper, pattern in _LAUNCH_RE.items():
+            if pattern.search(name):
+                out[wrapper] += 1
+    return out
 
 
 def _stream(t: torch.Tensor):

@@ -372,6 +372,10 @@ class Dropout(Operator):
     name_hint = "dropout"
     PARAMS = {"p": Param(float, 0.5)}
 
+    @property
+    def draws_random(self) -> bool:
+        return self.p > 0.0
+
     def apply(self, ctx, inputs, aux):
         x = inputs[0]
         if not ctx.is_train or self.p <= 0.0 or ctx.rng is None:

@@ -105,6 +105,11 @@ class Operator:
     def num_outputs(self) -> int:
         return len(self.list_outputs())
 
+    @property
+    def draws_random(self) -> bool:
+        """True where a train-mode ``apply`` draws from ``OpContext.rng``."""
+        return False
+
     def infer_shape(self, in_shapes: List[Optional[Tuple[int, ...]]]):
         """Returns (in_shapes, out_shapes, aux_shapes); fills unknowns
         or raises."""

@@ -15,16 +15,29 @@ math is. Weights and momenta are updated in place (the JAX package
 donates their buffers instead); ``update_multi`` updates every
 parameter with a handful of ``torch._foreach_*`` launches per step
 instead of a few kernels per parameter.
+
+The hyperparameters reach that math as a float32 tensor on the weights'
+device, one row ``(rescale_grad, lr, wd, momentum, clip)`` for each
+group of parameters that share their lr and wd multipliers (written
+through :class:`~mxnet_tpu_torch.ndarray.HostToDevice`), as the JAX step
+carries its traced hyperparameter matrices
+(``mxnet_tpu/fused_step.py:300-331``). The
+update counts and the learning-rate schedule stay on the host
+(:meth:`SGD.plan`); only the tensor's values change from step to step,
+so a CUDA graph of the update (``fused_step.FusedTrainStep``) replays
+under any schedule, and the classic ``update_multi`` runs the same
+kernels.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .base import MXNetError, Registry
 from .lr_scheduler import LRScheduler
-from .ndarray import NDArray
+from .ndarray import HostToDevice, NDArray
 
 __all__ = ["Optimizer", "SGD", "create", "get_updater", "Updater"]
 
@@ -109,35 +122,84 @@ class SGD(Optimizer):
     def __init__(self, momentum: float = 0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self._scalars: Dict[tuple, HostToDevice] = {}
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
         return NDArray(torch.zeros_like(weight.handle), weight.context)
 
+    def _mults(self, index):
+        name = self.idx2name.get(index, str(index))
+        return (self.lr_mult.get(name, 1.0), self.wd_mult.get(name, 1.0))
+
+    def structure(self, indices: Sequence[int]) -> tuple:
+        """What the update's kernels depend on besides the tensors'
+        values: the groups (positions in ``indices`` sharing lr and wd
+        multipliers), whether gradients are clipped, whether there is a
+        momentum. A captured update is valid while this stays the same."""
+        groups: Dict[tuple, List[int]] = {}
+        for pos, index in enumerate(indices):
+            groups.setdefault(self._mults(index), []).append(pos)
+        return (tuple(tuple(g) for g in groups.values()),
+                self.clip_gradient is not None, self.momentum != 0.0)
+
+    def plan(self, indices: Sequence[int], structure: tuple) -> np.ndarray:
+        """The host half of one step: bump each index's update count,
+        then one row ``(rescale_grad, lr, wd, momentum, clip)`` a group of
+        ``structure``, at the schedule's current learning rate."""
+        for index in indices:
+            self._update_count(index)
+        rows = []
+        for group in structure[0]:
+            first = indices[group[0]]
+            rows.append((self.rescale_grad, self._get_lr(first),
+                         self._get_wd(first), self.momentum,
+                         self.clip_gradient or 0.0))
+        return np.asarray(rows, dtype=np.float32)
+
+    def scalars(self, device: torch.device, n_groups: int) -> HostToDevice:
+        """The fixed ``(n_groups, 5)`` hyperparameter tensor on
+        ``device``, with its host-to-device copier."""
+        key = (str(device), n_groups)
+        if key not in self._scalars:
+            self._scalars[key] = HostToDevice(torch.zeros(
+                (n_groups, 5), dtype=torch.float32, device=device))
+        return self._scalars[key]
+
+    @staticmethod
+    def apply(structure: tuple, hyper: torch.Tensor, ws, gs, ms) -> None:
+        """The device half: the update of ``ws`` (and the momenta ``ms``)
+        from ``gs``, in place, reading every hyperparameter from
+        ``hyper``, without a host sync."""
+        groups, clipped, has_momentum = structure
+        for gi, group in enumerate(groups):
+            w = [ws[p] for p in group]
+            rescale, lr, wd, mom, clip = hyper[gi].unbind()
+            g = torch._foreach_mul([gs[p] for p in group], rescale)
+            if clipped:
+                torch._foreach_clamp_min_(g, [-clip] * len(g))
+                torch._foreach_clamp_max_(g, [clip] * len(g))
+            torch._foreach_add_(g, torch._foreach_mul(w, wd))
+            step = torch._foreach_mul(g, lr)
+            if not has_momentum:
+                torch._foreach_sub_(w, step)
+                continue
+            m = [ms[p] for p in group]
+            torch._foreach_mul_(m, mom)
+            torch._foreach_sub_(m, step)
+            torch._foreach_add_(w, m)
+
     def update_multi(self, items):
         if not items:
             return
-        lrs, wds = [], []
-        for index, _, _, _ in items:
-            self._update_count(index)
-            lrs.append(self._get_lr(index))
-            wds.append(self._get_wd(index))
+        indices = [index for index, _, _, _ in items]
+        structure = self.structure(indices)
         ws = [w.handle for _, w, _, _ in items]
-        g = torch._foreach_mul([gr.handle for _, _, gr, _ in items],
-                               self.rescale_grad)
-        if self.clip_gradient is not None:
-            torch._foreach_clamp_min_(g, -self.clip_gradient)
-            torch._foreach_clamp_max_(g, self.clip_gradient)
-        torch._foreach_add_(g, torch._foreach_mul(ws, wds))
-        step = torch._foreach_mul(g, lrs)
-        if self.momentum == 0.0:
-            torch._foreach_sub_(ws, step)
-            return
-        ms = [s.handle for _, _, _, s in items]
-        torch._foreach_mul_(ms, self.momentum)
-        torch._foreach_sub_(ms, step)
-        torch._foreach_add_(ws, ms)
+        rows = self.plan(indices, structure)
+        hyper = self.scalars(ws[0].device, len(rows)).copy(rows)
+        self.apply(structure, hyper, ws, [g.handle for _, _, g, _ in items],
+                   [None if s is None else s.handle for _, _, _, s in items])
 
 
 def create(name: str, **kwargs) -> Optimizer:

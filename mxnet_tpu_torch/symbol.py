@@ -23,7 +23,7 @@ from .name import NameManager
 from .ops import OP_REGISTRY, Operator, create_operator
 from .ops.registry import get_operator_class
 
-__all__ = ["Symbol", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 _node_uid = itertools.count()
 
@@ -251,6 +251,12 @@ class Symbol:
                                          if n.is_variable],
                            "heads": heads}, indent=2)
 
+    def save(self, fname: str) -> None:
+        """Write :meth:`tojson` to ``fname`` (UTF-8), as the JAX package's
+        ``Symbol.save`` does; either package's :func:`load` reads it."""
+        with open(fname, "wb") as f:
+            f.write(self.tojson().encode("utf-8"))
+
     # -- binding -----------------------------------------------------------
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         """Node name -> its attributes, for every node that has some
@@ -329,6 +335,12 @@ def load_json(json_str: str) -> Symbol:
             else create_operator(jn["op"], **jn.get("param", {}))
         nodes.append(_Node(op, jn["name"], inputs, dict(jn.get("attr", {}))))
     return Symbol([(nodes[i], idx) for i, idx in data["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    """A symbol from a JSON file that either package's ``save`` wrote."""
+    with open(fname, "rb") as f:
+        return load_json(f.read().decode("utf-8"))
 
 
 def _create(op_name: str, *args, **kwargs) -> Symbol:

@@ -472,3 +472,153 @@ def test_ulysses_at_one_rank_launches_flash_once(card):
             torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-5)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the fused train step as a CUDA graph
+# ---------------------------------------------------------------------------
+def _small_resnet_fit(x, y, fused_step, mod=None,
+                      opt=(("learning_rate", 0.01), ("momentum", 0.9))):
+    """One epoch of the small NHWC ResNet under torch.profiler: the module,
+    the wrappers' launch counts, the launches the card ran (by the
+    profiler's kernel events), the params and the moving statistics."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if mod is None:
+        net = tmx.models.get_resnet([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                                    num_classes=10, small_input=False,
+                                    layout="NHWC")
+        mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mod.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                initializer=tmx.init.Xavier(magnitude=2.0, seed=7),
+                optimizer_params=opt, fused_step=fused_step)
+        torch.cuda.synchronize()
+    ran = kernels.launches_in(e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA)
+    args, aux = mod.get_params()
+    return (mod, kernels.launch_counts(), ran,
+            {k: v.asnumpy().copy() for k, v in args.items()},
+            {k: v.asnumpy().copy() for k, v in aux.items()})
+
+
+_SMALL_RESNET_STEP = {"norm_act_fwd": 17, "norm_act_bwd": 17,
+                      "conv_gemm": 33, "linear": 0, "flash_attn": 0}
+
+
+def _steps(n, rtc=None):
+    out = {k: n * v for k, v in _SMALL_RESNET_STEP.items()}
+    if rtc is not None:
+        out["rtc"] = rtc
+    return out
+
+
+def test_fused_step_replays_with_launch_counts_multiplied(card):
+    """Four fit steps of the small NHWC ResNet through the fused step:
+    one eager step, one capture, three replays. The card ran four steps'
+    launches (17 K4, 17 K5, 33 K3 a step, by the profiler's kernel
+    events), as in the classic loop; the wrappers counted two steps' (the
+    eager step and the launches the capture recorded); the params and
+    moving statistics equal the classic loop's bit for bit."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(16, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    mod, counts, ran, args, aux = _small_resnet_fit(x, y, True)
+    _, classic_counts, classic_ran, args_c, aux_c = _small_resnet_fit(
+        x, y, False)
+    fused = mod._fused_step
+    assert (fused.eager_steps, fused.captures, fused.dispatches) == (1, 1, 3)
+    assert ran == classic_ran == _steps(4)
+    assert classic_counts == _steps(4, rtc=0)
+    assert counts == _steps(2, rtc=0)
+    for k in args_c:
+        np.testing.assert_array_equal(args[k], args_c[k], err_msg=k)
+    for k in aux_c:
+        np.testing.assert_array_equal(aux[k], aux_c[k], err_msg=k)
+
+
+def test_second_fit_captures_its_own_graph(card):
+    """Two fused fits on one module: each builds its step, runs one eager
+    step, captures once and replays the rest, and the card runs every
+    batch's launches; the params equal two classic fits' bit for bit."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(12, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 12).astype(np.float32)
+    results = []
+    for fused_step in (True, False):
+        mod, _, ran, _, _ = _small_resnet_fit(x, y, fused_step)
+        first = mod._fused_step
+        _, _, ran2, args, _ = _small_resnet_fit(x, y, fused_step, mod=mod)
+        assert ran == ran2 == _steps(3)
+        results.append((first, mod._fused_step, args))
+    first, second, args = results[0]
+    assert second is not first
+    for step in (first, second):
+        assert (step.eager_steps, step.captures, step.dispatches) == \
+            (1, 1, 2)
+    for k, v in results[1][2].items():
+        np.testing.assert_array_equal(args[k], v, err_msg=k)
+
+
+def test_fused_step_lr_change_between_replays_needs_no_recapture(card):
+    """After the capture, a learning rate of 0 leaves every weight as it
+    was and a new learning rate moves them again, with no new capture."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(8, 10).astype(np.float32)
+    y = rng.randint(0, 3, 8).astype(np.float32)
+    net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+        tmx.sym.Variable("data"), num_hidden=3, name="fc"), name="softmax")
+    mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+    mod.init_params(tmx.init.Xavier(seed=1))
+    mod.init_optimizer(optimizer_params=(("learning_rate", 0.5),))
+    metric = tmx.metric.create("acc")
+    fused = mod._fused_train_step(metric)
+    batch = tmx.io.DataBatch([x], [y])
+    fused.step(batch, metric)
+    fused.step(batch, metric)
+    assert (fused.captures, fused.dispatches) == (1, 1)
+    before = mod.get_params()[0]["fc_weight"].asnumpy().copy()
+    mod._optimizer.lr = 0.0
+    fused.step(batch, metric)
+    frozen = mod.get_params()[0]["fc_weight"].asnumpy().copy()
+    np.testing.assert_array_equal(frozen, before)
+    mod._optimizer.lr = 0.25
+    fused.step(batch, metric)
+    assert not np.array_equal(mod.get_params()[0]["fc_weight"].asnumpy(),
+                              frozen)
+    assert (fused.captures, fused.dispatches) == (1, 3)
+    assert metric.get()[0] == "accuracy"
+
+
+def test_fused_step_dropout_draws_a_fresh_mask_each_replay(card):
+    """A graph with Dropout registers the executor's generator with the
+    CUDA graph, so each replay draws a new mask; where this PyTorch
+    cannot register it, the capture raises naming the reason."""
+    x = np.ones((4, 64), np.float32)
+    y = np.zeros(4, np.float32)
+    net = tmx.sym.Variable("data")
+    net = tmx.sym.Dropout(net, p=0.5)
+    net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+        net, num_hidden=2, name="fc"), name="softmax")
+    mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+    mod.init_params(tmx.init.Xavier(seed=2))
+    mod.init_optimizer(optimizer_params=(("learning_rate", 0.0),))
+    metric = tmx.metric.create("acc")
+    fused = mod._fused_train_step(metric)
+    batch = tmx.io.DataBatch([x], [y])
+    fused.step(batch, metric)
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        with pytest.raises(tmx.MXNetError, match="generator"):
+            fused.step(batch, metric)
+        return
+    outs = []
+    for _ in range(3):
+        fused.step(batch, metric)
+        outs.append(mod.get_outputs()[0].asnumpy().copy())
+    assert fused.dispatches == 3
+    assert not np.array_equal(outs[0], outs[1])
+    assert not np.array_equal(outs[1], outs[2])

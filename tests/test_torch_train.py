@@ -257,7 +257,8 @@ def test_fit_callbacks_and_score(caplog):
 @pytest.mark.parametrize("handle", ["pad", "discard"])
 def test_ndarray_iter_matches_jax(handle):
     """Same batches, labels and pad with a shuffle from the same numpy
-    seed, for both last-batch handlings."""
+    seed, for both last-batch handlings; both packages' batches are
+    NDArrays."""
     x = np.arange(10 * 3, dtype=np.float32).reshape(10, 3)
     y = np.arange(10, dtype=np.float32)
     got = []
@@ -265,12 +266,8 @@ def test_ndarray_iter_matches_jax(handle):
         np.random.seed(7)
         it = pkg.io.NDArrayIter(x, y, batch_size=4, shuffle=True,
                                 last_batch_handle=handle)
-        got.append([(np.asarray(b.data[0].asnumpy()
-                                if hasattr(b.data[0], "asnumpy")
-                                else b.data[0]),
-                     np.asarray(b.label[0].asnumpy()
-                                if hasattr(b.label[0], "asnumpy")
-                                else b.label[0]), b.pad) for b in it])
+        got.append([(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+                    for b in it])
     assert len(got[0]) == len(got[1]) == (3 if handle == "pad" else 2)
     for (dj, lj, pj), (dt, lt, pt) in zip(*got):
         np.testing.assert_array_equal(dt, dj)
