@@ -74,16 +74,38 @@ Phases, in order; any failure exits non-zero before the last line:
    one backward through ulysses against autograd through the reference;
    fused_linear at ResNet-50's head on the card's ResNet features
    against the FullyConnected output; two Rtc pushes.
-8. report: one JSON line of kernel records, the card line, then
+8. checkpoints at full width: ResNet-50 NHWC, batch 32, f32, phase 6's
+   SGD settings, six batches from seed 0, fit(fused_step=True).
+   (a) uninterrupted: losses L and final params P; (b) MXNET_TPU_CKPT_DIR
+   with a snapshot every 3 steps: losses equal L bit for bit, ckpt.saves,
+   ckpt.bytes, ckpt.save_ms and the saving steps' host time against the
+   other replays'; (c) a fresh module resumed from the step-3 snapshot:
+   ckpt.restores 1, losses L[3..5] and params P bit for bit, one capture,
+   launch counts zeroed just before and read just after (K3 210, K4 106,
+   K5 106: the eager step and the capture), the restore time; (d) data
+   b0, b1, b2, b3, b3 with manager.rollback() to the step-3 snapshot
+   after the first b3: the replay that follows gives L[3] bit for bit,
+   the params end equal to (a)'s after four steps, one capture;
+   (e) Module.save_checkpoint with the optimizer states, loaded by a
+   Module on the CPU: params and momenta bit-equal; (f) a child process
+   trains the MNIST MLP on the card (fit(fused_step=True),
+   MXNET_TPU_CKPT_DIR set) and sends itself SIGTERM after step 5: it must
+   end by the signal with a "preempt" snapshot of step 5, and a second
+   child resumes from it and finishes the epoch (each bounded by a
+   timeout). One summary line: snapshot MB, save ms, restore ms, the
+   saving step's host ms against the median step's.
+9. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
-breakdowns to PATH as JSON.
+breakdowns to PATH as JSON. ``--ckpt-child DIR`` is phase 8's child
+process, which the phase starts itself.
 """
 import argparse
 import hashlib
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -146,6 +168,10 @@ MNIST_EPOCHS = 2
 # separable templates at 40/255 pixel noise: both networks should reach
 # every held-out digit; 0.97 leaves room for a few hard samples
 MNIST_MIN_ACC = 0.97
+CKPT_STEPS = 6                 # the checkpoint phase's batches of 32
+CKPT_EVERY = 3                 # its periodic cadence: snapshots at 3 and 6
+CKPT_DIE_AT = 5                # the SIGTERM child's last step
+CKPT_CHILD_TIMEOUT_S = 300
 
 
 def check(cond, msg):
@@ -1142,11 +1168,11 @@ def _host(params):
     return {k: v.asnumpy().copy() for k, v in params.items()}
 
 
-def train_data():
-    """TRAIN_STEPS batches of 32 images and labels from seed 0."""
+def train_data(steps=TRAIN_STEPS):
+    """``steps`` batches of 32 images and labels from seed 0."""
     rng = np.random.RandomState(0)
-    images = rng.randn(TRAIN_STEPS * BATCH, *IMAGE).astype(np.float32)
-    labels = rng.randint(0, 1000, TRAIN_STEPS * BATCH).astype(np.float32)
+    images = rng.randn(steps * BATCH, *IMAGE).astype(np.float32)
+    labels = rng.randint(0, 1000, steps * BATCH).astype(np.float32)
     return images, labels
 
 
@@ -1597,9 +1623,333 @@ def mnist_gate(mx, data_dir, net):
             "worst_excess": worst[0]}
 
 
+def ckpt_fit(torch, mx, images, labels, after_batch=None):
+    """Module.fit(fused_step=True) over one epoch of the batches of
+    ``images`` from train_module's seed-0 weights, MXNET_TPU_CKPT_* as the
+    environment has them. Per step: the loss of the forward's
+    probabilities and the host clock at the batch-end callback with the
+    card synchronised; then ``after_batch(param, mod)``."""
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    losses, marks = [], []
+
+    def on_batch(param):
+        probs = param.locals["self"].get_outputs()[0].handle
+        lab = torch.from_numpy(labels[param.nbatch * BATCH:
+                                      (param.nbatch + 1) * BATCH]).to(
+            probs.device, torch.int64)
+        losses.append(-torch.log(probs.gather(1, lab[:, None])).mean())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if after_batch is not None:
+            after_batch(param, mod)
+
+    torch.cuda.synchronize()
+    mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
+            num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+            eval_metric=mx.metric.Accuracy(), batch_end_callback=on_batch,
+            fused_step=True)
+    args, aux = (_host(p) for p in mod.get_params())
+    return {"mod": mod, "losses": [float(v) for v in losses],
+            "steps_ms": [1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+            "args": args, "aux": aux}
+
+
+def _check_params_equal(what, got, want):
+    for name in ("args", "aux"):
+        unequal = [k for k in want[name]
+                   if not np.array_equal(got[name][k], want[name][k])]
+        check(not unequal, "%s: %s differ at %s" % (what, name, unequal[:5]))
+
+
+def _keep_only_step(ckpt, directory, step):
+    """Trim the store's manifest to the snapshot of ``step``: a resume
+    from a mid-run save, as after a preemption there."""
+    store = ckpt.SnapshotStore(directory)
+    man = store._read_manifest()
+    man["snapshots"] = [e for e in man["snapshots"] if e["step"] == step]
+    check(len(man["snapshots"]) == 1, "no snapshot of step %d" % step)
+    ckpt.atomic_write_bytes(store._manifest_path(),
+                            json.dumps(man).encode())
+
+
+def checkpoint_main_path(torch, mx, kernels, card):
+    """Phase 8 on ResNet-50 NHWC at batch 32 through the fused step:
+    (a) an uninterrupted fit of CKPT_STEPS batches; (b) the same with a
+    snapshot every CKPT_EVERY steps, losses bit-equal; (c) a fresh module
+    resumed from the step-3 snapshot, the rest bit-equal, one capture,
+    launch counts zeroed just before and read just after; (d) batches
+    b0-b3 then b3 again after a rollback to the step-3 snapshot into the
+    live graph; (e) Module.save_checkpoint files loaded on the CPU; (f) a
+    child trained on the card and ended by SIGTERM, then resumed."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+
+    tel = mx.telemetry
+    images, labels = train_data(CKPT_STEPS)
+    four = {}
+
+    def keep_four(param, mod):
+        if param.nbatch == 3:
+            four["args"], four["aux"] = (_host(p) for p in mod.get_params())
+
+    a = ckpt_fit(torch, mx, images, labels, keep_four)
+    check(len(a["losses"]) == CKPT_STEPS and all(np.isfinite(a["losses"])),
+          "checkpoint (a): losses %s" % a["losses"])
+    res = {"losses": a["losses"]}
+    env = ("MXNET_TPU_CKPT_DIR", "MXNET_TPU_CKPT_EVERY_N_STEPS",
+           "MXNET_TPU_CKPT_RESUME")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tel.reset()
+        tel.enable()
+        # (b) the cadence: saving perturbs nothing
+        os.environ.update({env[0]: os.path.join(tmp, "b"),
+                           env[1]: str(CKPT_EVERY), env[2]: "0"})
+        b = ckpt_fit(torch, mx, images, labels)
+        check(b["losses"] == a["losses"], "checkpoint (b): losses with "
+              "snapshots %s, without %s" % (b["losses"], a["losses"]))
+        _check_params_equal("checkpoint (b)", b, a)
+        saves = tel.peek("ckpt.saves")
+        check(saves == CKPT_STEPS // CKPT_EVERY, "checkpoint (b): %s saves"
+              % saves)
+        snap = tel.snapshot()["ckpt"]
+        saving = [b["steps_ms"][i - 2] for i in range(CKPT_EVERY,
+                                                      CKPT_STEPS + 1,
+                                                      CKPT_EVERY)]
+        plain = [v for i, v in enumerate(b["steps_ms"])
+                 if i > 0 and (i + 2) % CKPT_EVERY]
+        res["cadence"] = {
+            "saves": saves, "bytes": snap["bytes"],
+            "snapshot_mb": snap["bytes"] / saves / 1e6,
+            "save_ms": snap["save_ms"], "capture_ms": snap["snapshot_ms"],
+            "save_ms_median": float(np.median([snap["save_ms"]["min"],
+                                               snap["save_ms"]["max"]])),
+            "saving_step_ms": saving, "other_step_ms": plain,
+            "other_step_ms_median": float(np.median(plain)),
+            "steps_ms": b["steps_ms"], "uninterrupted_steps_ms":
+                a["steps_ms"]}
+        cad = res["cadence"]
+        print("checkpoint (b) cadence every %d steps: losses bit-equal to "
+              "the uninterrupted run; ckpt.saves %d, ckpt.bytes %d (%.1f MB "
+              "a snapshot), ckpt.save_ms median %.1f (min %.1f, max %.1f; "
+              "serialise, hash, write), capture (device fetch and param "
+              "digests) %.1f ms a save; host "
+              "step of the saving steps %s ms against the median of the "
+              "other replays %.3f ms  [%s]"
+              % (CKPT_EVERY, saves, snap["bytes"], cad["snapshot_mb"],
+                 cad["save_ms_median"], snap["save_ms"]["min"],
+                 snap["save_ms"]["max"],
+                 snap["snapshot_ms"]["sum"] / snap["snapshot_ms"]["count"],
+                 ["%.3f" % v for v in saving], cad["other_step_ms_median"],
+                 card))
+        # (c) a fresh module resumes from the step-3 snapshot
+        _keep_only_step(ckpt, os.path.join(tmp, "b"), CKPT_EVERY)
+        os.environ.update({env[1]: "0", env[2]: "1"})
+        tel.reset()
+        kernels.reset_launch_counts()
+        c = ckpt_fit(torch, mx, images, labels)
+        launches = kernels.launch_counts()
+        step = c["mod"]._fused_step
+        counters = (step.eager_steps, step.captures, step.dispatches)
+        restore_ms = tel.peek("ckpt.restore_ms", "hist_sum")
+        print("checkpoint (c) resume from step %d: ckpt.restores %s, "
+              "restore %.1f ms (read, check, unpickle, copy in), losses %s, "
+              "step counters (eager, captures, replays) %s, launches %s  "
+              "[%s]" % (CKPT_EVERY, tel.peek("ckpt.restores"), restore_ms,
+                        ["%.4f" % v for v in c["losses"]], counters,
+                        launches, card))
+        check(tel.peek("ckpt.restores") == 1, "checkpoint (c): restores")
+        check(c["losses"] == a["losses"][CKPT_EVERY:], "checkpoint (c): "
+              "resumed losses %s, uninterrupted %s"
+              % (c["losses"], a["losses"][CKPT_EVERY:]))
+        _check_params_equal("checkpoint (c)", c, a)
+        check(counters == (1, 1, CKPT_STEPS - CKPT_EVERY - 1),
+              "checkpoint (c): step counters %s" % (counters,))
+        want = dict(_resnet_launches(2), rtc=0)
+        check(launches == want, "checkpoint (c): launches %s, want %s (the "
+              "eager step and the capture)" % (launches, want))
+        res["resume"] = {"restore_ms": restore_ms, "losses": c["losses"],
+                         "counters": counters, "launches": launches}
+        # (d) a rollback into the live graph
+        os.environ.update({env[0]: os.path.join(tmp, "d"),
+                           env[1]: str(CKPT_EVERY), env[2]: "0"})
+        ims = np.concatenate([images[:4 * BATCH],
+                              images[3 * BATCH:4 * BATCH]])
+        labs = np.concatenate([labels[:4 * BATCH],
+                               labels[3 * BATCH:4 * BATCH]])
+        rolled = {}
+
+        def roll_back(param, mod):
+            if param.nbatch == 3:
+                rolled["info"] = param.locals["ckpt"].rollback()
+
+        d = ckpt_fit(torch, mx, ims, labs, roll_back)
+        step = d["mod"]._fused_step
+        counters = (step.eager_steps, step.captures, step.dispatches)
+        print("checkpoint (d) rollback to step %s after b3, then b3 again: "
+              "losses %s, step counters %s  [%s]"
+              % (rolled.get("info", {}).get("step"),
+                 ["%.4f" % v for v in d["losses"]], counters, card))
+        check(rolled.get("info", {}).get("step") == CKPT_EVERY,
+              "checkpoint (d): rollback %s" % rolled)
+        check(d["losses"][:4] == a["losses"][:4]
+              and d["losses"][4] == a["losses"][3],
+              "checkpoint (d): losses %s, want %s then %r"
+              % (d["losses"], a["losses"][:4], a["losses"][3]))
+        _check_params_equal("checkpoint (d)", d, four)
+        check(counters == (1, 1, 4), "checkpoint (d): step counters %s"
+              % (counters,))
+        res["rollback"] = {"losses": d["losses"], "counters": counters}
+        res["files"] = checkpoint_files(mx, c["mod"], tmp)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        tel.disable()
+        tel.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["sigterm"] = checkpoint_sigterm(card)
+    print("checkpoint phase, ResNet-50 NHWC batch 32 f32, fused step: "
+          "snapshot %.1f MB, save %.1f ms (median of %d; capture "
+          "%.1f ms more), restore %.1f ms, saving step %.3f ms against "
+          "the median step %.3f ms  [%s]"
+          % (res["cadence"]["snapshot_mb"], res["cadence"]["save_ms_median"],
+             res["cadence"]["saves"],
+             res["cadence"]["capture_ms"]["sum"]
+             / res["cadence"]["capture_ms"]["count"],
+             res["resume"]["restore_ms"], res["cadence"]["saving_step_ms"][0],
+             res["cadence"]["other_step_ms_median"], card))
+    return res
+
+
+def checkpoint_files(mx, mod, tmp):
+    """(e): save_checkpoint with the optimizer states on the card, loaded
+    into a Module on the CPU; params and momenta bit-equal."""
+    prefix = os.path.join(tmp, "resnet50")
+    t0 = time.perf_counter()
+    mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+    save_s = time.perf_counter() - t0
+    cpu = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                             context=mx.cpu())
+    cpu.bind(data_shapes=[("data", (1,) + IMAGE)],
+             label_shapes=[("softmax_label", (1,))])
+    cpu.init_optimizer(optimizer_params=TRAIN_OPT)
+    cpu.load_optimizer_states(prefix + "-0001.states")
+    want = dict(zip(("args", "aux"), (_host(p) for p in mod.get_params())))
+    got = dict(zip(("args", "aux"), (_host(p) for p in cpu.get_params())))
+    _check_params_equal("checkpoint (e) files on the CPU", got, want)
+    states = mod._updater.states
+    unequal = [i for i, s in states.items()
+               if not np.array_equal(cpu._updater.states[i].asnumpy(),
+                                     s.asnumpy())]
+    check(sorted(cpu._updater.states) == sorted(states) and not unequal,
+          "checkpoint (e): momenta differ at %s" % unequal[:5])
+    sizes = {ext: os.path.getsize("%s-0001.%s" % (prefix, ext))
+             for ext in ("params", "states")}
+    print("checkpoint (e) files: save_checkpoint with optimizer states in "
+          "%.2f s (%s bytes), loaded by a Module on the CPU: params and %d "
+          "momenta bit-equal" % (save_s, sizes, len(states)))
+    return {"save_s": save_s, "bytes": sizes, "momenta": len(states)}
+
+
+def checkpoint_sigterm(card):
+    """(f): a child trains the MNIST MLP on the card through
+    fit(fused_step=True) with MXNET_TPU_CKPT_DIR set and sends itself
+    SIGTERM after step CKPT_DIE_AT: it must end by the signal with a
+    "preempt" snapshot of that step; a second child resumes from it and
+    runs the epoch to its end."""
+    import signal
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sigterm_")
+    try:
+        write_mnist_idx(tmp)
+        snaps = os.path.join(tmp, "snaps")
+        env = dict(os.environ, MXNET_TPU_CKPT_DIR=snaps,
+                   MXNET_TPU_CKPT_EVERY_N_STEPS="0",
+                   MXNET_TPU_CRASH_DIR=os.path.join(tmp, "crash"),
+                   CKPT_CHILD_DIE_AT=str(CKPT_DIE_AT))
+        cmd = [sys.executable, os.path.abspath(__file__), "--ckpt-child",
+               tmp]
+        runs = []
+        for die in (True, False):
+            if not die:
+                env.pop("CKPT_CHILD_DIE_AT")
+            t0 = time.perf_counter()
+            try:
+                r = subprocess.run(cmd, env=env, capture_output=True,
+                                   text=True, timeout=CKPT_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                check(False, "checkpoint (f): the child ran past %d s"
+                      % CKPT_CHILD_TIMEOUT_S)
+            runs.append((r, time.perf_counter() - t0))
+            with open(os.path.join(snaps, "MANIFEST.json")) as f:
+                last = json.load(f)["snapshots"][-1]
+            if die:
+                check(r.returncode == -signal.SIGTERM, "checkpoint (f): the "
+                      "child ended with %s, not by SIGTERM: %s"
+                      % (r.returncode, r.stderr[-2000:]))
+                check(last["reason"] == "preempt"
+                      and last["step"] == CKPT_DIE_AT, "checkpoint (f): "
+                      "newest snapshot %s" % last)
+                preempt = last
+        r = runs[-1][0]
+        check(r.returncode == 0, "checkpoint (f): the resumed child ended "
+              "with %s: %s" % (r.returncode, r.stderr[-2000:]))
+        with open(os.path.join(tmp, "stream.txt")) as f:
+            seen = [tuple(map(int, line.split()[:2])) for line in f]
+        batches = MNIST_TRAIN // MNIST_BATCH
+        check(seen == [(0, i) for i in range(CKPT_DIE_AT)]
+              + [(0, i) for i in range(CKPT_DIE_AT, batches)],
+              "checkpoint (f): the steps the two children ran: %s" % seen)
+        check(os.path.exists(os.path.join(tmp, "completed")),
+              "checkpoint (f): the resumed child did not finish")
+        print("checkpoint (f) SIGTERM: the child ended by the signal (rc %d) "
+              "after step %d with a \"%s\" snapshot of step %d (%d bytes); "
+              "a second child resumed and ran steps %d-%d; %.1f s and %.1f s "
+              "of wall time  [%s]"
+              % (runs[0][0].returncode, CKPT_DIE_AT, preempt["reason"],
+                 preempt["step"], preempt["bytes"], CKPT_DIE_AT + 1,
+                 batches, runs[0][1], runs[1][1], card))
+        return {"rc": runs[0][0].returncode, "snapshot": preempt,
+                "wall_s": [t for _, t in runs]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ckpt_child(data_dir):
+    """The SIGTERM phase's child: the MNIST MLP on the card through
+    Module.fit(fused_step=True) over MNISTIter for one epoch, the
+    checkpoint manager armed by MXNET_TPU_CKPT_*; each step appends
+    ``epoch nbatch`` to ``stream.txt``; with CKPT_CHILD_DIE_AT it sends
+    itself SIGTERM after that step; at the end it writes ``completed``."""
+    import signal
+
+    import mxnet_tpu_torch as mx
+
+    die_at = int(os.environ.get("CKPT_CHILD_DIE_AT", "0"))
+    steps = [0]
+
+    def on_batch(param):
+        steps[0] += 1
+        with open(os.path.join(data_dir, "stream.txt"), "a") as f:
+            f.write("%d %d\n" % (param.epoch, param.nbatch))
+        if steps[0] == die_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    mod = mx.mod.Module(mx.models.get_mlp(), context=mx.gpu(0))
+    mod.fit(mnist_iter(mx, data_dir, "train", "mlp", MNIST_BATCH),
+            num_epoch=1, initializer=mx.init.Xavier(magnitude=2.0, seed=3),
+            optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)),
+            batch_end_callback=on_batch, fused_step=True)
+    with open(os.path.join(data_dir, "completed"), "w") as f:
+        f.write("ok")
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
+    parser.add_argument("--ckpt-child", metavar="DIR",
+                        help="run phase 8's SIGTERM child over DIR (the "
+                        "phase starts it)")
     opts = parser.parse_args()
     try:
         import torch
@@ -1620,6 +1970,8 @@ def main():
         print("chip_smoke: the mxnet_tpu_torch package is not beside this "
               "script (%s)" % e, file=sys.stderr)
         return 2
+    if opts.ckpt_child:
+        return ckpt_child(opts.ckpt_child)
 
     # 1. environment
     card = card_line()
@@ -1730,14 +2082,20 @@ def main():
     # 7. the slice's entry points at full width
     entry = entry_points_main_path(torch, mx, kernels)
 
-    # 8. report
+    # 8. checkpoints through the fused step at full width
+    ckpt_run = checkpoint_main_path(torch, mx, kernels, card)
+
+    # 9. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
                   "eager step and the launches its CUDA graph capture "
                   "recorded (a replay runs no wrapper); "
                   "*_2_replays_profiled: the launches the card ran in two "
-                  "replays, counted from torch.profiler's kernel events")
+                  "replays, counted from torch.profiler's kernel events; "
+                  "train_fused_ckpt_resume: the wrappers' counts over the "
+                  "checkpoint phase's resumed fit (its eager step and its "
+                  "capture)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -1748,7 +2106,9 @@ def main():
             "train": train["launches"]["norm_act_fwd"],
             "train_fused": fused["launches"]["norm_act_fwd"],
             "train_fused_2_replays_profiled":
-                fused["breakdown"]["launches"]["norm_act_fwd"]},
+                fused["breakdown"]["launches"]["norm_act_fwd"],
+            "train_fused_ckpt_resume":
+                ckpt_run["resume"]["launches"]["norm_act_fwd"]},
         "launches_note": fused_note,
         "max_abs_err": fwd_worst["float32"],
         "max_err_f32": fwd_worst["float32"],
@@ -1766,7 +2126,9 @@ def main():
             "train": train["launches"]["norm_act_bwd"],
             "train_fused": fused["launches"]["norm_act_bwd"],
             "train_fused_2_replays_profiled":
-                fused["breakdown"]["launches"]["norm_act_bwd"]},
+                fused["breakdown"]["launches"]["norm_act_bwd"],
+            "train_fused_ckpt_resume":
+                ckpt_run["resume"]["launches"]["norm_act_bwd"]},
         "launches_note": fused_note,
         "max_abs_err": max(bwd_worst["dx_float32"], bwd_worst["sums_abs"]),
         "max_err_dx_f32": bwd_worst["dx_float32"],
@@ -1788,6 +2150,8 @@ def main():
             "train_fused": fused["launches"]["conv_gemm"],
             "train_fused_2_replays_profiled":
                 fused["breakdown"]["launches"]["conv_gemm"],
+            "train_fused_ckpt_resume":
+                ckpt_run["resume"]["launches"]["conv_gemm"],
             "mnist_lenet_fused": mnist["lenet"]["launches"]["conv_gemm"],
             "mnist_lenet_fused_2_replays_profiled":
                 mnist["lenet"]["replay_launches"]["conv_gemm"]},
@@ -1868,7 +2232,9 @@ def main():
                        "linear_shapes": linear_rows, "rtc_timing": rtc_time,
                        "main_path": serve, "train_path": train,
                        "train_fused_path": fused, "mnist_path": mnist,
-                       "entry_points": entry}, f,
+                       "entry_points": entry,
+                       "checkpoint_path": {k: v for k, v in ckpt_run.items()
+                                           if k != "mod"}}, f,
                       indent=1)
     print(json.dumps({"kernels": records}))
     print(card)

@@ -8,6 +8,8 @@
 * ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
   classic loop, or ``fused_step=True``: one CUDA graph a batch)
 * ``mx.model`` — the FeedForward estimator and checkpoint files
+* ``mx.checkpoint`` — full-state snapshots, resume and the SIGTERM
+  grace path of ``fit`` (``MXNET_TPU_CKPT_*``, read through ``mx.env``)
 * ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
@@ -22,6 +24,8 @@ hand-written Hopper kernels live in ``ops/kernels.py`` (sources in
 from __future__ import annotations
 
 from .base import MXNetError, DeviceUnavailableError
+from . import env
+from . import telemetry
 from .context import Context, cpu, gpu, current_context
 from . import ndarray
 from . import ndarray as nd
@@ -45,6 +49,8 @@ from . import kvstore as kv
 from . import module
 from . import module as mod
 from . import fused_step
+from . import checkpoint
+from . import tracing
 from . import model
 from . import serving
 from . import predictor

@@ -1,12 +1,51 @@
-"""Training callbacks, counterpart of ``Speedometer`` and
-``log_train_metric`` in ``mxnet_tpu/callback.py``. A batch-end callback
-receives a ``BatchEndParam(epoch, nbatch, eval_metric, locals)``."""
+"""Training callbacks, counterpart of ``mxnet_tpu/callback.py`` (all but
+``ProgressBar``). A batch-end callback receives a
+``BatchEndParam(epoch, nbatch, eval_metric, locals)``; an epoch-end
+callback ``(epoch, symbol, arg_params, aux_params)``."""
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "log_train_metric"]
+__all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
+           "module_checkpoint"]
+
+
+def do_checkpoint(prefix: str, period: int = 1,
+                  save_optimizer_states: bool = False, mod=None):
+    """An epoch-end callback that saves the params every ``period``
+    epochs (``prefix-symbol.json``, ``prefix-NNNN.params``). With
+    ``save_optimizer_states`` it also writes ``prefix-NNNN.states``
+    through ``mod``, the module that owns the optimizer (the callback's
+    arguments do not carry it)."""
+    from .model import save_checkpoint
+
+    period = int(max(1, period))
+    if save_optimizer_states and mod is None:
+        raise ValueError("do_checkpoint(save_optimizer_states=True) needs "
+                         "mod= (the bound module that owns the optimizer "
+                         "states)")
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            if save_optimizer_states:
+                mod.save_checkpoint(prefix, iter_no + 1,
+                                    save_optimizer_states=True)
+            else:
+                save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def module_checkpoint(mod, prefix: str, period: int = 1,
+                      save_optimizer_states: bool = False):
+    """An epoch-end callback: ``mod.save_checkpoint`` every ``period``
+    epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
 
 
 def log_train_metric(period: int, auto_reset: bool = False):

@@ -15,6 +15,15 @@ arrays, the hyperparameter refresh (``optimizer.SGD.plan``, on the
 host) and one ``replay()``. On the CPU, which only a caller who asks
 for it gets, the same step function runs eagerly.
 
+The graph reads and writes fixed addresses: the bound weights and
+gradients, the aux states, the SGD momenta, the metric's device
+accumulator and the executor's generator. A checkpoint restore
+(:mod:`mxnet_tpu_torch.checkpoint`) therefore copies into those tensors
+and never replaces one, so the next replay runs on the restored values.
+The step captures again when the update's structure changes or when a
+weight, gradient or momentum it captured is no longer the one the module
+holds, never replaying a graph over storage the module let go.
+
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
 call: place the batch on the device, run the forward and the argmax or
@@ -81,7 +90,8 @@ class FusedTrainStep:
 
     ``eager_steps`` counts the batches run eagerly (the first on a card,
     every one on the CPU), ``captures`` the graphs captured (one, and one
-    more only if the update's structure changes, ``SGD.structure``) and
+    more only if the update's structure, ``SGD.structure``, or a tensor
+    it updates changes) and
     ``dispatches`` the replays, one a batch after the first on a card.
     The kernels' wrappers count the launches of the eager step and those
     the capture records; a replay moves no count
@@ -110,6 +120,7 @@ class FusedTrainStep:
         self._outs = None
         self._graph = None
         self._structure = None
+        self._captured = []
         self.eager_steps = 0
         self.captures = 0
         self.dispatches = 0
@@ -185,9 +196,13 @@ class FusedTrainStep:
         self.eager_steps += 1
 
     def _replay(self, items, structure, hyper):
-        if structure != self._structure:
+        tensors = [t for item in items for t in item[1:]]
+        if structure != self._structure or len(tensors) != len(
+                self._captured) or any(a is not b for a, b in
+                                       zip(tensors, self._captured)):
             self._graph = self._capture(items, structure, hyper)
             self._structure = structure
+            self._captured = tensors
         try:
             self._graph.replay()
         except RuntimeError as e:

@@ -172,6 +172,17 @@ class NDArrayIter(DataIter):
     def reset(self):
         self.cursor = -self.batch_size
 
+    def get_checkpoint_state(self) -> dict:
+        """What identifies this stream in a snapshot."""
+        return {"kind": type(self).__name__, "batch_size": self.batch_size,
+                "num_data": self.num_data}
+
+    def set_checkpoint_state(self, state: dict) -> None:
+        """Seek to ``state["batches"]`` batches already consumed this
+        epoch (0: as after ``reset``): a count of the batches the
+        training loop saw, not a copy of the cursor."""
+        self.cursor = (int(state.get("batches", 0)) - 1) * self.batch_size
+
     def iter_next(self) -> bool:
         self.cursor += self.batch_size
         return self.cursor < self.num_data
@@ -232,6 +243,13 @@ class _Wrapped(DataIter):
 
     def reset(self):
         self._inner.reset()
+
+    def get_checkpoint_state(self) -> dict:
+        return dict(self._inner.get_checkpoint_state(),
+                    kind=type(self).__name__)
+
+    def set_checkpoint_state(self, state: dict) -> None:
+        self._inner.set_checkpoint_state(state)
 
     def iter_next(self):
         return self._inner.iter_next()

@@ -93,6 +93,32 @@ class KVStore:
 
         self.set_updater(get_updater(optimizer))
 
+    def _optimizer_updater(self):
+        from .optimizer import Updater
+
+        if not isinstance(self._updater, Updater):
+            raise MXNetError("no optimizer set")
+        return self._updater
+
+    def save_optimizer_states(self, fname: str):
+        """The updater's states to ``fname`` through a temporary file and
+        a rename, so a crash mid-save leaves the old file whole."""
+        from .checkpoint import atomic_write_bytes
+
+        atomic_write_bytes(fname, self._optimizer_updater().get_states())
+
+    def load_optimizer_states(self, fname: str):
+        """States from ``fname`` into the updater, in place; a torn or
+        foreign file raises naming it."""
+        updater = self._optimizer_updater()
+        with open(fname, "rb") as f:
+            blob = f.read()
+        try:
+            updater.set_states(blob)
+        except Exception as e:
+            raise MXNetError("invalid optimizer-states file %s: %s "
+                             "(partial/torn write?)" % (fname, e)) from e
+
 
 def create(name: str = "local") -> KVStore:
     """A store by type name: ``local`` (also ``local_update_cpu`` and

@@ -3,20 +3,21 @@
 
 ``save_checkpoint`` writes ``prefix-symbol.json`` and
 ``prefix-NNNN.params`` (the named-array container both packages read
-and write), the params through a temporary file and a rename, so a
+and write), the params through ``checkpoint.atomic_ndarray_save``, so a
 crash mid-save leaves the old file whole. ``FeedForward`` trains,
-predicts and scores over the port's Module; ``fused_step=True`` passes
-through to ``Module.fit``.
+predicts and scores over the port's Module; its ``fit`` goes through
+``Module.fit``, so ``fused_step`` (``None``: ``MXNET_TPU_FUSED_STEP``)
+and the checkpoint manager (``MXNET_TPU_CKPT_DIR``) apply to it.
 """
 from __future__ import annotations
 
 import logging
-import os
 from typing import Dict, Optional
 
 import numpy as np
 
 from .base import MXNetError
+from .checkpoint import atomic_ndarray_save
 from .context import Context, cpu, current_context
 from .initializer import Uniform
 from . import ndarray as nd
@@ -24,19 +25,6 @@ from . import symbol as sym_mod
 from .io import DataIter, NDArrayIter
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
-
-
-def _atomic_save(fname: str, data) -> None:
-    tmp = "%s.tmp-%d" % (fname, os.getpid())
-    try:
-        with open(tmp, "wb") as f:
-            nd.save_to_stream(f, data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, fname)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
 
 
 def save_checkpoint(prefix: str, epoch: int, symbol, arg_params: Dict,
@@ -48,7 +36,7 @@ def save_checkpoint(prefix: str, epoch: int, symbol, arg_params: Dict,
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)
-    _atomic_save(param_name, save_dict)
+    atomic_ndarray_save(param_name, save_dict)
     logging.info("Saved checkpoint to \"%s\"", param_name)
 
 
@@ -76,13 +64,13 @@ def load_checkpoint(prefix: str, epoch: int):
 class FeedForward:
     """Estimator over a symbol: ``fit`` on numpy arrays or a DataIter,
     ``predict``, ``score``, ``save``/``load`` and ``create``. Extra
-    keyword arguments are the optimizer's; ``fused_step=True`` trains
-    through the fused train step."""
+    keyword arguments are the optimizer's; ``fused_step`` goes to
+    ``Module.fit`` (``None`` reads ``MXNET_TPU_FUSED_STEP``)."""
 
     def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
                  optimizer="sgd", initializer=Uniform(0.01),
                  numpy_batch_size=128, arg_params=None, aux_params=None,
-                 allow_extra_params=False, begin_epoch=0, fused_step=False,
+                 allow_extra_params=False, begin_epoch=0, fused_step=None,
                  **kwargs):
         self.symbol = symbol
         if ctx is None:
@@ -219,7 +207,7 @@ class FeedForward:
                eval_metric="acc", epoch_end_callback=None,
                batch_end_callback=None, kvstore="local", logger=None,
                work_load_list=None, eval_batch_end_callback=None,
-               fused_step=False, **kwargs) -> "FeedForward":
+               fused_step=None, **kwargs) -> "FeedForward":
         model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch,
                             epoch_size=epoch_size, optimizer=optimizer,
                             initializer=initializer, fused_step=fused_step,

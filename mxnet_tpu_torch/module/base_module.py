@@ -4,13 +4,14 @@
 ``fit`` is the JAX package's training loop: per batch either the
 classic three phases (``forward_backward``, ``update``,
 ``update_metric``; ``base_module.py:317-421`` there) or, with
-``fused_step=True``, one :class:`~mxnet_tpu_torch.fused_step.
-FusedTrainStep` (one CUDA graph replay a batch on a card). The port
-reads no environment knobs, so the argument stands in for
-``MXNET_TPU_FUSED_STEP``. The loop's other extras that the JAX package
-arms from knobs (feed scheduler, device staging, tracing, checkpoint
-manager, numerics watch) are not ported yet: ROADMAP.md Queue A items 3,
-4 and 9.
+``fused_step=True`` (or ``MXNET_TPU_FUSED_STEP``), one
+:class:`~mxnet_tpu_torch.fused_step.FusedTrainStep` (one CUDA graph
+replay a batch on a card). ``MXNET_TPU_CKPT_DIR`` arms the checkpoint
+manager (:mod:`mxnet_tpu_torch.checkpoint`): resume at entry, periodic
+snapshots and the SIGTERM grace path around each batch. The loop's other
+extras that the JAX package arms from knobs (feed scheduler, device
+staging, tracing, numerics watch) are not ported yet: ROADMAP.md Queue A
+items 4 and 9.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from collections import namedtuple
 import numpy as np
 
 from ..base import MXNetError
+from .. import env as _env
 from .. import metric as _metric
 from .. import ndarray as nd
 from ..context import cpu
@@ -101,6 +103,33 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+
+    def save_params(self, fname: str):
+        """The params as ``arg:``/``aux:`` entries of the named-array
+        container, through a temporary file and a rename."""
+        from ..checkpoint import atomic_ndarray_save
+
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        atomic_ndarray_save(fname, save_dict)
+
+    def load_params(self, fname: str):
+        """Params saved by :meth:`save_params` (either package's)."""
+        save_dict = nd.load(fname, ctx=cpu())
+        if not isinstance(save_dict, dict):
+            raise MXNetError("invalid param file %s: no names" % fname)
+        arg_params, aux_params = {}, {}
+        for k, value in save_dict.items():
+            arg_type, _, name = k.partition(":")
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise MXNetError("invalid param file %s: key %r"
+                                 % (fname, k))
+        self.set_params(arg_params, aux_params)
 
     def _pad_partial_batch(self, eval_batch):
         """A batch with fewer rows than the bound batch size, padded with
@@ -199,18 +228,25 @@ class BaseModule:
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, fused_step=False):
+            monitor=None, fused_step=None):
         """Train: bind for training, init params and the optimizer, then
         per epoch run every batch through ``forward_backward``,
-        ``update`` and ``update_metric`` (or, with ``fused_step=True``,
+        ``update`` and ``update_metric`` (or, with ``fused_step``,
         through one fused train step, which raises naming the reason
         where the configuration cannot fuse), call the batch-end
         callbacks, log the metric, call the epoch-end callbacks with the
-        params and score ``eval_data``. Under the fused step,
+        params and score ``eval_data``. ``fused_step=None`` reads
+        ``MXNET_TPU_FUSED_STEP``; ``True`` or ``False`` wins over it.
+        Under ``MXNET_TPU_CKPT_DIR`` the run resumes from the newest
+        valid snapshot (mid-epoch: the metric and the iterator are not
+        reset, and ``nbatch`` counts on from the snapshot's), saves
+        snapshots on the cadence and on SIGTERM. Under the fused step,
         ``get_outputs()`` in a batch-end callback is overwritten by the
         next batch: copy what you keep."""
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
+        if fused_step is None:
+            fused_step = _env.get("MXNET_TPU_FUSED_STEP")
         if monitor is not None and not fused_step:
             raise MXNetError("monitor is not ported yet (ROADMAP.md Queue A "
                              "item 7)")
@@ -229,19 +265,49 @@ class BaseModule:
                  if fused_step else None)
         self._fused_step_active = fused is not None
 
+        from ..checkpoint import maybe_manager
+        ckpt = maybe_manager(self, eval_metric, train_data)
+        resume = ckpt.maybe_restore() if ckpt is not None else None
+        if ckpt is not None:
+            ckpt.arm()
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_batch_end_callback,
+                             fused, ckpt, resume, begin_epoch, num_epoch)
+        finally:
+            if ckpt is not None:
+                ckpt.disarm()
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_batch_end_callback, fused,
+                    ckpt, resume, begin_epoch, num_epoch):
         for epoch in range(begin_epoch, num_epoch):
+            if resume is not None and epoch < resume["epoch"]:
+                continue
+            # resuming mid-epoch: the snapshot restored the metric and the
+            # data cursor, which a reset would discard
+            resuming = resume is not None and epoch == resume["epoch"]
+            nbatch = resume["nbatch"] if resuming else -1
+            resume = None
             tic = time.time()
-            eval_metric.reset()
-            train_data.reset()
-            nbatch = -1
+            if not resuming:
+                eval_metric.reset()
+                train_data.reset()
             for data_batch in train_data:
                 nbatch += 1
+                if ckpt is not None:
+                    # a SIGTERM from here to step_end waits for step_end
+                    ckpt.step_begin()
                 if fused is not None:
                     fused.step(data_batch, eval_metric)
                 else:
                     self.forward_backward(data_batch)
                     self.update()
                     self.update_metric(eval_metric, data_batch.label)
+                if ckpt is not None:
+                    ckpt.step_end(epoch, nbatch)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

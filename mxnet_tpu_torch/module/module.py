@@ -194,6 +194,63 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
+    def _bound_states(self):
+        """Create the optimizer state of every bound parameter with a
+        gradient that has none yet (a restore writes into them)."""
+        ex = self._exec_group.executor
+        for i, name in enumerate(self._param_names):
+            if name in ex.grad_dict:
+                self._updater._state(i, ex.arg_dict[name])
+
+    # -- checkpoints -------------------------------------------------------
+    def save_checkpoint(self, prefix: str, epoch: int,
+                        save_optimizer_states: bool = False):
+        """``prefix-symbol.json``, ``prefix-NNNN.params`` and, with
+        ``save_optimizer_states``, ``prefix-NNNN.states`` (the updater's
+        states as a pickle of numpy), each through a temporary file and a
+        rename; either package reads them."""
+        from ..checkpoint import atomic_write_bytes
+
+        self._symbol.save("%s-symbol.json" % prefix)
+        self.save_params("%s-%04d.params" % (prefix, epoch))
+        if save_optimizer_states:
+            atomic_write_bytes(
+                "%s-%04d.states" % (prefix, epoch),
+                self._updater.get_states() if self._updater else b"")
+
+    def load_optimizer_states(self, fname: str):
+        """The states of a ``.states`` file into this module's updater,
+        in place (after ``init_optimizer``); a torn or foreign file raises
+        naming it."""
+        if self._updater is None:
+            raise MXNetError("init_optimizer before load_optimizer_states")
+        with open(fname, "rb") as f:
+            blob = f.read()
+        try:
+            self._updater.set_states(blob)
+            self._bound_states()
+        except Exception as e:
+            raise MXNetError("invalid optimizer-states file %s: %s "
+                             "(partial/torn write?)" % (fname, e)) from e
+
+    @staticmethod
+    def load(prefix: str, epoch: int, load_optimizer_states: bool = False,
+             **kwargs) -> "Module":
+        """A Module over ``prefix-symbol.json`` with the params of
+        ``prefix-NNNN.params``, which ``bind`` copies onto its context;
+        ``kwargs`` go to the constructor. As in the JAX package,
+        ``load_optimizer_states`` is accepted and not acted on: call
+        :meth:`load_optimizer_states` with the ``.states`` file after
+        ``init_optimizer``."""
+        from ..model import load_checkpoint
+
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=symbol, **kwargs)
+        mod._arg_params = arg_params
+        mod._aux_params = aux_params
+        mod.params_initialized = True
+        return mod
+
     def _fused_train_step(self, eval_metric, monitor=None):
         """The fused train step over this module's bind
         (:func:`~mxnet_tpu_torch.fused_step.make_fused_step`), kept as

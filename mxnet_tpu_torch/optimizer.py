@@ -30,6 +30,7 @@ kernels.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -37,7 +38,7 @@ import torch
 
 from .base import MXNetError, Registry
 from .lr_scheduler import LRScheduler
-from .ndarray import HostToDevice, NDArray
+from .ndarray import HostToDevice, NDArray, _host_tensor, _to_numpy
 
 __all__ = ["Optimizer", "SGD", "create", "get_updater", "Updater"]
 
@@ -112,6 +113,29 @@ class Optimizer:
     def _get_wd(self, index: int) -> float:
         return self.wd * self.wd_mult.get(self.idx2name.get(index,
                                                             str(index)), 1.0)
+
+    def get_checkpoint_state(self) -> dict:
+        """The host scalars :meth:`SGD.plan` reads: update counts and the
+        learning-rate schedule's state. A snapshot must carry them, or a
+        resume replays the schedule from step 0."""
+        st = {"num_update": self.num_update,
+              "begin_num_update": self.begin_num_update,
+              "index_update_count": dict(self._index_update_count)}
+        if self.lr_scheduler is not None:
+            st["lr_scheduler"] = {
+                k: v for k, v in vars(self.lr_scheduler).items()
+                if isinstance(v, (int, float, bool))}
+        return st
+
+    def set_checkpoint_state(self, st: dict) -> None:
+        """Restore a state :meth:`get_checkpoint_state` captured."""
+        self.num_update = int(st["num_update"])
+        self.begin_num_update = int(st["begin_num_update"])
+        self._index_update_count = {int(k): int(v) for k, v in
+                                    st["index_update_count"].items()}
+        for k, v in st.get("lr_scheduler", {}).items():
+            if self.lr_scheduler is not None:
+                setattr(self.lr_scheduler, k, v)
 
 
 @_REG.register("sgd")
@@ -206,17 +230,95 @@ def create(name: str, **kwargs) -> Optimizer:
     return Optimizer.create_optimizer(name, **kwargs)
 
 
+def _states_to_numpy(states: Dict[int, Any]) -> Dict[int, Any]:
+    """Per-index states (NDArray or None) -> numpy copies, for a pickle
+    either package reads; a fetch from the card waits for the work queued
+    on the current stream."""
+    return {k: None if s is None
+            else _to_numpy(s.handle.detach().to("cpu", copy=True))
+            for k, s in states.items()}
+
+
+_MISSING = object()
+
+
 class Updater:
-    """An optimizer with its per-index states."""
+    """An optimizer with its per-index states, created at an index's
+    first update. A fused train step's CUDA graph reads the states it was
+    captured with, so a restore (:meth:`set_states`) writes into the
+    states that exist and never replaces one."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[int, Any] = {}
+        # restored values of states not created yet, by index
+        self._pending: Dict[int, Any] = {}
 
     def _state(self, index, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            state = self.optimizer.create_state(index, weight)
+            saved = self._pending.pop(index, _MISSING)
+            if saved is not _MISSING:
+                self._check_state(index, state, saved)
+                self._write_state(state, saved)
+            self.states[index] = state
         return self.states[index]
+
+    def _name(self, index) -> str:
+        return self.optimizer.idx2name.get(index, "index %s" % (index,))
+
+    def _check_state(self, index, state, saved) -> None:
+        """Raise unless ``saved`` (numpy) fits ``state`` (an NDArray or
+        None) in form and shape."""
+        if (state is None) != (saved is None):
+            raise MXNetError(
+                "optimizer state of '%s': the saved state is %s, this "
+                "optimizer keeps %s" % (self._name(index),
+                                        "none" if saved is None
+                                        else "an array",
+                                        "none" if state is None
+                                        else "an array"))
+        if state is not None and tuple(np.shape(saved)) != state.shape:
+            raise MXNetError(
+                "optimizer state of '%s': saved shape %s, bound shape %s"
+                % (self._name(index), tuple(np.shape(saved)), state.shape))
+
+    @staticmethod
+    def _write_state(state, saved) -> None:
+        if state is not None:
+            with torch.no_grad():
+                state.handle.copy_(_host_tensor(np.asarray(saved)))
+
+    def get_states(self) -> bytes:
+        """The states as a pickle of numpy arrays by param index (the
+        JAX package reads it, and writes the same form)."""
+        return pickle.dumps(_states_to_numpy(self.states))
+
+    def set_states(self, states_bytes: bytes) -> None:
+        """Restore :meth:`get_states`' form: every saved state is checked
+        against the state that exists first, then copied into it in
+        place; a state not created yet takes its saved value when it is.
+        An existing state the saved ones lack is reset to a fresh
+        state's value (zeros, SGD's momentum)."""
+        states = pickle.loads(states_bytes)
+        if not isinstance(states, dict):
+            raise MXNetError("optimizer states are a %s, not a dict by "
+                             "param index" % type(states).__name__)
+        self.set_numpy_states(states)
+
+    def set_numpy_states(self, states: Dict[int, Any]) -> None:
+        """:meth:`set_states` on the unpickled dict."""
+        states = {int(k): v for k, v in states.items()}
+        for index, saved in states.items():
+            if index in self.states:
+                self._check_state(index, self.states[index], saved)
+        for index, state in self.states.items():
+            if index in states:
+                self._write_state(state, states[index])
+            elif state is not None:
+                state.handle.zero_()
+        self._pending = {i: v for i, v in states.items()
+                         if i not in self.states}
 
     def __call__(self, index: int, grad: NDArray, weight: NDArray):
         self.optimizer.update(index, weight, grad, self._state(index, weight))

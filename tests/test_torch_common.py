@@ -89,3 +89,55 @@ def random_params(sym, data_shape, seed=0):
             v = rng.randn(*shape) * 0.1
         aux[name] = v.astype(np.float32)
     return args, aux
+
+
+# -- the checkpoint tests' MLP (tests/test_fused_step.py's) ---------------
+CKPT_BATCH = 8
+CKPT_DIM = 6
+CKPT_CLASSES = 3
+
+
+def ckpt_mlp(pkg, dropout=0.0):
+    """fc1 (16) -> relu [-> Dropout] -> fc2 (3) -> SoftmaxOutput, with the
+    same names in both packages."""
+    with fresh_names(pkg):
+        net = pkg.sym.Variable("data")
+        net = pkg.sym.FullyConnected(net, num_hidden=16, name="fc1")
+        net = pkg.sym.Activation(net, act_type="relu")
+        if dropout:
+            net = pkg.sym.Dropout(net, p=dropout)
+        net = pkg.sym.FullyConnected(net, num_hidden=CKPT_CLASSES,
+                                     name="fc2")
+        return pkg.sym.SoftmaxOutput(net, name="softmax")
+
+
+def ckpt_data(nbatches, seed=0):
+    """``nbatches`` batches of a separable 3-class problem, in order."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(CKPT_BATCH * nbatches, CKPT_DIM).astype(np.float32)
+    y = x.dot(rng.randn(CKPT_DIM, CKPT_CLASSES)).argmax(axis=1)
+    return x, y.astype(np.float32)
+
+
+def ckpt_params(net, seed=3):
+    """numpy params of ``net`` (either package's), from ``seed``."""
+    shapes, _, _ = net.infer_shape(data=(CKPT_BATCH, CKPT_DIM),
+                                   softmax_label=(CKPT_BATCH,))
+    rng = np.random.RandomState(seed)
+    return {n: (rng.randn(*s) * 0.1).astype(np.float32)
+            for n, s in zip(net.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+
+
+def ckpt_stream_callback(stream):
+    """A batch-end callback appending (epoch, nbatch, metric values, the
+    batch's mean cross-entropy from the outputs) to ``stream``."""
+    def cb(param):
+        probs = param.locals["self"].get_outputs()[0].asnumpy()
+        lab = param.locals["data_batch"].label[0].asnumpy().astype(int)
+        loss = -np.log(probs.astype(np.float64)[np.arange(len(lab)),
+                                                lab]).mean()
+        values = tuple(float(v) for _, v in
+                       param.eval_metric.get_name_value())
+        stream.append((param.epoch, param.nbatch, values, float(loss)))
+    return cb

@@ -5,6 +5,8 @@ package, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -622,3 +624,125 @@ def test_fused_step_dropout_draws_a_fresh_mask_each_replay(card):
     assert fused.dispatches == 3
     assert not np.array_equal(outs[0], outs[1])
     assert not np.array_equal(outs[1], outs[2])
+
+
+# ---------------------------------------------------------------------------
+# checkpoints through the captured graph
+# ---------------------------------------------------------------------------
+def _ckpt_mlp(dropout):
+    net = tmx.sym.Variable("data")
+    net = tmx.sym.FullyConnected(net, num_hidden=64, name="fc1")
+    net = tmx.sym.Activation(net, act_type="relu")
+    if dropout:
+        net = tmx.sym.Dropout(net, p=dropout)
+    net = tmx.sym.FullyConnected(net, num_hidden=3, name="fc2")
+    return tmx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _ckpt_fit(x, y, dropout=0.0, callback=None):
+    """One epoch of batches of 8 through fit(fused_step=True) on the card
+    from seeded weights; the per-batch (nbatch, outputs, accumulated
+    metric) and the module."""
+    stream = []
+
+    def record(param):
+        stream.append((param.nbatch,
+                       param.locals["self"].get_outputs()[0].asnumpy()
+                       .copy(), param.eval_metric.get()[1]))
+        if callback is not None:
+            callback(param)
+
+    net = _ckpt_mlp(dropout)
+    shapes, _, _ = net.infer_shape(data=(8, x.shape[1]),
+                                   softmax_label=(8,))
+    rng = np.random.RandomState(3)
+    params = {n: tmx.nd.array((rng.randn(*s) * 0.1).astype(np.float32),
+                              ctx=tmx.cpu())
+              for n, s in zip(net.list_arguments(), shapes)
+              if n not in ("data", "softmax_label")}
+    mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    mod.fit(tmx.io.NDArrayIter(x, y, batch_size=8), num_epoch=1,
+            eval_metric="ce", arg_params=params, initializer=None,
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                              "wd": 1e-4},
+            batch_end_callback=record, fused_step=True)
+    return stream, mod
+
+
+def _ckpt_data(nbatches):
+    rng = np.random.RandomState(0)
+    x = rng.randn(8 * nbatches, 16).astype(np.float32)
+    y = rng.randint(0, 3, 8 * nbatches).astype(np.float32)
+    return x, y
+
+
+def _same_stream(got, want):
+    assert [g[0] for g in got] == [w[0] for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[1], w[1], err_msg=str(g[0]))
+        assert g[2] == w[2], g[0]
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.3], ids=["mlp", "dropout"])
+def test_resume_through_a_captured_graph_is_bit_identical(
+        card, tmp_path, monkeypatch, dropout):
+    """A fresh module resumes from the step-3 snapshot of a fused run on
+    the card (its generator state included): batches 3-5 give the
+    uninterrupted run's outputs (so Dropout's masks) and metric bit for
+    bit, and the final params equal its params; one capture."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+
+    x, y = _ckpt_data(6)
+    ref, ref_mod = _ckpt_fit(x, y, dropout)
+    d = str(tmp_path / "snaps")
+    monkeypatch.setenv("MXNET_TPU_CKPT_DIR", d)
+    monkeypatch.setenv("MXNET_TPU_CKPT_EVERY_N_STEPS", "3")
+    monkeypatch.setenv("MXNET_TPU_CKPT_RESUME", "0")
+    saved, _ = _ckpt_fit(x, y, dropout)
+    _same_stream(saved, ref)
+    store = ckpt.SnapshotStore(d)
+    man = store._read_manifest()
+    man["snapshots"] = [e for e in man["snapshots"] if e["step"] == 3]
+    ckpt.atomic_write_bytes(store._manifest_path(),
+                            json.dumps(man).encode())
+    monkeypatch.setenv("MXNET_TPU_CKPT_RESUME", "1")
+    monkeypatch.setenv("MXNET_TPU_CKPT_EVERY_N_STEPS", "0")
+    got, mod = _ckpt_fit(x, y, dropout)
+    _same_stream(got, ref[3:])
+    step = mod._fused_step
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 2)
+    for k, v in ref_mod.get_params()[0].items():
+        np.testing.assert_array_equal(mod.get_params()[0][k].asnumpy(),
+                                      v.asnumpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.3], ids=["mlp", "dropout"])
+def test_rollback_into_a_live_graph(card, tmp_path, monkeypatch, dropout):
+    """Batches b0, b1, b2, b3, b3 with a rollback to the step-3 snapshot
+    after the first b3: the replay that follows reads the restored
+    weights, momenta, metric accumulator and generator offset, so it
+    gives the first b3's outputs and metric bit for bit, the params end
+    as after four uninterrupted steps, and the graph is not captured
+    again. Where set_state on a generator registered with the graph did
+    not move the replay's offset, the Dropout case fails here."""
+    x, y = _ckpt_data(4)
+    ref, ref_mod = _ckpt_fit(x, y, dropout)
+    x5 = np.concatenate([x, x[24:32]])
+    y5 = np.concatenate([y, y[24:32]])
+    monkeypatch.setenv("MXNET_TPU_CKPT_DIR", str(tmp_path))
+    monkeypatch.setenv("MXNET_TPU_CKPT_EVERY_N_STEPS", "3")
+    monkeypatch.setenv("MXNET_TPU_CKPT_RESUME", "0")
+
+    def rollback(param):
+        if param.nbatch == 3:
+            assert param.locals["ckpt"].rollback()["step"] == 3
+
+    got, mod = _ckpt_fit(x5, y5, dropout, callback=rollback)
+    _same_stream(got[:4], ref)
+    np.testing.assert_array_equal(got[4][1], ref[3][1])
+    assert got[4][2] == ref[3][2]
+    step = mod._fused_step
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 4)
+    for k, v in ref_mod.get_params()[0].items():
+        np.testing.assert_array_equal(mod.get_params()[0][k].asnumpy(),
+                                      v.asnumpy(), err_msg=k)
