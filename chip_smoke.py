@@ -94,7 +94,33 @@ Phases, in order; any failure exits non-zero before the last line:
    child resumes from it and finishes the epoch (each bounded by a
    timeout). One summary line: snapshot MB, save ms, restore ms, the
    saving step's host ms against the median step's.
-9. report: one JSON line of kernel records, the card line, then
+9. fit's health and input plane at full width: ResNet-50 NHWC, batch
+   32, f32, phase 6's SGD settings, 8 batches from seed 0 through
+   fit(fused_step=True) with telemetry on, launch counts zeroed just
+   before and read just after every fit (K3 210, K4 106, K5 106: the
+   eager step and the capture; one capture each). (1) plain,
+   MXNET_TPU_DEVICE_STAGING=1 and MXNET_TPU_FEED_DEPTH=2, each with a
+   batch-end callback that synchronises the card and without one:
+   params, moving statistics and losses bit-equal to the plain fit; the
+   wall ms a step over batches 3-6, the host ms a step copying batches
+   in on the training thread, io.feed_stall_ms a step and the busy
+   share of the last two steps (torch.profiler). (2) MXNET_TPU_NUMWATCH
+   at EVERY_N=1 with device staging, the metrics server (port 0) and
+   the flight recorder armed: params bit-equal to unarmed, the compiled
+   kernels' events a replay unchanged, device ms a step (CUDA events)
+   and kernel events a replay armed against unarmed, the fetch ms, the
+   pack's grad l2, max-abs and update/weight ratio against a float64
+   recomputation on the card (rtol 1e-5); /metrics and /healthz over
+   loopback, the step ring (one record a step, the capturing step
+   labelled recompile), a FlightRecorder dump with steps.jsonl and
+   numwatch.jsonl. (3) the
+   skip guard across an all-NaN batch: weights, momenta and metric sums
+   bit-identical, numwatch.skipped_steps 1. (4) the rollback guard with
+   MXNET_TPU_CKPT_DIR: a weight poisoned in place is named (kind
+   "param") and restored into the same storage, losses finite after.
+   (5) a default Monitor: its rows equal norm(x)/sqrt(size) recomputed
+   on the card.
+10. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -1944,6 +1970,521 @@ def ckpt_child(data_dir):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 9: fit's health and input plane through the fused step
+# ---------------------------------------------------------------------------
+
+PLANE_STEPS = 9                # batches of 32 a phase-9 fit
+PLANE_WINDOW = (2, 6)          # timed: the steps after batch 2 to batch 6;
+#                                profiled: the last two (batches 7 and 8)
+PLANE_ENV = ("MXNET_TPU_DEVICE_STAGING", "MXNET_TPU_FEED_DEPTH",
+             "MXNET_TPU_NUMWATCH", "MXNET_TPU_NUMWATCH_EVERY_N",
+             "MXNET_TPU_NUMWATCH_GUARD", "MXNET_TPU_CKPT_DIR",
+             "MXNET_TPU_METRICS_PORT", "MXNET_TPU_FLIGHT_RECORDER",
+             "MXNET_TPU_CRASH_DIR")
+
+
+def plane_fit(torch, mx, kernels, images, labels, env, sync=True,
+              after_batch=None, monitor=None, profile=True):
+    """One fit(fused_step=True) of ResNet-50 NHWC at batch 32 from
+    train_module's seed-0 weights over the batches of ``images``, with
+    ``env`` set for the fit and telemetry on; launch counts zeroed just
+    before and read just after. ``sync``: the batch-end callback
+    synchronises the card every batch; otherwise only at the timing
+    window's ends. Measured: the window's wall ms a step, the host ms a
+    step spent copying batches in on the training thread (the executor
+    group's load_data_batch, plus device staging's ``_stage`` where it
+    runs on this thread), io.feed_stall_ms a step, and the device's busy
+    share over the last two steps under torch.profiler (started after
+    the timing window, stopped at the last batch-end callback after a
+    synchronise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    tel = mx.telemetry
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    group = mod._exec_group
+    load = group.load_data_batch
+    copy_in = []
+
+    def timed_load(batch):
+        t0 = time.perf_counter()
+        load(batch)
+        copy_in.append(time.perf_counter() - t0)
+
+    group.load_data_batch = timed_load
+    losses, marks, window = [], [], {}
+    prof = tprofile(activities=[ProfilerActivity.CUDA]) if profile else None
+    n = len(labels) // BATCH
+    # on the card before the fit: a pageable upload in the callback would
+    # wait for the card, a synchronise in disguise
+    lab_all = torch.from_numpy(labels).to(torch.device("cuda", 0),
+                                          torch.int64)
+
+    def on_batch(param):
+        probs = param.locals["self"].get_outputs()[0].handle
+        lab = lab_all[param.nbatch * BATCH:(param.nbatch + 1) * BATCH]
+        losses.append(-torch.log(probs.gather(1, lab[:, None])).mean())
+        if sync or param.nbatch in PLANE_WINDOW:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if param.nbatch in PLANE_WINDOW:
+            window[param.nbatch] = (
+                marks[-1], tel.peek("io.feed_stall_ms", "hist_sum") or 0.0,
+                tel.peek("io.staging.h2d_ms", "hist_sum") or 0.0,
+                len(copy_in))
+        if after_batch is not None:
+            after_batch(param, mod)
+        if prof is not None and param.nbatch == n - 3:
+            torch.cuda.synchronize()
+            window["prof_t0"] = time.perf_counter()
+            prof.start()
+        if prof is not None and param.nbatch == n - 1:
+            torch.cuda.synchronize()
+            window["prof_wall"] = time.perf_counter() - window["prof_t0"]
+            prof.stop()
+
+    saved = {k: os.environ.get(k) for k in PLANE_ENV}
+    os.environ.update(env)
+    mx.tracing.shutdown()   # a fresh step ring, server and recorder a fit
+    tel.reset()
+    tel.enable()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
+                num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+                eval_metric=mx.metric.Accuracy(), batch_end_callback=on_batch,
+                fused_step=True, monitor=monitor)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        busy = None
+        if prof is not None:
+            busy_us = sum(e.self_device_time_total
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA)
+            busy = busy_us / 1e6 / window["prof_wall"]
+        snap = tel.snapshot()
+        records = mx.tracing.step_trace().records()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tel.disable()
+    steps = PLANE_WINDOW[1] - PLANE_WINDOW[0]
+    # a fit shorter than the window times nothing
+    a, b = (window.get(PLANE_WINDOW[0]),
+            window.get(PLANE_WINDOW[1], window.get(PLANE_WINDOW[0])))
+    # device staging stages on this thread; a feed scheduler on its worker
+    staged_here = env.get("MXNET_TPU_FEED_DEPTH", "0") == "0"
+    step = mod._fused_step
+    counters = (step.eager_steps, step.captures, step.dispatches)
+    check(counters == (1, 1, n - 1), "plane fit %s: step counters %s" %
+          (env, counters))
+    want = dict(_resnet_launches(2), rtc=0)
+    check(launches == want, "plane fit %s: launches %s, want %s (the eager "
+          "step and the capture)" % (env, launches, want))
+    losses = [float(v) for v in losses]
+    args, aux = (_host(p) for p in mod.get_params())
+    return {
+        "mod": mod, "losses": losses, "args": args, "aux": aux,
+        "launches": launches, "counters": counters, "snapshot": snap,
+        "records": records,
+        "wall_ms_per_step": 1e3 * (b[0] - a[0]) / steps,
+        "host_step_ms_median": 1e3 * float(np.median(np.diff(marks))),
+        "copy_in_ms_per_step": 1e3 * sum(copy_in[a[3]:b[3]]) / steps
+        + ((b[2] - a[2]) / steps if staged_here else 0.0),
+        "feed_stall_ms_per_step": (b[1] - a[1]) / steps,
+        "busy_share": busy}
+
+
+def _drop(run):
+    """Free a fit's module on the card before the next one."""
+    import gc
+
+    run.pop("mod", None)
+    gc.collect()
+
+
+def _replay_device_ms(torch, mx, kernels, step, images, labels, reps=10):
+    """Device ms a step by CUDA events over ``reps`` back-to-back calls of
+    the captured step, and the kernel events a replay under
+    torch.profiler (two replays)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    metric = step._fold or mx.metric.Accuracy()
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        step.step(batch, metric)
+    end.record()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step.step(batch, metric)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (start.elapsed_time(end) / reps, len(names) / 2,
+            kernels.launches_in(names))
+
+
+def plane_main_path(torch, mx, kernels, card):
+    """Phase 9 on ResNet-50 NHWC at batch 32 through fit(fused_step=True):
+    (1) plain, device staging and feed depth 2, each with and without a
+    synchronising batch-end callback, params bit-equal; (2) the numerics
+    plane at EVERY_N=1 against unarmed (params bit-equal, one capture,
+    launches unchanged, device ms and kernel events a replay, fetch ms,
+    the pack against a recomputation on the card), with device staging,
+    the metrics server and the flight recorder armed, /metrics and
+    /healthz fetched over loopback, the step ring checked and a
+    FlightRecorder dump; (3) the skip guard across a NaN batch; (4) the
+    rollback guard into the live graph; (5) a default Monitor's rows."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    images, labels = train_data(PLANE_STEPS)
+    res = {"configs": {}}
+    base = None
+    # the profiler's first start sets up its tracing: not in a window
+    with tprofile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    # (1) staging and the feed scheduler, with and without a sync callback
+    for name, env in (("plain", {}),
+                      ("staging", {"MXNET_TPU_DEVICE_STAGING": "1"}),
+                      ("feed_depth_2", {"MXNET_TPU_FEED_DEPTH": "2"})):
+        for sync in (True, False):
+            run = plane_fit(torch, mx, kernels, images, labels, env, sync)
+            key = "%s_%s" % (name, "sync" if sync else "nosync")
+            if base is None:
+                base = run
+            else:
+                _check_params_equal("plane (1) %s" % key, run, base)
+                check(run["losses"] == base["losses"], "plane (1) %s: "
+                      "losses %s, plain %s" % (key, run["losses"],
+                                               base["losses"]))
+            res["configs"][key] = {k: run[k] for k in (
+                "wall_ms_per_step", "host_step_ms_median",
+                "copy_in_ms_per_step", "feed_stall_ms_per_step",
+                "busy_share", "launches")}
+            c = res["configs"][key]
+            print("plane (1) %-22s wall %.3f ms a step (host step median "
+                  "%.3f), copy-in on the training thread %.3f ms a step, "
+                  "io.feed_stall_ms %.3f a step, busy %.1f%%  [%s]"
+                  % (key, c["wall_ms_per_step"], c["host_step_ms_median"],
+                     c["copy_in_ms_per_step"], c["feed_stall_ms_per_step"],
+                     100 * c["busy_share"], card))
+            if run is not base:
+                _drop(run)
+    print("plane (1): staging and feed depth 2 leave params, moving "
+          "statistics and losses bit-equal to the plain fit")
+    # (2) the numerics plane at EVERY_N=1 against unarmed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plane_")
+    recomputed = {}
+
+    def recompute(param, mod):
+        # after the timing window: the recomputation syncs per parameter
+        ex = mod._exec_group.executor
+        plane = param.locals["numwatch"]
+        if param.nbatch == PLANE_STEPS - 2:
+            recomputed["w"] = [ex.arg_dict[n].handle.double().clone()
+                               for n in plane.names]
+        if param.nbatch == PLANE_STEPS - 1:
+            worst = 0.0
+            body = plane._last_body
+            for i, name in enumerate(plane.names):
+                g = ex.grad_dict[name].handle.double()
+                w_old = recomputed["w"][i]
+                upd = ex.arg_dict[name].handle.double() - w_old
+                want = [float(g.norm()), float(g.abs().max()),
+                        float(upd.norm() / w_old.norm())]
+                got = [float(np.sqrt(body[i, 0])), float(body[i, 1]),
+                       float(np.sqrt(body[i, 6] / body[i, 4]))]
+                for gv, wv in zip(got, want):
+                    worst = max(worst, abs(gv - wv) / max(abs(wv), 1e-30))
+            recomputed["worst_rel"] = worst
+            recomputed["names"] = len(plane.names)
+
+    armed_env = {"MXNET_TPU_NUMWATCH": "1", "MXNET_TPU_NUMWATCH_EVERY_N": "1",
+                 "MXNET_TPU_DEVICE_STAGING": "1",
+                 "MXNET_TPU_METRICS_PORT": "0",
+                 "MXNET_TPU_FLIGHT_RECORDER": "1",
+                 "MXNET_TPU_CRASH_DIR": os.path.join(tmp, "crash")}
+    try:
+        armed = plane_fit(torch, mx, kernels, images, labels, armed_env,
+                          after_batch=recompute, profile=False)
+        _check_params_equal("plane (2) numwatch armed", armed, base)
+        check(armed["losses"] == base["losses"], "plane (2): losses")
+        check(recomputed.get("worst_rel", 1.0) <= 1e-5, "plane (2): the "
+              "pack's grad l2, max-abs and update/weight ratio against the "
+              "recomputation: worst rel err %s" % recomputed.get("worst_rel"))
+        step = armed["mod"]._fused_step
+        plane = step._numwatch
+        fetch = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            plane.fetch()
+            fetch.append(1e3 * (time.perf_counter() - t0))
+        # unarmed, armed, unarmed, armed, unarmed, armed in one process
+        timed = {False: [], True: []}
+        for _ in range(3):
+            for is_armed, st in ((False, base["mod"]._fused_step),
+                                 (True, step)):
+                timed[is_armed].append(_replay_device_ms(
+                    torch, mx, kernels, st, images, labels))
+        u_ms, u_events, u_launch = (
+            float(np.median([t[0] for t in timed[False]])),
+            timed[False][0][1], timed[False][0][2])
+        a_ms, a_events, a_launch = (
+            float(np.median([t[0] for t in timed[True]])),
+            timed[True][0][1], timed[True][0][2])
+        _drop(base)
+        check(a_launch == u_launch, "plane (2): kernel events of the "
+              "compiled kernels a replay %s armed, %s unarmed"
+              % (a_launch, u_launch))
+        res["numwatch"] = {
+            "unarmed_device_ms": u_ms, "armed_device_ms": a_ms,
+            "device_ms_runs": {"unarmed": [t[0] for t in timed[False]],
+                               "armed": [t[0] for t in timed[True]]},
+            "unarmed_kernel_events": u_events,
+            "armed_kernel_events": a_events,
+            "fetch_ms_median": float(np.median(fetch)),
+            "pack_worst_rel_err": recomputed["worst_rel"],
+            "params": recomputed["names"],
+            "wall_ms_per_step": armed["wall_ms_per_step"],
+            "unarmed_wall_ms_per_step":
+                res["configs"]["staging_sync"]["wall_ms_per_step"],
+            "launches": armed["launches"]}
+        nw = res["numwatch"]
+        print("plane (2) numwatch EVERY_N=1: params bit-equal to unarmed, "
+              "captures 1, launches %s; device %.3f ms a step armed against "
+              "%.3f unarmed (+%.1f%%; medians of 3 interleaved runs of 10 "
+              "replays), kernel events a replay %d against "
+              "%d, fetch %.3f ms, pack vs recomputation over %d params "
+              "worst rel err %.3g (bound 1e-5); wall a step with staging "
+              "%.3f against %.3f ms unarmed  [%s]"
+              % (armed["launches"], a_ms, u_ms, 100 * (a_ms / u_ms - 1),
+                 a_events, u_events, nw["fetch_ms_median"], nw["params"],
+                 nw["pack_worst_rel_err"], nw["wall_ms_per_step"],
+                 nw["unarmed_wall_ms_per_step"], card))
+        res["server"] = plane_server_checks(mx, armed)
+        res["flight"] = plane_flight_dump(mx, tmp)
+        _drop(armed)
+        res["skip"] = plane_skip_guard(torch, mx, kernels, images, labels,
+                                       card)
+        res["rollback"] = plane_rollback_guard(torch, mx, kernels, images,
+                                               labels, tmp, card)
+        res["monitor"] = plane_monitor(torch, mx, kernels, images, labels,
+                                       card)
+    finally:
+        mx.tracing.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def plane_server_checks(mx, armed):
+    """(2) cont.: /metrics and /healthz over loopback while the metrics
+    server from MXNET_TPU_METRICS_PORT=0 runs; the step ring."""
+    import urllib.request
+
+    server = mx.tracing.metrics_server()
+    check(server is not None, "plane (2): no metrics server")
+    url = "http://127.0.0.1:%d" % server.port
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+        health = json.loads(r.read().decode())
+    names = {line.split("{")[0] for line in text.splitlines()
+             if line and not line.startswith("#")}
+    for want in ("mxnet_tpu_step_dispatches", "mxnet_tpu_numwatch_fetches",
+                 "mxnet_tpu_numwatch_grad_norm",
+                 "mxnet_tpu_io_staging_batches",
+                 "mxnet_tpu_io_staging_h2d_ms_count"):
+        check(want in names, "plane (2): /metrics lacks %s" % want)
+    recs = armed["records"]
+    check(len(recs) == PLANE_STEPS and [r["nbatch"] for r in recs]
+          == list(range(PLANE_STEPS)), "plane (2): step ring %s"
+          % [r.get("nbatch") for r in recs])
+    labels = [r["dominant"] for r in recs]
+    check(labels[1] == "recompile" and "recompile" not in labels[2:],
+          "plane (2): dominant labels %s (the capturing step is the "
+          "second)" % labels)
+    check(health["status"] == "ok" and health["steps"] == PLANE_STEPS,
+          "plane (2): /healthz %s" % health)
+    print("plane (2) metrics server :%d: /metrics %d samples with "
+          "step.dispatches, numwatch.*, io.staging.*; /healthz %s; step "
+          "ring %d records, "
+          "dominant %s" % (server.port, len(names), health, len(recs),
+                           labels))
+    return {"samples": len(names), "healthz": health, "dominant": labels}
+
+
+def plane_flight_dump(mx, tmp):
+    d = mx.tracing.flight_recorder().dump("chip_smoke")
+    check(d is not None, "plane (2): the flight recorder did not dump")
+    files = sorted(os.listdir(d))
+    for want in ("steps.jsonl", "numwatch.jsonl", "meta.json"):
+        check(want in files, "plane (2): dump lacks %s: %s" % (want, files))
+    with open(os.path.join(d, "steps.jsonl")) as f:
+        steps = sum(1 for _ in f)
+    with open(os.path.join(d, "numwatch.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    check(steps == PLANE_STEPS and meta["steps_recorded"] == PLANE_STEPS
+          and rows and rows[-1]["nonfinite"] == 0,
+          "plane (2): dump steps %d, meta %s, rows %d"
+          % (steps, meta.get("steps_recorded"), len(rows)))
+    print("plane (2) flight recorder dump: %s; steps.jsonl %d records, "
+          "numwatch.jsonl %d rows" % (files, steps, len(rows)))
+    return {"files": files, "steps": steps, "numwatch_rows": len(rows)}
+
+
+def plane_skip_guard(torch, mx, kernels, images, labels, card):
+    """(3): GUARD=skip, batch 3 all NaN: the weights, momenta and metric
+    sums after it bit-identical to before it; one skip; one capture."""
+    ims = images.copy()
+    ims[3 * BATCH:4 * BATCH] = np.nan
+    kept = {}
+
+    def keep(param, mod):
+        ex = mod._exec_group.executor
+        state = ([ex.arg_dict[n].handle.clone() for n in mod._param_names]
+                 + [s.handle.clone() for s in mod._updater.states.values()]
+                 + [param.eval_metric._acc.clone()])
+        if param.nbatch == 2:
+            kept["before"] = state
+        if param.nbatch == 3:
+            kept["same"] = all(torch.equal(a, b) for a, b in
+                               zip(state, kept["before"]))
+            kept["skips"] = mx.telemetry.peek("numwatch.skipped_steps")
+
+    run = plane_fit(torch, mx, kernels, ims, labels,
+                    {"MXNET_TPU_NUMWATCH": "1",
+                     "MXNET_TPU_NUMWATCH_EVERY_N": "1",
+                     "MXNET_TPU_NUMWATCH_GUARD": "skip"},
+                    after_batch=keep, profile=False)
+    check(kept.get("same"), "plane (3): the state moved across the NaN "
+          "batch")
+    check(kept.get("skips") == 1, "plane (3): numwatch.skipped_steps %s"
+          % kept.get("skips"))
+    check(all(np.isfinite(run["losses"][4:])), "plane (3): losses after "
+          "the skip %s" % run["losses"])
+    print("plane (3) skip guard: weights, momenta and metric sums "
+          "bit-identical across the NaN batch, numwatch.skipped_steps 1, "
+          "captures 1, launches %s, losses after %s  [%s]"
+          % (run["launches"], ["%.4f" % v for v in run["losses"][4:]],
+             card))
+    _drop(run)
+    return {"skips": 1, "launches": run["launches"]}
+
+
+def plane_rollback_guard(torch, mx, kernels, images, labels, tmp, card):
+    """(4): GUARD=rollback with MXNET_TPU_CKPT_DIR: a weight poisoned with
+    NaN in place after batch 1; the next fetch names it (kind "param")
+    and rolls back into the live graph (the same storage, one capture);
+    the following steps have finite losses."""
+    seen = {}
+
+    def poison(param, mod):
+        plane = param.locals["numwatch"]
+        ex = mod._exec_group.executor
+        if param.nbatch == 1:
+            seen["ptrs"] = [a.handle.data_ptr() for a in ex.arg_arrays]
+            ex.arg_dict["fc1_weight"].handle.fill_(float("nan"))
+            rollback = plane._rollback
+
+            def spy(extras):
+                seen["prov"] = plane.provenance()
+                t0 = time.perf_counter()
+                rollback(extras)
+                seen["ms"] = 1e3 * (time.perf_counter() - t0)
+            plane._rollback = spy
+        if param.nbatch == 2:
+            seen["rollbacks"] = mx.telemetry.peek("numwatch.rollbacks")
+            seen["same"] = seen["ptrs"] == [a.handle.data_ptr()
+                                            for a in ex.arg_arrays]
+
+    run = plane_fit(torch, mx, kernels, images[:5 * BATCH],
+                    labels[:5 * BATCH],
+                    {"MXNET_TPU_NUMWATCH": "1",
+                     "MXNET_TPU_NUMWATCH_EVERY_N": "1",
+                     "MXNET_TPU_NUMWATCH_GUARD": "rollback",
+                     "MXNET_TPU_CKPT_DIR": os.path.join(tmp, "ckpt")},
+                    after_batch=poison, profile=False)
+    check(seen.get("prov") == ("fc1_weight", "param", 3),
+          "plane (4): provenance %s" % (seen.get("prov"),))
+    check(seen.get("rollbacks") == 1 and seen.get("same"),
+          "plane (4): rollbacks %s, storage unchanged %s"
+          % (seen.get("rollbacks"), seen.get("same")))
+    check(all(np.isfinite(run["losses"][3:])), "plane (4): losses after "
+          "the rollback %s" % run["losses"])
+    saves = run["snapshot"]["ckpt"]["saves"]
+    print("plane (4) rollback guard: provenance %s, numwatch.rollbacks 1, "
+          "rollback %.1f ms, storage unchanged, captures 1, losses after "
+          "%s, healthy saves %d (%.1f ms median)  [%s]"
+          % (seen["prov"], seen["ms"],
+             ["%.4f" % v for v in run["losses"][3:]], saves,
+             run["snapshot"]["ckpt"]["save_ms"]["p50"], card))
+    _drop(run)
+    return {"provenance": list(seen["prov"]), "rollback_ms": seen["ms"],
+            "healthy_saves": saves, "launches": run["launches"],
+            "save_ms_p50": run["snapshot"]["ckpt"]["save_ms"]["p50"]}
+
+
+def plane_monitor(torch, mx, kernels, images, labels, card):
+    """(5): a default Monitor through the fused step (it arms the plane
+    by itself): at batch 4 its rows equal norm(x)/sqrt(size) of the
+    weights before that step's update and of its gradients, recomputed
+    on the card."""
+    got = {}
+
+    class Keeping(mx.monitor.Monitor):
+        def toc_print(self):
+            got[self.step] = self.toc()
+
+    mon = Keeping(interval=1)
+    pre = {}
+
+    def recompute(param, mod):
+        ex = mod._exec_group.executor
+        if param.nbatch == 3:
+            pre.update({n: a.handle.double().clone()
+                        for n, a in ex.arg_dict.items()})
+        if param.nbatch == 4:
+            pre["grads"] = {n: g.handle.double().clone()
+                            for n, g in ex.grad_dict.items()}
+
+    run = plane_fit(torch, mx, kernels, images[:5 * BATCH],
+                    labels[:5 * BATCH], {}, after_batch=recompute,
+                    monitor=mon, profile=False)
+    rows = got[5]
+    worst = 0.0
+    for _, name, stat in rows:
+        t = (pre["grads"][name[:-5]] if name.endswith("_grad")
+             else pre[name])
+        want = float(t.norm() / t.numel() ** 0.5)
+        # the row prints 6 decimals: half a unit of the last, and rtol 1e-5
+        worst = max(worst, abs(float(stat) - want) / (5e-7 + 1e-5 * want))
+    n_params = len(pre["grads"])
+    check(len(rows) == 2 * n_params and worst <= 1.0, "plane (5): %d rows "
+          "for %d params, worst error %g of the bound against the "
+          "recomputation" % (len(rows), n_params, worst))
+    print("plane (5) default Monitor through the fused step: %d rows at "
+          "batch 4 equal norm(x)/sqrt(size) recomputed on the card (worst "
+          "%.3g of the bound 5e-7 + 1e-5 x value, the rows' 6 decimals); "
+          "captures 1, launches %s" % (len(rows), worst, run["launches"]))
+    _drop(run)
+    return {"rows": len(rows), "worst_rel_err": worst,
+            "launches": run["launches"]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -2085,7 +2626,10 @@ def main():
     # 8. checkpoints through the fused step at full width
     ckpt_run = checkpoint_main_path(torch, mx, kernels, card)
 
-    # 9. report
+    # 9. fit's health and input plane through the fused step at full width
+    plane = plane_main_path(torch, mx, kernels, card)
+
+    # 10. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -2095,7 +2639,10 @@ def main():
                   "replays, counted from torch.profiler's kernel events; "
                   "train_fused_ckpt_resume: the wrappers' counts over the "
                   "checkpoint phase's resumed fit (its eager step and its "
-                  "capture)")
+                  "capture); train_fused_plane_numwatch: the same over "
+                  "phase 9's fit with the numerics plane, the metrics "
+                  "server and the flight recorder armed (every phase-9 "
+                  "fit is checked to count the same)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -2108,7 +2655,9 @@ def main():
             "train_fused_2_replays_profiled":
                 fused["breakdown"]["launches"]["norm_act_fwd"],
             "train_fused_ckpt_resume":
-                ckpt_run["resume"]["launches"]["norm_act_fwd"]},
+                ckpt_run["resume"]["launches"]["norm_act_fwd"],
+            "train_fused_plane_numwatch":
+                plane["numwatch"]["launches"]["norm_act_fwd"]},
         "launches_note": fused_note,
         "max_abs_err": fwd_worst["float32"],
         "max_err_f32": fwd_worst["float32"],
@@ -2128,7 +2677,9 @@ def main():
             "train_fused_2_replays_profiled":
                 fused["breakdown"]["launches"]["norm_act_bwd"],
             "train_fused_ckpt_resume":
-                ckpt_run["resume"]["launches"]["norm_act_bwd"]},
+                ckpt_run["resume"]["launches"]["norm_act_bwd"],
+            "train_fused_plane_numwatch":
+                plane["numwatch"]["launches"]["norm_act_bwd"]},
         "launches_note": fused_note,
         "max_abs_err": max(bwd_worst["dx_float32"], bwd_worst["sums_abs"]),
         "max_err_dx_f32": bwd_worst["dx_float32"],
@@ -2152,6 +2703,8 @@ def main():
                 fused["breakdown"]["launches"]["conv_gemm"],
             "train_fused_ckpt_resume":
                 ckpt_run["resume"]["launches"]["conv_gemm"],
+            "train_fused_plane_numwatch":
+                plane["numwatch"]["launches"]["conv_gemm"],
             "mnist_lenet_fused": mnist["lenet"]["launches"]["conv_gemm"],
             "mnist_lenet_fused_2_replays_profiled":
                 mnist["lenet"]["replay_launches"]["conv_gemm"]},
@@ -2234,7 +2787,8 @@ def main():
                        "train_fused_path": fused, "mnist_path": mnist,
                        "entry_points": entry,
                        "checkpoint_path": {k: v for k, v in ckpt_run.items()
-                                           if k != "mod"}}, f,
+                                           if k != "mod"},
+                       "plane_path": plane}, f,
                       indent=1)
     print(json.dumps({"kernels": records}))
     print(card)

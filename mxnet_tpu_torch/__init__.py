@@ -10,6 +10,9 @@
 * ``mx.model`` — the FeedForward estimator and checkpoint files
 * ``mx.checkpoint`` — full-state snapshots, resume and the SIGTERM
   grace path of ``fit`` (``MXNET_TPU_CKPT_*``, read through ``mx.env``)
+* ``mx.numwatch``, ``mx.Monitor``, ``mx.tracing``, ``mx.io_pipeline`` —
+  fit's health and input plane: the stats pack and its guards, the
+  step trace with its detectors and metrics server, device staging
 * ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
@@ -40,6 +43,7 @@ from . import executor
 from . import initializer
 from . import initializer as init
 from . import io
+from . import io_pipeline
 from . import lr_scheduler
 from . import optimizer
 from . import metric
@@ -51,6 +55,9 @@ from . import module as mod
 from . import fused_step
 from . import checkpoint
 from . import tracing
+from . import numwatch
+from . import monitor
+from .monitor import Monitor
 from . import model
 from . import serving
 from . import predictor

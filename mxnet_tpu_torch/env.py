@@ -102,9 +102,26 @@ declare("MXNET_TPU_FUSED_STEP", bool, False,
         "CPU. An explicit `fit(fused_step=True)` or `False` wins over the "
         "variable. There is no fallback: a configuration the step cannot "
         "run (a kvstore other than `local`, `inputs_need_grad=True`, a "
-        "monitor, `grad_req=\"add\"`, an optimizer other than SGD) raises "
-        "naming the reason, under the variable as under the argument.",
+        "monitor with a custom `stat_func`, `grad_req=\"add\"`, an "
+        "optimizer other than SGD) raises naming the reason, under the "
+        "variable as under the argument.",
         section="Training")
+
+_IN = "Input pipeline"
+declare("MXNET_TPU_DEVICE_STAGING", bool, False,
+        "`fit()` wraps the training iterator in `DeviceStagingIter`: batch "
+        "N+1 is copied into a pinned host buffer and sent to the card on a "
+        "copy stream while step N runs, so the host-to-device copy "
+        "overlaps the step instead of running in series with it.",
+        section=_IN)
+declare("MXNET_TPU_FEED_DEPTH", int, 0,
+        "`fit()` wraps the training iterator in a `FeedScheduler`: a "
+        "worker thread keeps N staged batches in flight ahead of the step "
+        "loop (generalizes `MXNET_TPU_DEVICE_STAGING`'s double buffer; "
+        "subsumes it when both are set). The time each step blocks on an "
+        "empty queue lands in the `io.feed_stall_ms` histogram for "
+        "StepTrace's dominant-cause labeling. Default 0 (off).",
+        section=_IN)
 
 _TEL = "Telemetry"
 declare("MXNET_TPU_TELEMETRY", bool, False,
@@ -121,10 +138,88 @@ _TR = "Flight recorder"
 declare("MXNET_TPU_CRASH_DIR", str, "",
         "Where flight-recorder dumps land (default "
         "`$TMPDIR/mxnet_tpu_crash`): the reason, the process, all-thread "
-        "stacks and a telemetry snapshot, written on an unhandled "
-        "exception, SIGTERM (dump, run the preemption hooks, then "
-        "terminate) and SIGUSR1 (dump and keep running). The checkpoint "
-        "manager installs the recorder for its SIGTERM path.", section=_TR)
+        "stacks, a telemetry snapshot, the step-trace ring "
+        "(`steps.jsonl`) and the numerics plane's health rows "
+        "(`numwatch.jsonl`), written on an unhandled exception, SIGTERM "
+        "(dump, run the preemption hooks, then terminate) and SIGUSR1 "
+        "(dump and keep running). The checkpoint manager installs the "
+        "recorder for its SIGTERM path.", section=_TR)
+
+_T = "Tracing (all require telemetry enabled)"
+declare("MXNET_TPU_METRICS_PORT", str, "",
+        "Start the live metrics server on this port at `fit()` entry: "
+        "Prometheus text format at `/metrics` (every sample labeled "
+        "`rank=\"N\"`), liveness JSON at `/healthz`. Port `0` binds an "
+        "ephemeral port (tests). Unset: no server thread.", section=_T)
+declare("MXNET_TPU_TRACE_ON_ANOMALY", bool, False,
+        "Anomaly events (slow step, steady-state recapture, input-stalled "
+        "step, numerics alarms) open a short, rate-limited "
+        "`torch.profiler` window while the evidence is still happening.",
+        section=_T)
+declare("MXNET_TPU_TRACE_DIR", str, "",
+        "Where anomaly trace windows are written (default "
+        "`$TMPDIR/mxnet_tpu_anomaly_trace/step<N>_<type>`).", section=_T)
+declare("MXNET_TPU_TRACE_WINDOW", int, 8,
+        "Steps an anomaly-triggered capture stays open.", section=_T)
+declare("MXNET_TPU_TRACE_COOLDOWN", float, 300.0,
+        "Seconds between anomaly-triggered captures; triggers inside the "
+        "cooldown are counted (`tracing.auto_trace_suppressed`) but not "
+        "traced.", section=_T)
+declare("MXNET_TPU_TRACE_RING", int, 512,
+        "Per-step records kept in the step-trace ring.", section=_T)
+declare("MXNET_TPU_TRACE_EVENT_COOLDOWN", int, 10,
+        "Minimum steps between two anomaly events of the same type, "
+        "bounding event spam from a persistently degraded run.",
+        section=_T)
+declare("MXNET_TPU_FLIGHT_RECORDER", bool, False,
+        "Install the crash-dump hooks at `fit()` entry: unhandled "
+        "exception, SIGTERM (dump then terminate normally) and SIGUSR1 "
+        "(dump and keep running) write into `MXNET_TPU_CRASH_DIR`.",
+        section=_T)
+
+_NW = "Numerics observability (numwatch)"
+declare("MXNET_TPU_NUMWATCH", bool, False,
+        "Arm the numerics plane (`mxnet_tpu_torch.numwatch`): per-tensor "
+        "gradient, weight and update statistics fold into a small float32 "
+        "stats pack inside the fused train step (inside its CUDA graph on "
+        "a card; no extra replay) and are fetched to the host only on the "
+        "`MXNET_TPU_NUMWATCH_EVERY_N` cadence. Also armed by a default-"
+        "stat `Monitor` passed to `fit`.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_EVERY_N", int, 50,
+        "Host-fetch cadence (steps) for the stats pack. Each fetch is one "
+        "small device-to-host copy that updates `numwatch.*` telemetry, "
+        "the health ring and the anomaly detectors' inputs.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_GUARD", str, "",
+        "Guarded-training actions, comma-separated, off by default. "
+        "`skip`: a select on a device predicate drops any update whose "
+        "gradients hold NaN/Inf (weights, momenta and metric sums keep "
+        "their pre-step values bit for bit; no host sync). `rollback`: on "
+        "a fetch that sees nonfinite weights, restore the last healthy "
+        "snapshot through the CheckpointManager (needs "
+        "`MXNET_TPU_CKPT_DIR` or a bound manager). Both are counted "
+        "(`numwatch.skipped_steps`, `numwatch.rollbacks`) and "
+        "rate-limited.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_SPIKE_K", float, 3.0,
+        "Loss-spike detector threshold: fire `loss_spike` when the fetched "
+        "loss exceeds this multiple of its rolling median.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_EXPLODE_K", float, 10.0,
+        "Grad-explosion detector threshold: fire `grad_explosion` when the "
+        "fetched global gradient norm exceeds this multiple of its rolling "
+        "median.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_DEAD_UW", float, 1e-9,
+        "Dead-update detector threshold: fire `dead_update` when the "
+        "largest per-tensor update-to-weight ratio falls below this while "
+        "gradients are still nonzero.", section=_NW)
+declare("MXNET_TPU_NUMWATCH_MAX_SKIPS", int, 100,
+        "Rate limit for the `skip` guard: past this many skipped steps "
+        "numwatch logs an error, counts `numwatch.skip_cap_exceeded` and, "
+        "with the rollback guard armed, escalates to a rollback.",
+        section=_NW)
+declare("MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN", int, 200,
+        "Rate limit for the `rollback` guard: at least this many steps "
+        "between two rollbacks; a model still nonfinite inside the "
+        "cooldown raises `NumericsError` instead of thrashing the "
+        "snapshot store.", section=_NW)
 
 _C = "Checkpointing"
 declare("MXNET_TPU_CKPT_DIR", str, "",

@@ -17,7 +17,7 @@ commits them in its fused forward+backward (``executor.py:515-576``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -31,8 +31,10 @@ __all__ = ["Executor", "make_graph_eval"]
 
 def make_graph_eval(symbol):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
-    aux_list, rng, is_train) -> (outputs, new_aux)`` over tensors.
-    Returns ``(eval_graph, n_aux)``."""
+    aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
+    tensors; a dict passed as ``internals`` receives every op output as
+    ``"<node>_<output>"`` (the monitor's names). Returns ``(eval_graph,
+    n_aux)``."""
     nodes = symbol._topo()
     var_nodes = [n for n in nodes if n.is_variable]
     op_nodes = [n for n in nodes if not n.is_variable]
@@ -46,7 +48,7 @@ def make_graph_eval(symbol):
     n_aux = slot
     out_index = [(n.uid, i) for n, i in symbol._outputs]
 
-    def eval_graph(arg_list, aux_list, rng, is_train):
+    def eval_graph(arg_list, aux_list, rng, is_train, internals=None):
         env = {n.uid: [a] for n, a in zip(var_nodes, arg_list)}
         aux_out = list(aux_list)
         octx = OpContext(is_train, rng)
@@ -57,6 +59,9 @@ def make_graph_eval(symbol):
             for s, a in zip(slots, new_aux):
                 aux_out[s] = a
             env[n.uid] = list(outs)
+            if internals is not None:
+                for name, o in zip(n.op.list_outputs(), outs):
+                    internals["%s_%s" % (n.name, name)] = o
         return [env[uid][i] for uid, i in out_index], aux_out
 
     return eval_graph, n_aux
@@ -118,6 +123,7 @@ class Executor:
         self._outputs: Optional[List[NDArray]] = None
         # the pending train forward: (heads, leaves by arg index, new aux)
         self._train = None
+        self._monitor_callback: Optional[Callable] = None
 
     def _to_list(self, arrays, names, what, allow_missing=False):
         if isinstance(arrays, dict):
@@ -154,14 +160,14 @@ class Executor:
         return any(n.op.draws_random for n in self._symbol._topo()
                    if not n.is_variable)
 
-    def run(self, arg_tensors, aux_tensors, is_train=False):
+    def run(self, arg_tensors, aux_tensors, is_train=False, internals=None):
         """Evaluate the graph on the given tensors without recording a
         graph (the fused inference step calls this with its packed
         params)."""
         rng = self._generator() if is_train else None
         with torch.inference_mode():
             outs, _ = self._eval_graph(arg_tensors, aux_tensors, rng,
-                                       is_train)
+                                       is_train, internals)
         return outs
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
@@ -173,18 +179,28 @@ class Executor:
             self.arg_dict[name][:] = arr
         self._train = None
         aux = [a.handle for a in self.aux_arrays]
+        internals = {} if self._monitor_callback is not None else None
         if not is_train:
-            outs = self.run([a.handle for a in self.arg_arrays], aux)
+            outs = self.run([a.handle for a in self.arg_arrays], aux,
+                            internals=internals)
         else:
             leaves = [a.handle.detach().requires_grad_(
                 self._grad_req[n] != "null")
                 for n, a in zip(self.arg_names, self.arg_arrays)]
             with torch.enable_grad():
-                outs, new_aux = self._eval_graph(leaves, aux,
-                                                 self._generator(), True)
+                outs, new_aux = self._eval_graph(
+                    leaves, aux, self._generator(), True, internals)
             self._train = (outs, leaves, new_aux)
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        for name, value in (internals or {}).items():
+            self._monitor_callback(name, NDArray(value.detach(), self._ctx))
         return self._outputs
+
+    def set_monitor_callback(self, callback: Callable[[str, NDArray], None]):
+        """Call ``callback(name, array)`` on every op output of each
+        forward, named ``"<node>_<output>"`` (a Monitor's
+        ``stat_helper``)."""
+        self._monitor_callback = callback
 
     def backward(self, out_grads=None):
         """Gradients of the heads of the last train forward into

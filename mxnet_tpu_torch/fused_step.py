@@ -15,9 +15,18 @@ arrays, the hyperparameter refresh (``optimizer.SGD.plan``, on the
 host) and one ``replay()``. On the CPU, which only a caller who asks
 for it gets, the same step function runs eagerly.
 
+With the numerics plane armed (:mod:`mxnet_tpu_torch.numwatch`:
+``MXNET_TPU_NUMWATCH`` or a default-stat ``Monitor``) the step also
+keeps copies of the weights from before the update, folds the stats
+pack in place after the update (inside the graph on a card) and, under
+the skip guard, selects the pre-step weights, momenta and metric sums
+on a device predicate when a gradient is not finite; the aux states and
+the pack still advance on such a step, as in the JAX package.
+
 The graph reads and writes fixed addresses: the bound weights and
 gradients, the aux states, the SGD momenta, the metric's device
-accumulator and the executor's generator. A checkpoint restore
+accumulator, the numerics pack with the pre-step copies, and the
+executor's generator. A checkpoint restore
 (:mod:`mxnet_tpu_torch.checkpoint`) therefore copies into those tensors
 and never replaces one, so the next replay runs on the restored values.
 The step captures again when the update's structure changes or when a
@@ -34,8 +43,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import numwatch as _numwatch
+from . import telemetry as _tel
 from .base import MXNetError
 from .kvstore import _LOCAL
+from .metric import CompositeEvalMetric
 from .ndarray import NDArray
 from .optimizer import SGD
 
@@ -48,9 +60,11 @@ def make_fused_step(module, eval_metric, monitor=None):
     its params and optimizer initialised. A configuration the step cannot
     run raises :class:`MXNetError` naming the reason (the JAX package
     warns and falls back to the classic loop; the port has no fallback):
-    a kvstore other than ``local``, ``inputs_need_grad``, a monitor, a
-    grad_req other than ``"write"``, or an optimizer without a fusable
-    update (SGD's)."""
+    a kvstore other than ``local``, ``inputs_need_grad``, a monitor with
+    a custom ``stat_func`` (``monitor``, or one installed on the
+    executor), a grad_req other than ``"write"``, or an optimizer without
+    a fusable update (SGD's). A default-stat monitor rides the numerics
+    pack."""
     if not (module.binded and module.for_training
             and module.params_initialized and module.optimizer_initialized):
         raise MXNetError("fused train step: the module must be bound for "
@@ -63,10 +77,15 @@ def make_fused_step(module, eval_metric, monitor=None):
     if module.inputs_need_grad:
         raise MXNetError("fused train step: inputs_need_grad=True needs "
                          "input gradients that the step does not keep")
-    if monitor is not None:
-        raise MXNetError("fused train step: a monitor reads every internal "
-                         "tensor, which the step keeps inside its graph")
     ex = module._exec_group.executor
+    if monitor is None and ex._monitor_callback is not None:
+        cb = ex._monitor_callback
+        monitor = getattr(cb, "__self__", cb)
+    if monitor is not None and not _numwatch.monitor_routable(monitor):
+        raise MXNetError("fused train step: a monitor with a custom "
+                         "stat_func reads every internal tensor, which the "
+                         "step keeps inside its graph (monitor_custom); a "
+                         "default-stat Monitor rides the numerics pack")
     adds = sorted(n for n, r in ex._grad_req.items()
                   if r not in ("write", "null"))
     if adds:
@@ -79,7 +98,7 @@ def make_fused_step(module, eval_metric, monitor=None):
         raise MXNetError("fused train step: optimizer %s has no fusable "
                          "update (the port fuses SGD's)"
                          % type(opt).__name__)
-    return FusedTrainStep(module, eval_metric)
+    return FusedTrainStep(module, eval_metric, monitor)
 
 
 class FusedTrainStep:
@@ -103,9 +122,12 @@ class FusedTrainStep:
     copy them. The metric folds on the device when it has a device fold
     (Accuracy, TopKAccuracy, CrossEntropy, or a composite of them) and
     there is one label an output; otherwise it updates on the host from
-    the outputs after each batch, as the JAX package does."""
+    the outputs after each batch, as the JAX package does.
 
-    def __init__(self, module, eval_metric):
+    Telemetry: ``step.dispatches`` each replay, ``step.fused_recompiles``
+    each capture (StepTrace labels the capturing step ``recompile``)."""
+
+    def __init__(self, module, eval_metric, monitor=None):
         self._module = module
         self._optimizer = module._optimizer
         self._updater = module._updater
@@ -116,6 +138,14 @@ class FusedTrainStep:
                     and n_labels == len(self._ex.output_names))
         #: the metric folded inside the step, or None (host update)
         self._fold = eval_metric if foldable else None
+        names = [n for n in module._param_names if n in self._ex.grad_dict]
+        #: the numerics plane riding the step, or None
+        self._numwatch = _numwatch.maybe_plane(
+            names, [self._ex.arg_dict[n].handle.numel() for n in names],
+            monitor)
+        self._w_old = None      # pre-update weights, flat (numerics plane)
+        self._m_old = None      # pre-step momenta, flat (skip guard)
+        self._acc_old = None    # pre-step metric sums (skip guard)
         self._stream = None
         self._outs = None
         self._graph = None
@@ -141,18 +171,63 @@ class FusedTrainStep:
         """The step function: everything between the batch's copy in and
         the host's next look, with no host sync."""
         ex = self._ex
-        ex.forward(is_train=True)
+        # an installed monitor is served from the pack, not by callback
+        callback, ex._monitor_callback = ex._monitor_callback, None
+        try:
+            ex.forward(is_train=True)
+        finally:
+            ex._monitor_callback = callback
         ex.backward()
         if self._outs is None:
             self._outs = [torch.empty_like(o.handle) for o in ex._outputs]
         for dst, o in zip(self._outs, ex._outputs):
             dst.copy_(o.handle)
-        SGD.apply(structure, hyper, [w for _, w, _, _ in items],
-                  [g for _, _, g, _ in items], [m for _, _, _, m in items])
+        ws = [w for _, w, _, _ in items]
+        gs = [g for _, _, g, _ in items]
+        ms = [m for _, _, _, m in items]
+        nw = self._numwatch
+        if nw is not None:
+            live, kept = self._keep_pre_step(ws, ms)
+        SGD.apply(structure, hyper, ws, gs, ms)
+        labels = [ex.arg_dict[n].handle
+                  for n in self._module._exec_group.label_names]
         if self._fold is not None:
-            labels = self._module._exec_group.label_names
-            self._fold.device_fold([ex.arg_dict[n].handle for n in labels],
-                                   self._outs)
+            self._fold.device_fold(labels, self._outs)
+        if nw is not None:
+            grads_ok = nw.fold(self._w_old, gs, ws, self._outs, labels)
+            if nw.skip_guard:
+                # a nonfinite gradient: every tensor the update or the
+                # metric fold wrote takes its pre-step value back
+                for new, old in zip(live, kept):
+                    torch.where(grads_ok, new, old, out=new)
+
+    def _keep_pre_step(self, ws, ms):
+        """Copy the weights (and, under the skip guard, the momenta and
+        the metric's device sums) into step-owned tensors before the
+        update: the weights and momenta each into one flat float32 buffer
+        by one batched copy. Returns the live tensors the skip guard
+        restores and their copies."""
+        self._w_old = _flat_copy(self._w_old, ws)
+        live, kept = list(ws), _views(self._w_old, ws)
+        if not self._numwatch.skip_guard:
+            return live, kept
+        moms = [m for m in ms if m is not None]
+        if moms:
+            self._m_old = _flat_copy(self._m_old, moms)
+            live += moms
+            kept += _views(self._m_old, moms)
+        if self._fold is not None:
+            leaves = (self._fold.metrics
+                      if isinstance(self._fold, CompositeEvalMetric)
+                      else [self._fold])
+            accs = [leaf.accumulator(ws[0].device) for leaf in leaves]
+            if self._acc_old is None:
+                self._acc_old = [torch.empty_like(a) for a in accs]
+            for dst, a in zip(self._acc_old, accs):
+                dst.copy_(a)
+            live += accs
+            kept += self._acc_old
+        return live, kept
 
     def step(self, data_batch, eval_metric):
         """One training batch; ``eval_metric`` is updated on the host
@@ -176,6 +251,8 @@ class FusedTrainStep:
         else:
             self._replay(items, structure, hyper)
         ex._outputs = [NDArray(t, ex._ctx) for t in self._outs]
+        if self._numwatch is not None:
+            self._numwatch.stepped()
         if self._fold is None:
             eval_metric.update(data_batch.label, ex._outputs)
 
@@ -209,6 +286,7 @@ class FusedTrainStep:
             raise MXNetError("fused train step: CUDA graph replay failed: %s"
                              % e) from e
         self.dispatches += 1
+        _tel.inc("step.dispatches")
 
     def _capture(self, *args):
         """Record the step function as a CUDA graph (it does not run:
@@ -223,14 +301,36 @@ class FusedTrainStep:
                     "executor's generator with a CUDA graph, so every "
                     "replay would reuse one mask" % torch.__version__)
             register(self._ex._generator())
+        # thread_local: a staging thread's copies and event queries on its
+        # own stream (io_pipeline.FeedScheduler) may run during the
+        # capture; they touch no tensor the graph reads
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream()):
+            with torch.cuda.graph(graph, stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
                 self._body(*args)
         except RuntimeError as e:
             raise MXNetError("fused train step: CUDA graph capture failed: "
                              "%s" % e) from e
         self.captures += 1
+        _tel.inc("step.fused_recompiles")
         return graph
+
+
+def _flat_copy(buf, tensors):
+    """``tensors`` end to end into the flat float32 ``buf`` (allocated on
+    first use, the same storage from then on) by one batched copy."""
+    flat = [t.reshape(-1) for t in tensors]
+    if buf is None:
+        buf = torch.empty(sum(t.numel() for t in flat), dtype=torch.float32,
+                          device=flat[0].device)
+    torch.cat(flat, out=buf)
+    return buf
+
+
+def _views(buf, tensors):
+    """Views of the flat ``buf`` shaped as ``tensors``."""
+    return [v.view_as(t) for v, t in
+            zip(buf.split([t.numel() for t in tensors]), tensors)]
 
 
 def make_fused_infer(executor, data_names, top_k=0):

@@ -6,12 +6,15 @@ classic three phases (``forward_backward``, ``update``,
 ``update_metric``; ``base_module.py:317-421`` there) or, with
 ``fused_step=True`` (or ``MXNET_TPU_FUSED_STEP``), one
 :class:`~mxnet_tpu_torch.fused_step.FusedTrainStep` (one CUDA graph
-replay a batch on a card). ``MXNET_TPU_CKPT_DIR`` arms the checkpoint
-manager (:mod:`mxnet_tpu_torch.checkpoint`): resume at entry, periodic
-snapshots and the SIGTERM grace path around each batch. The loop's other
-extras that the JAX package arms from knobs (feed scheduler, device
-staging, tracing, numerics watch) are not ported yet: ROADMAP.md Queue A
-items 4 and 9.
+replay a batch on a card). The loop arms, from the environment, what the
+JAX package's arms: the feed scheduler and device staging
+(:mod:`mxnet_tpu_torch.io_pipeline`), the metrics server and flight
+recorder (``tracing.maybe_init``), the checkpoint manager
+(``MXNET_TPU_CKPT_DIR``: resume at entry, periodic snapshots and the
+SIGTERM grace path around each batch) and the numerics plane riding the
+fused step, with its rollback guard bound to that manager. With
+telemetry on, each step is timed boundary to boundary into the step
+trace with the plane's extras.
 """
 from __future__ import annotations
 
@@ -25,9 +28,14 @@ from ..base import MXNetError
 from .. import env as _env
 from .. import metric as _metric
 from .. import ndarray as nd
+from .. import numwatch as _numwatch
+from .. import telemetry as _tel
+from .. import tracing as _tracing
 from ..context import cpu
 from ..initializer import Uniform
 from ..io import DataBatch, NDArrayIter
+from ..io_pipeline import (FeedScheduler, maybe_wrap_device_staging,
+                           maybe_wrap_feed_scheduler)
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -92,6 +100,9 @@ class BaseModule:
         """The fused train step that ``fit(fused_step=True)`` runs; a
         module without one raises."""
         raise MXNetError("%s has no fused train step" % type(self).__name__)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
 
     # -- derived -----------------------------------------------------------
     def forward_backward(self, data_batch):
@@ -242,17 +253,19 @@ class BaseModule:
         reset, and ``nbatch`` counts on from the snapshot's), saves
         snapshots on the cadence and on SIGTERM. Under the fused step,
         ``get_outputs()`` in a batch-end callback is overwritten by the
-        next batch: copy what you keep."""
+        next batch: copy what you keep. ``monitor`` is installed on the
+        executor in the classic loop; under the fused step a default-stat
+        Monitor rides the numerics pack and a custom ``stat_func``
+        raises."""
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
         if fused_step is None:
             fused_step = _env.get("MXNET_TPU_FUSED_STEP")
-        if monitor is not None and not fused_step:
-            raise MXNetError("monitor is not ported yet (ROADMAP.md Queue A "
-                             "item 7)")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None and not fused_step:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -261,6 +274,14 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _metric.create(eval_metric)
+
+        # MXNET_TPU_FEED_DEPTH / MXNET_TPU_DEVICE_STAGING: batches staged
+        # onto the card ahead of the step that takes them
+        group = getattr(self, "_exec_group", None)
+        train_data = maybe_wrap_feed_scheduler(train_data, group=group)
+        train_data = maybe_wrap_device_staging(train_data, group=group)
+        _tracing.maybe_init()
+
         fused = (self._fused_train_step(eval_metric, monitor)
                  if fused_step else None)
         self._fused_step_active = fused is not None
@@ -270,19 +291,28 @@ class BaseModule:
         resume = ckpt.maybe_restore() if ckpt is not None else None
         if ckpt is not None:
             ckpt.arm()
+        # the numerics plane's rollback guard restores through the same
+        # manager as the preemption path
+        numwatch = getattr(fused, "_numwatch", None)
+        if numwatch is not None and ckpt is not None:
+            numwatch.bind_ckpt(ckpt)
         try:
             self._fit_epochs(train_data, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_batch_end_callback,
-                             fused, ckpt, resume, begin_epoch, num_epoch)
+                             monitor, fused, ckpt, resume, begin_epoch,
+                             num_epoch, numwatch)
         finally:
             if ckpt is not None:
                 ckpt.disarm()
+            if isinstance(train_data, FeedScheduler):
+                train_data.stop()   # the worker, not the base iterator
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
-                    batch_end_callback, eval_batch_end_callback, fused,
-                    ckpt, resume, begin_epoch, num_epoch):
+                    batch_end_callback, eval_batch_end_callback, monitor,
+                    fused, ckpt, resume, begin_epoch, num_epoch,
+                    numwatch=None):
         for epoch in range(begin_epoch, num_epoch):
             if resume is not None and epoch < resume["epoch"]:
                 continue
@@ -295,8 +325,13 @@ class BaseModule:
             if not resuming:
                 eval_metric.reset()
                 train_data.reset()
+            # a step is timed boundary to boundary, so the wait for its
+            # batch counts in the step that waited
+            t_last = time.perf_counter() if _tel.enabled() else 0.0
             for data_batch in train_data:
                 nbatch += 1
+                if monitor is not None:
+                    monitor.tic()
                 if ckpt is not None:
                     # a SIGTERM from here to step_end waits for step_end
                     ckpt.step_begin()
@@ -308,6 +343,16 @@ class BaseModule:
                     self.update_metric(eval_metric, data_batch.label)
                 if ckpt is not None:
                     ckpt.step_end(epoch, nbatch)
+                nw_extra = _numwatch.after_step(numwatch)
+                if monitor is not None:
+                    monitor.toc_print()
+                if _tel.enabled():
+                    now = time.perf_counter()
+                    extra = {"epoch": epoch, "nbatch": nbatch}
+                    if nw_extra:
+                        extra.update(nw_extra)
+                    _tracing.record_step((now - t_last) * 1e3, extra=extra)
+                    t_last = now
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,

@@ -87,9 +87,14 @@ class DataParallelExecutorGroup:
             if name in aux_params:
                 aux_params[name][:] = arr
 
+    def install_monitor(self, mon):
+        mon.install(self.executor)
+
     def load_data_batch(self, data_batch):
         """Copy a batch's data and labels (NDArrays, tensors or host
-        arrays) into the bound arrays, in place."""
+        arrays) into the bound arrays, in place: host arrays through a
+        pinned buffer, arrays already on the card (a staged batch) device
+        to device on the current stream."""
         descs = self.data_shapes + self.label_shapes
         if self._loaders is None:
             self._loaders = [HostToDevice(self.executor.arg_dict[d.name]

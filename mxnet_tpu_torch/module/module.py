@@ -251,6 +251,13 @@ class Module(BaseModule):
         mod.params_initialized = True
         return mod
 
+    def install_monitor(self, mon):
+        """Install ``mon`` on the bound executor (its callback sees every
+        op output of the classic loop's forward)."""
+        if not self.binded:
+            raise MXNetError("bind before install_monitor")
+        self._exec_group.install_monitor(mon)
+
     def _fused_train_step(self, eval_metric, monitor=None):
         """The fused train step over this module's bind
         (:func:`~mxnet_tpu_torch.fused_step.make_fused_step`), kept as

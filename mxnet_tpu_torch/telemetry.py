@@ -1,6 +1,7 @@
 """Process-wide counters, gauges, histograms and host spans, counterpart
 of ``mxnet_tpu/telemetry.py`` (the registry, the recording helpers and
-the snapshot; merging snapshots, JSONL records and Chrome traces are not
+the snapshot, and the sorted metric items that ``tracing.prometheus_text``
+exposes; merging snapshots, JSONL records and Chrome traces are not
 ported yet: ROADMAP.md Queue A item 11).
 
 * **Counters**: monotonically increasing ints (``ckpt.saves``).
@@ -30,8 +31,8 @@ from .base import MXNetError
 
 __all__ = ["enabled", "enable", "disable", "counter", "gauge", "histogram",
            "inc", "set_gauge", "observe", "span", "spans", "snapshot",
-           "reset", "peek", "Counter", "Gauge", "Histogram",
-           "DEFAULT_BUCKET_BOUNDS"]
+           "reset", "peek", "metrics_items", "Counter", "Gauge",
+           "Histogram", "DEFAULT_BUCKET_BOUNDS"]
 
 _ENABLED = _env.get("MXNET_TPU_TELEMETRY")
 
@@ -207,6 +208,12 @@ def peek(name: str, kind: str = "counter"):
     if isinstance(m, Histogram):
         return m._sum if kind == "hist_sum" else m._count
     return m._value
+
+
+def metrics_items():
+    """Sorted ``(name, metric)`` pairs: the exposition format's reader."""
+    with _reg_lock:
+        return sorted(_metrics.items())
 
 
 def inc(name: str, n: int = 1):

@@ -746,3 +746,120 @@ def test_rollback_into_a_live_graph(card, tmp_path, monkeypatch, dropout):
     for k, v in ref_mod.get_params()[0].items():
         np.testing.assert_array_equal(mod.get_params()[0][k].asnumpy(),
                                       v.asnumpy(), err_msg=k)
+
+
+# -- fit's health and input plane on the card ---------------------------------
+
+@pytest.mark.parametrize("staging,depth", [("1", "0"), ("0", "2")])
+def test_capture_with_the_feed_running(card, monkeypatch, staging, depth):
+    """The small NHWC ResNet through fit(fused_step=True) with device
+    staging or a feed scheduler whose worker stages batches on its copy
+    stream while the step captures (capture_error_mode thread_local): one
+    capture, the card ran every batch's launches, and the params and
+    moving statistics equal a fit without staging bit for bit."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(24, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 24).astype(np.float32)
+    monkeypatch.delenv("MXNET_TPU_DEVICE_STAGING", raising=False)
+    monkeypatch.delenv("MXNET_TPU_FEED_DEPTH", raising=False)
+    _, _, _, args, aux = _small_resnet_fit(x, y, True)
+    monkeypatch.setenv("MXNET_TPU_DEVICE_STAGING", staging)
+    monkeypatch.setenv("MXNET_TPU_FEED_DEPTH", depth)
+    mod, counts, ran, args_s, aux_s = _small_resnet_fit(x, y, True)
+    step = mod._fused_step
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 5)
+    assert ran == _steps(6) and counts == _steps(2, rtc=0)
+    for want, got in ((args, args_s), (aux, aux_s)):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_numwatch_rollback_into_a_live_graph(card, tmp_path, monkeypatch):
+    """MXNET_TPU_NUMWATCH with the rollback guard on the card: a weight
+    poisoned in place is named by the next fetch (kind "param"), the
+    guard restores the healthy snapshot into the tensors the graph
+    captured (every data_ptr, the pack's and the pre-step copies'
+    unchanged), no second capture, and the following replays are
+    finite."""
+    monkeypatch.setenv("MXNET_TPU_CKPT_DIR", str(tmp_path))
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH", "1")
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH_EVERY_N", "1")
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH_GUARD", "rollback")
+    x, y = _ckpt_data(6)
+    seen = {}
+
+    def poison(param):
+        plane = param.locals["numwatch"]
+        ex = param.locals["self"]._exec_group.executor
+        if param.nbatch == 1:
+            seen["ptrs"] = [a.handle.data_ptr() for a in ex.arg_arrays]
+            seen["pack"] = plane._pack.data_ptr()
+            seen["old"] = [t.data_ptr() for t in
+                           param.locals["fused"]._w_old]
+            ex.arg_dict["fc2_weight"].handle.fill_(float("nan"))
+            rollback = plane._rollback
+
+            def spy(extras):
+                seen["prov"] = plane.provenance()
+                return rollback(extras)
+            plane._rollback = spy
+        if param.nbatch == 2:
+            seen["rollbacks"] = plane._rollbacks
+
+    stream, mod = _ckpt_fit(x, y, callback=poison)
+    step = mod._fused_step
+    ex = mod._exec_group.executor
+    assert seen["rollbacks"] == 1
+    assert seen["prov"] == ("fc2_weight", "param", 3)
+    pack = step._numwatch._pack.cpu().numpy()
+    assert pack[-1, 0] == 3 and not pack[:-1, 7:].any()   # 3 steps since
+    assert (step.eager_steps, step.captures) == (1, 1)
+    assert [a.handle.data_ptr() for a in ex.arg_arrays] == seen["ptrs"]
+    assert step._numwatch._pack.data_ptr() == seen["pack"]
+    assert [t.data_ptr() for t in step._w_old] == seen["old"]
+    for nbatch, probs, _ in stream[3:]:
+        assert np.isfinite(probs).all(), nbatch
+    assert all(np.isfinite(v.asnumpy()).all()
+               for v in mod.get_params()[0].values())
+
+
+def test_numwatch_skip_guard_and_pack_on_the_card(card, monkeypatch):
+    """The skip guard on the card: a NaN batch leaves the weights, the
+    momenta and the metric sums bit-identical, the pack's grad sums of
+    squares equal a float64 recomputation from the bound gradients
+    (rtol 1e-5), and the armed fit's params equal an unarmed fit's bit
+    for bit before the NaN batch."""
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH", "1")
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH_EVERY_N", "1")
+    monkeypatch.setenv("MXNET_TPU_NUMWATCH_GUARD", "skip")
+    x, y = _ckpt_data(4)
+    x[24:] = np.nan
+    state = {}
+
+    def keep(param):
+        mod = param.locals["self"]
+        ex = mod._exec_group.executor
+        plane = param.locals["numwatch"]
+        if param.nbatch == 2:
+            pack = plane._pack.cpu().numpy()
+            for i, name in enumerate(plane.names):
+                g = ex.grad_dict[name].asnumpy().astype(np.float64)
+                np.testing.assert_allclose(pack[i, 0], (g * g).sum(),
+                                           rtol=1e-5, err_msg=name)
+            state["w"] = {k: ex.arg_dict[k].handle.clone()
+                          for k in mod._param_names}
+            state["m"] = {i: s.handle.clone()
+                          for i, s in mod._updater.states.items()}
+            state["acc"] = param.eval_metric._acc.clone()
+        if param.nbatch == 3:
+            assert plane._pack[-1, 3].item() == 1   # one skip
+            for k, v in state["w"].items():
+                assert torch.equal(ex.arg_dict[k].handle, v), k
+            for i, s in mod._updater.states.items():
+                assert torch.equal(s.handle, state["m"][i]), i
+            assert torch.equal(param.eval_metric._acc, state["acc"])
+            state["checked"] = True
+
+    _, mod = _ckpt_fit(x, y, callback=keep)
+    assert state.get("checked")
+    assert mod._fused_step.captures == 1

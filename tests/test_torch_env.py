@@ -14,7 +14,18 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_TELEMETRY_SPAN_CAP", "MXNET_TPU_CRASH_DIR",
              "MXNET_TPU_CKPT_DIR", "MXNET_TPU_CKPT_EVERY_N_STEPS",
              "MXNET_TPU_CKPT_KEEP", "MXNET_TPU_CKPT_RESUME",
-             "MXNET_TPU_CKPT_GRACE_S"]
+             "MXNET_TPU_CKPT_GRACE_S",
+             # the health and input plane of fit
+             "MXNET_TPU_DEVICE_STAGING", "MXNET_TPU_FEED_DEPTH",
+             "MXNET_TPU_METRICS_PORT", "MXNET_TPU_TRACE_ON_ANOMALY",
+             "MXNET_TPU_TRACE_DIR", "MXNET_TPU_TRACE_WINDOW",
+             "MXNET_TPU_TRACE_COOLDOWN", "MXNET_TPU_TRACE_RING",
+             "MXNET_TPU_TRACE_EVENT_COOLDOWN", "MXNET_TPU_FLIGHT_RECORDER",
+             "MXNET_TPU_NUMWATCH", "MXNET_TPU_NUMWATCH_EVERY_N",
+             "MXNET_TPU_NUMWATCH_GUARD", "MXNET_TPU_NUMWATCH_SPIKE_K",
+             "MXNET_TPU_NUMWATCH_EXPLODE_K", "MXNET_TPU_NUMWATCH_DEAD_UW",
+             "MXNET_TPU_NUMWATCH_MAX_SKIPS",
+             "MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN"]
 
 
 def test_the_port_declares_the_variables_it_reads():
