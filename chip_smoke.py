@@ -120,7 +120,26 @@ Phases, in order; any failure exits non-zero before the last line:
    "param") and restored into the same storage, losses finite after.
    (5) a default Monitor: its rows equal norm(x)/sqrt(size) recomputed
    on the card.
-10. report: one JSON line of kernel records, the card line, then
+10. the ImageNet models at scale: AlexNet (with LRN), VGG-16, GoogLeNet
+   and ResNet-50 at 224x224 and Inception-v3 at 299x299, NCHW, 1000
+   classes, batch 32, f32, phase 6's SGD settings, 5 batches of seeded
+   synthetic images, seeded Xavier weights. For each: the classic loop,
+   then fit(fused_step=True) from the same weights, launch counts zeroed
+   just before and read just after each (K3 2 x convolutions - 1 a step:
+   9, 25, 113, 187 and 105; K4 and K5 0, as NCHW BatchNorm is
+   elementwise); one capture; params, moving statistics, losses and the
+   metric bit-equal, Dropout masks included; AlexNet once more through
+   PrefetchingIter(ResizeIter(NDArrayIter)), bit-equal to the plain
+   iterator; two profiled replays (K3 launches, device ms, busy share,
+   time by group: K3, the cuDNN forward, copies); host step ms and img/s
+   of both loops; peak allocated memory; one batch-2 step on the card
+   against the CPU with the Dropout masks keyed by node name (loss
+   within rtol 1e-4, update within 1e-2 of its norm); K3 alone over the
+   step's products beside torch.matmul; the NCHW -> channels-last
+   copies of K3's wrapper timed alone. Then K3 against a float64 product
+   at every product of the five steps that phase 3 does not hold, and
+   MXRecordIO/MXIndexedRecordIO round trips of packed records (no PIL).
+11. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -487,7 +506,7 @@ def conv_gemm_parity(torch, kernels, shapes):
     return worst, cases
 
 
-def conv_gemm_timing(torch, kernels, counts):
+def conv_gemm_timing(torch, kernels, counts, reps=20, verbose=True):
     """K3 at the (M, N, K, transpose) products of one training step,
     float32 operands, beside the plain version and torch.matmul on the
     same operands; the bound is the longer of 2MNK at the 3xTF32 rate
@@ -504,11 +523,11 @@ def conv_gemm_timing(torch, kernels, counts):
         b = torch.randn(k, n, generator=gen, device="cuda")
         at = a.t() if trans else a
         kern = time_ms(torch, lambda: kernels.matmul_f32acc(a, b, trans),
-                       flush)
+                       flush, reps)
         plain = time_ms(torch, lambda: kernels.matmul_f32acc_plain(a, b,
                                                                    trans),
-                        flush)
-        lib = time_ms(torch, lambda: torch.matmul(at, b), flush)
+                        flush, reps)
+        lib = time_ms(torch, lambda: torch.matmul(at, b), flush, reps)
         nbytes = (m * k + k * n + m * n) * 4
         flops = 2 * m * n * k
         bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / TF32X3_FLOPS_PER_S)
@@ -518,10 +537,12 @@ def conv_gemm_timing(torch, kernels, counts):
                          "library_ms": lib, "bound_ms": bound,
                          "simt_bound_ms": simt,
                          "tflops": flops / kern / 1e9})
-        print("  conv_gemm (%6d, %4d, %6d, %s) x%-2d kernel %.4f ms  plain "
-              "%.4f ms  matmul %.4f ms  bound %.4f ms (simt %.4f)  (%.1f "
-              "TFLOP/s)" % (m, n, k, "T" if trans else "N", cnt, kern, plain,
-                            lib, bound, simt, flops / kern / 1e9))
+        if verbose:
+            print("  conv_gemm (%6d, %4d, %6d, %s) x%-2d kernel %.4f ms  "
+                  "plain %.4f ms  matmul %.4f ms  bound %.4f ms (simt %.4f)  "
+                  "(%.1f TFLOP/s)" % (m, n, k, "T" if trans else "N", cnt,
+                                      kern, plain, lib, bound, simt,
+                                      flops / kern / 1e9))
         tot["ms"] += cnt * kern
         tot["plain_ms"] += cnt * plain
         tot["library_ms"] += cnt * lib
@@ -1210,15 +1231,14 @@ def _resnet_launches(steps):
             "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0}
 
 
-def fit_resnet(torch, mx, kernels, images, labels, fused):
-    """Module.fit over one epoch of TRAIN_STEPS batches of 32 on the card
-    from train_module's seed-0 weights, the classic loop or the fused
-    step; launch counts and the peak of allocated memory zeroed just
-    before and read just after. Per step: the loss of the forward's
-    probabilities and the host clock at the batch-end callback, with
-    the card synchronised."""
-    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
-    args0, aux0 = (_host(p) for p in mod.get_params())
+def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None):
+    """Module.fit of the bound ``mod`` over one epoch of ``images`` in
+    batches of 32 on the card, the classic loop or the fused step; launch
+    counts and the peak of allocated memory zeroed just before and read
+    just after. Per step: the loss of the forward's probabilities and
+    the host clock at the batch-end callback, with the card
+    synchronised. ``wrap`` wraps the NDArrayIter (and is closed
+    after)."""
     metric = mx.metric.Accuracy()
     losses, marks = [], []
 
@@ -1231,25 +1251,45 @@ def fit_resnet(torch, mx, kernels, images, labels, fused):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    it = mx.io.NDArrayIter(images, labels, batch_size=BATCH)
+    if wrap is not None:
+        it = wrap(it)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
-            num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
             eval_metric=metric, batch_end_callback=on_batch,
             fused_step=fused)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    args1, aux1 = (_host(p) for p in mod.get_params())
+    if wrap is not None:
+        it.close()
+    args, aux = (_host(p) for p in mod.get_params())
     steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     step_ms = float(np.median(steps_ms))
+    return {"mod": mod, "metric": metric, "launches": launches,
+            "losses": [float(v) for v in losses], "steps_ms": steps_ms,
+            "step_ms": step_ms, "img_per_s": BATCH * 1e3 / step_ms,
+            "peak_bytes": peak, "peak_above_start_bytes": peak - base,
+            "args": args, "aux": aux, "accuracy": metric.get()[1]}
+
+
+def fit_resnet(torch, mx, kernels, images, labels, fused):
+    """fit_module over TRAIN_STEPS batches from train_module's seed-0
+    weights, checked: the launches of every step (classic) or of the
+    eager step and the capture (fused), finite losses, every param and
+    moving statistic changed."""
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    args0, aux0 = (_host(p) for p in mod.get_params())
+    run = fit_module(torch, mx, kernels, mod, images, labels, fused)
+    launches, losses = run["launches"], run["losses"]
+    args1, aux1 = run["args"], run["aux"]
     # a replay runs no wrapper: the fused loop's wrappers count the eager
     # step and the capture (fused_train_path counts the replays)
     counted = 2 if fused else TRAIN_STEPS
     want = dict(_resnet_launches(counted), rtc=0)
     loop = "fused" if fused else "classic"
-    losses = [float(v) for v in losses]
     print("training main path (%s loop): %d steps of %d, launches %s, "
           "losses %s" % (loop, len(losses), BATCH, launches,
                          ["%.4f" % v for v in losses]))
@@ -1263,11 +1303,7 @@ def fit_resnet(torch, mx, kernels, images, labels, fused):
     check(not stale, "moving statistics unchanged: %s" % stale)
     check(all(np.all(np.isfinite(v)) for v in args1.values()),
           "non-finite params after training")
-    return {"mod": mod, "metric": metric, "launches": launches,
-            "losses": losses, "steps_ms": steps_ms, "step_ms": step_ms,
-            "img_per_s": BATCH * 1e3 / step_ms, "peak_bytes": peak,
-            "peak_above_start_bytes": peak - base, "args": args1,
-            "aux": aux1, "accuracy": metric.get()[1]}
+    return run
 
 
 def print_breakdown(loop, breakdown, card):
@@ -1376,10 +1412,12 @@ def train_breakdown(torch, mx, kernels, mod, images, labels):
     return _profile_steps(torch, kernels, classic_step)
 
 
-def _profile_steps(torch, kernels, run_step, reps=2):
-    """Kernel time by group, the busy share and the compiled kernels'
-    launches (``kernels.launches_in`` over the kernel events) of ``reps``
-    calls of ``run_step`` under torch.profiler."""
+def _profile_steps(torch, kernels, run_step, reps=2, group=None):
+    """Kernel time by group (``group``, default _train_group), the busy
+    share and the compiled kernels' launches (``kernels.launches_in``
+    over the kernel events) of ``reps`` calls of ``run_step`` under
+    torch.profiler."""
+    group = group or _train_group
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1397,7 +1435,7 @@ def _profile_steps(torch, kernels, run_step, reps=2):
         names += [e.key] * e.count
         us = float(e.self_device_time_total)
         kernels_us.append((us, e.key))
-        g = _train_group(e.key)
+        g = group(e.key)
         groups[g] = groups.get(g, 0.0) + us
     busy_us = sum(us for us, _ in kernels_us)
     check(busy_us > 0, "the profiler saw no device time")
@@ -1408,7 +1446,7 @@ def _profile_steps(torch, kernels, run_step, reps=2):
             "busy_share": busy_us / 1e6 / wall_s,
             "by_group_ms": {g: us / 1e3 / reps for g, us in groups.items()},
             "top_kernels": [{"name": n[:160], "ms_per_step": us / 1e3 / reps,
-                             "group": _train_group(n)}
+                             "group": group(n)}
                             for us, n in kernels_us[:20]]}
 
 
@@ -2485,6 +2523,367 @@ def plane_monitor(torch, mx, kernels, images, labels, card):
             "launches": run["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# 10. the ImageNet models at scale, NCHW
+# ---------------------------------------------------------------------------
+# name, the models function, its keyword arguments, input side; the K3 launches a
+# step (2 x convolutions - 1: the first convolution reads the data,
+# which needs no gradient) and the convolutions, from the reference's
+# symbols
+MODELS = [("alexnet", "get_alexnet", {}, 224, 9, 5),
+          ("vgg16", "get_vgg", {"num_layers": 16}, 224, 25, 13),
+          ("googlenet", "get_googlenet", {}, 224, 113, 57),
+          ("inception_v3", "get_inception_v3", {}, 299, 187, 94),
+          ("resnet50_nchw", "get_resnet50", {"layout": "NCHW"}, 224, 105,
+           53)]
+MODEL_STEPS = 5                # batches of 32 a phase-10 fit
+MODEL_CLASSES = 1000
+MODEL_GATE_BETA = 2.0          # see model_gate
+RECORDIO_RECORDS = 64
+
+
+def model_symbol(mx, fn, kwargs):
+    return getattr(mx.models, fn)(num_classes=MODEL_CLASSES, **kwargs)
+
+
+def model_convs(mx, sym, data_shape):
+    """Every convolution of ``sym`` at ``data_shape`` (NCHW): its input
+    and output shapes, kernel, and whether its input is the data; and
+    the K3 products of one training step, (M, N, K, transpose_a) ->
+    count, as conv_gemm_shapes reads them off ResNet-50 NHWC."""
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(data=data_shape)
+    shape_of = dict(zip(internals.list_outputs(), outs))
+    nodes = json.loads(sym.tojson())["nodes"]
+    convs, counts = [], {}
+    for node in nodes:
+        if node["op"] != "Convolution":
+            continue
+        src = nodes[node["inputs"][0][0]]
+        is_data = src["op"] == "null"
+        n, c, h, w = shape_of[src["name"] if is_data
+                              else src["name"] + "_output"]
+        kh, kw = _shape_param(node["param"]["kernel"])
+        out = shape_of[node["name"] + "_output"]
+        _, o, ho, wo = out
+        convs.append({"x": (n, c, h, w), "g": tuple(out), "is_data": is_data})
+        keys = [(kh * kw * c, o, n * ho * wo, True)]
+        if not is_data:
+            keys.append((n * h * w, c, kh * kw * o, False))
+        for key in keys:
+            counts[key] = counts.get(key, 0) + 1
+    return convs, counts
+
+
+def _model_group(name):
+    low = name.lower()
+    if "conv_gemm" in low:
+        return "conv_gemm (K3)"
+    if "norm_act" in low:
+        return "norm_act (K4/K5)"
+    if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
+        return "layout transforms (cuDNN)"
+    if "catarray" in low:
+        return "concat"
+    if "copy" in low:
+        return "copies (layout, im2col, pads)"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (foreach SGD)"
+    if any(k in low for k in ("conv", "fprop", "xmma", "implicit", "cudnn",
+                              "winograd", "dgrad", "wgrad", "sm90_")):
+        return "convolution forward (cuDNN)"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul (cuBLAS)"
+    if "pool" in low:
+        return "pooling"
+    return "other elementwise/reductions"
+
+
+def layout_copy_ms(torch, convs):
+    """The NCHW -> channels-last copies that K3's wrapper makes in one
+    training step (``_Conv2d.backward``: the output cotangent and the
+    input of every convolution), each timed alone by CUDA events at its
+    shape (median of 5, L2 flushed), summed."""
+    flush = torch.empty(64 << 20, device="cuda")
+    cache = {}
+    total = 0.0
+    for conv in convs:
+        for shape in (conv["x"], conv["g"]):
+            if shape not in cache:
+                t = torch.randn(*shape, device="cuda")
+                cache[shape] = time_ms(torch, lambda: t.movedim(1, -1)
+                                       .contiguous(), flush, reps=5)
+                del t
+            total += cache[shape]
+    return total
+
+
+def model_data(name, side, steps=MODEL_STEPS):
+    """``steps`` batches of 32 seeded synthetic images (NCHW) and labels."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    images = rng.standard_normal((steps * BATCH, 3, side, side),
+                                 dtype=np.float32)
+    labels = rng.integers(0, MODEL_CLASSES, steps * BATCH).astype(np.float32)
+    return images, labels
+
+
+def model_module(mx, sym, ctx, shape, seed=0):
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (shape[0],))], for_training=True)
+    mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.0,
+                                   seed=seed))
+    return mod
+
+
+def _same_run(what, got, want):
+    for name in ("args", "aux"):
+        unequal = [k for k in want[name]
+                   if not np.array_equal(got[name][k], want[name][k])]
+        check(not unequal, "%s: %s differ at %s" % (what, name, unequal[:5]))
+    check(got["losses"] == want["losses"], "%s: losses %s against %s"
+          % (what, got["losses"], want["losses"]))
+    check(got["accuracy"] == want["accuracy"], "%s: metric %r against %r"
+          % (what, got["accuracy"], want["accuracy"]))
+
+
+def _mask_keyed_dropout(torch, mx, sym):
+    """Patch the port's Dropout so that, in train mode, each node draws
+    its keep-mask from numpy seeded by its name, on the CPU and on the
+    card alike (the card's Philox and the CPU generator draw different
+    masks). Returns the function that undoes the patch."""
+    import zlib
+
+    nn = mx.ops.nn
+    names = {id(n.op): n.name for n in sym._topo()
+             if not n.is_variable and type(n.op).__name__ == "Dropout"}
+    saved = nn.Dropout.apply
+
+    def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        if not ctx.is_train or self.p <= 0.0:
+            return [x], []
+        rng = np.random.RandomState(zlib.crc32(names[id(self)].encode()))
+        keep = torch.from_numpy(rng.rand(*x.shape) < 1.0 - self.p)
+        return [torch.where(keep.to(x.device), x / (1.0 - self.p),
+                            torch.zeros_like(x))], []
+
+    nn.Dropout.apply = apply
+
+    def undo():
+        nn.Dropout.apply = saved
+    return undo
+
+
+def model_gate(torch, mx, sym, images, labels):
+    """One classic training step at batch 2 on the card (the kernels)
+    against the port on the CPU (their plain versions), the same seed-1
+    weights, data and Dropout masks (keyed by node name, see
+    _mask_keyed_dropout). Conditioned as the CPU parity tests are
+    (tests/torch_vision_helpers.py): every BatchNorm beta at 2, and
+    ResNet's residual blocks' last BatchNorm gamma at 0.25, so that few
+    ReLU inputs sit within rounding of zero. Bound: the loss within rtol
+    1e-4, the update of all params together within 1e-2 of its norm."""
+    res = []
+    undo = _mask_keyed_dropout(torch, mx, sym)
+    try:
+        for ctx in (mx.gpu(0), mx.cpu()):
+            mod = model_module(mx, sym, ctx, (2,) + images.shape[1:], seed=1)
+            args, aux = mod.get_params()
+            start = {}
+            for name, arr in args.items():
+                if name.endswith("_bn_beta"):
+                    arr[:] = np.full(arr.shape, MODEL_GATE_BETA, np.float32)
+                if name.endswith("_b3_bn_gamma"):
+                    arr[:] = np.full(arr.shape, GATE_GAMMA_B3, np.float32)
+                start[name] = arr.asnumpy().copy()
+            mod.set_params(args, aux)
+            mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+            mod.forward_backward(mx.io.DataBatch([images[:2]], [labels[:2]]))
+            mod.update()
+            probs = mod.get_outputs()[0].asnumpy().astype(np.float64)
+            loss = float(-np.log(probs[np.arange(2),
+                                       labels[:2].astype(int)]).mean())
+            res.append((loss, _host(mod.get_params()[0]), start))
+            del mod
+    finally:
+        undo()
+    (lg, pg, s0), (lc, pc, _) = res
+    diff = np.concatenate([(pg[k] - pc[k]).ravel() for k in pc])
+    upd = np.concatenate([(pc[k] - s0[k]).ravel() for k in pc])
+    rel = float(np.linalg.norm(diff) / np.linalg.norm(upd))
+    check(abs(lg - lc) <= 1e-4 * abs(lc), "gate loss %g on the card, %g on "
+          "the CPU" % (lg, lc))
+    check(rel <= 1e-2, "gate: the card's update differs from the CPU's by "
+          "%.3g of its norm (bound 1e-2)" % rel)
+    return {"loss_card": lg, "loss_cpu": lc, "update_rel_err": rel}
+
+
+def model_path(torch, mx, kernels, card, spec):
+    """Phase 10 for one network: the classic loop and the fused step
+    (bit-equal, launches, one capture), profiled replays, the batch-2
+    gate, K3 alone over the step's products beside torch.matmul, and the
+    layout copies."""
+    name, fn, kwargs, side, k3_step, n_convs = spec
+    sym = model_symbol(mx, fn, kwargs)
+    shape = (BATCH, 3, side, side)
+    convs, gemms = model_convs(mx, sym, shape)
+    check(len(convs) == n_convs and sum(gemms.values()) == k3_step,
+          "%s: %d convolutions and %d K3 products a step, want %d and %d"
+          % (name, len(convs), sum(gemms.values()), n_convs, k3_step))
+    images, labels = model_data(name, side)
+    zero = {"norm_act_fwd": 0, "norm_act_bwd": 0, "linear": 0,
+            "flash_attn": 0, "rtc": 0}
+
+    def fit(fused, wrap=None):
+        mod = model_module(mx, sym, mx.gpu(0), shape)
+        return fit_module(torch, mx, kernels, mod, images, labels, fused,
+                          wrap)
+
+    classic = fit(False)
+    classic.pop("mod")
+    classic.pop("metric")
+    check(classic["launches"] == dict(zero, conv_gemm=k3_step * MODEL_STEPS),
+          "%s classic launches %s, want K3 %d a step and no other"
+          % (name, classic["launches"], k3_step))
+    check(all(np.isfinite(classic["losses"])), "%s: losses %s"
+          % (name, classic["losses"]))
+    fused = fit(True)
+    mod, metric = fused.pop("mod"), fused.pop("metric")
+    step = mod._fused_step
+    counters = {"eager_steps": step.eager_steps, "captures": step.captures,
+                "dispatches": step.dispatches}
+    check(counters == {"eager_steps": 1, "captures": 1,
+                       "dispatches": MODEL_STEPS - 1},
+          "%s fused counters %s" % (name, counters))
+    check(fused["launches"] == dict(zero, conv_gemm=2 * k3_step),
+          "%s fused launches %s, want K3 %d (the eager step and the "
+          "capture) and no other" % (name, fused["launches"], 2 * k3_step))
+    _same_run("%s fused against classic" % name, fused, classic)
+    out = {"model": name, "input": list(shape), "convolutions": len(convs),
+           "k3_per_step": k3_step, "counters": counters,
+           "launches_classic": classic["launches"],
+           "launches_fused": fused["launches"], "losses": fused["losses"]}
+    if name == "alexnet":
+        wrapped = fit(True, wrap=lambda it: mx.io.PrefetchingIter(
+            mx.io.ResizeIter(it, MODEL_STEPS)))
+        wrapped.pop("mod")
+        wrapped.pop("metric")
+        _same_run("alexnet through PrefetchingIter(ResizeIter(NDArrayIter)) "
+                  "against NDArrayIter", wrapped, fused)
+        out["prefetch_resize_bit_equal"] = True
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    prof = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
+                          group=_model_group)
+    check(prof["launches"] == dict(
+        {k: 0 for k in kernels.LAUNCH_KERNELS}, conv_gemm=2 * k3_step),
+        "%s: two profiled replays ran %s, want K3 %d"
+        % (name, prof["launches"], 2 * k3_step))
+    del mod, step, metric, batch
+    torch.cuda.empty_cache()
+    out.update(
+        step_ms_classic=classic["step_ms"], step_ms_fused=fused["step_ms"],
+        img_per_s_classic=classic["img_per_s"],
+        img_per_s_fused=fused["img_per_s"],
+        peak_gb_classic=classic["peak_bytes"] / 1e9,
+        peak_gb_fused=fused["peak_bytes"] / 1e9,
+        peak_above_start_gb_classic=classic["peak_above_start_bytes"] / 1e9,
+        peak_above_start_gb_fused=fused["peak_above_start_bytes"] / 1e9,
+        replays_profiled=prof)
+    out["gate"] = model_gate(torch, mx, sym, images, labels)
+    _, out["k3_alone"] = conv_gemm_timing(torch, kernels, gemms, reps=10,
+                                          verbose=False)
+    out["layout_copies_ms"] = layout_copy_ms(torch, convs)
+    out["gemms"] = sorted(gemms)
+    groups = prof["by_group_ms"]
+    print("phase 10 %s NCHW %dx%d batch %d f32: host step %.3f / %.3f ms "
+          "(classic / fused), %.1f / %.1f img/s, device %.3f ms a step, busy "
+          "%.1f%%, peak %.3f / %.3f GB (%.3f / %.3f above the fit's start); "
+          "K3 %.3f ms a step in the replay over "
+          "%d launches (alone %.3f, torch.matmul %.3f, bound %.3f); cuDNN "
+          "forward %.3f ms; copies %.3f ms (the NCHW layout copies alone "
+          "%.3f), cuDNN layout transforms %.3f ms; gate loss %.6f / %.6f, "
+          "update %.3g of its norm  [%s]"
+          % (name, side, side, BATCH, classic["step_ms"], fused["step_ms"],
+             classic["img_per_s"], fused["img_per_s"],
+             prof["device_ms_per_step"], 100 * prof["busy_share"],
+             classic["peak_bytes"] / 1e9, fused["peak_bytes"] / 1e9,
+             classic["peak_above_start_bytes"] / 1e9,
+             fused["peak_above_start_bytes"] / 1e9,
+             groups.get("conv_gemm (K3)", 0.0), k3_step,
+             out["k3_alone"]["ms"], out["k3_alone"]["library_ms"],
+             out["k3_alone"]["bound_ms"],
+             groups.get("convolution forward (cuDNN)", 0.0),
+             groups.get("copies (layout, im2col, pads)", 0.0),
+             out["layout_copies_ms"],
+             groups.get("layout transforms (cuDNN)", 0.0),
+             out["gate"]["loss_card"], out["gate"]["loss_cpu"],
+             out["gate"]["update_rel_err"], card))
+    return out
+
+
+def recordio_roundtrip(mx, tmp):
+    """MXRecordIO and MXIndexedRecordIO round trips of packed records
+    (scalar and vector labels, payloads of every length mod 4) on the
+    card's host: no PIL."""
+    rio = mx.recordio
+    rng = np.random.RandomState(11)
+    recs = []
+    for i in range(RECORDIO_RECORDS):
+        label = float(i) if i % 2 else [float(i), 0.5 * i, -1.0]
+        recs.append((label, rng.bytes(int(rng.randint(0, 4096)))))
+    rec, idx = os.path.join(tmp, "r.rec"), os.path.join(tmp, "r.idx")
+    with rio.MXIndexedRecordIO(idx, rec, "w") as w:
+        for i, (label, payload) in enumerate(recs):
+            w.write_idx(i, rio.pack(rio.IRHeader(0, label, i, 0), payload))
+    seq = []
+    with rio.MXRecordIO(rec, "r") as r:
+        while True:
+            buf = r.read()
+            if buf is None:
+                break
+            seq.append(rio.unpack(buf))
+    check([p for _, p in seq] == [p for _, p in recs],
+          "recordio: the sequential read differs from what was written")
+    with rio.MXIndexedRecordIO(idx, rec, "r") as r:
+        for i in rng.permutation(RECORDIO_RECORDS)[:16]:
+            header, payload = rio.unpack(r.read_idx(int(i)))
+            check(payload == recs[i][1] and header.id == i
+                  and np.array_equal(np.asarray(header.label, np.float32),
+                                     np.asarray(recs[i][0], np.float32)),
+                  "recordio: record %d read by key differs" % i)
+    return {"records": RECORDIO_RECORDS, "bytes": os.path.getsize(rec)}
+
+
+def models_main_path(torch, mx, kernels, card):
+    """Phase 10: every network of MODELS through model_path, then K3
+    against a float64 product at each of their step's products that
+    phase 3 did not check, and the RecordIO round trips."""
+    runs = {}
+    for spec in MODELS:
+        runs[spec[0]] = model_path(torch, mx, kernels, card, spec)
+        torch.cuda.empty_cache()
+    phase3 = set(conv_gemm_shapes(mx))
+    new = sorted({tuple(g) for r in runs.values() for g in r["gemms"]}
+                 - phase3)
+    worst, cases = conv_gemm_parity(torch, kernels, new)
+    print("phase 10 conv_gemm parity: %d cases (%d products of the five "
+          "steps that phase 3 does not hold, f32 and bf16), reruns "
+          "bit-identical, max abs err vs float64 f32 %g; max %.3g of "
+          "sum|a||b| (bound 1e-6)" % (cases, len(new),
+                                       worst["abs_float32"], worst["rel"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = recordio_roundtrip(mx, tmp)
+    print("phase 10 recordio: %d packed records written and read back, "
+          "sequentially and by key (%d bytes)" % (rec["records"],
+                                                 rec["bytes"]))
+    return {"models": runs, "k3_parity": dict(worst, cases=cases,
+                                              products=len(new)),
+            "recordio": rec}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -2629,7 +3028,18 @@ def main():
     # 9. fit's health and input plane through the fused step at full width
     plane = plane_main_path(torch, mx, kernels, card)
 
-    # 10. report
+    # 10. the ImageNet models at scale, NCHW, through the fused step
+    models = models_main_path(torch, mx, kernels, card)
+    model_paths = {}
+    for name, run in models["models"].items():
+        for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+            model_paths.setdefault(kernel, {}).update({
+                "models_%s_classic" % name: run["launches_classic"][kernel],
+                "models_%s_fused" % name: run["launches_fused"][kernel],
+                "models_%s_fused_2_replays_profiled" % name:
+                    run["replays_profiled"]["launches"][kernel]})
+
+    # 11. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -2642,7 +3052,11 @@ def main():
                   "capture); train_fused_plane_numwatch: the same over "
                   "phase 9's fit with the numerics plane, the metrics "
                   "server and the flight recorder armed (every phase-9 "
-                  "fit is checked to count the same)")
+                  "fit is checked to count the same); models_<net>_*: "
+                  "phase 10's fits of AlexNet, VGG-16, GoogLeNet, "
+                  "Inception-v3 and ResNet-50 in NCHW at batch 32 (classic: "
+                  "5 steps; fused: the eager step and the capture; "
+                  "replays: two, from the kernel events)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -2657,7 +3071,8 @@ def main():
             "train_fused_ckpt_resume":
                 ckpt_run["resume"]["launches"]["norm_act_fwd"],
             "train_fused_plane_numwatch":
-                plane["numwatch"]["launches"]["norm_act_fwd"]},
+                plane["numwatch"]["launches"]["norm_act_fwd"],
+            **model_paths["norm_act_fwd"]},
         "launches_note": fused_note,
         "max_abs_err": fwd_worst["float32"],
         "max_err_f32": fwd_worst["float32"],
@@ -2679,7 +3094,8 @@ def main():
             "train_fused_ckpt_resume":
                 ckpt_run["resume"]["launches"]["norm_act_bwd"],
             "train_fused_plane_numwatch":
-                plane["numwatch"]["launches"]["norm_act_bwd"]},
+                plane["numwatch"]["launches"]["norm_act_bwd"],
+            **model_paths["norm_act_bwd"]},
         "launches_note": fused_note,
         "max_abs_err": max(bwd_worst["dx_float32"], bwd_worst["sums_abs"]),
         "max_err_dx_f32": bwd_worst["dx_float32"],
@@ -2707,11 +3123,15 @@ def main():
                 plane["numwatch"]["launches"]["conv_gemm"],
             "mnist_lenet_fused": mnist["lenet"]["launches"]["conv_gemm"],
             "mnist_lenet_fused_2_replays_profiled":
-                mnist["lenet"]["replay_launches"]["conv_gemm"]},
+                mnist["lenet"]["replay_launches"]["conv_gemm"],
+            **model_paths["conv_gemm"]},
         "launches_note": fused_note,
-        "max_abs_err": gemm_worst["abs_float32"],
-        "max_err_bf16": gemm_worst["abs_bfloat16"],
-        "max_err_of_abs_product": gemm_worst["rel"],
+        "max_abs_err": max(gemm_worst["abs_float32"],
+                           models["k3_parity"]["abs_float32"]),
+        "max_err_bf16": max(gemm_worst["abs_bfloat16"],
+                            models["k3_parity"]["abs_bfloat16"]),
+        "max_err_of_abs_product": max(gemm_worst["rel"],
+                                      models["k3_parity"]["rel"]),
         "ms": gemm_tot["ms"], "plain_ms": gemm_tot["plain_ms"],
         "bound_ms": gemm_tot["bound_ms"], "bound_by": gemm_tot["bound_by"],
         "simt_bound_ms": gemm_tot["simt_bound_ms"],
@@ -2788,7 +3208,7 @@ def main():
                        "entry_points": entry,
                        "checkpoint_path": {k: v for k, v in ckpt_run.items()
                                            if k != "mod"},
-                       "plane_path": plane}, f,
+                       "plane_path": plane, "models_path": models}, f,
                       indent=1)
     print(json.dumps({"kernels": records}))
     print(card)

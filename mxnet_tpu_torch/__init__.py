@@ -13,6 +13,9 @@
 * ``mx.numwatch``, ``mx.Monitor``, ``mx.tracing``, ``mx.io_pipeline`` —
   fit's health and input plane: the stats pack and its guards, the
   step trace with its detectors and metrics server, device staging
+* ``mx.io``, ``mx.recordio`` — data iterators (in-memory, MNIST, CSV,
+  image records with their decoder, resizing and prefetching) and the
+  RecordIO files they read
 * ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
@@ -44,6 +47,7 @@ from . import initializer
 from . import initializer as init
 from . import io
 from . import io_pipeline
+from . import recordio
 from . import lr_scheduler
 from . import optimizer
 from . import metric

@@ -122,6 +122,12 @@ declare("MXNET_TPU_FEED_DEPTH", int, 0,
         "empty queue lands in the `io.feed_stall_ms` histogram for "
         "StepTrace's dominant-cause labeling. Default 0 (off).",
         section=_IN)
+declare("MXNET_TPU_DECODE_PROCS", int, 0,
+        "Decode image records with N worker processes (the same as "
+        "`ImageRecordIter(..., preprocess_mode=\"process\")`). Process "
+        "decode is not ported: above 0, `ImageRecordIter` raises "
+        "`MXNetError` rather than decode on threads. Default 0: the thread "
+        "pool (`preprocess_threads`).", section=_IN)
 
 _TEL = "Telemetry"
 declare("MXNET_TPU_TELEMETRY", bool, False,

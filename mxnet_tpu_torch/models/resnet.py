@@ -37,13 +37,21 @@ def _bottleneck(data, num_filter, stride, dim_match, name, layout="NCHW"):
 
 
 def get_resnet(units, filter_list, num_classes=1000, small_input=False,
-               layout="NCHW"):
+               layout="NCHW", stem_s2d=False):
     """Build a bottleneck ResNet. ``small_input`` swaps the 7x7/2 stem
     and max-pool for a 3x3/1 conv (32x32 inputs); ``layout="NHWC"``
     builds the tower channels-last (data (N, H, W, C), BatchNorm axis
-    -1). Weights are OIHW either way."""
+    -1). Weights are OIHW either way. ``stem_s2d`` takes data already
+    2x2 space-to-depth stacked, (N, 12, H/2, W/2), through a 5x5/1 conv
+    and the max-pool in place of the 7x7/2 stem (the same output size;
+    not weight-exact with the 7x7)."""
     data = sym.Variable("data")
-    if small_input:
+    if stem_s2d:
+        body = _conv_bn_relu(data, filter_list[0], (5, 5), (1, 1), (2, 2),
+                             "stem", layout=layout)
+        body = sym.Pooling(data=body, kernel=(3, 3), stride=(2, 2),
+                           pad=(1, 1), pool_type="max", layout=layout)
+    elif small_input:
         body = _conv_bn_relu(data, filter_list[0], (3, 3), (1, 1), (1, 1),
                              "stem", layout=layout)
     else:

@@ -1,7 +1,7 @@
 """Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
-Convolution, Pooling, BatchNorm, Dropout and SoftmaxOutput, with the
+Convolution, Pooling, BatchNorm, LRN, Dropout and SoftmaxOutput, with the
 same parameters (names, defaults, string forms) so the JSON of a graph
 reads the same in both packages. Every op is differentiable under
 autograd, which is how the executor's backward runs.
@@ -359,6 +359,34 @@ class BatchNorm(Operator):
         else:
             out = x * scale.reshape(bshape) + shift.reshape(bshape)
         return [out], new_aux
+
+
+# ---------------------------------------------------------------------------
+# LRN
+# ---------------------------------------------------------------------------
+@register_op("LRN")
+class LRN(Operator):
+    """Cross-channel local response normalization: ``x / (knorm + alpha
+    / nsize * sum(x^2)) ** beta``, the sum over a window of ``nsize``
+    channels padded ``nsize // 2`` before and ``nsize - 1 - nsize // 2``
+    after, as the JAX op's ``reduce_window`` (``ops/nn.py:784-805``).
+    A plain op in both packages; its gradient is autograd's."""
+
+    name_hint = "lrn"
+    PARAMS = {
+        "alpha": Param(float, 1e-4),
+        "beta": Param(float, 0.75),
+        "knorm": Param(float, 2.0),
+        "nsize": Param(int, REQUIRED),
+    }
+
+    def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        half = self.nsize // 2
+        sq = F.pad((x * x).movedim(1, -1), (half, self.nsize - 1 - half))
+        ssum = sq.unfold(-1, self.nsize, 1).sum(-1).movedim(-1, 1)
+        denom = (self.knorm + (self.alpha / self.nsize) * ssum) ** self.beta
+        return [x / denom], []
 
 
 # ---------------------------------------------------------------------------

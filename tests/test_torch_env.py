@@ -25,7 +25,9 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_NUMWATCH_GUARD", "MXNET_TPU_NUMWATCH_SPIKE_K",
              "MXNET_TPU_NUMWATCH_EXPLODE_K", "MXNET_TPU_NUMWATCH_DEAD_UW",
              "MXNET_TPU_NUMWATCH_MAX_SKIPS",
-             "MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN"]
+             "MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN",
+             # image records: process decode is refused
+             "MXNET_TPU_DECODE_PROCS"]
 
 
 def test_the_port_declares_the_variables_it_reads():
