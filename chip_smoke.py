@@ -139,7 +139,38 @@ Phases, in order; any failure exits non-zero before the last line:
    copies of K3's wrapper timed alone. Then K3 against a float64 product
    at every product of the five steps that phase 3 does not hold, and
    MXRecordIO/MXIndexedRecordIO round trips of packed records (no PIL).
-11. report: one JSON line of kernel records, the card line, then
+11. every fusable optimizer at full width: phase 6's network, data,
+   wd and rescale_grad with ccSGD (momentum 0.9), NAG (momentum 0.9),
+   Adam (lr 1e-3, clip_gradient 5), AdaGrad (lr 0.01), RMSProp (lr
+   0.002 under FactorScheduler(step=2, factor=0.5)) and AdaDelta. (a)
+   For each, the classic loop then fit(fused_step=True) from the same
+   weights, launch counts zeroed just before and read just after each
+   (K3 105, K4 53, K5 53 a classic step; 210/106/106 for the fused
+   loop's eager step and capture); one capture; params, every
+   optimizer state tensor, moving statistics, losses and the metric
+   bit-equal; one more fused step against a float64 recomputation of
+   the update from its pre-step weights, gradients, states and
+   hyperparameter rows (within 1e-5 of each tensor's largest
+   magnitude); two profiled replays (device ms a step, busy share,
+   K3/K4/K5 from the kernel events); the update alone, captured over
+   copies of the step's tensors, its device ms a replay (profiler and
+   CUDA events) beside its bound (w, g and the states read, w and the
+   states written, at 3.35 TB/s) and its share of the step; host step
+   ms, img/s and peak allocated memory of each loop. (b) Adam through
+   the fused step: the skip guard across an all-NaN batch (weights,
+   both states and metric sums bit-identical), a snapshot at step 3
+   resumed in a fresh module (losses and params bit for bit, one
+   capture, update counts carried), save_checkpoint's optimizer states
+   loaded by a Module on the CPU bit-equal. (c) SGLD, one classic step:
+   the standardised noise's mean and std over all 25.6 M elements;
+   fit(fused_step=True) with SGLD raises. (d) An MLP 784-512-1 with
+   LinearRegressionOutput, batch 128, through the fused step with
+   [mse, mae, rmse] folded in the graph, against a float64
+   recomputation from the outputs (rtol 1e-6). (e) dot, clip, norm,
+   onehot_encode, crop_assign, mx.nd.Convolution and the Test
+   optimizer on the card against the CPU; mx.random.set_state
+   replaying two draws on the card.
+12. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -147,6 +178,7 @@ breakdowns to PATH as JSON. ``--ckpt-child DIR`` is phase 8's child
 process, which the phase starts itself.
 """
 import argparse
+import gc
 import hashlib
 import json
 import os
@@ -1231,14 +1263,16 @@ def _resnet_launches(steps):
             "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0}
 
 
-def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None):
+def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None,
+               optimizer="sgd", optimizer_params=TRAIN_OPT,
+               after_batch=None):
     """Module.fit of the bound ``mod`` over one epoch of ``images`` in
     batches of 32 on the card, the classic loop or the fused step; launch
     counts and the peak of allocated memory zeroed just before and read
     just after. Per step: the loss of the forward's probabilities and
     the host clock at the batch-end callback, with the card
-    synchronised. ``wrap`` wraps the NDArrayIter (and is closed
-    after)."""
+    synchronised; then ``after_batch(param, mod)``. ``wrap`` wraps the
+    NDArrayIter (and is closed after)."""
     metric = mx.metric.Accuracy()
     losses, marks = [], []
 
@@ -1250,17 +1284,20 @@ def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None):
         losses.append(-torch.log(probs.gather(1, lab[:, None])).mean())
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        if after_batch is not None:
+            after_batch(param, mod)
 
     it = mx.io.NDArrayIter(images, labels, batch_size=BATCH)
     if wrap is not None:
         it = wrap(it)
+    mx.random.seed(0)   # Dropout's masks: the same stream in every fit
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
-            eval_metric=metric, batch_end_callback=on_batch,
-            fused_step=fused)
+    mod.fit(it, num_epoch=1, optimizer=optimizer,
+            optimizer_params=optimizer_params, eval_metric=metric,
+            batch_end_callback=on_batch, fused_step=fused)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if wrap is not None:
@@ -1687,7 +1724,8 @@ def mnist_gate(mx, data_dir, net):
             "worst_excess": worst[0]}
 
 
-def ckpt_fit(torch, mx, images, labels, after_batch=None):
+def ckpt_fit(torch, mx, images, labels, after_batch=None, optimizer="sgd",
+             optimizer_params=TRAIN_OPT):
     """Module.fit(fused_step=True) over one epoch of the batches of
     ``images`` from train_module's seed-0 weights, MXNET_TPU_CKPT_* as the
     environment has them. Per step: the loss of the forward's
@@ -1709,7 +1747,8 @@ def ckpt_fit(torch, mx, images, labels, after_batch=None):
 
     torch.cuda.synchronize()
     mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
-            num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+            num_epoch=1, optimizer=optimizer,
+            optimizer_params=optimizer_params,
             eval_metric=mx.metric.Accuracy(), batch_end_callback=on_batch,
             fused_step=True)
     args, aux = (_host(p) for p in mod.get_params())
@@ -1884,9 +1923,18 @@ def checkpoint_main_path(torch, mx, kernels, card):
     return res
 
 
-def checkpoint_files(mx, mod, tmp):
+def _state_arrays(state):
+    """An optimizer state (None, an NDArray or a tuple) as numpy arrays."""
+    if state is None:
+        return []
+    parts = state if isinstance(state, tuple) else (state,)
+    return [p.asnumpy() for p in parts]
+
+
+def checkpoint_files(mx, mod, tmp, optimizer="sgd",
+                     optimizer_params=TRAIN_OPT):
     """(e): save_checkpoint with the optimizer states on the card, loaded
-    into a Module on the CPU; params and momenta bit-equal."""
+    into a Module on the CPU; params and optimizer states bit-equal."""
     prefix = os.path.join(tmp, "resnet50")
     t0 = time.perf_counter()
     mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
@@ -1895,22 +1943,25 @@ def checkpoint_files(mx, mod, tmp):
                              context=mx.cpu())
     cpu.bind(data_shapes=[("data", (1,) + IMAGE)],
              label_shapes=[("softmax_label", (1,))])
-    cpu.init_optimizer(optimizer_params=TRAIN_OPT)
+    cpu.init_optimizer(optimizer=optimizer,
+                       optimizer_params=optimizer_params)
     cpu.load_optimizer_states(prefix + "-0001.states")
     want = dict(zip(("args", "aux"), (_host(p) for p in mod.get_params())))
     got = dict(zip(("args", "aux"), (_host(p) for p in cpu.get_params())))
     _check_params_equal("checkpoint (e) files on the CPU", got, want)
     states = mod._updater.states
     unequal = [i for i, s in states.items()
-               if not np.array_equal(cpu._updater.states[i].asnumpy(),
-                                     s.asnumpy())]
+               if not all(np.array_equal(a, b) for a, b in zip(
+                   _state_arrays(cpu._updater.states[i]),
+                   _state_arrays(s)))]
     check(sorted(cpu._updater.states) == sorted(states) and not unequal,
           "checkpoint (e): momenta differ at %s" % unequal[:5])
     sizes = {ext: os.path.getsize("%s-0001.%s" % (prefix, ext))
              for ext in ("params", "states")}
     print("checkpoint (e) files: save_checkpoint with optimizer states in "
-          "%.2f s (%s bytes), loaded by a Module on the CPU: params and %d "
-          "momenta bit-equal" % (save_s, sizes, len(states)))
+          "%.2f s (%s bytes), loaded by a Module on the CPU: params and "
+          "the optimizer states of %d params bit-equal"
+          % (save_s, sizes, len(states)))
     return {"save_s": save_s, "bytes": sizes, "momenta": len(states)}
 
 
@@ -2884,6 +2935,549 @@ def models_main_path(torch, mx, kernels, card):
             "recordio": rec}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: every fusable optimizer through the fused step, the guards and
+# snapshots with Adam, SGLD, a regression head, the imperative functions
+# ---------------------------------------------------------------------------
+
+OPTIM_KINDS = ("ccsgd", "nag", "adam", "adagrad", "rmsprop", "adadelta")
+# bytes an update must move a param element: w, g and the states read,
+# w and the states written (float32)
+OPTIM_STATES = {"ccsgd": 1, "nag": 1, "adam": 2, "adagrad": 1, "rmsprop": 3,
+                "adadelta": 2}
+OPTIM_REL_TOL = 1e-5           # a fused step against its float64 update
+REG_STEPS = 5                  # batches of 128 through the regression MLP
+REG_BATCH = 128
+SGLD_LR = 1e-4
+
+
+def optim_params(mx, kind):
+    """Phase 11's settings of ``kind``: phase 6's wd and rescale_grad, and
+    a fresh schedule object each call (a schedule keeps state)."""
+    base = {"wd": 1e-4, "rescale_grad": 1.0 / BATCH}
+    extra = {"ccsgd": {"learning_rate": 0.0125, "momentum": 0.9},
+             "nag": {"learning_rate": 0.0125, "momentum": 0.9},
+             "adam": {"learning_rate": 1e-3, "clip_gradient": 5.0},
+             "adagrad": {"learning_rate": 0.01},
+             "rmsprop": {"learning_rate": 0.002, "lr_scheduler":
+                         mx.lr_scheduler.FactorScheduler(step=2,
+                                                         factor=0.5)},
+             "adadelta": {}, "sgld": {"learning_rate": SGLD_LR}}[kind]
+    return dict(base, **extra)
+
+
+def _host_states(mod):
+    return {i: [a.copy() for a in _state_arrays(s)]
+            for i, s in mod._updater.states.items()}
+
+
+def update64(torch, kind, w, g, states, row, clipped):
+    """The update of one parameter in float64, written from the JAX
+    package's _update_math: ``row`` is its hyperparameter row
+    (rescale_grad, the kind's scalars, clip)."""
+    g = g * row[0]
+    if clipped:
+        g = g.clamp(-row[-1], row[-1])
+    sc = row[1:-1]
+    if kind in ("ccsgd", "nag"):
+        lr, wd, mom = sc
+        g = g + wd * w
+        (m,) = states
+        if kind == "nag":
+            m = mom * m + g
+            return w - lr * (g + mom * m), [m]
+        m = mom * m - lr * g
+        return w + m, [m]
+    if kind == "adam":
+        step_lr, wd, b1, b2, eps = sc
+        mean, var = states
+        g = g + wd * w
+        mean = b1 * mean + (1 - b1) * g
+        var = b2 * var + (1 - b2) * g * g
+        return w - step_lr * mean / (torch.sqrt(var) + eps), [mean, var]
+    if kind == "adagrad":
+        lr, wd, eps = sc
+        (acc,) = states
+        acc = acc + g * g
+        return w - lr * (g / torch.sqrt(acc + eps) + wd * w), [acc]
+    if kind == "rmsprop":
+        lr, wd, g1, g2 = sc
+        n, gs, delta = states
+        g = g + wd * w
+        n = (1 - g1) * g * g + g1 * n
+        gs = (1 - g1) * g + g1 * gs
+        delta = g2 * delta - lr * g / torch.sqrt(n - gs * gs + 1e-4)
+        return w + delta, [n, gs, delta]
+    wd, rho, eps = sc   # adadelta
+    acc_g, acc_d = states
+    acc_g = rho * acc_g + (1 - rho) * g * g
+    cur = torch.sqrt(acc_d + eps) / torch.sqrt(acc_g + eps) * g
+    acc_d = rho * acc_d + (1 - rho) * cur * cur
+    return w - cur - wd * w, [acc_g, acc_d]
+
+
+def optim_float64_check(torch, mx, kind, mod, metric, images, labels):
+    """One more fused step (a replay) on the card against the float64
+    update of its pre-step weights and states, its gradients and the
+    hyperparameter rows the replay read: the largest difference of each
+    tensor within OPTIM_REL_TOL of its largest magnitude."""
+    step, opt = mod._fused_step, mod._optimizer
+    items, _ = step._params()
+    w0 = [w.clone() for _, w, _, _ in items]
+    s0 = [[t.clone() for t in s] for _, _, _, s in items]
+    step.step(mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]]), metric)
+    torch.cuda.synchronize()
+    (h2d,) = opt._scalars.values()
+    hyper = h2d.dst.double()
+    groups, clipped = opt.structure([i for i, _, _, _ in items])[:2]
+    worst = 0.0
+    for gi, group in enumerate(groups):
+        for p in group:
+            _, w, g, s = items[p]
+            want_w, want_s = update64(
+                torch, kind, w0[p].double(), g.double(),
+                [t.double() for t in s0[p]], hyper[gi], clipped)
+            for got, want in [(w, want_w)] + list(zip(s, want_s)):
+                scale = float(want.abs().max()) or 1.0
+                worst = max(worst, float((got.double() - want).abs().max())
+                            / scale)
+    check(worst <= OPTIM_REL_TOL, "%s: a fused step differs from its "
+          "float64 update by %.3g of the largest magnitude (bound %g)"
+          % (kind, worst, OPTIM_REL_TOL))
+    return worst
+
+
+def _optim_group(name):
+    low = name.lower()
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "update (foreach)"
+    return _train_group(name)
+
+
+def optim_update_timing(torch, kind, mod):
+    """The update alone, captured as a CUDA graph over copies of the
+    step's weights, gradients, states and hyperparameters: device ms a
+    replay from torch.profiler's kernel events (and by CUDA events over
+    20 replays), its kernel count, and the bound: the bytes it must move
+    at HBM_BYTES_PER_S."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step, opt = mod._fused_step, mod._optimizer
+    items, _ = step._params()
+    ws = [w.clone() for _, w, _, _ in items]
+    gs = [g.clone() for _, _, g, _ in items]
+    ss = [tuple(t.clone() for t in s) for _, _, _, s in items]
+    (h2d,) = opt._scalars.values()
+    hyper = h2d.dst.clone()
+    structure = opt.structure([i for i, _, _, _ in items])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        opt.apply(structure, hyper, ws, gs, ss)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        opt.apply(structure, hyper, ws, gs, ss)
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us += float(e.self_device_time_total)
+            n += e.count
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    elems = sum(w.numel() for w in ws)
+    nbytes = 4 * elems * (3 + 2 * OPTIM_STATES[kind])
+    del graph, ws, gs, ss
+    return {"update_ms": us / 1e3 / 2, "update_kernels": n / 2,
+            "update_event_ms": start.elapsed_time(end) / 20,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bytes": nbytes,
+            "param_elements": elems}
+
+
+def optim_kind_path(torch, mx, kernels, card, kind, images, labels):
+    """(a) for one optimizer: the classic loop, then the fused step from
+    the same weights; launches, one capture, everything bit-equal; one
+    replay against its float64 update; the profiled fused step and the
+    update alone beside its bound."""
+    runs = {}
+    for fused in (False, True):
+        gc.collect()   # the last fit's module: its peak is not this one's
+        torch.cuda.empty_cache()
+        mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+        runs[fused] = fit_module(torch, mx, kernels, mod, images, labels,
+                                 fused, optimizer=kind,
+                                 optimizer_params=optim_params(mx, kind))
+        runs[fused]["states"] = _host_states(mod)
+        if not fused:
+            del runs[fused]["mod"], mod
+            torch.cuda.empty_cache()
+    classic, fused = runs[False], runs[True]
+    mod = fused.pop("mod")
+    step = mod._fused_step
+    counters = (step.eager_steps, step.captures, step.dispatches)
+    check(classic["launches"] == dict(_resnet_launches(TRAIN_STEPS), rtc=0),
+          "%s classic launches %s" % (kind, classic["launches"]))
+    check(fused["launches"] == dict(_resnet_launches(2), rtc=0),
+          "%s fused launches %s, want the eager step's and the capture's"
+          % (kind, fused["launches"]))
+    check(counters == (1, 1, TRAIN_STEPS - 1), "%s fused counters %s"
+          % (kind, counters))
+    check(all(np.isfinite(fused["losses"])), "%s losses %s"
+          % (kind, fused["losses"]))
+    _same_run("%s fused against classic" % kind, fused, classic)
+    n_states = {len(v) for v in fused["states"].values()}
+    check(n_states == {OPTIM_STATES[kind]}, "%s: %s state tensors a param"
+          % (kind, n_states))
+    unequal = [i for i, v in classic["states"].items()
+               if not all(np.array_equal(a, b) for a, b in
+                          zip(v, fused["states"][i]))]
+    check(not unequal and classic["states"].keys() == fused["states"].keys(),
+          "%s: optimizer states differ at %s" % (kind, unequal[:5]))
+    check(all(np.isfinite(v).all() for v in fused["args"].values()),
+          "%s: nonfinite params" % kind)
+    metric = mx.metric.Accuracy()
+    worst = optim_float64_check(torch, mx, kind, mod, metric, images,
+                                labels)
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    prof = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
+                          group=_optim_group)
+    check_profiled_launches("%s fused" % kind, prof)
+    upd = optim_update_timing(torch, kind, mod)
+    del mod, step, metric
+    torch.cuda.empty_cache()
+    out = {"kind": kind, "counters": counters,
+           "launches_classic": classic["launches"],
+           "launches_fused": fused["launches"], "losses": fused["losses"],
+           "state_tensors_a_param": OPTIM_STATES[kind],
+           "float64_max_rel_diff": worst,
+           "step_device_ms": prof["device_ms_per_step"],
+           "busy_share": prof["busy_share"],
+           "by_group_ms": prof["by_group_ms"],
+           "update_share_of_step": upd["update_ms"]
+           / prof["device_ms_per_step"],
+           "step_ms_classic": classic["step_ms"],
+           "step_ms_fused": fused["step_ms"],
+           "img_per_s_classic": classic["img_per_s"],
+           "img_per_s_fused": fused["img_per_s"],
+           "peak_gb_classic": classic["peak_bytes"] / 1e9,
+           "peak_gb_fused": fused["peak_bytes"] / 1e9, **upd}
+    print("optimizer %s, ResNet-50 NHWC batch 32 f32: classic and fused "
+          "bit-equal (params, %d state tensors a param, moving statistics, "
+          "losses, metric), one capture; a replay against float64 %.3g "
+          "(bound %g); update %.4f ms a replay (profiler, %d kernels; "
+          "%.4f ms by CUDA events), bound %.4f ms (%.1f MB at 3.35 TB/s), "
+          "%.1f%% of the fused step's %.3f ms on the card (busy %.1f%%); "
+          "host step %.3f / %.3f ms, %.1f / %.1f img/s, peak allocated "
+          "%.3f / %.3f GB (classic / fused)  [%s]"
+          % (kind, OPTIM_STATES[kind], worst, OPTIM_REL_TOL,
+             upd["update_ms"], upd["update_kernels"],
+             upd["update_event_ms"], upd["bound_ms"], upd["bytes"] / 1e6,
+             100 * out["update_share_of_step"], prof["device_ms_per_step"],
+             100 * prof["busy_share"], classic["step_ms"], fused["step_ms"],
+             classic["img_per_s"], fused["img_per_s"],
+             out["peak_gb_classic"], out["peak_gb_fused"], card))
+    return out
+
+
+def optim_adam_guards(torch, mx, kernels, card, images, labels):
+    """(b) Adam through the fused step: the skip guard across an all-NaN
+    batch (weights, both states, metric sums bit-identical), a snapshot
+    at step 3 resumed in a fresh module (losses and params bit for bit,
+    one capture, the eager step's and the capture's launches), and
+    save_checkpoint's optimizer states loaded by a Module on the CPU."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+
+    res = {}
+    ims = images.copy()
+    ims[3 * BATCH:4 * BATCH] = np.nan
+    kept = {}
+
+    def keep(param, mod):
+        ex = mod._exec_group.executor
+        state = ([ex.arg_dict[n].handle.clone() for n in mod._param_names]
+                 + [t.clone() for s in mod._updater.states.values()
+                    for t in (s[0].handle, s[1].handle)]
+                 + [param.eval_metric._acc.clone()])
+        if param.nbatch == 2:
+            kept["before"] = state
+        if param.nbatch == 3:
+            kept["same"] = len(state) == len(kept["before"]) and all(
+                torch.equal(a, b) for a, b in zip(state, kept["before"]))
+            kept["skips"] = mx.telemetry.peek("numwatch.skipped_steps")
+
+    guard_env = {"MXNET_TPU_NUMWATCH": "1", "MXNET_TPU_NUMWATCH_EVERY_N": "1",
+                 "MXNET_TPU_NUMWATCH_GUARD": "skip"}
+    os.environ.update(guard_env)
+    mx.telemetry.reset()
+    mx.telemetry.enable()
+    try:
+        mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+        run = fit_module(torch, mx, kernels, mod, ims, labels, True,
+                         optimizer="adam",
+                         optimizer_params=optim_params(mx, "adam"),
+                         after_batch=keep)
+    finally:
+        for k in guard_env:
+            os.environ.pop(k, None)
+        mx.telemetry.disable()
+        mx.telemetry.reset()
+    step = run.pop("mod")._fused_step
+    check(kept.get("same"), "optim (b): Adam's weights, states or metric "
+          "sums moved across the NaN batch")
+    check(kept.get("skips") == 1, "optim (b): skipped steps %s"
+          % kept.get("skips"))
+    check(step.captures == 1, "optim (b): captures %d" % step.captures)
+    check(all(np.isfinite(run["losses"][4:])), "optim (b): losses %s"
+          % run["losses"])
+    print("optim (b) Adam skip guard: weights, both states a param and the "
+          "metric sums bit-identical across the NaN batch, one skip, one "
+          "capture, launches %s  [%s]" % (run["launches"], card))
+    res["skip_guard"] = {"skips": 1, "launches": run["launches"]}
+    del step, run, mod
+    torch.cuda.empty_cache()
+
+    env = ("MXNET_TPU_CKPT_DIR", "MXNET_TPU_CKPT_EVERY_N_STEPS",
+           "MXNET_TPU_CKPT_RESUME")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_optim_")
+    adam = tuple(optim_params(mx, "adam").items())
+    cimages, clabels = train_data(CKPT_STEPS)
+    try:
+        os.environ.update({env[0]: tmp, env[1]: str(CKPT_EVERY),
+                           env[2]: "0"})
+        b = ckpt_fit(torch, mx, cimages, clabels, optimizer="adam",
+                     optimizer_params=adam)
+        del b["mod"]
+        _keep_only_step(ckpt, tmp, CKPT_EVERY)
+        os.environ.update({env[1]: "0", env[2]: "1"})
+        kernels.reset_launch_counts()
+        c = ckpt_fit(torch, mx, cimages, clabels, optimizer="adam",
+                     optimizer_params=adam)
+        launches = kernels.launch_counts()
+        step = c["mod"]._fused_step
+        counters = (step.eager_steps, step.captures, step.dispatches)
+        check(c["losses"] == b["losses"][CKPT_EVERY:], "optim (b): resumed "
+              "Adam losses %s, uninterrupted %s"
+              % (c["losses"], b["losses"][CKPT_EVERY:]))
+        _check_params_equal("optim (b) Adam resume", c, b)
+        check(counters == (1, 1, CKPT_STEPS - CKPT_EVERY - 1),
+              "optim (b): resumed counters %s" % (counters,))
+        check(launches == dict(_resnet_launches(2), rtc=0),
+              "optim (b): resumed launches %s" % launches)
+        t = c["mod"]._optimizer._index_update_count
+        check(set(t.values()) == {CKPT_STEPS}, "optim (b): update counts "
+              "after the resume %s" % sorted(set(t.values())))
+        print("optim (b) Adam snapshot at step %d resumed in a fresh module: "
+              "losses %s and params bit-equal to the uninterrupted run, "
+              "update counts %d, counters %s, launches %s  [%s]"
+              % (CKPT_EVERY, ["%.4f" % v for v in c["losses"]], CKPT_STEPS,
+                 counters, launches, card))
+        res["resume"] = {"losses": c["losses"], "counters": counters,
+                         "launches": launches}
+        res["files"] = checkpoint_files(mx, c["mod"], tmp, "adam", adam)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def optim_sgld(torch, mx, kernels, card, images, labels):
+    """(c) SGLD through the classic loop, one step at full width: the
+    standardised noise (w1 - w0 + lr/2 g)/sqrt(lr), g the rescaled
+    gradient plus weight decay, over every parameter element; the fused
+    step refuses SGLD."""
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    ex = mod._exec_group.executor
+    w0 = {n: ex.arg_dict[n].handle.double() for n in mod._param_names
+          if n in ex.grad_dict}
+    opts = optim_params(mx, "sgld")
+    run = fit_module(torch, mx, kernels, mod, images[:BATCH],
+                     labels[:BATCH], False, optimizer="sgld",
+                     optimizer_params=opts)
+    check(run["launches"] == dict(_resnet_launches(1), rtc=0),
+          "optim (c) SGLD launches %s" % run["launches"])
+    check(mod._exec_group.executor is ex, "optim (c): the module bound again")
+    lr = opts["learning_rate"]
+    z = []
+    for name, w in w0.items():
+        g = ex.grad_dict[name].handle.double() * opts["rescale_grad"] \
+            + opts["wd"] * w
+        z.append(((ex.arg_dict[name].handle.double() - w + lr / 2 * g)
+                  / np.sqrt(lr)).reshape(-1))
+    z = torch.cat(z)
+    mean, std = float(z.mean()), float(z.std())
+    check(abs(mean) < 0.01 and abs(std - 1) < 0.01, "optim (c) SGLD noise: "
+          "mean %g, std %g over %d elements" % (mean, std, z.numel()))
+    raised = None
+    try:
+        mod.fit(mx.io.NDArrayIter(images[:BATCH], labels[:BATCH],
+                                  batch_size=BATCH),
+                num_epoch=1, optimizer="sgld", optimizer_params=opts,
+                fused_step=True)
+    except mx.MXNetError as e:
+        raised = str(e)
+    check(raised is not None and "SGLD" in raised, "optim (c): "
+          "fit(fused_step=True) with SGLD did not raise")
+    print("optim (c) SGLD, one classic step at full width: standardised "
+          "noise mean %.3g, std %.5f over %d elements; fused step refused: "
+          "%s  [%s]" % (mean, std, z.numel(), raised, card))
+    del mod, run, z
+    torch.cuda.empty_cache()
+    return {"noise_mean": mean, "noise_std": std,
+            "elements": sum(v.numel() for v in w0.values()),
+            "fused_refused": raised}
+
+
+def regression_net(mx):
+    net = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(net, num_hidden=512, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=1, name="fc2")
+    return mx.sym.LinearRegressionOutput(net, name="lro")
+
+
+def optim_regression(torch, mx, kernels, card):
+    """(d) An MLP 784-512-1 with LinearRegressionOutput, batch 128,
+    through fit(fused_step=True) with eval_metric [mse, mae, rmse]: the
+    metric folds inside the graph (one capture), and each value is
+    within rtol 1e-6 of a float64 recomputation from the outputs."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(REG_STEPS * REG_BATCH, 784).astype(np.float32)
+    y = (x @ (rng.randn(784, 1) / 28)).astype(np.float32)
+    outs = []
+
+    def record(param):
+        outs.append(param.locals["self"].get_outputs()[0].asnumpy().copy())
+
+    metric = mx.metric.create(["mse", "mae", "rmse"])
+    mod = mx.mod.Module(regression_net(mx), context=mx.gpu(0),
+                        label_names=["lro_label"])
+    kernels.reset_launch_counts()
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=REG_BATCH,
+                              label_name="lro_label"),
+            num_epoch=1, eval_metric=metric,
+            initializer=mx.init.Xavier(seed=1),
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.9},
+            batch_end_callback=record, fused_step=True)
+    launches = kernels.launch_counts()
+    step = mod._fused_step
+    counters = (step.eager_steps, step.captures, step.dispatches)
+    check(step._fold is metric, "optim (d): the metric did not fold in "
+          "the step")
+    check(counters == (1, 1, REG_STEPS - 1), "optim (d): counters %s"
+          % (counters,))
+    errs = [y[i * REG_BATCH:(i + 1) * REG_BATCH].astype(np.float64) - o
+            for i, o in enumerate(outs)]
+    want = [np.mean([(e ** 2).mean() for e in errs]),
+            np.mean([np.abs(e).mean() for e in errs]),
+            np.mean([np.sqrt((e ** 2).mean()) for e in errs])]
+    got = metric.get()[1]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    check(max(rel) <= 1e-6, "optim (d): metric %s, host %s (rel %s)"
+          % (got, want, rel))
+    print("optim (d) regression MLP 784-512-1 batch 128, fused step: "
+          "[mse, mae, rmse] folded in the graph = %s, float64 from the "
+          "outputs %s (max rel %.3g, bound 1e-6), counters %s, launches %s"
+          "  [%s]" % (["%.6g" % v for v in got], ["%.6g" % v for v in want],
+                      max(rel), counters, launches, card))
+    return {"metric": got, "host": want, "max_rel": max(rel),
+            "counters": counters, "launches": launches}
+
+
+def optim_imperative(torch, mx, card):
+    """(e) The imperative functions on the card against the port on the
+    CPU, on seeded inputs: dot, clip, norm, onehot_encode, crop_assign,
+    mx.nd.Convolution, the Test optimizer's NDArray arithmetic, and
+    mx.random.set_state replaying two draws."""
+    rng = np.random.RandomState(3)
+    a = rng.randn(256, 512).astype(np.float32)
+    b = rng.randn(512, 128).astype(np.float32)
+    x = rng.randn(8, 16, 28, 28).astype(np.float32)
+    w = rng.randn(32, 16, 3, 3).astype(np.float32)
+    bias = rng.randn(32).astype(np.float32)
+    idx = rng.randint(0, 10, 64).astype(np.float32)
+    small = rng.randn(2, 3).astype(np.float32)
+
+    def run(ctx):
+        nd = mx.nd
+        A, B = nd.array(a, ctx=ctx), nd.array(b, ctx=ctx)
+        out = {"dot": nd.dot(A, B), "clip": nd.clip(A, -0.5, 0.7),
+               "norm": nd.norm(A),
+               "onehot_encode": nd.onehot_encode(
+                   nd.array(idx, ctx=ctx), nd.zeros((64, 10), ctx=ctx)),
+               "crop_assign": nd.crop_assign(A, nd.array(small, ctx=ctx),
+                                             (5, 7), (7, 10)),
+               "Convolution": nd.Convolution(
+                   nd.array(x, ctx=ctx), nd.array(w, ctx=ctx),
+                   nd.array(bias, ctx=ctx), kernel=(3, 3), num_filter=32,
+                   pad=(1, 1))}
+        opt = mx.optimizer.create("test", rescale_grad=0.5)
+        upd = mx.optimizer.get_updater(opt)
+        wt = nd.array(a, ctx=ctx)
+        for k in range(3):
+            upd(0, nd.array(a * (k + 1), ctx=ctx), wt)
+        out["test_optimizer"] = wt
+        out["test_optimizer_state"] = upd.states[0]
+        return {k: v.asnumpy() for k, v in out.items()}
+
+    card_out, cpu_out = run(mx.gpu(0)), run(mx.cpu())
+    rel = {}
+    for k, want in cpu_out.items():
+        got = card_out[k]
+        rel[k] = float(np.abs(got.astype(np.float64) - want).max()
+                       / max(np.abs(want).max(), 1e-30))
+        exact = k in ("clip", "onehot_encode", "crop_assign",
+                      "test_optimizer", "test_optimizer_state")
+        check(rel[k] == 0 if exact else rel[k] <= 1e-5, "optim (e): %s on "
+              "the card differs from the CPU by %.3g of its largest "
+              "magnitude" % (k, rel[k]))
+    mx.random.seed(21)
+    mx.random.uniform(shape=(1000,), ctx=mx.gpu(0))
+    state = mx.random.get_state()
+    first = [mx.random.normal(shape=(4096,), ctx=mx.gpu(0)).asnumpy(),
+             mx.random.uniform(shape=(4096,), ctx=mx.gpu(0)).asnumpy()]
+    mx.random.set_state(state)
+    again = [mx.random.normal(shape=(4096,), ctx=mx.gpu(0)).asnumpy(),
+             mx.random.uniform(shape=(4096,), ctx=mx.gpu(0)).asnumpy()]
+    check(all(np.array_equal(p, q) for p, q in zip(first, again))
+          and not np.array_equal(first[0], first[1]),
+          "optim (e): set_state did not replay the card's draws")
+    print("optim (e) imperative functions on the card against the CPU "
+          "(max difference over the largest magnitude): %s; set_state "
+          "replayed two draws on the card exactly  [%s]"
+          % (json.dumps({k: float("%.3g" % v) for k, v in rel.items()}),
+             card))
+    return {"rel_diff": rel, "set_state_replay": True}
+
+
+def optim_main_path(torch, mx, kernels, card, images, labels):
+    """Phase 11: (a) each fusable optimizer, classic loop then fused step,
+    (b) Adam under the guards, (c) SGLD, (d) a regression head, (e) the
+    imperative functions."""
+    kinds = {}
+    for kind in OPTIM_KINDS:
+        kinds[kind] = optim_kind_path(torch, mx, kernels, card, kind,
+                                      images, labels)
+    return {"kinds": kinds,
+            "adam_guards": optim_adam_guards(torch, mx, kernels, card,
+                                             images, labels),
+            "sgld": optim_sgld(torch, mx, kernels, card, images, labels),
+            "regression": optim_regression(torch, mx, kernels, card),
+            "imperative": optim_imperative(torch, mx, card)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -3039,7 +3633,18 @@ def main():
                 "models_%s_fused_2_replays_profiled" % name:
                     run["replays_profiled"]["launches"][kernel]})
 
-    # 11. report
+    # 11. every fusable optimizer through the fused step at full width
+    optim = optim_main_path(torch, mx, kernels, card, images, labels)
+    for kind, run in optim["kinds"].items():
+        for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+            model_paths[kernel].update({
+                "optim_%s_classic" % kind: run["launches_classic"][kernel],
+                "optim_%s_fused" % kind: run["launches_fused"][kernel]})
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel]["optim_adam_ckpt_resume"] = \
+            optim["adam_guards"]["resume"]["launches"][kernel]
+
+    # 12. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -3056,7 +3661,11 @@ def main():
                   "phase 10's fits of AlexNet, VGG-16, GoogLeNet, "
                   "Inception-v3 and ResNet-50 in NCHW at batch 32 (classic: "
                   "5 steps; fused: the eager step and the capture; "
-                  "replays: two, from the kernel events)")
+                  "replays: two, from the kernel events); optim_<kind>_*: "
+                  "phase 11's ResNet-50 NHWC fits at batch 32 with each "
+                  "fusable optimizer (classic: 5 steps; fused: the eager "
+                  "step and the capture); optim_adam_ckpt_resume: its "
+                  "Adam fit resumed from a snapshot")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -3208,8 +3817,8 @@ def main():
                        "entry_points": entry,
                        "checkpoint_path": {k: v for k, v in ckpt_run.items()
                                            if k != "mod"},
-                       "plane_path": plane, "models_path": models}, f,
-                      indent=1)
+                       "plane_path": plane, "models_path": models,
+                       "optim_path": optim}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

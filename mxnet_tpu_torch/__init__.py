@@ -3,7 +3,11 @@
 ``import mxnet_tpu_torch as mx`` gives the JAX package's API over
 ``torch.Tensor``, running on an NVIDIA GPU by default:
 
-* ``mx.nd`` — NDArray over torch tensors, and the "TPUARRA" container
+* ``mx.nd`` — NDArray over torch tensors (arithmetic, the function zoo,
+  ``mx.nd.<OpName>`` for every registered op), and the "TPUARRA"
+  container
+* ``mx.random`` — the seeded random stream; ``mx.engine`` — the
+  push/wait dependency engines
 * ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``
 * ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
   classic loop, or ``fused_step=True``: one CUDA graph a batch)
@@ -16,7 +20,8 @@
 * ``mx.io``, ``mx.recordio`` — data iterators (in-memory, MNIST, CSV,
   image records with their decoder, resizing and prefetching) and the
   RecordIO files they read
-* ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``,
+* ``mx.optimizer`` (SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, SGLD,
+  Test), ``mx.lr_scheduler``, ``mx.metric``, ``mx.init``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
 * ``mx.serving`` — the batching InferenceServer
 * ``mx.Predictor`` — the deployment predict API
@@ -33,12 +38,16 @@ from .base import MXNetError, DeviceUnavailableError
 from . import env
 from . import telemetry
 from .context import Context, cpu, gpu, current_context
+from . import engine
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
+from . import random
 from .name import NameManager
 from .attribute import AttrScope
 from . import ops
+from .ndarray_ops import init_ndarray_ops
+init_ndarray_ops(ndarray)
 from . import symbol
 from . import symbol as sym
 from .symbol import Symbol

@@ -92,13 +92,14 @@ class Registry(Generic[T]):
             Registry(kind)
         return Registry._registries[kind]
 
-    def register(self, name: Optional[str] = None) -> Callable[[T], T]:
+    def register(self, name: Optional[str] = None,
+                 override: bool = False) -> Callable[[T], T]:
         def _do(entry: T) -> T:
             key = name or getattr(entry, "__name__", None)
             if key is None:
                 raise MXNetError("registry entry needs a name")
             lname = key.lower()
-            if lname in self._entries:
+            if lname in self._entries and not override:
                 raise MXNetError(
                     "%s '%s' already registered" % (self.kind, key))
             self._entries[lname] = entry

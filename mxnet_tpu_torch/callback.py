@@ -1,14 +1,15 @@
-"""Training callbacks, counterpart of ``mxnet_tpu/callback.py`` (all but
-``ProgressBar``). A batch-end callback receives a
+"""Training callbacks, counterpart of ``mxnet_tpu/callback.py``. A
+batch-end callback receives a
 ``BatchEndParam(epoch, nbatch, eval_metric, locals)``; an epoch-end
 callback ``(epoch, symbol, arg_params, aux_params)``."""
 from __future__ import annotations
 
 import logging
+import math
 import time
 
-__all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
-           "module_checkpoint"]
+__all__ = ["Speedometer", "ProgressBar", "do_checkpoint",
+           "log_train_metric", "module_checkpoint"]
 
 
 def do_checkpoint(prefix: str, period: int = 1,
@@ -112,3 +113,19 @@ class Speedometer:
             self._emit(param.epoch, param.nbatch, tail,
                        time.time() - self.tic, param.eval_metric, tail=True)
         self.init = False
+
+
+class ProgressBar:
+    """A batch-end callback printing a progress bar of ``length``
+    characters over ``total`` batches."""
+
+    def __init__(self, total: int, length: int = 80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        filled_len = int(round(self.bar_len * param.nbatch
+                               / float(self.total)))
+        percents = math.ceil(100.0 * param.nbatch / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        print("[%s] %s%s\r" % (prog_bar, percents, "%"), end="")

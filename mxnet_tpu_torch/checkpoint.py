@@ -3,7 +3,9 @@ crash-safe on disk; counterpart of ``mxnet_tpu/checkpoint.py``.
 
 A snapshot (:func:`snapshot`) holds everything the next step reads, so a
 resumed run is bit-identical to an uninterrupted one: the params and aux
-states, the SGD momenta, the optimizer's update counts and schedule, the
+states, the optimizer states (one tensor a param, a tuple of them for
+Adam, RMSProp and AdaDelta), the optimizer's update counts and schedule
+(so Adam's bias correction goes on from its count), the
 metric accumulators (host sums and the device ``(sum, count)``), the
 data cursor as a count of batches consumed, and the executor's torch
 generator. Its payload is numpy and Python only, in the JAX package's
@@ -14,7 +16,7 @@ state means nothing to the JAX package) and keeps its generator under
 
 A restore (:func:`restore`) first checks every name and shape, then
 copies into the tensors the module already holds: weights, aux states,
-momenta, the metric accumulators and the generator. It never rebinds a
+optimizer states, the metric accumulators and the generator. It never rebinds a
 tensor, because a fused train step's CUDA graph reads and writes those
 addresses and would go on updating replaced storage without a word.
 

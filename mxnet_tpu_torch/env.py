@@ -1,5 +1,6 @@
-"""The port's registry of ``MXNET_TPU_*`` environment variables,
-counterpart of ``mxnet_tpu/env.py``.
+"""The port's registry of ``MXNET_TPU_*`` environment variables (and the
+two ``MXNET_ENGINE_*`` ones the JAX package reads through
+``base.getenv``), counterpart of ``mxnet_tpu/env.py``.
 
 Every variable the port reads is declared here once, with the JAX
 package's name, type and default, and read through :func:`get`
@@ -95,7 +96,8 @@ def declared() -> Dict[str, EnvVar]:
 
 declare("MXNET_TPU_FUSED_STEP", bool, False,
         "`Module.fit` (and `FeedForward.fit` through it) runs forward, "
-        "backward, the SGD update and, where the metric folds on the "
+        "backward, the optimizer's update and, where the metric folds on "
+        "the "
         "device, the metric fold as one fused train step a batch: one "
         "CUDA graph, captured at the second batch and replayed for every "
         "later one, on a card; the same step function run eagerly on the "
@@ -103,9 +105,34 @@ declare("MXNET_TPU_FUSED_STEP", bool, False,
         "variable. There is no fallback: a configuration the step cannot "
         "run (a kvstore other than `local`, `inputs_need_grad=True`, a "
         "monitor with a custom `stat_func`, `grad_req=\"add\"`, an "
-        "optimizer other than SGD) raises naming the reason, under the "
-        "variable as under the argument.",
+        "optimizer without a fusable update or `MXNET_TPU_FUSED_UPDATE=0`) "
+        "raises naming the reason, under the variable as under the "
+        "argument.",
         section="Training")
+declare("MXNET_TPU_FUSED_UPDATE", bool, True,
+        "Set to 0 to make `Optimizer.update_multi` update the parameters "
+        "one at a time through `update` instead of a few multi-tensor "
+        "(`torch._foreach_*`) launches a group of parameters; the fused "
+        "train step, which builds on the multi-tensor update, then "
+        "raises.", section="Training")
+
+_E = "Engine"
+declare("MXNET_ENGINE_TYPE", str, "XLAEngine",
+        "The engine `engine.get_engine()` creates: `XLAEngine`, "
+        "`ThreadedEnginePerDevice` or unset give the inline engine (work "
+        "is ordered by the CUDA stream; `wait_for_all` synchronises the "
+        "card), `NaiveEngine` the synchronous one, `ThreadedEngine` and "
+        "`ThreadedEnginePooled` the host thread-pool engines; "
+        "`NativeThreadedEngine` raises (the C API is not ported).",
+        section=_E)
+declare("MXNET_ENGINE_INFO", bool, False,
+        "Log one line for each operation pushed to the engine, with its "
+        "dependency sets (read once, at the first push).", section=_E)
+declare("MXNET_TPU_ENGINE_SYNC", bool, False,
+        "The NaiveEngine waits for the card after a push marked "
+        "`fused_step` too (it skips that wait by default); set when "
+        "debugging to surface device errors at the step that caused "
+        "them.", section=_E)
 
 _IN = "Input pipeline"
 declare("MXNET_TPU_DEVICE_STAGING", bool, False,

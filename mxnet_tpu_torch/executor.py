@@ -91,7 +91,8 @@ class Executor:
     without a gradient array gets ``"null"``."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
-                 grad_req="write", aux_states=None, seed: int = 0):
+                 grad_req="write", aux_states=None,
+                 seed: Optional[int] = None):
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device()
@@ -149,7 +150,15 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _generator(self) -> torch.Generator:
+        """The generator of the train forward's random ops (Dropout),
+        seeded with ``seed`` or, for an executor bound without one, at
+        its first use from :mod:`mxnet_tpu_torch.random`'s stream, as
+        the JAX package's executor takes its key."""
         if self._rng is None:
+            if self._seed is None:
+                from . import random as _random
+
+                self._seed = _random.next_seed()
             self._rng = torch.Generator(device=self._device)
             self._rng.manual_seed(self._seed)
         return self._rng

@@ -3,35 +3,38 @@ step (single device) and the inference step (the mesh and
 tensor-parallel parts wait for the distribution slice).
 
 :class:`FusedTrainStep` runs a training batch as one unit: the train
-forward, the backward, the SGD update and the metric fold, on the bound
-arrays in place. On a card that unit is one CUDA graph, captured by the
-step that ``fit`` builds and replayed for every batch, where the JAX
-package compiles one donated XLA dispatch. The first batch runs eagerly
+forward, the backward, the optimizer's update (every kind whose plan
+describes its update: SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta) and
+the metric fold, on the bound arrays in place. On a card that unit is
+one CUDA graph, captured by the step that ``fit`` builds and replayed
+for every batch, where the JAX package compiles one donated XLA
+dispatch. The first batch runs eagerly
 (a real training step, which builds the kernels' libraries, sets their
 one-time attributes and lets cuDNN choose its algorithms), the second
 is captured on a side stream and replayed at once, and every later
 batch is an in-place copy of the batch into the bound data and label
-arrays, the hyperparameter refresh (``optimizer.SGD.plan``, on the
-host) and one ``replay()``. On the CPU, which only a caller who asks
+arrays, the hyperparameter refresh (``Optimizer.plan``, on the host)
+and one ``replay()``. On the CPU, which only a caller who asks
 for it gets, the same step function runs eagerly.
 
 With the numerics plane armed (:mod:`mxnet_tpu_torch.numwatch`:
 ``MXNET_TPU_NUMWATCH`` or a default-stat ``Monitor``) the step also
 keeps copies of the weights from before the update, folds the stats
 pack in place after the update (inside the graph on a card) and, under
-the skip guard, selects the pre-step weights, momenta and metric sums
-on a device predicate when a gradient is not finite; the aux states and
-the pack still advance on such a step, as in the JAX package.
+the skip guard, selects the pre-step weights, optimizer states and
+metric sums on a device predicate when a gradient is not finite; the
+aux states and the pack still advance on such a step, as in the JAX
+package.
 
 The graph reads and writes fixed addresses: the bound weights and
-gradients, the aux states, the SGD momenta, the metric's device
+gradients, the aux states, the optimizer states, the metric's device
 accumulator, the numerics pack with the pre-step copies, and the
 executor's generator. A checkpoint restore
 (:mod:`mxnet_tpu_torch.checkpoint`) therefore copies into those tensors
 and never replaces one, so the next replay runs on the restored values.
 The step captures again when the update's structure changes or when a
-weight, gradient or momentum it captured is no longer the one the module
-holds, never replaying a graph over storage the module let go.
+weight, gradient or state tensor it captured is no longer the one the
+module holds, never replaying a graph over storage the module let go.
 
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
@@ -43,13 +46,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import env as _env
 from . import numwatch as _numwatch
 from . import telemetry as _tel
 from .base import MXNetError
 from .kvstore import _LOCAL
 from .metric import CompositeEvalMetric
 from .ndarray import NDArray
-from .optimizer import SGD
+from .optimizer import _state_tensors
 
 __all__ = ["make_fused_step", "FusedTrainStep", "make_fused_infer",
            "FusedInfer"]
@@ -63,8 +67,10 @@ def make_fused_step(module, eval_metric, monitor=None):
     a kvstore other than ``local``, ``inputs_need_grad``, a monitor with
     a custom ``stat_func`` (``monitor``, or one installed on the
     executor), a grad_req other than ``"write"``, or an optimizer without
-    a fusable update (SGD's). A default-stat monitor rides the numerics
-    pack."""
+    a fusable update (``Optimizer._fusable``: SGLD, Test, a subclass that
+    overrides ``update`` or ``update_multi``) or with
+    ``MXNET_TPU_FUSED_UPDATE=0``. A default-stat monitor rides the
+    numerics pack."""
     if not (module.binded and module.for_training
             and module.params_initialized and module.optimizer_initialized):
         raise MXNetError("fused train step: the module must be bound for "
@@ -93,24 +99,24 @@ def make_fused_step(module, eval_metric, monitor=None):
                          "across batches; the step needs \"write\""
                          % (sorted({ex._grad_req[n] for n in adds}), adds))
     opt = module._optimizer
-    if not isinstance(opt, SGD) or type(opt).update_multi \
-            is not SGD.update_multi:
+    if not opt._fusable() or not _env.get("MXNET_TPU_FUSED_UPDATE"):
         raise MXNetError("fused train step: optimizer %s has no fusable "
-                         "update (the port fuses SGD's)"
+                         "update plan (or MXNET_TPU_FUSED_UPDATE=0); its "
+                         "update runs only in the classic loop"
                          % type(opt).__name__)
     return FusedTrainStep(module, eval_metric, monitor)
 
 
 class FusedTrainStep:
-    """Forward, backward, SGD update and metric fold as one CUDA graph
-    (one eager step function on the CPU), over the bind the module has
+    """Forward, backward, optimizer update and metric fold as one CUDA
+    graph (one eager step function on the CPU), over the bind the module has
     when the step is built: ``fit`` builds one a call, so each ``fit`` on
     a card runs its first batch eagerly and captures on its second.
 
     ``eager_steps`` counts the batches run eagerly (the first on a card,
     every one on the CPU), ``captures`` the graphs captured (one, and one
-    more only if the update's structure, ``SGD.structure``, or a tensor
-    it updates changes) and
+    more only if the update's structure, ``Optimizer.structure``, or a
+    tensor it updates changes) and
     ``dispatches`` the replays, one a batch after the first on a card.
     The kernels' wrappers count the launches of the eager step and those
     the capture records; a replay moves no count
@@ -144,7 +150,7 @@ class FusedTrainStep:
             names, [self._ex.arg_dict[n].handle.numel() for n in names],
             monitor)
         self._w_old = None      # pre-update weights, flat (numerics plane)
-        self._m_old = None      # pre-step momenta, flat (skip guard)
+        self._s_old = None      # pre-step optimizer states, flat (skip guard)
         self._acc_old = None    # pre-step metric sums (skip guard)
         self._stream = None
         self._outs = None
@@ -156,16 +162,17 @@ class FusedTrainStep:
         self.dispatches = 0
 
     def _params(self):
-        """(updater index, weight, grad, momentum or None) of every
-        parameter with a gradient, in the updater's order."""
-        ex, items = self._ex, []
+        """(updater index, weight, grad, state tensors) of every
+        parameter with a gradient, in the updater's order, and the same
+        items as NDArrays (the state as the updater keeps it)."""
+        ex, arrays = self._ex, []
         for i, name in enumerate(self._module._param_names):
             if name in ex.grad_dict:
                 w = ex.arg_dict[name]
-                state = self._updater._state(i, w)
-                items.append((i, w.handle, ex.grad_dict[name].handle,
-                              None if state is None else state.handle))
-        return items
+                arrays.append((i, w, ex.grad_dict[name],
+                               self._updater._state(i, w)))
+        return [(i, w.handle, g.handle, _state_tensors(s))
+                for i, w, g, s in arrays], arrays
 
     def _body(self, items, structure, hyper):
         """The step function: everything between the batch's copy in and
@@ -184,11 +191,11 @@ class FusedTrainStep:
             dst.copy_(o.handle)
         ws = [w for _, w, _, _ in items]
         gs = [g for _, _, g, _ in items]
-        ms = [m for _, _, _, m in items]
+        ss = [s for _, _, _, s in items]
         nw = self._numwatch
         if nw is not None:
-            live, kept = self._keep_pre_step(ws, ms)
-        SGD.apply(structure, hyper, ws, gs, ms)
+            live, kept = self._keep_pre_step(ws, ss)
+        self._optimizer.apply(structure, hyper, ws, gs, ss)
         labels = [ex.arg_dict[n].handle
                   for n in self._module._exec_group.label_names]
         if self._fold is not None:
@@ -201,21 +208,21 @@ class FusedTrainStep:
                 for new, old in zip(live, kept):
                     torch.where(grads_ok, new, old, out=new)
 
-    def _keep_pre_step(self, ws, ms):
-        """Copy the weights (and, under the skip guard, the momenta and
-        the metric's device sums) into step-owned tensors before the
-        update: the weights and momenta each into one flat float32 buffer
-        by one batched copy. Returns the live tensors the skip guard
-        restores and their copies."""
+    def _keep_pre_step(self, ws, ss):
+        """Copy the weights (and, under the skip guard, every optimizer
+        state tensor and the metric's device sums) into step-owned
+        tensors before the update: the weights and the states each into
+        one flat float32 buffer by one batched copy. Returns the live
+        tensors the skip guard restores and their copies."""
         self._w_old = _flat_copy(self._w_old, ws)
         live, kept = list(ws), _views(self._w_old, ws)
         if not self._numwatch.skip_guard:
             return live, kept
-        moms = [m for m in ms if m is not None]
-        if moms:
-            self._m_old = _flat_copy(self._m_old, moms)
-            live += moms
-            kept += _views(self._m_old, moms)
+        states = [t for s in ss for t in s]
+        if states:
+            self._s_old = _flat_copy(self._s_old, states)
+            live += states
+            kept += _views(self._s_old, states)
         if self._fold is not None:
             leaves = (self._fold.metrics
                       if isinstance(self._fold, CompositeEvalMetric)
@@ -238,11 +245,11 @@ class FusedTrainStep:
             raise MXNetError("fused train step: the module was bound again "
                              "after the step was built; build a new step")
         group.load_data_batch(data_batch)
-        items = self._params()
-        indices = [i for i, _, _, _ in items]
-        structure = self._optimizer.structure(indices)
-        rows = self._optimizer.plan(indices, structure)
-        hyper = self._optimizer.scalars(ex._device, len(rows)).copy(rows)
+        items, arrays = self._params()
+        opt = self._optimizer
+        structure = opt.structure([i for i, _, _, _ in items])
+        rows = opt.plan(arrays, structure)
+        hyper = opt.scalars(ex._device, rows.shape).copy(rows)
         if ex._device.type != "cuda":
             self._body(items, structure, hyper)
             self.eager_steps += 1
@@ -273,7 +280,7 @@ class FusedTrainStep:
         self.eager_steps += 1
 
     def _replay(self, items, structure, hyper):
-        tensors = [t for item in items for t in item[1:]]
+        tensors = [t for _, w, g, s in items for t in (w, g) + s]
         if structure != self._structure or len(tensors) != len(
                 self._captured) or any(a is not b for a, b in
                                        zip(tensors, self._captured)):

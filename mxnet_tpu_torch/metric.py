@@ -1,17 +1,20 @@
-"""Evaluation metrics, counterpart of ``mxnet_tpu/metric.py`` (the
-metrics the training loop uses).
+"""Evaluation metrics, counterpart of ``mxnet_tpu/metric.py``.
 
-Accuracy, TopKAccuracy and CrossEntropy fold on the device
+Accuracy, TopKAccuracy, CrossEntropy, MAE, MSE and RMSE fold on the
+device
 (``has_device_fold``, as ``device_fold`` in ``mxnet_tpu/metric.py:
 205-216``): :meth:`EvalMetric.device_fold` adds a batch's (sum, count)
 into a fixed float64 accumulator beside the predictions, in place and
 without a host sync, so the fused train step can run it inside its CUDA
 graph; the host reads the accumulator only in ``get()``, and ``reset()``
 zeroes it in place. Labels may be NDArrays, tensors or host arrays.
+MAE, MSE and RMSE reshape the prediction to the label's shape and add
+one batch mean (in float32, as the JAX package's fold) a batch. F1 and
+:class:`CustomMetric` (a numpy ``feval``) update on the host.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -19,8 +22,9 @@ import torch
 from .base import MXNetError, Registry
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "CrossEntropy",
-           "CompositeEvalMetric", "create"]
+__all__ = ["EvalMetric", "Accuracy", "TopKAccuracy", "F1", "MAE", "MSE",
+           "RMSE", "CrossEntropy", "CompositeEvalMetric", "CustomMetric",
+           "np_metric", "create"]
 
 _REG: Registry = Registry.get_registry("metric")
 
@@ -31,6 +35,14 @@ def _tensor(a, device=None) -> torch.Tensor:
     elif not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.ascontiguousarray(a))
     return a.detach() if device is None else a.detach().to(device)
+
+
+def _to_host(a) -> np.ndarray:
+    if isinstance(a, NDArray):
+        return a.asnumpy()
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def check_label_shapes(labels, preds):
@@ -148,6 +160,72 @@ class TopKAccuracy(EvalMetric):
         return (top == lab[:, None]).any(dim=1).sum(), lab.numel()
 
 
+@_REG.register("f1")
+class F1(EvalMetric):
+    """Binary F1 of the argmax prediction, one value a batch."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            p = np.argmax(_to_host(pred), axis=1)
+            lab = _to_host(label).astype(np.int32).ravel()
+            if len(np.unique(lab)) > 2:
+                raise MXNetError("F1 supports binary classification only")
+            tp = int(((p == 1) & (lab == 1)).sum())
+            fp = int(((p == 1) & (lab == 0)).sum())
+            fn = int(((p == 0) & (lab == 1)).sum())
+            precision = tp / (tp + fp) if tp + fp else 0.0
+            recall = tp / (tp + fn) if tp + fn else 0.0
+            f1 = 2 * precision * recall / (precision + recall) \
+                if precision + recall else 0.0
+            self.sum_metric += f1
+            self.num_inst += 1
+
+
+class _Regression(EvalMetric):
+    """A batch's error against labels of any shape the prediction
+    reshapes to; one float32 mean a batch."""
+
+    has_device_fold = True
+
+    def _err(self, diff: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _batch(self, label, pred):
+        diff = label.float() - pred.float().reshape(label.shape)
+        return self._err(diff), 1
+
+
+@_REG.register("mae")
+class MAE(_Regression):
+    def __init__(self):
+        super().__init__("mae")
+
+    def _err(self, diff):
+        return diff.abs().mean()
+
+
+@_REG.register("mse")
+class MSE(_Regression):
+    def __init__(self):
+        super().__init__("mse")
+
+    def _err(self, diff):
+        return (diff ** 2).mean()
+
+
+@_REG.register("rmse")
+class RMSE(_Regression):
+    def __init__(self):
+        super().__init__("rmse")
+
+    def _err(self, diff):
+        return torch.sqrt((diff ** 2).mean())
+
+
 @_REG.register("ce")
 @_REG.register("cross-entropy")
 class CrossEntropy(EvalMetric):
@@ -203,11 +281,50 @@ class CompositeEvalMetric(EvalMetric):
         return names, values
 
 
-def create(metric: Union[str, EvalMetric, list], **kwargs) -> EvalMetric:
+class CustomMetric(EvalMetric):
+    """``feval(label, pred)`` on numpy arrays, one (label, pred) pair at a
+    time: a float (one instance) or ``(sum, count)``."""
+
+    def __init__(self, feval: Callable, name: Optional[str] = None,
+                 allow_extra_outputs: bool = False):
+        name = name or getattr(feval, "__name__", "custom")
+        super().__init__("custom(%s)" % name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            reval = self._feval(_to_host(label), _to_host(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np_metric(numpy_feval: Callable, name: Optional[str] = None,
+              allow_extra_outputs: bool = False) -> CustomMetric:
+    """A :class:`CustomMetric` over a numpy function."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = name or numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
+def create(metric: Union[str, Callable, EvalMetric, list],
+           **kwargs) -> EvalMetric:
     """A metric from its registered name (``"acc"``, ``"ce"``,
-    ``"top_k_accuracy"``), a list of them, or a metric itself."""
+    ``"top_k_accuracy"``, ``"f1"``, ``"mae"``, ``"mse"``, ``"rmse"``), a
+    callable ``feval(label, pred)`` (a :class:`CustomMetric`), a list of
+    them, or a metric itself."""
     if isinstance(metric, EvalMetric):
         return metric
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, list):
         return CompositeEvalMetric([create(m, **kwargs) for m in metric])
     return _REG.get(metric)(**kwargs)

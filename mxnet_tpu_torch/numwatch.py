@@ -19,11 +19,11 @@ step, NaN provenance and guarded training, counterpart of
   weight before a bad gradient of the same step, since one backward
   fans a single NaN out to every gradient; then argument order).
 * **Guarded training** (``MXNET_TPU_NUMWATCH_GUARD``): ``skip`` keeps
-  the pre-step weights, momenta and metric sums, bit for bit, on a step
-  whose gradients are not all finite, by a select on a device predicate
-  (the fused step applies it); ``rollback`` restores the last healthy
-  snapshot through the CheckpointManager when a fetch sees nonfinite
-  weights. Both are counted and rate-limited.
+  the pre-step weights, optimizer states and metric sums, bit for bit,
+  on a step whose gradients are not all finite, by a select on a device
+  predicate (the fused step applies it); ``rollback`` restores the last
+  healthy snapshot through the CheckpointManager when a fetch sees
+  nonfinite weights. Both are counted and rate-limited.
 * Fetched health feeds ``numwatch.*`` telemetry, the step-record
   extras the tracing detectors read, a bounded health ring the
   FlightRecorder dumps, and the :class:`~mxnet_tpu_torch.monitor.Monitor`

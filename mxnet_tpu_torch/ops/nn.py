@@ -1,7 +1,8 @@
 """Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
-Convolution, Pooling, BatchNorm, LRN, Dropout and SoftmaxOutput, with the
+Convolution, Pooling, BatchNorm, LRN, Dropout, SoftmaxOutput and the
+regression outputs (Linear, Logistic, MAE), with the
 same parameters (names, defaults, string forms) so the JSON of a graph
 reads the same in both packages. Every op is differentiable under
 autograd, which is how the executor's backward runs.
@@ -14,7 +15,8 @@ the JAX package routes only 2-D ones to Pallas. BatchNorm's
 channels-last apply goes through the hand-written kernels
 ``kernels.fused_norm_act`` (forward K4, backward K5) every time; NCHW
 keeps the plain ``x * scale + shift``. SoftmaxOutput's gradient is its
-own autograd.Function, ``(softmax - onehot) * grad_scale``.
+own autograd.Function, ``(softmax - onehot) * grad_scale``, and so is
+each regression output's, the loss gradient of the label.
 
 Layouts: NCHW is the default; ``layout="NHWC"`` keeps channels last.
 An NHWC tensor is handed to the convolution as the permuted view
@@ -496,3 +498,70 @@ class SoftmaxOutput(Operator):
 
     def apply(self, ctx, inputs, aux):
         return [_SoftmaxOutput.apply(inputs[0], inputs[1], self)], []
+
+
+# ---------------------------------------------------------------------------
+# regression outputs
+# ---------------------------------------------------------------------------
+class _RegressionOutput(torch.autograd.Function):
+    """``transform(data)`` forward; backward ``grad_fn(out, label) *
+    grad_scale / n``, ``n`` the size of one example (the product of the
+    output's axes after the first), ignoring the head gradient; the
+    label's gradient is zero (``mxnet_tpu/ops/nn.py:635-664``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, op):
+        out = op.transform(data)
+        ctx.op = op
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        op = ctx.op
+        num = float(np.prod(out.shape[1:])) or 1.0
+        grad = op.grad_fn(out, label.reshape(out.shape)) \
+            * (op.grad_scale / num)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(out.dtype), dlabel, None
+
+
+class _RegressionOp(Operator):
+    """Base of the regression outputs: forward transforms the data, and
+    the backward is the loss gradient of the label, whatever the head
+    gradient (reference regression_output-inl.h). The label takes the
+    data's shape."""
+
+    PARAMS = {"grad_scale": Param(float, 1.0)}
+    transform = staticmethod(lambda x: x)
+    grad_fn = staticmethod(lambda out, label: out - label)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("%s: data shape unknown" % type(self).__name__)
+        return [data, data], [data], []
+
+    def apply(self, ctx, inputs, aux):
+        return [_RegressionOutput.apply(inputs[0], inputs[1], self)], []
+
+
+@register_op("LinearRegressionOutput")
+class LinearRegressionOutput(_RegressionOp):
+    name_hint = "linearregressionoutput"
+
+
+@register_op("LogisticRegressionOutput")
+class LogisticRegressionOutput(_RegressionOp):
+    name_hint = "logisticregressionoutput"
+    transform = staticmethod(torch.sigmoid)
+
+
+@register_op("MAERegressionOutput")
+class MAERegressionOutput(_RegressionOp):
+    name_hint = "maeregressionoutput"
+    grad_fn = staticmethod(lambda out, label: torch.sign(out - label))

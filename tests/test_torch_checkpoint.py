@@ -32,8 +32,10 @@ def _opt_params():
 def _fit(fused=True, nbatches=4, num_epoch=2, stream=None, dropout=0.0,
          callbacks=(), epoch_end_callback=None, mod=None):
     """One port fit on the CPU (of ``mod``, or a new Module over
-    ckpt_mlp) from ckpt_params' weights; ``stream`` collects the
-    per-step (epoch, nbatch, metrics, loss)."""
+    ckpt_mlp) from ckpt_params' weights, its Dropout masks drawn from
+    the random stream at seed 0; ``stream`` collects the per-step (epoch,
+    nbatch, metrics, loss)."""
+    tmx.random.seed(0)
     if mod is None:
         mod = tmx.mod.Module(ckpt_mlp(tmx, dropout), context=tmx.cpu())
     net = mod.symbol

@@ -661,6 +661,7 @@ def _ckpt_fit(x, y, dropout=0.0, callback=None):
               for n, s in zip(net.list_arguments(), shapes)
               if n not in ("data", "softmax_label")}
     mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    tmx.random.seed(0)   # the Dropout stream, alike in every run
     mod.fit(tmx.io.NDArrayIter(x, y, batch_size=8), num_epoch=1,
             eval_metric="ce", arg_params=params, initializer=None,
             optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
@@ -863,3 +864,101 @@ def test_numwatch_skip_guard_and_pack_on_the_card(card, monkeypatch):
     _, mod = _ckpt_fit(x, y, callback=keep)
     assert state.get("checked")
     assert mod._fused_step.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# every fusable optimizer through the captured graph
+# ---------------------------------------------------------------------------
+def _optimizer_fit(x, y, fused_step, kind, opt):
+    """One epoch of the small NHWC ResNet with ``kind``: the module, the
+    wrappers' launch counts, params, moving statistics and the
+    optimizer's state tensors."""
+    net = tmx.models.get_resnet([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                                num_classes=10, small_input=False,
+                                layout="NHWC")
+    mod = tmx.mod.Module(net, context=tmx.gpu(0))
+    kernels.reset_launch_counts()
+    mod.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            initializer=tmx.init.Xavier(magnitude=2.0, seed=7),
+            optimizer=kind, optimizer_params=opt, fused_step=fused_step)
+    args, aux = mod.get_params()
+    states = {i: [t.cpu().numpy().copy() for t in
+                  tmx.optimizer._state_tensors(s)]
+              for i, s in mod._updater.states.items()}
+    return (mod, kernels.launch_counts(),
+            {k: v.asnumpy().copy() for k, v in args.items()},
+            {k: v.asnumpy().copy() for k, v in aux.items()}, states)
+
+
+@pytest.mark.parametrize("kind,opt", [
+    ("ccsgd", {"learning_rate": 0.01, "momentum": 0.9}),
+    ("nag", {"learning_rate": 0.01, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-3, "clip_gradient": 5.0}),
+    ("adagrad", {"learning_rate": 0.01}),
+    ("rmsprop", {"learning_rate": 0.002}),
+    ("adadelta", {})])
+def test_every_fusable_optimizer_through_the_graph(card, kind, opt):
+    """Four steps of the small NHWC ResNet with each fusable optimizer:
+    one eager step, one capture, three replays; the wrappers counted the
+    eager step's and the capture's launches; params, moving statistics
+    and every optimizer state tensor equal the classic loop's bit for
+    bit (a scalar frozen into the graph would show from the third step
+    on, as Adam's bias correction and RMSProp's schedule move)."""
+    if kind == "rmsprop":
+        opt = dict(opt, lr_scheduler=tmx.lr_scheduler.FactorScheduler(
+            step=2, factor=0.5))
+    rng = np.random.RandomState(5)
+    x = rng.randn(16, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    mod, counts, args, aux, states = _optimizer_fit(x, y, True, kind, opt)
+    if kind == "rmsprop":
+        opt = dict(opt, lr_scheduler=tmx.lr_scheduler.FactorScheduler(
+            step=2, factor=0.5))
+    _, counts_c, args_c, aux_c, states_c = _optimizer_fit(x, y, False, kind,
+                                                          opt)
+    fused = mod._fused_step
+    assert (fused.eager_steps, fused.captures, fused.dispatches) == (1, 1, 3)
+    assert counts == _steps(2, rtc=0) and counts_c == _steps(4, rtc=0)
+    for got, want in ((args, args_c), (aux, aux_c)):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert states.keys() == states_c.keys()
+    for i in states_c:
+        assert len(states[i]) == len(states_c[i]) \
+            == mod._optimizer._n_states()
+        for a, b in zip(states[i], states_c[i]):
+            np.testing.assert_array_equal(a, b, err_msg=str(i))
+
+
+def test_regression_head_folds_its_metric_in_the_graph(card):
+    """An MLP with LinearRegressionOutput through fit(fused_step=True)
+    with [mse, mae, rmse]: the metric folds inside the graph (one
+    capture), each value within rtol 1e-6 of a float64 recomputation
+    from the batches' outputs."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(5 * 32, 64).astype(np.float32)
+    y = (x @ (rng.randn(64, 1) / 8)).astype(np.float32)
+    net = tmx.sym.Activation(tmx.sym.FullyConnected(
+        tmx.sym.Variable("data"), num_hidden=128, name="fc1"),
+        act_type="relu")
+    net = tmx.sym.LinearRegressionOutput(tmx.sym.FullyConnected(
+        net, num_hidden=1, name="fc2"), name="lro")
+    outs = []
+    metric = tmx.metric.create(["mse", "mae", "rmse"])
+    mod = tmx.mod.Module(net, context=tmx.gpu(0), label_names=["lro_label"])
+    mod.fit(tmx.io.NDArrayIter(x, y, batch_size=32, label_name="lro_label"),
+            num_epoch=1, eval_metric=metric,
+            initializer=tmx.init.Xavier(seed=1),
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.9},
+            batch_end_callback=lambda p: outs.append(
+                p.locals["self"].get_outputs()[0].asnumpy().copy()),
+            fused_step=True)
+    step = mod._fused_step
+    assert step._fold is metric
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 4)
+    errs = [y[i * 32:(i + 1) * 32].astype(np.float64) - o
+            for i, o in enumerate(outs)]
+    want = [np.mean([(e ** 2).mean() for e in errs]),
+            np.mean([np.abs(e).mean() for e in errs]),
+            np.mean([np.sqrt((e ** 2).mean()) for e in errs])]
+    np.testing.assert_allclose(metric.get()[1], want, rtol=1e-6)

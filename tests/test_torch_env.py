@@ -27,11 +27,31 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_NUMWATCH_MAX_SKIPS",
              "MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN",
              # image records: process decode is refused
-             "MXNET_TPU_DECODE_PROCS"]
+             "MXNET_TPU_DECODE_PROCS",
+             # the optimizers' multi-tensor update and the engines
+             "MXNET_TPU_FUSED_UPDATE", "MXNET_TPU_ENGINE_SYNC"]
+# read by the JAX package through base.getenv(name, default), outside its
+# registry: (name, the default it passes)
+PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),
+              ("MXNET_ENGINE_INFO", False)]
 
 
 def test_the_port_declares_the_variables_it_reads():
-    assert sorted(tenv.declared()) == sorted(PORT_VARS)
+    assert sorted(tenv.declared()) == sorted(
+        PORT_VARS + [name for name, _ in PLAIN_VARS])
+
+
+@pytest.mark.parametrize("name,default", PLAIN_VARS)
+def test_plain_variable_matches_the_reference_getenv(name, default,
+                                                     monkeypatch):
+    from mxnet_tpu.base import getenv
+
+    mine = tenv.var(name)
+    assert (mine.type, mine.default) == (type(default), default)
+    monkeypatch.delenv(name, raising=False)
+    assert tenv.get(name) == getenv(name, default)
+    monkeypatch.setenv(name, {bool: "1", str: "NaiveEngine"}[mine.type])
+    assert tenv.get(name) == getenv(name, default)
 
 
 @pytest.mark.parametrize("name", PORT_VARS)
