@@ -8,9 +8,13 @@
   container
 * ``mx.random`` — the seeded random stream; ``mx.engine`` — the
   push/wait dependency engines
-* ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``
+* ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``,
+  over every registered op (the nn, tensor and sequence ops, the fused
+  RNN on cuDNN)
 * ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
-  classic loop, or ``fused_step=True``: one CUDA graph a batch)
+  classic loop, or ``fused_step=True``: one CUDA graph a batch); the
+  bucketing, sequential and Python modules
+* ``mx.test_utils`` — numeric gradient, symbolic and consistency checks
 * ``mx.model`` — the FeedForward estimator and checkpoint files
 * ``mx.checkpoint`` — full-state snapshots, resume and the SIGTERM
   grace path of ``fit`` (``MXNET_TPU_CKPT_*``, read through ``mx.env``)
@@ -77,5 +81,6 @@ from . import predictor
 from .predictor import Predictor
 from . import models
 from . import interop
+from . import test_utils
 
 __version__ = "0.1.0"

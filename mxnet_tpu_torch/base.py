@@ -7,7 +7,7 @@ behind operators and initializers.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Generic, Optional, TypeVar
+from typing import Callable, Dict, Generic, List, Optional, TypeVar
 
 import numpy as np
 import torch
@@ -115,6 +115,10 @@ class Registry(Generic[T]):
             raise MXNetError("%s '%s' is not registered; known: %s" % (
                 self.kind, name, sorted(self._entries)))
         return entry
+
+    def list_names(self) -> List[str]:
+        """Every registered name, lower-cased and sorted."""
+        return sorted(self._entries)
 
     def items(self):
         return self._entries.items()

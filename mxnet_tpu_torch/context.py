@@ -16,7 +16,7 @@ import torch
 
 from .base import DeviceUnavailableError, MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_devices"]
 
 
 class Context:
@@ -25,12 +25,19 @@ class Context:
 
     _default_ctx = threading.local()
     devstr2type = {"cpu": "cpu", "gpu": "gpu", "cuda": "gpu"}
+    #: the reference's device type ids and their names
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
 
     def __init__(self, device_type: str, device_id: int = 0):
         if device_type not in Context.devstr2type:
             raise MXNetError("unknown device type %s" % device_type)
         self.device_type = Context.devstr2type[device_type]
         self.device_id = int(device_id)
+
+    @property
+    def device_typeid(self) -> int:
+        """The device type's id in :attr:`devtype2str`."""
+        return 1 if self.device_type == "cpu" else 2
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -87,3 +94,14 @@ def current_context() -> Context:
     if stack:
         return stack[-1]
     return Context("gpu", 0)
+
+
+def num_devices(device_type: str = "gpu") -> int:
+    """How many devices of ``device_type`` this process sees: the CUDA
+    devices for ``gpu``/``cuda`` (0 without a usable card), one for
+    ``cpu``."""
+    if device_type not in Context.devstr2type:
+        raise MXNetError("unknown device type %s" % device_type)
+    if Context.devstr2type[device_type] == "cpu":
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

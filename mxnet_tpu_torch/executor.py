@@ -92,8 +92,9 @@ class Executor:
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
                  grad_req="write", aux_states=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, label_names=None):
         self._symbol = symbol
+        self._label_names = list(label_names or [])
         self._ctx = ctx
         self._device = ctx.torch_device()
         self._seed = seed
@@ -274,21 +275,46 @@ class Executor:
             elif not allow_extra_params:
                 raise MXNetError("unknown aux '%s'" % name)
 
-    def reshape(self, fresh_args=(), **kwargs) -> "Executor":
-        """Rebind to new input shapes, sharing the arrays whose shape is
-        unchanged. Names in ``fresh_args`` always get new storage."""
+    def reshape(self, partial_shaping: bool = False,
+                allow_up_sizing: bool = False, fresh_args=(),
+                **kwargs) -> "Executor":
+        """Rebind to new input shapes. Each argument, gradient and aux
+        array whose shape is unchanged is shared; the others are new
+        zeros. ``grad_req``, the label names and the seed carry over.
+        Names in ``fresh_args`` always get new storage, so writes through
+        the new executor cannot reach the old one's inputs."""
         from . import ndarray as nd
 
         fresh = set(fresh_args)
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
-        new_args = [arr if shape == arr.shape and name not in fresh
-                    else nd.zeros(shape, ctx=self._ctx,
-                                  dtype=arr.handle.dtype)
-                    for name, shape, arr in zip(self.arg_names, arg_shapes,
-                                                self.arg_arrays)]
+        new_args = []
+        new_grads: Dict[str, NDArray] = {}
+        for name, shape, arr, grad in zip(self.arg_names, arg_shapes,
+                                          self.arg_arrays, self.grad_arrays):
+            if shape == arr.shape and name not in fresh:
+                new_args.append(arr)
+                if grad is not None:
+                    new_grads[name] = grad
+            else:
+                new_args.append(nd.zeros(shape, ctx=self._ctx,
+                                         dtype=arr.handle.dtype))
+                if grad is not None:
+                    new_grads[name] = nd.zeros(shape, ctx=self._ctx,
+                                               dtype=grad.handle.dtype)
         new_aux = [arr if shape == arr.shape
                    else nd.zeros(shape, ctx=self._ctx,
                                  dtype=arr.handle.dtype)
                    for shape, arr in zip(aux_shapes, self.aux_arrays)]
-        return Executor(self._symbol, self._ctx, new_args, grad_req="null",
-                        aux_states=new_aux, seed=self._seed)
+        return Executor(self._symbol, self._ctx, new_args, new_grads,
+                        self._grad_req, new_aux, seed=self._seed,
+                        label_names=self._label_names)
+
+    def debug_str(self) -> str:
+        """The graph, one node a line: name, op (``var`` for a variable)
+        and the names of its inputs."""
+        lines = ["Symbol outputs: %s" % self.output_names]
+        for n in self._symbol._topo():
+            kind = "var" if n.is_variable else n.op.op_name
+            lines.append("  %-30s %s <- %s" % (
+                n.name, kind, [src.name for src, _ in n.inputs]))
+        return "\n".join(lines)

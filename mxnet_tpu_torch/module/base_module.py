@@ -96,6 +96,9 @@ class BaseModule:
     def symbol(self):
         return self._symbol
 
+    def get_symbol(self):
+        return self._symbol
+
     def _fused_train_step(self, eval_metric, monitor=None):
         """The fused train step that ``fit(fused_step=True)`` runs; a
         module without one raises."""
@@ -231,6 +234,21 @@ class BaseModule:
         if num_outputs == 1 and not always_output_list:
             return merged[0]
         return merged
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` for each batch of
+        ``eval_data``, a short last batch padded as in :meth:`predict`
+        and its filler sliced back off."""
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            padded, _ = self._pad_partial_batch(eval_batch)
+            self.forward(padded, is_train=False)
+            outputs = [out[0:out.shape[0] - padded.pad]
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",

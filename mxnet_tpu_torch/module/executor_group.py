@@ -7,7 +7,10 @@ place (a batch through a pinned buffer on a card, so that a CUDA graph
 over the bound arrays sees each batch). Bound for training, each
 parameter (and, with ``inputs_need_grad``, each data input) gets a
 gradient array that ``backward`` fills by ``grad_req``; labels and
-``fixed_param_names`` get none.
+``fixed_param_names`` get none. Bound with a ``shared_group``, the
+group takes that group's arrays (parameters, gradients, aux states and
+inputs) wherever the shapes agree: the same tensors, as the bucketing
+module's buckets share one set of weights.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts: Sequence[Context], data_shapes,
                  label_shapes, param_names: List[str], for_training: bool,
                  inputs_need_grad: bool = False, grad_req: str = "write",
-                 fixed_param_names=()):
+                 fixed_param_names=(), shared_group=None):
         if len(contexts) != 1:
             raise MXNetError("the port binds one device; got %s"
                              % list(contexts))
@@ -60,12 +63,37 @@ class DataParallelExecutorGroup:
         shapes = {d.name: d.shape for d in self.data_shapes + self.label_shapes}
         arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
         ctx = self.context
-        args = [zeros(s, ctx=ctx) for s in arg_shapes]
-        grads = {n: zeros(s, ctx=ctx)
-                 for n, s in zip(self.arg_names, arg_shapes)
-                 if reqs[n] != "null"}
-        aux = [zeros(s, ctx=ctx) for s in aux_shapes]
-        self.executor = Executor(symbol, ctx, args, grads, reqs, aux)
+        shared_args, shared_grads, shared_aux = {}, {}, {}
+        if shared_group is not None:
+            if shared_group.context != ctx:
+                raise MXNetError("shared module on %s, this one on %s"
+                                 % (shared_group.context, ctx))
+            ex = shared_group.executor
+            shared_args, shared_grads = ex.arg_dict, ex.grad_dict
+            shared_aux = ex.aux_dict
+        inputs = set(self.data_names) | set(self.label_names)
+        args, grads = [], {}
+        for name, shape in zip(self.arg_names, arg_shapes):
+            shared = shared_args.get(name)
+            if shared is not None and shared.shape == tuple(shape):
+                args.append(shared)
+            elif shared is not None and name not in inputs:
+                raise MXNetError(
+                    "shared param '%s' changes shape across buckets (%s "
+                    "vs %s); every bucket's symbol must give a param the "
+                    "same shape" % (name, shared.shape, tuple(shape)))
+            else:
+                args.append(zeros(shape, ctx=ctx))
+            if reqs[name] != "null":
+                g = shared_grads.get(name)
+                grads[name] = (g if g is not None
+                               and g.shape == tuple(shape)
+                               else zeros(shape, ctx=ctx))
+        aux = [shared_aux[n] if n in shared_aux
+               and shared_aux[n].shape == tuple(s) else zeros(s, ctx=ctx)
+               for n, s in zip(self.aux_names, aux_shapes)]
+        self.executor = Executor(symbol, ctx, args, grads, reqs, aux,
+                                 label_names=self.label_names)
         self.execs = [self.executor]
         self._loaders = None
 

@@ -46,12 +46,30 @@ class Module(BaseModule):
         self._output_names = symbol.list_outputs()
         self._arg_params: Optional[Dict[str, nd.NDArray]] = None
         self._aux_params: Optional[Dict[str, nd.NDArray]] = None
+        self._shared_owner: Optional["Module"] = None
+        self._params_dirty = False
         self._exec_group: Optional[DataParallelExecutorGroup] = None
         self._optimizer = None
         self._kvstore = None
         self._updater = None
         self._fused_step = None
         self._fused_step_active = False
+
+    @property
+    def _params_dirty(self) -> bool:
+        """True when the bound arrays are newer than the host copies.
+        A module bound with ``shared_module`` reads and writes its owner's
+        flag, since both train the same arrays."""
+        if self._shared_owner is not None:
+            return self._shared_owner._params_dirty
+        return self._params_dirty_flag
+
+    @_params_dirty.setter
+    def _params_dirty(self, value: bool):
+        if self._shared_owner is not None:
+            self._shared_owner._params_dirty = value
+        else:
+            self._params_dirty_flag = bool(value)
 
     @property
     def data_names(self):
@@ -73,22 +91,32 @@ class Module(BaseModule):
     def label_shapes(self):
         return self._label_shapes
 
+    @property
+    def output_shapes(self):
+        """``[(output name, shape)]`` at the bound shapes."""
+        shapes = {d.name: d.shape for d in self._data_shapes}
+        shapes.update({d.name: d.shape for d in self._label_shapes})
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, out_shapes))
+
     # -- bind --------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Bind the executor; ``for_training`` gives every parameter a
         gradient array (by ``grad_req``), ``inputs_need_grad`` the data
-        inputs too."""
+        inputs too. With ``shared_module`` (bound, on the same context)
+        the parameters, their gradients and the aux states are the
+        owner's arrays, the same tensors, and so are the host copies and
+        the dirty flag; a parameter whose shape differs raises."""
         if force_rebind:
             self._exec_group = None
             self.binded = False
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if shared_module is not None:
-            raise MXNetError("shared_module is not ported yet (the bucketing "
-                             "module, ROADMAP.md Queue A item 8)")
+        if shared_module is not None and not shared_module.binded:
+            raise MXNetError("shared_module must be bound first")
         self._data_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
                              for d in data_shapes]
         self._label_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
@@ -96,11 +124,21 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
-            inputs_need_grad, grad_req, self._fixed_param_names)
+            inputs_need_grad, grad_req, self._fixed_param_names,
+            shared_group=(shared_module._exec_group
+                          if shared_module is not None else None))
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None and shared_module.params_initialized:
+            # the arrays are shared already; the owner's host copies may
+            # be older than them, so they are not copied in
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self._shared_owner = (shared_module._shared_owner
+                                  or shared_module)
+            self.params_initialized = True
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- params ------------------------------------------------------------
@@ -135,10 +173,13 @@ class Module(BaseModule):
             elif initializer is not None:
                 initializer(name, arr)
         self.params_initialized = True
+        self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def get_params(self):
+        """The host copies, refreshed from the bound arrays."""
         self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
         return self._arg_params, self._aux_params
 
     # -- optimizer ---------------------------------------------------------
@@ -185,6 +226,7 @@ class Module(BaseModule):
         device's gradients are already the reduced ones)."""
         if not self.optimizer_initialized:
             raise MXNetError("init_optimizer before update")
+        self._params_dirty = True
         ex = self._exec_group.executor
         self._updater.update_multi(
             [(i, ex.grad_dict[name], ex.arg_dict[name])

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager"]
+__all__ = ["NameManager", "Prefix"]
 
 
 class NameManager:
@@ -42,3 +42,14 @@ class NameManager:
         if getattr(NameManager._current, "value", None) is None:
             NameManager._current.value = NameManager()
         return NameManager._current.value
+
+
+class Prefix(NameManager):
+    """Prefixes every name, given or generated, with ``prefix``."""
+
+    def __init__(self, prefix: str):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)

@@ -63,13 +63,16 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class NDArray:
-    """An n-dimensional array on one device."""
+    """An n-dimensional array on one device. ``writable=False`` makes
+    ``arr[...] = v`` and the in-place operators raise."""
 
-    __slots__ = ("_data", "_ctx")
+    __slots__ = ("_data", "_ctx", "writable")
 
-    def __init__(self, data: torch.Tensor, ctx: Context):
+    def __init__(self, data: torch.Tensor, ctx: Context,
+                 writable: bool = True):
         self._data = data
         self._ctx = ctx
+        self.writable = writable
 
     # -- basic properties --------------------------------------------------
     @property
@@ -164,6 +167,8 @@ class NDArray:
         return NDArray(self._data[key], self._ctx)
 
     def __setitem__(self, key, value):
+        if not self.writable:
+            raise MXNetError("NDArray is not writable")
         if isinstance(value, NDArray):
             if value is self:
                 return
@@ -292,6 +297,8 @@ def _compare(lhs: NDArray, rhs, fn) -> NDArray:
 
 
 def _inplace(lhs: NDArray, rhs, fn) -> NDArray:
+    if not lhs.writable:
+        raise MXNetError("in-place op on non-writable NDArray")
     with torch.no_grad():
         fn(lhs._data, _operand(lhs, rhs))
     return lhs

@@ -5,6 +5,7 @@ from .registry import (Operator, OpContext, Param, REQUIRED, OP_REGISTRY,
 from . import kernels  # noqa: F401
 from . import nn       # noqa: F401
 from . import tensor   # noqa: F401
+from . import seq      # noqa: F401
 
 __all__ = ["Operator", "OpContext", "Param", "REQUIRED", "OP_REGISTRY",
            "register_op", "create_operator"]

@@ -1,8 +1,10 @@
 """Neural-network layer operators.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Activation,
-Convolution, Pooling, BatchNorm, LRN, Dropout, SoftmaxOutput and the
-regression outputs (Linear, Logistic, MAE), with the
+LeakyReLU, Convolution, Deconvolution, Pooling, BatchNorm, LRN,
+L2Normalization, UpSampling, Dropout, SoftmaxOutput, SoftmaxActivation,
+SVMOutput, Embedding and the regression outputs (Linear, Logistic,
+MAE), with the
 same parameters (names, defaults, string forms) so the JSON of a graph
 reads the same in both packages. Every op is differentiable under
 autograd, which is how the executor's backward runs.
@@ -110,6 +112,60 @@ class Activation(Operator):
         return [fn(inputs[0])], []
 
 
+@register_op("LeakyReLU")
+class LeakyReLU(Operator):
+    """``x`` where ``x > 0``, else ``slope * x`` (leaky), ``slope *
+    (exp(x) - 1)`` (elu), ``gamma[c] * x`` with a learned per-channel
+    ``gamma`` (prelu), or a slope drawn per element from
+    U(lower_bound, upper_bound) in train mode and their mean otherwise
+    (rrelu; the draw comes from the executor's generator)."""
+
+    name_hint = "leakyrelu"
+    PARAMS = {
+        "act_type": Param(str, "leaky"),
+        "slope": Param(float, 0.25),
+        "lower_bound": Param(float, 0.125),
+        "upper_bound": Param(float, 0.334),
+    }
+
+    @property
+    def draws_random(self) -> bool:
+        return self.act_type == "rrelu"
+
+    def list_arguments(self):
+        return ["data", "gamma"] if self.act_type == "prelu" else ["data"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("LeakyReLU: data shape unknown")
+        if self.act_type == "prelu":
+            return [data, (data[1],)], [data], []
+        return [data], [data], []
+
+    def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        act = self.act_type
+        if act == "leaky":
+            neg = self.slope * x
+        elif act == "elu":
+            neg = self.slope * (torch.exp(x) - 1.0)
+        elif act == "prelu":
+            neg = inputs[1].reshape((1, -1) + (1,) * (x.dim() - 2)) * x
+        elif act == "rrelu":
+            if ctx.is_train and ctx.rng is not None:
+                lo, hi = self.lower_bound, self.upper_bound
+                slope = torch.rand(x.shape, generator=ctx.rng,
+                                   device=x.device, dtype=x.dtype) \
+                    * (hi - lo) + lo
+            else:
+                slope = (self.lower_bound + self.upper_bound) / 2.0
+            neg = slope * x
+        else:
+            raise MXNetError("unknown act_type %s" % act)
+        return [torch.where(x > 0, x, neg)], []
+
+
 # ---------------------------------------------------------------------------
 # Convolution
 # ---------------------------------------------------------------------------
@@ -203,6 +259,57 @@ class Convolution(Operator):
             out = conv(x, inputs[1], None if self.no_bias else inputs[2],
                        stride=stride, padding=pad, dilation=dilate,
                        groups=self.num_group)
+        return [_nhwc_out(out) if nhwc else out], []
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register_op("Deconvolution")
+class Deconvolution(Convolution):
+    """Transposed convolution; weight (C_in, num_filter / num_group,
+    *kernel), the layout of ``conv_transpose``. Output
+    ``(i - 1) * stride - 2 * pad + dilate * (k - 1) + 1`` an axis, the
+    JAX op's rule (``mxnet_tpu/ops/nn.py:307-308`` with its dilated
+    kernel at ``:330-332``), which is ``conv_transpose``'s with no
+    output padding."""
+
+    name_hint = "deconvolution"
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("Deconvolution: data shape unknown")
+        kernel, stride, pad, dilate = self._norm_params()
+        nhwc = self._is_nhwc()
+        n = data[0]
+        c = data[-1] if nhwc else data[1]
+        sp_in = data[1:-1] if nhwc else data[2:]
+        wshape = (c, self.num_filter // self.num_group) + tuple(kernel)
+        out_sp = tuple((sp_in[i] - 1) * stride[i] - 2 * pad[i]
+                       + dilate[i] * (kernel[i] - 1) + 1
+                       for i in range(len(kernel)))
+        shapes = [data, wshape]
+        if not self.no_bias:
+            shapes.append((self.num_filter,))
+        out = (n,) + out_sp + (self.num_filter,) if nhwc \
+            else (n, self.num_filter) + out_sp
+        return shapes, [out], []
+
+    def apply(self, ctx, inputs, aux):
+        kernel, stride, pad, dilate = self._norm_params()
+        nd = len(kernel)
+        conv_t = _CONV_T.get(nd)
+        if conv_t is None:
+            raise MXNetError("unsupported spatial rank %d" % nd)
+        x = inputs[0]
+        nhwc = self._is_nhwc()
+        if nhwc:
+            x = x.movedim(-1, 1)
+        out = conv_t(x, inputs[1], None if self.no_bias else inputs[2],
+                     stride=stride, padding=pad, groups=self.num_group,
+                     dilation=dilate)
         return [_nhwc_out(out) if nhwc else out], []
 
 
@@ -391,6 +498,62 @@ class LRN(Operator):
         return [x / denom], []
 
 
+@register_op("L2Normalization")
+class L2Normalization(Operator):
+    """``x / sqrt(sum(x^2) + eps)`` over every axis after the first
+    (instance), axis 1 (channel) or the spatial axes (spatial)."""
+
+    name_hint = "l2normalization"
+    PARAMS = {
+        "eps": Param(float, 1e-10),
+        "mode": Param(str, "instance"),
+    }
+
+    def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        if self.mode == "instance":
+            axes = tuple(range(1, x.dim()))
+        elif self.mode == "channel":
+            axes = (1,)
+        elif self.mode == "spatial":
+            axes = tuple(range(2, x.dim()))
+        else:
+            raise MXNetError("unknown mode %s" % self.mode)
+        norm = torch.sqrt(torch.sum(x * x, dim=axes, keepdim=True)
+                          + self.eps)
+        return [x / norm], []
+
+
+@register_op("UpSampling")
+class UpSampling(Operator):
+    """Nearest-neighbour upsampling of every axis after the channel by an
+    integer ``scale`` (bilinear is a Deconvolution, in both packages)."""
+
+    name_hint = "upsampling"
+    PARAMS = {
+        "scale": Param(int, REQUIRED),
+        "sample_type": Param(str, "nearest"),
+        "num_args": Param(int, 1),
+    }
+
+    def list_arguments(self):
+        return ["data"] if self.num_args == 1 else \
+            ["arg%d" % i for i in range(self.num_args)]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("UpSampling: data shape unknown")
+        return [data], [data[:2] + tuple(s * self.scale
+                                         for s in data[2:])], []
+
+    def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        for ax in range(2, x.dim()):
+            x = x.repeat_interleave(self.scale, dim=ax)
+        return [x], []
+
+
 # ---------------------------------------------------------------------------
 # Dropout
 # ---------------------------------------------------------------------------
@@ -498,6 +661,121 @@ class SoftmaxOutput(Operator):
 
     def apply(self, ctx, inputs, aux):
         return [_SoftmaxOutput.apply(inputs[0], inputs[1], self)], []
+
+
+@register_op("SoftmaxActivation")
+class SoftmaxActivation(Operator):
+    """Softmax over the last axis (instance) or axis 1 (channel), with
+    its true gradient."""
+
+    name_hint = "softmaxactivation"
+    PARAMS = {"mode": Param(str, "instance", "instance/channel")}
+
+    def apply(self, ctx, inputs, aux):
+        axis = 1 if self.mode == "channel" else -1
+        return [torch.softmax(inputs[0], dim=axis)], []
+
+
+class _SVMOutput(torch.autograd.Function):
+    """The identity forward; backward the hinge-loss gradient of the
+    label, ignoring the head gradient: with ``s`` +1 at the label's class
+    and -1 elsewhere, ``-s * [margin - s x > 0]`` (L1) or ``-2 s *
+    max(margin - s x, 0)`` (L2), times ``regularization_coefficient``
+    (``mxnet_tpu/ops/nn.py:719-737``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, op):
+        ctx.op = op
+        ctx.save_for_backward(data, label)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        op = ctx.op
+        classes = torch.arange(data.shape[1], device=data.device)
+        onehot = (label.to(torch.int64)[:, None]
+                  == classes[None, :]).to(data.dtype)
+        sign = 2.0 * onehot - 1.0
+        gap = op.margin - sign * data
+        if op.use_linear:
+            grad = -sign * (gap > 0).to(data.dtype)
+        else:
+            grad = -2.0 * sign * torch.clamp_min(gap, 0.0)
+        grad = grad * op.regularization_coefficient
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad.to(data.dtype), dlabel, None
+
+
+@register_op("SVMOutput")
+class SVMOutput(Operator):
+    """Hinge-loss output layer: forward the identity."""
+
+    name_hint = "svmoutput"
+    PARAMS = {
+        "margin": Param(float, 1.0),
+        "regularization_coefficient": Param(float, 1.0),
+        "use_linear": Param(bool, False),
+    }
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("SVMOutput: data shape unknown")
+        return [data, (data[0],)], [data], []
+
+    def apply(self, ctx, inputs, aux):
+        return [_SVMOutput.apply(inputs[0], inputs[1], self)], []
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+@register_op("Embedding")
+class Embedding(Operator):
+    """Rows of ``weight`` (input_dim, output_dim) at the ids in ``data``,
+    cast toward zero to integers. As the JAX op's ``jnp.take``: an id in
+    [-input_dim, 0) counts from the end, and an id outside
+    [-input_dim, input_dim) gives a row of NaN (no device assert). The
+    gradient is ``F.embedding``'s dense backward, which sums in a fixed
+    order."""
+
+    name_hint = "embedding"
+    PARAMS = {
+        "input_dim": Param(int, REQUIRED),
+        "output_dim": Param(int, REQUIRED),
+    }
+
+    def list_arguments(self):
+        return ["data", "weight"]
+
+    def infer_shape(self, in_shapes):
+        data = in_shapes[0]
+        if data is None:
+            raise MXNetError("Embedding: data shape unknown")
+        return ([data, (self.input_dim, self.output_dim)],
+                [tuple(data) + (self.output_dim,)], [])
+
+    def infer_type(self, in_types, out_types=None):
+        # the ids keep their own dtype; weight and output share theirs
+        data_t, weight_t = in_types
+        out_t = (out_types or [None])[0]
+        w = weight_t if weight_t is not None else out_t
+        return [data_t, w], [w], []
+
+    def apply(self, ctx, inputs, aux):
+        data, weight = inputs
+        n = self.input_dim
+        idx = data.detach().to(torch.int64)
+        valid = (idx >= -n) & (idx < n)
+        safe = torch.where(valid, torch.remainder(idx, n),
+                           torch.zeros_like(idx))
+        out = F.embedding(safe, weight)
+        return [torch.where(valid.unsqueeze(-1), out,
+                            torch.full_like(out, math.nan))], []
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 ``mxnet_tpu/ops/registry.py``.
 
 Each operator declares its arguments, outputs and auxiliary states, its
-shape inference, and an ``apply`` over tensors. ``PARAMS`` holds
+shape and dtype inference, and an ``apply`` over tensors. ``PARAMS`` holds
 :class:`Param` specs; their names, defaults and string forms equal the
 JAX package's, so a symbol's JSON reads the same in both packages
 (``Param.parse`` reads what ``tojson`` writes: ``"(3, 3)"``,
@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import ast
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..base import MXNetError, Registry
 
@@ -117,6 +119,18 @@ class Operator:
         if shape is None:
             raise MXNetError("%s: cannot infer shape" % type(self).__name__)
         return [shape] * len(in_shapes), [shape], []
+
+    def infer_type(self, in_types, out_types=None):
+        """Returns (in_types, out_types, aux_types) as numpy dtypes: every
+        input and output takes the first dtype known on either side (so
+        the symbol's fixpoint propagates both ways), aux states stay
+        float32; None-filled while nothing is known."""
+        known = list(in_types) + list(out_types or [])
+        dtype = next((t for t in known if t is not None), None)
+        aux = [np.dtype(np.float32)] * len(self.list_auxiliary_states())
+        if dtype is None:
+            return list(in_types), [None] * self.num_outputs, aux
+        return [dtype] * len(in_types), [dtype] * self.num_outputs, aux
 
     def apply(self, ctx: OpContext, inputs: Sequence[Any],
               aux: Sequence[Any]):

@@ -79,8 +79,9 @@ class Predictor:
         if declared is not None and tuple(value.shape) != declared:
             raise MXNetError(
                 "input '%s' has shape %r but the predictor was bound for "
-                "%r; build a Predictor for that shape"
-                % (name, tuple(value.shape), declared))
+                "%r; use Predictor.reshape({%r: %r}) to bind a new shape"
+                % (name, tuple(value.shape), declared, name,
+                   tuple(value.shape)))
         self._input_vals[name] = value
 
     def forward(self, **inputs):
@@ -99,3 +100,21 @@ class Predictor:
         if self._outputs is None:
             raise MXNetError("call forward first")
         return self._outputs[index].cpu().numpy()
+
+    def reshape(self, input_shapes: Dict[str, tuple]) -> "Predictor":
+        """A new predictor bound to new input shapes, sharing the weights
+        whose shape is unchanged; this one stays valid. The inputs always
+        get new storage."""
+        new = object.__new__(Predictor)
+        new._ctx = self._ctx
+        new._input_names = list(self._input_names)
+        new._executor = self._executor.reshape(
+            fresh_args=self._input_names, **input_shapes)
+        new._input_shapes = dict(self._input_shapes)
+        new._input_shapes.update(
+            {n: tuple(s) for n, s in input_shapes.items()})
+        new._input_vals = {n: np.zeros(new._input_shapes[n], np.float32)
+                           for n in new._input_names}
+        new._fused = None
+        new._outputs = None
+        return new

@@ -17,6 +17,9 @@ import itertools
 import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from .attribute import AttrScope
 from .base import MXNetError
 from .name import NameManager
@@ -50,20 +53,28 @@ class _Node:
 
 
 def topo_order(head_nodes: Sequence[_Node]) -> List[_Node]:
-    """DFS post-order: inputs before the nodes that read them."""
+    """DFS post-order: inputs before the nodes that read them, in the
+    order of the JAX package's recursive walk. It keeps its own stack, so
+    a long unrolled graph (an LSTM over 60 steps) does not reach
+    Python's recursion limit."""
     seen = set()
     order: List[_Node] = []
-
-    def visit(node: _Node):
-        if id(node) in seen:
-            return
-        seen.add(id(node))
-        for src, _ in node.inputs:
-            visit(src)
-        order.append(node)
-
-    for node in head_nodes:
-        visit(node)
+    for head in head_nodes:
+        if id(head) in seen:
+            continue
+        seen.add(id(head))
+        stack = [(head, 0)]
+        while stack:
+            node, i = stack[-1]
+            if i < len(node.inputs):
+                stack[-1] = (node, i + 1)
+                src = node.inputs[i][0]
+                if id(src) not in seen:
+                    seen.add(id(src))
+                    stack.append((src, 0))
+            else:
+                stack.pop()
+                order.append(node)
     return order
 
 
@@ -110,11 +121,65 @@ class Symbol:
                 for node in self._topo() if not node.is_variable
                 for aux in node.op.list_auxiliary_states()]
 
+    # -- attributes --------------------------------------------------------
+    def attr(self, key: str) -> Optional[str]:
+        """The attribute ``key`` of a single-output symbol's node."""
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].attrs.get(key)
+        return None
+
+    def list_attr(self) -> Dict[str, str]:
+        """A single-output symbol's node attributes."""
+        if len(self._outputs) == 1:
+            return dict(self._outputs[0][0].attrs)
+        return {}
+
     # -- composition -------------------------------------------------------
+    def __getitem__(self, index) -> "Symbol":
+        """Output ``index``, by position or by output name."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output '%s' not found in %s"
+                                 % (index, names))
+            index = names.index(index)
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._outputs)))
+
     def get_internals(self) -> "Symbol":
         """Symbol exposing every internal node output."""
         return Symbol([(node, i) for node in self._topo()
                        for i in range(node.num_outputs())])
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of a single-output op symbol, grouped; None for a
+        variable or a group."""
+        if len(self._outputs) != 1 or self._outputs[0][0].is_variable:
+            return None
+        return Symbol(list(self._outputs[0][0].inputs))
+
+    def grad(self, wrt: Sequence[str]) -> "Symbol":
+        """A bindable symbol whose outputs are d(sum of this symbol's
+        outputs)/d(arg) for each name in ``wrt``: one node that runs the
+        whole graph and ``torch.autograd.grad`` over it (the JAX package's
+        node closes over ``jax.vjp``). Integer heads take no part; an
+        argument the heads do not reach gets zeros. Not JSON-serialisable,
+        as in the JAX package."""
+        wrt = list(wrt)
+        arg_names = self.list_arguments()
+        missing = [w for w in wrt if w not in arg_names]
+        if missing:
+            raise MXNetError("grad: unknown arguments %s (args: %s)"
+                             % (missing, arg_names))
+        node = _Node(_GradOp(self, arg_names, wrt),
+                     NameManager.current().get(None, "grad"),
+                     [(n, 0) for n in self._topo() if n.is_variable], {})
+        return Symbol([(node, i) for i in range(len(wrt))])
 
     # -- operator overloading (the registered _Plus etc.) ------------------
     def __add__(self, other):
@@ -157,10 +222,18 @@ class Symbol:
         return "<Symbol %s>" % (self.name or
                                 "group[%d]" % len(self._outputs))
 
-    # -- shape inference ---------------------------------------------------
+    # -- shape and type inference -----------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from known input shapes,
         by fixpoint propagation through each op's infer_shape."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for what cannot be inferred
+        instead of an error."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, tuple] = {}
         if args:
@@ -221,9 +294,15 @@ class Symbol:
         for node in nodes:
             if not node.is_variable and node.op.list_auxiliary_states():
                 if node.uid not in aux_shapes:
+                    if partial:
+                        aux_list.extend(
+                            [None] * len(node.op.list_auxiliary_states()))
+                        continue
                     raise MXNetError("cannot infer aux shapes of %s"
                                      % node.name)
                 aux_list.extend(aux_shapes[node.uid])
+        if partial:
+            return arg_shapes, out_shapes, aux_list
         suffix = (" (last node error: %s)" % last_err
                   if last_err is not None else "")
         if any(s is None for s in arg_shapes):
@@ -233,6 +312,100 @@ class Symbol:
         if any(s is None for s in out_shapes):
             raise MXNetError("infer_shape could not infer outputs%s" % suffix)
         return arg_shapes, out_shapes, aux_list
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes, by fixpoint
+        propagation through each op's ``infer_type`` in both directions
+        from the given dtypes (positional in ``list_arguments`` order, or
+        by name). Arguments left untyped default to float32; a given
+        dtype that propagation contradicts raises."""
+        arg_names = self.list_arguments()
+        known: Dict[str, np.dtype] = {}
+        if args:
+            if len(args) > len(arg_names):
+                raise MXNetError("too many positional types")
+            for name, t in zip(arg_names, args):
+                if t is not None:
+                    known[name] = np.dtype(t)
+        for name, t in kwargs.items():
+            if name not in arg_names:
+                raise MXNetError("infer_type: unknown argument '%s' "
+                                 "(args: %s)" % (name, arg_names))
+            if t is not None:   # np.dtype(None) would be float64
+                known[name] = np.dtype(t)
+
+        nodes = self._topo()
+        types: Dict[int, List[Optional[np.dtype]]] = {}
+        aux_types: Dict[int, List[np.dtype]] = {}
+        seeded = set()
+        for node in nodes:
+            types[node.uid] = [None] * node.num_outputs()
+            if node.is_variable and node.name in known:
+                types[node.uid][0] = known[node.name]
+                seeded.add(node.uid)
+
+        def store(uid, i, t, by):
+            t = np.dtype(t)
+            cur = types[uid][i]
+            if cur is None:
+                types[uid][i] = t
+                return True
+            if cur != t:
+                raise MXNetError(
+                    "infer_type: op '%s' infers dtype %s where %s was %s"
+                    % (by, t, "explicitly given" if uid in seeded
+                       else "already inferred", cur))
+            return False
+
+        def visit(node):
+            try:
+                in_filled, out_filled, aux = node.op.infer_type(
+                    [types[src.uid][i] for src, i in node.inputs],
+                    list(types[node.uid]))
+            except MXNetError:
+                return False
+            changed = False
+            for (src, i), t in zip(node.inputs, in_filled):
+                if t is not None:
+                    changed |= store(src.uid, i, t, node.name)
+            for i, t in enumerate(out_filled):
+                if t is not None:
+                    changed |= store(node.uid, i, t, node.name)
+            aux_types[node.uid] = [np.dtype(t) for t in aux]
+            return changed
+
+        op_nodes = [n for n in nodes if not n.is_variable]
+
+        def fixpoint():
+            for _ in range(len(op_nodes) + 2):
+                changed = False
+                for node in op_nodes:
+                    changed |= visit(node)
+                for node in reversed(op_nodes):
+                    changed |= visit(node)
+                if not changed:
+                    break
+
+        fixpoint()
+        defaulted = False
+        for node in nodes:
+            if node.is_variable and types[node.uid][0] is None:
+                types[node.uid][0] = np.dtype("float32")
+                defaulted = True
+        if defaulted:
+            fixpoint()
+
+        arg_types = [types[n.uid][0] for n in nodes if n.is_variable]
+        out_types = [types[n.uid][i] for n, i in self._outputs]
+        aux_list: List[np.dtype] = []
+        for node in op_nodes:
+            n_aux = len(node.op.list_auxiliary_states())
+            if n_aux:
+                aux_list.extend(aux_types.get(
+                    node.uid, [np.dtype("float32")] * n_aux))
+        if any(t is None for t in out_types):
+            raise MXNetError("infer_type could not infer output dtypes")
+        return arg_types, out_types, aux_list
 
     # -- serialization -----------------------------------------------------
     def tojson(self) -> str:
@@ -266,22 +439,22 @@ class Symbol:
     def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
         """Infer shapes, allocate zero arrays on ``ctx`` (and a gradient
         array for every argument whose ``grad_req`` is not ``"null"``)
-        and bind. Arrays are float32 unless ``type_dict`` names another
-        dtype."""
+        and bind. Dtypes come from :meth:`infer_type` seeded with
+        ``type_dict``: float32 unless propagation gives another."""
         from . import ndarray as nd
         from .executor import grad_req_dict
 
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         names = self.list_arguments()
-        type_dict = type_dict or {}
-        dtypes = [type_dict.get(n, "float32") for n in names]
+        dtypes, _, aux_dtypes = self.infer_type(**(type_dict or {}))
         args = [nd.zeros(s, ctx=ctx, dtype=t)
                 for s, t in zip(arg_shapes, dtypes)]
         reqs = grad_req_dict(grad_req, names)
         grads = {n: nd.zeros(s, ctx=ctx, dtype=t)
                  for n, s, t in zip(names, arg_shapes, dtypes)
                  if reqs[n] != "null"}
-        aux = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
+        aux = [nd.zeros(s, ctx=ctx, dtype=t)
+               for s, t in zip(aux_shapes, aux_dtypes)]
         return self.bind(ctx, args, grads, grad_req=grad_req, aux_states=aux)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
@@ -292,6 +465,83 @@ class Symbol:
         from .executor import Executor
 
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind to the NDArrays given by name (on ``ctx``, the current
+        context by default) and return an inference forward's outputs."""
+        from .context import current_context
+
+        executor = self.bind(ctx or current_context(), dict(kwargs),
+                             grad_req="null")
+        return executor.forward(is_train=False)
+
+
+class _GradOp(Operator):
+    """The node of :meth:`Symbol.grad`: its inputs are the base symbol's
+    arguments, its outputs the gradients of the sum of the base's float
+    outputs with respect to ``wrt``."""
+
+    name_hint = "grad"
+
+    def __init__(self, base: Symbol, arg_names: List[str], wrt: List[str]):
+        super().__init__()
+        self._base = base
+        self._arg_names = arg_names
+        self._wrt = wrt
+        self._eval = None
+
+    def list_arguments(self):
+        return list(self._arg_names)
+
+    def list_outputs(self):
+        return ["%s_grad" % w for w in self._wrt]
+
+    def list_auxiliary_states(self):
+        return self._base.list_auxiliary_states()
+
+    def infer_shape(self, in_shapes):
+        known = {n: s for n, s in zip(self._arg_names, in_shapes)
+                 if s is not None}
+        in_filled, _, aux_shapes = self._base.infer_shape_partial(**known)
+        by_name = dict(zip(self._arg_names, in_filled))
+        out_shapes = [by_name[w] for w in self._wrt]
+        if any(s is None for s in out_shapes):
+            raise MXNetError("grad: wrt shapes not inferable")
+        return in_filled, out_shapes, aux_shapes
+
+    def infer_type(self, in_types, out_types=None):
+        dtype = next((t for t in in_types if t is not None), None)
+        aux_types = [np.dtype(np.float32)] * len(
+            self._base.list_auxiliary_states())
+        if dtype is None:
+            return list(in_types), [None] * len(self._wrt), aux_types
+        return ([t if t is not None else dtype for t in in_types],
+                [dtype] * len(self._wrt), aux_types)
+
+    def apply(self, ctx, inputs, aux):
+        from .executor import make_graph_eval
+
+        if self._eval is None:
+            self._eval = make_graph_eval(self._base)[0]
+        idx = [self._arg_names.index(w) for w in self._wrt]
+        # the caller may be an inference forward: clones outside
+        # inference mode are ordinary tensors autograd can record
+        with torch.inference_mode(False), torch.enable_grad():
+            args = [x.detach().clone() for x in inputs]
+            leaves = [args[i].requires_grad_(args[i].is_floating_point())
+                      for i in idx]
+            outs, aux_out = self._eval(args, [a.clone() for a in aux],
+                                       ctx.rng, ctx.is_train)
+            heads = [o for o in outs if o.requires_grad]
+            diff = [x for x in leaves if x.requires_grad]
+            got = iter(torch.autograd.grad(
+                heads, diff, [torch.ones_like(o) for o in heads],
+                allow_unused=True) if heads and diff else ())
+            grads = []
+            for x in leaves:
+                g = next(got) if x.requires_grad else None
+                grads.append(torch.zeros_like(x) if g is None else g)
+        return [g.detach() for g in grads], [a.detach() for a in aux_out]
 
 
 # ---------------------------------------------------------------------------

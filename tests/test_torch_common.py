@@ -141,3 +141,67 @@ def ckpt_stream_callback(stream):
                        param.eval_metric.get_name_value())
         stream.append((param.epoch, param.nbatch, values, float(loss)))
     return cb
+
+
+# -- forward and backward of one graph through both packages ----------------
+def fwd_bwd(pkg, sym, args, grad_names, heads=None, aux=None,
+            is_train=True):
+    """Bind ``sym`` on the CPU of ``pkg`` (either package) to the numpy
+    ``args`` (dtypes kept), with a gradient array for each name in
+    ``grad_names``; run a forward (train mode by default) and, where
+    ``heads`` is given, a backward with those head gradients. Returns
+    ``(outputs, grads by name, aux)`` as numpy."""
+    ctx = pkg.cpu()
+    arrays = {k: pkg.nd.array(v, ctx=ctx, dtype=v.dtype)
+              for k, v in args.items()}
+    grads = {k: pkg.nd.zeros(args[k].shape, ctx=ctx, dtype=args[k].dtype)
+             for k in grad_names}
+    reqs = {k: ("write" if k in grad_names else "null") for k in args}
+    aux_arrays = {k: pkg.nd.array(v, ctx=ctx) for k, v in (aux or {}).items()}
+    ex = sym.bind(ctx, arrays, args_grad=grads, grad_req=reqs,
+                  aux_states=aux_arrays)
+    ex.forward(is_train=is_train)
+    outs = [o.asnumpy().copy() for o in ex.outputs]
+    if heads is not None:
+        ex.backward([pkg.nd.array(h, ctx=ctx) for h in heads])
+    return (outs, {k: g.asnumpy().copy() for k, g in grads.items()},
+            {k: a.asnumpy().copy() for k, a in ex.aux_dict.items()})
+
+
+def both_fwd_bwd(build, args, grad_names=None, aux=None, head_seed=17):
+    """``build(pkg)`` in each package (fresh names), forward in train
+    mode and backward with the same seeded head gradients. ``grad_names``
+    defaults to every float argument. Returns ``((jax outs, grads,
+    aux), (port outs, grads, aux))``."""
+    if grad_names is None:
+        grad_names = [k for k, v in args.items()
+                      if np.issubdtype(v.dtype, np.floating)]
+    with fresh_names(tmx):
+        tsym = build(tmx)
+    with fresh_names(jmx):
+        jsym = build(jmx)
+    shapes = [o.shape for o in fwd_bwd(tmx, tsym, args, (), aux=aux,
+                                       is_train=False)[0]]
+    rng = np.random.RandomState(head_seed)
+    heads = [rng.randn(*s).astype(np.float32) for s in shapes]
+    return (fwd_bwd(jmx, jsym, args, grad_names, heads, aux),
+            fwd_bwd(tmx, tsym, args, grad_names, heads, aux))
+
+
+def assert_parity(got, want, rtol=1e-5, atol=1e-6, grad_rtol=1e-4,
+                  grad_atol=1e-6):
+    """The port's (outputs, grads, aux) against the JAX package's:
+    outputs and aux at ``rtol``/``atol``, gradients at
+    ``grad_rtol``/``grad_atol``; NaN where NaN."""
+    (t_out, t_grad, t_aux), (j_out, j_grad, j_aux) = got, want
+    assert len(t_out) == len(j_out)
+    for a, b in zip(t_out, j_out):
+        assert a.shape == b.shape, (a.shape, b.shape)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+    assert sorted(t_grad) == sorted(j_grad)
+    for k in j_grad:
+        np.testing.assert_allclose(t_grad[k], j_grad[k], rtol=grad_rtol,
+                                   atol=grad_atol, err_msg=k)
+    for k in j_aux:
+        np.testing.assert_allclose(t_aux[k], j_aux[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
