@@ -194,7 +194,45 @@ Phases, in order; any failure exits non-zero before the last line:
    rrelu's draw by distribution, and the RNN in its four modes, one and
    two directions, 2 layers, on cuDNN against the per-step loop on the
    card (1e-4 of the largest magnitude), reruns bit-identical.
-13. report: one JSON line of kernel records, the card line, then
+13. Fast R-CNN and LSTM-OCR at full width. (a) VGG-16 Fast R-CNN as
+   upstream example/rcnn builds it: get_vgg(16)'s convolutions, pools
+   1-4, ROIPooling(7x7, 1/16) on the hand-written roi_pool kernel, fc6
+   and fc7 with Dropout, 21 classes into SoftmaxOutput and 84 box
+   deltas into smooth_l1 and MakeLoss; 2 seeded 600x1000 images a
+   batch, 128 rois (64 an image, 25% foreground) sampled from 2000
+   seeded proposals an image and its ground truth; SGD lr 0.001,
+   momentum 0.9, wd 5e-4, conv1_x and conv2_x fixed; 5 batches through
+   the classic loop then fit(fused_step=True) from the same Xavier
+   weights: one capture, params, losses and metric bit-equal, K3 17 and
+   roi_pool 2 launches a step (fixed params changed nothing, every
+   other param changed), two profiled replays (device ms, busy share,
+   time by group), roi_pool's forward and backward at the path's shape
+   against the plain version (bit-equal forward, gradient within 1e-6
+   of its largest) and its times beside the plain version's and the
+   byte bound; K3 against a float64 product at each of the step's
+   products (read off the graph) that phase 3 does not hold; one
+   classic step at full width over 16 of the rois on the card against
+   the CPU (each loss within rtol 1e-4, the update within 1e-2 of its
+   norm). (b) the same graph with the sampler as a
+   proposal_target Custom op: 3 classic batches bit-equal to (a)'s,
+   fit(fused_step=True) refused naming the node. (c) upstream
+   lstm_ocr: (32, 80 x 30) sliced into 80 frames, 2 unrolled LSTM
+   layers of 100, FC(11), WarpCTC; 5 batches of seeded digit strings
+   through both loops: one capture, bit-equal, no compiled kernel; the
+   NLL within rtol 1e-4 of torch's ctc_loss; frames/s; one classic
+   step on the card against the CPU (outputs within 2e-5 and each
+   param's update within 1e-3, normwise). (d)
+   SpatialTransformer, Correlation at FlowNetC's displacement 20 over
+   (2, 256, 48, 64), softmax_cross_entropy and CTCLoss on the card
+   against the CPU; roi_pool against its plain version over ragged
+   rois (a zero plateau, empty bins, tiny rois) on a map holding a NaN
+   and an infinity (their bins give 0, no gradient), reruns
+   bit-identical;
+   uniform and normal by distribution over 2^20 draws in train and in
+   inference. (e) group2ctx with gpu(0) beside cpu(0) against a
+   one-device bind, 13a's params through mem://, print_summary of
+   13a's graph.
+14. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -1027,7 +1065,7 @@ def entry_points_main_path(torch, mx, kernels):
              res["attention"]["ring"]["max_abs_err"], worst,
              tuple(feats.shape), fc_err, launches))
     want_counts = {"norm_act_fwd": 0, "norm_act_bwd": 0, "conv_gemm": 0,
-                   "linear": 1, "flash_attn": 2, "rtc": 2}
+                   "linear": 1, "flash_attn": 2, "rtc": 2, "roi_pool": 0}
     check(launches == want_counts, "entry-point launches %s, want %s (K2 "
           "once for each ulysses forward, the forward and the one under the "
           "backward)" % (launches, want_counts))
@@ -1284,7 +1322,8 @@ def _resnet_launches(steps):
     steps, by wrapper."""
     return {"norm_act_fwd": BN_LAYERS * steps,
             "norm_act_bwd": BN_LAYERS * steps,
-            "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0}
+            "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0,
+            "roi_pool": 0}
 
 
 def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None,
@@ -1689,7 +1728,8 @@ def mnist_main_path(torch, mx, kernels, card):
                   == (1, 1, steps - 1), "mnist %s fused counters" % net)
             gemms = 3 if net == "lenet" else 0
             want = {"norm_act_fwd": 0, "norm_act_bwd": 0,
-                    "conv_gemm": 2 * gemms, "linear": 0, "flash_attn": 0}
+                    "conv_gemm": 2 * gemms, "linear": 0, "flash_attn": 0,
+                    "roi_pool": 0}
             check(launches == dict(want, rtc=0), "mnist %s launches %s "
                   "(the eager step and the capture), want %s"
                   % (net, launches, want))
@@ -2654,7 +2694,8 @@ def model_convs(mx, sym, data_shape):
         kh, kw = _shape_param(node["param"]["kernel"])
         out = shape_of[node["name"] + "_output"]
         _, o, ho, wo = out
-        convs.append({"x": (n, c, h, w), "g": tuple(out), "is_data": is_data})
+        convs.append({"name": node["name"], "x": (n, c, h, w),
+                      "g": tuple(out), "is_data": is_data})
         keys = [(kh * kw * c, o, n * ho * wo, True)]
         if not is_data:
             keys.append((n * h * w, c, kh * kw * o, False))
@@ -2821,7 +2862,7 @@ def model_path(torch, mx, kernels, card, spec):
           % (name, len(convs), sum(gemms.values()), n_convs, k3_step))
     images, labels = model_data(name, side)
     zero = {"norm_act_fwd": 0, "norm_act_bwd": 0, "linear": 0,
-            "flash_attn": 0, "rtc": 0}
+            "flash_attn": 0, "rtc": 0, "roi_pool": 0}
 
     def fit(fused, wrap=None):
         mod = model_module(mx, sym, mx.gpu(0), shape)
@@ -3659,6 +3700,16 @@ def lm_gate(torch, mx, params, bucket, ids, labels):
         mod.update()
         runs.append((mod.get_outputs()[0].asnumpy().copy(),
                      _host(mod.get_params()[0])))
+    return dict(_lstm_gate("12a: bucket %d" % bucket, runs, params),
+                bucket=bucket)
+
+
+def _lstm_gate(what, runs, params):
+    """An LSTM's card-against-CPU step from ``runs`` ((outputs, params
+    after) on the card, then on the CPU) and the params before: the
+    outputs and each param's update normwise, within LM_GATE_OUT and
+    LM_GATE_UPDATE (no ReLU or max to tip: the sides differ by
+    rounding)."""
     (out_c, p_c), (out_h, p_h) = runs
     out_err = float(np.linalg.norm(out_c.astype(np.float64) - out_h)
                     / np.linalg.norm(out_h))
@@ -3667,11 +3718,10 @@ def lm_gate(torch, mx, params, bucket, ids, labels):
             p_h[k] - params[k]), 1e-30)) for k in params}
     worst = max(upd_err.values())
     check(out_err <= LM_GATE_OUT and worst <= LM_GATE_UPDATE,
-          "12a: bucket %d on the card against the CPU: outputs %.3g "
-          "(bound %g), worst update %.3g (bound %g) %s"
-          % (bucket, out_err, LM_GATE_OUT, worst, LM_GATE_UPDATE, upd_err))
-    return {"bucket": bucket, "outputs_normwise": out_err,
-            "update_normwise_worst": worst,
+          "%s on the card against the CPU: outputs %.3g (bound %g), worst "
+          "update %.3g (bound %g) %s" % (what, out_err, LM_GATE_OUT, worst,
+                                         LM_GATE_UPDATE, upd_err))
+    return {"outputs_normwise": out_err, "update_normwise_worst": worst,
             "bounds": [LM_GATE_OUT, LM_GATE_UPDATE]}
 
 
@@ -4151,6 +4201,1071 @@ def lm_main_path(torch, mx, kernels, card):
             "ops": lm_op_sweep(torch, mx, card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: Fast R-CNN on VGG-16 and LSTM-OCR with WarpCTC at full width,
+# the vision and CTC ops on the card, the executor surface
+# ---------------------------------------------------------------------------
+RCNN_IMAGES = 2                # images a batch (Fast R-CNN's IMS_PER_BATCH)
+RCNN_HW = (600, 1000)          # the shorter side 600, the longer 1000
+RCNN_ROIS = 128                # rois a batch, 64 an image
+RCNN_FG = 0.25                 # foreground fraction of the rois
+RCNN_PROPOSALS = 2000          # proposals an image
+RCNN_GT = 4                    # ground-truth boxes an image
+RCNN_CLASSES = 21              # PASCAL VOC's 20 classes and background
+RCNN_STDS = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+RCNN_STEPS = 5
+RCNN_CUSTOM_STEPS = 3
+RCNN_OPT = (("learning_rate", 0.001), ("momentum", 0.9), ("wd", 5e-4))
+# conv1_x and conv2_x stay fixed, as Fast R-CNN trains VGG-16
+RCNN_FIXED = ["conv%d_%d_%s" % (s, i, k) for s in (1, 2) for i in (1, 2)
+              for k in ("weight", "bias")]
+# K3 a step: a weight gradient for conv3_1..conv5_3 (9) and an input
+# gradient for conv3_2..conv5_3 (8: conv3_1's input needs none)
+RCNN_K3_STEP = 17
+RCNN_DATA = ["data", "rois"]
+RCNN_LABELS = ["label", "bbox_target", "bbox_weight"]
+RCNN_GATE_EVERY = 8            # the gate's rois: every 8th, 16 of the 128
+OCR_T, OCR_FEAT, OCR_HIDDEN, OCR_LAYERS = 80, 30, 100, 2
+OCR_BATCH, OCR_LABEL, OCR_CLASSES, OCR_STEPS = 32, 4, 11, 5
+# upstream lstm_ocr's SGD (lr 0.001, momentum 0.9, wd 1e-5) with the
+# repository's warpctc example's clip
+OCR_OPT = (("learning_rate", 0.001), ("momentum", 0.9), ("wd", 1e-5),
+           ("clip_gradient", 1.0), ("rescale_grad", 1.0 / OCR_BATCH))
+OCR_INIT = ["l%d_init_%s" % (i, k) for i in range(OCR_LAYERS) for k in "hc"]
+
+
+def vgg16_fast_rcnn(mx, inputs=None):
+    """Fast R-CNN over VGG-16 as a user builds it (upstream example/rcnn):
+    get_vgg(16)'s conv1_1..conv5_3 and pools 1-4, pool5 replaced by
+    ROIPooling(7x7, 1/16), fc6 and fc7 (4096, ReLU, Dropout 0.5),
+    cls_score into SoftmaxOutput, bbox_pred into smooth_l1 of the
+    weighted difference into MakeLoss(1/128). Returns the two heads.
+    ``inputs`` gives symbols for rois, label, bbox_target and
+    bbox_weight (default: variables of those names)."""
+    s = mx.sym
+    inp = {n: s.Variable(n) for n in ["rois"] + RCNN_LABELS}
+    inp.update(inputs or {})
+    net = s.Variable("data")
+    for stage, (reps, nf) in enumerate(zip((2, 2, 3, 3, 3),
+                                           (64, 128, 256, 512, 512))):
+        for i in range(reps):
+            net = s.Activation(data=s.Convolution(
+                data=net, num_filter=nf, kernel=(3, 3), pad=(1, 1),
+                name="conv%d_%d" % (stage + 1, i + 1)), act_type="relu",
+                name="relu%d_%d" % (stage + 1, i + 1))
+        if stage < 4:
+            net = s.Pooling(data=net, kernel=(2, 2), stride=(2, 2),
+                            pool_type="max", name="pool%d" % (stage + 1))
+    net = s.ROIPooling(net, inp["rois"], pooled_size=(7, 7),
+                       spatial_scale=1.0 / 16, name="roi_pool5")
+    net = s.Flatten(data=net, name="flatten")
+    for i in (6, 7):
+        net = s.FullyConnected(data=net, num_hidden=4096, name="fc%d" % i)
+        net = s.Activation(data=net, act_type="relu", name="relu%d" % i)
+        net = s.Dropout(data=net, p=0.5, name="drop%d" % i)
+    cls = s.SoftmaxOutput(data=s.FullyConnected(
+        data=net, num_hidden=RCNN_CLASSES, name="cls_score"),
+        label=inp["label"], normalization="batch", name="cls_prob")
+    bbox = s.FullyConnected(data=net, num_hidden=4 * RCNN_CLASSES,
+                            name="bbox_pred")
+    diff = inp["bbox_weight"] * (bbox - inp["bbox_target"])
+    loss = s.MakeLoss(s.smooth_l1(diff, scalar=1.0, name="bbox_loss_"),
+                      grad_scale=1.0 / RCNN_ROIS, name="bbox_loss")
+    return [cls, loss]
+
+
+def _boxes(rng, n, h, w, lo, hi):
+    """``n`` boxes [x1, y1, x2, y2] inside (h, w), sides in [lo, hi)."""
+    bw, bh = rng.uniform(lo, hi, n), rng.uniform(lo, hi, n)
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    return np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+
+
+def rcnn_scenes(steps, seed=0):
+    """``steps`` batches of seeded images (2, 3, 600, 1000), ground-truth
+    boxes (2, RCNN_GT, 5: box and class 1..20) and proposals (2 * 2000,
+    5: image index and box), half jittered around the ground truth."""
+    rng = np.random.RandomState(seed)
+    h, w = RCNN_HW
+    out = []
+    for _ in range(steps):
+        gt = np.zeros((RCNN_IMAGES, RCNN_GT, 5), np.float32)
+        props = []
+        for b in range(RCNN_IMAGES):
+            gt[b, :, :4] = _boxes(rng, RCNN_GT, h, w, 60, 400)
+            gt[b, :, 4] = rng.randint(1, RCNN_CLASSES, RCNN_GT)
+            near = np.repeat(gt[b, :, :4], RCNN_PROPOSALS // 2 // RCNN_GT, 0)
+            side = np.repeat(near[:, 2:] - near[:, :2], 2, 1)
+            near = near + rng.uniform(-0.25, 0.25, near.shape) * side
+            boxes = np.concatenate([near, _boxes(
+                rng, RCNN_PROPOSALS - len(near), h, w, 20, 500)])
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, w - 1)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, h - 1)
+            props.append(np.concatenate(
+                [np.full((len(boxes), 1), b, np.float32), boxes], 1))
+        out.append({"data": rng.standard_normal(
+            (RCNN_IMAGES, 3) + RCNN_HW).astype(np.float32),
+            "gt_boxes": gt,
+            "proposals": np.concatenate(props).astype(np.float32)})
+    return out
+
+
+def _iou(a, b):
+    """IoU of (n, 4) boxes against (m, 4), in pixels (+1 widths)."""
+    iw = (np.minimum(a[:, None, 2], b[None, :, 2])
+          - np.maximum(a[:, None, 0], b[None, :, 0]) + 1).clip(0)
+    ih = (np.minimum(a[:, None, 3], b[None, :, 3])
+          - np.maximum(a[:, None, 1], b[None, :, 1]) + 1).clip(0)
+    area = lambda x: (x[:, 2] - x[:, 0] + 1) * (x[:, 3] - x[:, 1] + 1)
+    inter = iw * ih
+    return inter / (area(a)[:, None] + area(b)[None] - inter)
+
+
+def sample_rois(rng, proposals, gt):
+    """Fast R-CNN's roi sampling for one batch (upstream
+    rcnn/io/rcnn.py sample_rois): for each image the proposals and its
+    ground truth, foreground IoU >= 0.5 (up to 25% of its 64), background
+    IoU in [0.1, 0.5); labels, and bbox targets (dx, dy, dw, dh) over
+    (0.1, 0.1, 0.2, 0.2) at the class's four columns with weight 1.
+    Returns rois (128, 5), label (128,), bbox_target and bbox_weight
+    (128, 84), float32."""
+    per = RCNN_ROIS // RCNN_IMAGES
+    fg_max = int(round(RCNN_FG * per))
+    rois, labels, targets, weights = [], [], [], []
+    for b in range(RCNN_IMAGES):
+        boxes = np.concatenate([proposals[proposals[:, 0] == b, 1:],
+                                gt[b, :, :4]])
+        ov = _iou(boxes, gt[b, :, :4])
+        best, arg = ov.max(1), ov.argmax(1)
+        fg = np.flatnonzero(best >= 0.5)
+        bg = np.flatnonzero((best < 0.5) & (best >= 0.1))
+        n_fg = min(fg_max, len(fg))
+        keep = np.concatenate([
+            rng.choice(fg, n_fg, replace=False),
+            rng.choice(bg, per - n_fg, replace=len(bg) < per - n_fg)])
+        lab = gt[b, arg[keep], 4].copy()
+        lab[n_fg:] = 0
+        ex, g = boxes[keep], gt[b, arg[keep], :4]
+        ew, eh = ex[:, 2] - ex[:, 0] + 1, ex[:, 3] - ex[:, 1] + 1
+        gw, gh = g[:, 2] - g[:, 0] + 1, g[:, 3] - g[:, 1] + 1
+        delta = np.stack([(g[:, 0] + 0.5 * gw - ex[:, 0] - 0.5 * ew) / ew,
+                          (g[:, 1] + 0.5 * gh - ex[:, 1] - 0.5 * eh) / eh,
+                          np.log(gw / ew), np.log(gh / eh)], 1) / RCNN_STDS
+        t = np.zeros((per, 4 * RCNN_CLASSES), np.float32)
+        wt = np.zeros_like(t)
+        for i, c in enumerate(lab.astype(int)):
+            if c:
+                t[i, 4 * c:4 * c + 4] = delta[i]
+                wt[i, 4 * c:4 * c + 4] = 1.0
+        rois.append(np.concatenate([np.full((per, 1), b), ex], 1))
+        labels.append(lab)
+        targets.append(t)
+        weights.append(wt)
+    return (np.concatenate(rois).astype(np.float32),
+            np.concatenate(labels).astype(np.float32),
+            np.concatenate(targets), np.concatenate(weights))
+
+
+def rcnn_batches(scenes, seed=7):
+    """The scenes with their rois sampled in order by one RandomState."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for sc in scenes:
+        rois, label, target, weight = sample_rois(rng, sc["proposals"],
+                                                  sc["gt_boxes"])
+        out.append(dict(sc, rois=rois, label=label, bbox_target=target,
+                        bbox_weight=weight))
+    return out
+
+
+class ListIter:
+    """A DataIter over ready batches (numpy dicts), on the host. ``mx``
+    may be either package (the CPU tests feed both with it)."""
+
+    def __init__(self, mx, batches, data_names, label_names):
+        self._mx, self._batches = mx, batches
+        self._data, self._label = data_names, label_names
+        self.batch_size = batches[0][data_names[0]].shape[0]
+        self._cur = 0
+
+    def _descs(self, names):
+        return [self._mx.io.DataDesc(n, self._batches[0][n].shape)
+                for n in names]
+
+    @property
+    def provide_data(self):
+        return self._descs(self._data)
+
+    @property
+    def provide_label(self):
+        return self._descs(self._label)
+
+    def reset(self):
+        self._cur = 0
+
+    def __iter__(self):
+        return self
+
+    def batch(self, i):
+        b, cpu = self._batches[i], self._mx.cpu()
+        return self._mx.io.DataBatch(
+            [self._mx.nd.array(b[n], ctx=cpu) for n in self._data],
+            [self._mx.nd.array(b[n], ctx=cpu) for n in self._label], pad=0)
+
+    def __next__(self):
+        if self._cur >= len(self._batches):
+            raise StopIteration
+        self._cur += 1
+        return self.batch(self._cur - 1)
+
+    next = __next__
+
+
+def rcnn_metric(mx, label_out=None):
+    """The classification head's accuracy, read off the labels (or, with
+    ``label_out``, off that output, where the labels are made inside the
+    graph)."""
+
+    class RCNNAccuracy(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("rcnn_acc")
+
+        def update(self, labels, preds):
+            lab = (preds[label_out] if label_out is not None
+                   else labels[0]).asnumpy().astype(int)
+            self.sum_metric += float(
+                (preds[0].asnumpy().argmax(1) == lab).sum())
+            self.num_inst += len(lab)
+
+    return RCNNAccuracy()
+
+
+def _register_proposal_target(mx):
+    """Fast R-CNN's proposal_target as a CustomOp (upstream
+    rcnn/symbol/proposal_target.py): proposals and gt boxes in, rois,
+    labels, bbox targets and weights out, sampled by the same RandomState
+    as rcnn_batches; no gradient (need_top_grad False)."""
+
+    class ProposalTarget(mx.operator.CustomOp):
+        def __init__(self, seed):
+            self._rng = np.random.RandomState(seed)
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            res = sample_rois(self._rng, in_data[0].asnumpy(),
+                              in_data[1].asnumpy())
+            for i, r in enumerate(res):
+                self.assign(out_data[i], req[i], r)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            for i, g in enumerate(in_grad):
+                self.assign(g, req[i], 0)
+
+    @mx.operator.register("proposal_target")
+    class ProposalTargetProp(mx.operator.CustomOpProp):
+        def __init__(self, seed="7"):
+            super().__init__(need_top_grad=False)
+            self._seed = int(seed)
+
+        def list_arguments(self):
+            return ["proposals", "gt_boxes"]
+
+        def list_outputs(self):
+            return ["rois", "label", "bbox_target", "bbox_weight"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [(RCNN_ROIS, 5), (RCNN_ROIS,),
+                              (RCNN_ROIS, 4 * RCNN_CLASSES),
+                              (RCNN_ROIS, 4 * RCNN_CLASSES)], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return ProposalTarget(self._seed)
+
+
+def rcnn_custom_symbol(mx):
+    """vgg16_fast_rcnn with its rois, label, bbox target and bbox weight
+    made inside the graph by a proposal_target Custom node from all the
+    proposals and the gt boxes; the label is a third, gradient-blocked
+    output (the metric reads it)."""
+    s = mx.sym
+    pt = s.Custom(s.Variable("proposals"), s.Variable("gt_boxes"),
+                  op_type="proposal_target", seed="7",
+                  name="proposal_target")
+    heads = vgg16_fast_rcnn(mx, dict(zip(["rois"] + RCNN_LABELS, pt)))
+    return mx.sym.Group(heads + [s.BlockGrad(pt[1], name="label_out")])
+
+
+def _rcnn_group(name):
+    low = name.lower()
+    if "conv_gemm" in low:
+        return "conv_gemm (K3)"
+    if "roi_pool_fwd" in low:
+        return "roi_pool forward"
+    if "roi_pool_bwd" in low:
+        return "roi_pool backward"
+    if any(k in low for k in ("fprop", "implicit", "conv", "winograd",
+                              "cudnn")):
+        return "convolution forward (cuDNN)"
+    if "gemm" in low or "gemv" in low or "cutlass" in low:
+        return "fc GEMMs (cuBLAS)"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "SGD (foreach)"
+    if "copy" in low:
+        return "copies (layout, im2col, pads)"
+    if "pool" in low:
+        return "pooling"
+    return "elementwise and reductions"
+
+
+def _zero_launches(kernels):
+    return dict.fromkeys(kernels.launch_counts(), 0)
+
+
+def rcnn_module(mx, sym, data_names, label_names, batch, init_args=None,
+                ctx=None):
+    """``sym`` bound for training on ``ctx`` (default: the card) at
+    ``batch``'s shapes with conv1_x and conv2_x fixed; Xavier (fan-in,
+    magnitude 2) from seed 0, or ``init_args``."""
+    mod = mx.mod.Module(sym, data_names=data_names, label_names=label_names,
+                        context=ctx or mx.gpu(0), fixed_param_names=RCNN_FIXED)
+    mod.bind(data_shapes=[(n, batch[n].shape) for n in data_names],
+             label_shapes=[(n, batch[n].shape) for n in label_names],
+             for_training=True)
+    if init_args is None:
+        mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.0,
+                                       seed=0))
+    else:
+        mod.init_params(arg_params=init_args)
+    return mod
+
+
+def rcnn_fit(torch, mx, kernels, mod, it, fused, metric, label_of,
+             after=None, opt=RCNN_OPT):
+    """Module.fit of ``mod`` over ``it`` on the card (the classic loop or
+    the fused step), Dropout's stream seeded as in every compared fit,
+    launch counts and the allocation peak zeroed just before and read
+    just after. Per step: the classification loss and the mean bbox
+    loss of the outputs and the host clock at the batch-end callback,
+    the card synchronised; then ``after(param)``, whose time no step
+    counts."""
+    losses, ends, starts = [], [], []
+
+    def on_batch(param):
+        outs = param.locals["self"].get_outputs()
+        probs = outs[0].handle
+        lab = label_of(param, outs).to(probs.device, torch.int64)
+        losses.append(torch.stack([
+            -torch.log(probs.gather(1, lab[:, None])).mean(),
+            outs[1].handle.sum() / outs[1].shape[0]]))
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        if after is not None:
+            after(param)
+        starts.append(time.perf_counter())
+
+    mx.random.seed(0)   # Dropout's masks: the same stream in every fit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=opt,
+            eval_metric=metric, batch_end_callback=on_batch,
+            fused_step=fused)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps_ms = [1e3 * (b - a) for a, b in zip(starts, ends[1:])]
+    return {"launches": launches, "peak_bytes": peak,
+            "losses": [[float(x) for x in v] for v in losses],
+            "steps_ms": steps_ms, "step_ms": float(np.median(steps_ms)),
+            "args": _host(mod.get_params()[0]), "metric": metric.get()[1]}
+
+
+def _same_fit(what, got, want):
+    unequal = [k for k in want["args"]
+               if not np.array_equal(got["args"][k], want["args"][k])]
+    check(not unequal, "%s: params differ at %s" % (what, unequal[:5]))
+    check(got["losses"] == want["losses"], "%s: losses %s against %s"
+          % (what, got["losses"], want["losses"]))
+    check(got["metric"] == want["metric"], "%s: metric %r against %r"
+          % (what, got["metric"], want["metric"]))
+
+
+def roi_pool_timing(torch, kernels, rois):
+    """roi_pool's forward and backward at the main path's shape (conv5_3
+    of two 600x1000 images, relu'd seeded normals: about half the map is
+    zero, as after relu5_3) over the path's rois, by CUDA events with the
+    L2 flushed, beside the plain version (chunked, bounded-memory
+    gradient) and the byte bound; the kernel's forward against the plain
+    one (bit-equal) and its gradient (rtol 1e-6 of the largest), reruns
+    bit-identical."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w = RCNN_HW[0] // 16, RCNN_HW[1] // 16
+    feat = torch.relu(torch.randn(RCNN_IMAGES, 512, h, w, generator=gen,
+                                  device="cuda"))
+    g = torch.randn(len(rois), 512, 7, 7, generator=gen, device="cuda")
+    args = ((7, 7), 1.0 / 16)
+    flush = torch.empty(64 << 20, device="cuda")
+    out, count = kernels.roi_pool_fwd(feat, rois, *args)
+    dx = kernels.roi_pool_bwd(feat, rois, out, count, g, *args)
+    out2, _ = kernels.roi_pool_fwd(feat, rois, *args)
+    dx2 = kernels.roi_pool_bwd(feat, rois, out, count, g, *args)
+    check(torch.equal(out, out2) and torch.equal(dx, dx2),
+          "roi_pool: reruns differ")
+    res = {"fwd_ms": time_ms(torch, lambda: kernels.roi_pool_fwd(
+        feat, rois, *args), flush),
+        "bwd_ms": time_ms(torch, lambda: kernels.roi_pool_bwd(
+            feat, rois, out, count, g, *args), flush)}
+    try:
+        with torch.no_grad():
+            plain = kernels.roi_pool_plain(feat, rois, *args)
+            res["plain_fwd_ms"] = time_ms(torch, lambda: kernels.roi_pool_plain(
+                feat, rois, *args), flush, reps=3)
+        pdx = kernels.roi_pool_plain_grad(feat, rois, g, *args)
+        res["plain_bwd_ms"] = time_ms(torch, lambda: kernels.roi_pool_plain_grad(
+            feat, rois, g, *args), flush, reps=3)
+    except torch.cuda.OutOfMemoryError as e:
+        res["plain_oom"] = str(e).splitlines()[0]
+        plain = pdx = None
+    if plain is not None:
+        check(torch.equal(out, plain), "roi_pool forward differs from the "
+              "plain version at the main path's shape: max abs err %g"
+              % float((out - plain).abs().max()))
+        err = float((dx - pdx).abs().max())
+        check(err <= 1e-6 * float(pdx.abs().max()), "roi_pool backward: "
+              "max abs err %g against the plain version" % err)
+        res["bwd_max_abs_err"] = err
+    f4 = 4
+    nbytes = f4 * (feat.numel() * 2 + rois.numel() * 2 + out.numel()
+                   + g.numel() + dx.numel())
+    res.update(ms=res["fwd_ms"] + res["bwd_ms"],
+               plain_ms=(res.get("plain_fwd_ms", float("nan"))
+                         + res.get("plain_bwd_ms", float("nan"))),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bytes=nbytes, zero_share=float((feat == 0).float().mean()),
+               mask_elements=len(rois) * 512 * 49 * h * w)
+    del feat, g, out, count, dx, dx2, out2, plain, pdx, flush
+    torch.cuda.empty_cache()
+    return res
+
+
+def rcnn_k3_products(mx, sym):
+    """The K3 products of one Fast R-CNN training step, (M, N, K,
+    transpose_a) -> count, read off the trunk's convolutions (all 3x3) by
+    model_convs: a weight gradient for each convolution past the fixed
+    conv1_x and conv2_x, an input gradient for each past conv3_1
+    (nothing before conv3_1 trains)."""
+    trunk = sym.get_internals()["relu5_3_output"]
+    convs, _ = model_convs(mx, trunk, (RCNN_IMAGES, 3) + RCNN_HW)
+    counts = {}
+    for conv in convs:
+        if conv["name"].split("_")[0] in ("conv1", "conv2"):
+            continue
+        (n, c, h, w), (_, o, ho, wo) = conv["x"], conv["g"]
+        keys = [(9 * c, o, n * ho * wo, True)]
+        if conv["name"] != "conv3_1":
+            keys.append((n * h * w, c, 9 * o, False))
+        for key in keys:
+            counts[key] = counts.get(key, 0) + 1
+    check(sum(counts.values()) == RCNN_K3_STEP, "13a: %d K3 products a "
+          "step read off the graph, want %d" % (sum(counts.values()),
+                                                RCNN_K3_STEP))
+    return counts
+
+
+def _rcnn_loss(probs, bbox, label):
+    """The classification NLL (mean) and the bbox loss (mean over rois) of
+    one step's outputs, float64 on the host."""
+    probs = probs.astype(np.float64)
+    cls = float(-np.log(probs[np.arange(len(label)),
+                              label.astype(int)]).mean())
+    return cls, float(bbox.astype(np.float64).sum() / bbox.shape[0])
+
+
+def rcnn_gate(torch, mx, sym, init, batch):
+    """One classic step of 13a's graph at full width (2 images of
+    600x1000, every layer at its width) over every RCNN_GATE_EVERY-th roi
+    of ``batch``, on the card (K3, roi_pool, cuDNN) and on the CPU (their
+    plain versions), from the same weights ``init`` with the same Dropout
+    masks (keyed by node name, see _mask_keyed_dropout). Bound, as
+    model_gate's: each loss within rtol 1e-4, the update of all params
+    together within 1e-2 of its norm."""
+    narrow = {k: (v[::RCNN_GATE_EVERY] if k in RCNN_LABELS + ["rois"]
+                  else v) for k, v in batch.items()}
+    res = []
+    undo = _mask_keyed_dropout(torch, mx, sym)
+    try:
+        for ctx in (mx.gpu(0), mx.cpu()):
+            t0 = time.perf_counter()
+            mod = rcnn_module(mx, sym, RCNN_DATA, RCNN_LABELS, narrow, init,
+                              ctx=ctx)
+            mod.init_optimizer(optimizer="sgd", optimizer_params=RCNN_OPT)
+            it = ListIter(mx, [narrow], RCNN_DATA, RCNN_LABELS)
+            mod.forward_backward(it.batch(0))
+            mod.update()
+            outs = [o.asnumpy() for o in mod.get_outputs()]
+            res.append((_rcnn_loss(outs[0], outs[1], narrow["label"]),
+                        _host(mod.get_params()[0]),
+                        1e3 * (time.perf_counter() - t0)))
+            del mod
+    finally:
+        undo()
+    (lg, pg, ms_card), (lc, pc, ms_cpu) = res
+    start = {k: v.asnumpy() for k, v in init.items()}
+    diff = np.concatenate([(pg[k] - pc[k]).ravel() for k in pc])
+    upd = np.concatenate([(pc[k] - start[k]).ravel() for k in pc])
+    rel = float(np.linalg.norm(diff) / np.linalg.norm(upd))
+    for name, a, b in (("classification", lg[0], lc[0]),
+                       ("bbox", lg[1], lc[1])):
+        check(abs(a - b) <= 1e-4 * abs(b), "13a gate: %s loss %g on the "
+              "card, %g on the CPU" % (name, a, b))
+    check(rel <= 1e-2, "13a gate: the card's update differs from the CPU's "
+          "by %.3g of its norm (bound 1e-2)" % rel)
+    return {"rois": len(narrow["rois"]), "loss_card": lg, "loss_cpu": lc,
+            "update_rel_err": rel, "ms_card": ms_card, "ms_cpu": ms_cpu}
+
+
+def rcnn_main_path(torch, mx, kernels, card):
+    """13a Fast R-CNN on VGG-16 at full width through both loops, 13b the
+    same graph with a proposal_target Custom op (classic loop; the fused
+    step refuses), and roi_pool at the path's shape."""
+    scenes = rcnn_scenes(RCNN_STEPS)
+    batches = rcnn_batches(scenes)
+    sym = mx.sym.Group(vgg16_fast_rcnn(mx))
+    zero = _zero_launches(kernels)
+
+    labels = [torch.from_numpy(b["label"]).cuda() for b in batches]
+
+    def label_of(param, outs):
+        return labels[param.nbatch]
+
+    def fit(fused, after=None, init_args=None):
+        mod = rcnn_module(mx, sym, RCNN_DATA, RCNN_LABELS, batches[0],
+                          init_args)
+        it = ListIter(mx, batches, RCNN_DATA, RCNN_LABELS)
+        return mod, rcnn_fit(torch, mx, kernels, mod, it, fused,
+                             rcnn_metric(mx), label_of, after)
+
+    after3 = {}
+
+    def keep_three(param):
+        if param.nbatch == RCNN_CUSTOM_STEPS - 1:
+            after3["args"] = _host(param.locals["self"].get_params()[0])
+
+    mod, classic = fit(False, keep_three)
+    init = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+            _host(rcnn_module(mx, sym, RCNN_DATA, RCNN_LABELS, batches[0])
+                  .get_params()[0]).items()}
+    del mod
+    check(classic["launches"] == dict(zero, conv_gemm=RCNN_K3_STEP
+                                      * RCNN_STEPS, roi_pool=2 * RCNN_STEPS),
+          "13a classic launches %s, want K3 %d and roi_pool 2 a step"
+          % (classic["launches"], RCNN_K3_STEP))
+    check(all(np.isfinite(classic["losses"]).ravel()), "13a losses %s"
+          % classic["losses"])
+    for k, v in classic["args"].items():
+        check(np.array_equal(v, init[k].asnumpy()) == (k in RCNN_FIXED),
+              "13a: %s %s" % (k, "moved" if k in RCNN_FIXED else
+                              "did not change"))
+    mod, fused = fit(True)
+    step = mod._fused_step
+    counters = (step.eager_steps, step.captures, step.dispatches)
+    check(counters == (1, 1, RCNN_STEPS - 1), "13a fused counters %s"
+          % (counters,))
+    check(fused["launches"] == dict(zero, conv_gemm=2 * RCNN_K3_STEP,
+                                    roi_pool=4),
+          "13a fused launches %s (the eager step and the capture)"
+          % fused["launches"])
+    _same_fit("13a fused against classic", fused, classic)
+    it = ListIter(mx, batches, RCNN_DATA, RCNN_LABELS)
+    batch, metric = it.batch(0), rcnn_metric(mx)
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    prof = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
+                          group=_rcnn_group)
+    check(prof["launches"] == dict(
+        {k: 0 for k in kernels.LAUNCH_KERNELS}, conv_gemm=2 * RCNN_K3_STEP,
+        roi_pool=4), "13a: two profiled replays ran %s" % prof["launches"])
+    rois = torch.from_numpy(batches[0]["rois"]).cuda()
+    del mod, step, batch
+    torch.cuda.empty_cache()
+    timing = roi_pool_timing(torch, kernels, rois)
+    # K3 against float64 at the step's products no earlier phase holds
+    products = rcnn_k3_products(mx, sym)
+    new = sorted(set(products) - set(conv_gemm_shapes(mx)))
+    k3_worst, k3_cases = conv_gemm_parity(torch, kernels, new)
+    torch.cuda.empty_cache()
+    gate = rcnn_gate(torch, mx, sym, init, batches[0])
+    torch.cuda.empty_cache()
+    groups = prof["by_group_ms"]
+    img_s = lambda run: RCNN_IMAGES * 1e3 / run["step_ms"]
+    print("13a Fast R-CNN VGG-16 %dx%d, %d images, %d rois, %d classes, "
+          "f32: host step %.3f / %.3f ms (classic / fused), %.2f / %.2f "
+          "img/s, device %.3f ms a step, busy %.1f%%, peak %.3f / %.3f GB; "
+          "launches classic %s, fused %s; by group ms a step: %s  [%s]"
+          % (RCNN_HW[0], RCNN_HW[1], RCNN_IMAGES, RCNN_ROIS, RCNN_CLASSES,
+             classic["step_ms"], fused["step_ms"], img_s(classic),
+             img_s(fused), prof["device_ms_per_step"],
+             100 * prof["busy_share"], classic["peak_bytes"] / 1e9,
+             fused["peak_bytes"] / 1e9, classic["launches"],
+             fused["launches"],
+             {k: round(v, 3) for k, v in sorted(groups.items())}, card))
+    print("13a roi_pool at (2, 512, %d, %d), %d rois, 7x7: forward %.4f ms, "
+          "backward %.4f ms (kernel); plain %s; bound %.4f ms (bytes); the "
+          "reference's mask would hold %d elements  [%s]"
+          % (RCNN_HW[0] // 16, RCNN_HW[1] // 16, RCNN_ROIS, timing["fwd_ms"],
+             timing["bwd_ms"], timing.get("plain_oom") or
+             "forward %.3f ms, gradient %.3f ms" % (timing["plain_fwd_ms"],
+                                                    timing["plain_bwd_ms"]),
+             timing["bound_ms"], timing["mask_elements"], card))
+    print("13a conv_gemm parity: %d cases (%d of the step's %d distinct "
+          "products, f32 and bf16), reruns bit-identical, max abs err vs "
+          "float64 f32 %g, bf16 %g; max %.3g of sum|a||b| (bound 1e-6)"
+          % (k3_cases, len(new), len(products), k3_worst["abs_float32"],
+             k3_worst["abs_bfloat16"], k3_worst["rel"]))
+    print("13a gate, one classic step over %d rois at full width, card "
+          "against CPU: losses %s / %s (rtol 1e-4), update %.3g of its norm "
+          "(bound 1e-2); %.0f ms on the card, %.0f ms on the CPU"
+          % (gate["rois"], ["%.6f" % v for v in gate["loss_card"]],
+             ["%.6f" % v for v in gate["loss_cpu"]], gate["update_rel_err"],
+             gate["ms_card"], gate["ms_cpu"]))
+
+    # 13b: the rois from a Custom op, classic loop, 3 batches
+    _register_proposal_target(mx)
+    csym = rcnn_custom_symbol(mx)
+    names = ["data", "proposals", "gt_boxes"]
+    custom_batches = scenes[:RCNN_CUSTOM_STEPS]
+    mod = rcnn_module(mx, csym, names, [], custom_batches[0], init)
+    it = ListIter(mx, custom_batches, names, [])
+    kernels.reset_launch_counts()
+    custom = rcnn_fit(torch, mx, kernels, mod, it, False,
+                      rcnn_metric(mx, label_out=2),
+                      lambda param, outs: outs[2].handle)
+    unequal = [k for k in after3["args"]
+               if not np.array_equal(custom["args"][k], after3["args"][k])]
+    check(not unequal, "13b: params after %d batches differ from 13a's "
+          "classic loop at %s" % (RCNN_CUSTOM_STEPS, unequal[:5]))
+    check(custom["losses"] == classic["losses"][:RCNN_CUSTOM_STEPS],
+          "13b losses %s against 13a's %s" % (custom["losses"],
+                                              classic["losses"]))
+    refused = None
+    try:
+        mod.fit(ListIter(mx, custom_batches, names, []), num_epoch=1,
+                optimizer="sgd", optimizer_params=RCNN_OPT,
+                eval_metric=rcnn_metric(mx, label_out=2), fused_step=True)
+    except mx.MXNetError as e:
+        refused = str(e)
+    check(refused is not None and "proposal_target" in refused,
+          "13b: fit(fused_step=True) over a Custom node did not refuse: %s"
+          % refused)
+    del mod
+    torch.cuda.empty_cache()
+    print("13b proposal_target as a Custom op: %d batches through the "
+          "classic loop, params and losses bit-equal to 13a's, host step "
+          "%.3f ms; fused step refused: %s  [%s]"
+          % (RCNN_CUSTOM_STEPS, custom["step_ms"], refused, card))
+    return {"symbol": sym, "args": classic["args"],
+            "classic": {k: v for k, v in classic.items() if k != "args"},
+            "fused": {k: v for k, v in fused.items() if k != "args"},
+            "counters": counters, "replays_profiled": prof,
+            "roi_pool": timing, "gate": gate,
+            "k3_parity": dict(k3_worst, cases=k3_cases, products=len(new)),
+            "img_per_s_classic": img_s(classic),
+            "img_per_s_fused": img_s(fused),
+            "custom": {"step_ms": custom["step_ms"], "refused": refused,
+                       "launches": custom["launches"],
+                       "losses": custom["losses"]}}
+
+
+def lstm_ocr(mx, seq_len=OCR_T, hidden=OCR_HIDDEN, layers=OCR_LAYERS,
+             num_label=OCR_LABEL, classes=OCR_CLASSES):
+    """Upstream example/warpctc lstm_ocr's model (by default at its
+    widths): the (B, T * F) input sliced into ``seq_len`` frames,
+    ``layers`` unrolled LSTM layers of ``hidden`` (initial states as
+    data), the hidden states concatenated time-major into FC(classes),
+    WarpCTC(label_length, input_length). ``mx`` may be either package
+    (the CPU tests build the narrow model with it)."""
+    s = mx.sym
+    with mx.name.NameManager():
+        cells = [{k: s.Variable("l%d_%s" % (i, k)) for k in
+                  ("i2h_weight", "i2h_bias", "h2h_weight", "h2h_bias")}
+                 for i in range(layers)]
+        state = [(s.Variable("l%d_init_h" % i), s.Variable("l%d_init_c" % i))
+                 for i in range(layers)]
+        frames = s.SliceChannel(s.Variable("data"), num_outputs=seq_len,
+                                axis=1, name="slice")
+        hidden_all = []
+        for t in range(seq_len):
+            h = frames[t]
+            for i in range(layers):
+                p, (ph, pc) = cells[i], state[i]
+                gates = (s.FullyConnected(data=h, weight=p["i2h_weight"],
+                                          bias=p["i2h_bias"],
+                                          num_hidden=4 * hidden,
+                                          name="t%d_l%d_i2h" % (t, i))
+                         + s.FullyConnected(data=ph, weight=p["h2h_weight"],
+                                            bias=p["h2h_bias"],
+                                            num_hidden=4 * hidden,
+                                            name="t%d_l%d_h2h" % (t, i)))
+                g = s.SliceChannel(gates, num_outputs=4, axis=1,
+                                   name="t%d_l%d_slice" % (t, i))
+                c = (s.Activation(g[1], act_type="sigmoid") * pc
+                     + s.Activation(g[0], act_type="sigmoid")
+                     * s.Activation(g[2], act_type="tanh"))
+                h = s.Activation(g[3], act_type="sigmoid") * s.Activation(
+                    c, act_type="tanh")
+                state[i] = (h, c)
+            hidden_all.append(h)
+        pred = s.FullyConnected(data=s.Concat(*hidden_all, dim=0),
+                                num_hidden=classes, name="pred")
+        return s.WarpCTC(pred, s.Variable("label"), label_length=num_label,
+                         input_length=seq_len, name="ctc")
+
+
+def ocr_batches(steps, seed=0, seq_len=OCR_T, feat=OCR_FEAT, batch=OCR_BATCH,
+                hidden=OCR_HIDDEN, layers=OCR_LAYERS):
+    """toy_ctc.gen_batch's synthetic digit strings at ``feat`` features:
+    each of OCR_LABEL digits spans an equal share of the frames, one-hot
+    in feature ``digit % feat`` plus noise 0.15; labels digit + 1 (blank
+    0); zero initial states."""
+    rng = np.random.RandomState(seed)
+    span = seq_len // OCR_LABEL
+    out = []
+    for _ in range(steps):
+        data = np.zeros((batch, seq_len, feat), np.float32)
+        labels = np.zeros((batch, OCR_LABEL), np.float32)
+        for b in range(batch):
+            digits = rng.randint(0, 10, OCR_LABEL)
+            labels[b] = digits + 1
+            for i, d in enumerate(digits):
+                data[b, i * span:(i + 1) * span, d % feat] = 1.0
+        data += rng.randn(*data.shape).astype(np.float32) * 0.15
+        one = {"data": data.reshape(batch, seq_len * feat), "label": labels}
+        for i in range(layers):
+            for k in "hc":
+                one["l%d_init_%s" % (i, k)] = np.zeros((batch, hidden),
+                                                       np.float32)
+        out.append(one)
+    return out
+
+
+def ocr_metric(mx):
+    """Greedy CTC decoding (collapse repeats, drop blanks) of each
+    sequence against its (B, L) label row: the share read exactly
+    (upstream lstm_ocr's Accuracy). ``mx`` may be either package."""
+
+    class SeqAccuracy(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("seq_acc")
+
+        def update(self, labels, preds):
+            lab = labels[0].asnumpy()
+            best = preds[0].asnumpy().argmax(1).reshape(-1, len(lab))
+            for b, row in enumerate(lab):
+                seq = [c for i, c in enumerate(best[:, b])
+                       if c and (i == 0 or c != best[i - 1, b])]
+                self.sum_metric += float(seq == [int(v) for v in row if v])
+                self.num_inst += 1
+
+    return SeqAccuracy()
+
+
+def ocr_gate(torch, mx, sym, params, batch):
+    """One classic step of LSTM-OCR at full width from ``params`` with
+    13c's SGD on the card and on the CPU, held as 12a's (_lstm_gate)."""
+    names = ["data"] + OCR_INIT
+    runs, ms = [], []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        t0 = time.perf_counter()
+        mod = mx.mod.Module(sym, data_names=names, label_names=["label"],
+                            context=ctx)
+        mod.bind(data_shapes=[(n, batch[n].shape) for n in names],
+                 label_shapes=[("label", batch["label"].shape)],
+                 for_training=True)
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in params.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=OCR_OPT)
+        mod.forward_backward(ListIter(mx, [batch], names, ["label"]).batch(0))
+        mod.update()
+        runs.append((mod.get_outputs()[0].asnumpy().copy(),
+                     _host(mod.get_params()[0])))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        del mod
+    return dict(_lstm_gate("13c gate", runs, params), ms_card=ms[0],
+                ms_cpu=ms[1])
+
+
+def ocr_main_path(torch, mx, kernels, card):
+    """13c: LSTM-OCR with WarpCTC through both loops, bit-equal, one
+    capture; its NLL against torch's ctc_loss; frames a second."""
+    batches = ocr_batches(OCR_STEPS)
+    sym = lstm_ocr(mx)
+    names = ["data"] + OCR_INIT
+    zero = _zero_launches(kernels)
+
+    def fit(fused):
+        mod = mx.mod.Module(sym, data_names=names, label_names=["label"],
+                            context=mx.gpu(0))
+        mod.bind(data_shapes=[(n, batches[0][n].shape) for n in names],
+                 label_shapes=[("label", batches[0]["label"].shape)],
+                 for_training=True)
+        mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34,
+                                       seed=0))
+        start = _host(mod.get_params()[0])
+        outs, marks = [], []
+
+        def on_batch(param):
+            outs.append(param.locals["self"].get_outputs()[0].handle.clone())
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        metric = ocr_metric(mx)
+        mx.random.seed(0)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        mod.fit(ListIter(mx, batches, names, ["label"]), num_epoch=1,
+                optimizer="sgd", optimizer_params=OCR_OPT,
+                eval_metric=metric, batch_end_callback=on_batch,
+                fused_step=fused)
+        launches = kernels.launch_counts()
+        steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        return mod, {"launches": launches, "outs": outs,
+                     "step_ms": float(np.median(steps_ms)),
+                     "args": _host(mod.get_params()[0]),
+                     "metric": metric.get()[1], "start": start}
+
+    _, classic = fit(False)
+    mod, fused = fit(True)
+    step = mod._fused_step
+    counters = (step.eager_steps, step.captures, step.dispatches)
+    check(counters == (1, 1, OCR_STEPS - 1), "13c fused counters %s"
+          % (counters,))
+    check(classic["launches"] == zero and fused["launches"] == zero,
+          "13c launches %s / %s, want none" % (classic["launches"],
+                                               fused["launches"]))
+    unequal = [k for k in classic["args"]
+               if not np.array_equal(fused["args"][k], classic["args"][k])]
+    check(not unequal, "13c: params differ at %s" % unequal[:5])
+    check(all(torch.equal(a, b) for a, b in zip(fused["outs"],
+                                                classic["outs"])),
+          "13c: outputs differ between the loops")
+    check(fused["metric"] == classic["metric"], "13c metric %r against %r"
+          % (fused["metric"], classic["metric"]))
+    # the NLL of the last batch against torch's own CTC (independent)
+    from mxnet_tpu_torch.ops.ctc import ctc_neg_log_likelihood
+
+    lp = torch.log(fused["outs"][-1]).reshape(OCR_T, OCR_BATCH, -1)
+    labels = torch.from_numpy(batches[-1]["label"]).cuda()
+    ours = ctc_neg_log_likelihood(lp, labels)
+    ref = torch.nn.functional.ctc_loss(
+        lp, labels.long(), torch.full((OCR_BATCH,), OCR_T, dtype=torch.long),
+        torch.full((OCR_BATCH,), OCR_LABEL, dtype=torch.long), blank=0,
+        reduction="none")
+    nll_err = float(((ours - ref).abs() / ref.abs()).max())
+    check(nll_err <= 1e-4, "13c: NLL against torch's ctc_loss, max rel err "
+          "%g" % nll_err)
+    check(bool(torch.isfinite(ours).all()), "13c: NLL not finite")
+    gate = ocr_gate(torch, mx, sym, classic["start"], batches[0])
+    it = ListIter(mx, batches, names, ["label"])
+    batch, metric = it.batch(0), ocr_metric(mx)
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    prof = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
+                          group=_lm_group)
+    frames = lambda run: OCR_T * OCR_BATCH * 1e3 / run["step_ms"]
+    print("13c LSTM-OCR (2 x %d, T=%d, %d features, batch %d) into WarpCTC: "
+          "host step %.3f / %.3f ms (classic / fused), %.0f / %.0f frames/s, "
+          "replay device %.3f ms (union %.3f), busy %.1f%%; one capture, "
+          "bit-equal; NLL vs torch ctc_loss max rel err %.3g; mean NLL "
+          "%.4f  [%s]"
+          % (OCR_HIDDEN, OCR_T, OCR_FEAT, OCR_BATCH, classic["step_ms"],
+             fused["step_ms"], frames(classic), frames(fused),
+             prof["device_ms_per_step"], prof["device_union_ms_per_step"],
+             100 * prof["busy_union_share"], nll_err,
+             float(ours.mean()), card))
+    print("13c gate, one classic step, card against CPU: outputs %.3g "
+          "(bound %g), worst update %.3g (bound %g) normwise; %.0f ms on the "
+          "card, %.0f ms on the CPU" % (
+              gate["outputs_normwise"], LM_GATE_OUT,
+              gate["update_normwise_worst"], LM_GATE_UPDATE,
+              gate["ms_card"], gate["ms_cpu"]))
+    del mod, step
+    return {"counters": counters, "launches_classic": classic["launches"],
+            "launches_fused": fused["launches"],
+            "step_ms_classic": classic["step_ms"],
+            "step_ms_fused": fused["step_ms"],
+            "frames_per_s_classic": frames(classic),
+            "frames_per_s_fused": frames(fused), "nll_rel_err": nll_err,
+            "gate": gate,
+            "replays_profiled": prof}
+
+
+def vision_op_checks(torch, mx, kernels, card):
+    """13d: the slice's ops on the card against the port on the CPU; the
+    roi_pool kernel against its plain version over ragged rois; the
+    sample ops by distribution in both modes."""
+    rng = np.random.RandomState(21)
+    s = mx.sym
+    res = {}
+
+    def both(label, build, args, grads, rtol, atol):
+        got = _run_op(mx, build, args, grads, mx.gpu(0))
+        want = _run_op(mx, build, args, grads, mx.cpu())
+        worst = max([_close(a, b, rtol, atol) for a, b in zip(got[0],
+                                                             want[0])]
+                    + [_close(got[1][k], want[1][k], 10 * rtol, 10 * atol)
+                       for k in grads])
+        check(worst <= 0, "13d %s: card against CPU off by %g beyond rtol "
+              "%g" % (label, worst, rtol))
+        res[label] = worst
+
+    v = s.Variable
+    both("SpatialTransformer", lambda: s.SpatialTransformer(
+        v("data"), v("loc"), target_shape=(12, 15)),
+        {"data": rng.randn(2, 3, 16, 20).astype(np.float32),
+         "loc": (np.array([0.9, 0.1, 0.05, -0.1, 1.1, 0.02]) + rng.randn(
+             2, 6) * 0.05).astype(np.float32)}, ["data", "loc"], 1e-5, 1e-6)
+    # FlowNetC's correlation: displacement 20, stride2 2, pad 20
+    both("Correlation", lambda: s.Correlation(
+        v("data1"), v("data2"), kernel_size=1, max_displacement=20,
+        stride1=1, stride2=2, pad_size=20),
+        {"data1": rng.randn(2, 256, 48, 64).astype(np.float32),
+         "data2": rng.randn(2, 256, 48, 64).astype(np.float32)},
+        ["data1", "data2"], 1e-4, 1e-5)
+    both("softmax_cross_entropy", lambda: s.softmax_cross_entropy(
+        v("data"), v("label")),
+        {"data": rng.randn(16, 21).astype(np.float32),
+         "label": rng.randint(0, 21, 16).astype(np.float32)}, ["data"],
+        1e-5, 1e-6)
+    both("CTCLoss", lambda: s.CTCLoss(v("data"), v("label")),
+         {"data": rng.randn(OCR_T, OCR_BATCH, OCR_CLASSES).astype(np.float32),
+          "label": rng.randint(0, OCR_CLASSES, (OCR_BATCH, OCR_LABEL))
+          .astype(np.float32)}, ["data"], 1e-4, 1e-5)
+    # roi_pool against its plain version: ragged rois over a map with a
+    # zero plateau, a NaN and an infinity (their bins give 0, no gradient)
+    feat = torch.from_numpy(rng.randn(2, 64, 37, 62).astype(np.float32))
+    feat[0, :, :12, :20] = 0.0
+    feat[1, 3, 20, 30] = float("nan")
+    feat[0, 5, 25, 40] = float("inf")
+    rois = np.concatenate([
+        sample_rois(np.random.RandomState(3), *[
+            rcnn_scenes(1)[0][k] for k in ("proposals", "gt_boxes")])[0],
+        np.array([[0, 0, 0, 400, 250],        # over the zero plateau
+                  [1, 900, 500, 1400, 900],   # past the edge: empty bins
+                  [0, 100, 100, 104, 104],    # smaller than the 7x7 grid
+                  [1.9, 0, 0, 999, 599]], np.float32)])
+    rois_t = torch.from_numpy(rois)
+    g = torch.from_numpy(rng.randn(len(rois), 64, 7, 7).astype(np.float32))
+    args = ((7, 7), 1.0 / 16)
+    fc, rc, gc = feat.cuda(), rois_t.cuda(), g.cuda()
+    out, count = kernels.roi_pool_fwd(fc, rc, *args)
+    dx = kernels.roi_pool_bwd(fc, rc, out, count, gc, *args)
+    out2, _ = kernels.roi_pool_fwd(fc, rc, *args)
+    dx2 = kernels.roi_pool_bwd(fc, rc, out, count, gc, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, out2) and torch.equal(dx, dx2),
+          "13d roi_pool: reruns differ")
+    plain = kernels.roi_pool_plain(fc, rc, *args)
+    pdx = kernels.roi_pool_plain_grad(fc, rc, gc, *args)
+    check(torch.equal(out, plain), "13d roi_pool: forward differs from the "
+          "plain version (max abs err %g)" % float((out - plain).abs().max()))
+    err = float((dx - pdx).abs().max())
+    check(err <= 1e-6 * float(pdx.abs().max()), "13d roi_pool: gradient "
+          "max abs err %g against the plain version" % err)
+    check(float(dx[1, 3, 20, 30]) == 0 and float(dx[0, 5, 25, 40]) == 0,
+          "13d roi_pool: a NaN or an infinity took a gradient")
+    cpu_out = kernels.roi_pool(feat, rois_t, *args)
+    check(torch.equal(out.cpu(), cpu_out), "13d roi_pool: card against the "
+          "CPU's plain version")
+    res["roi_pool_grad_max_abs_err"] = err
+    res["roi_pool_ties"] = int((count > 1).sum())
+    res["roi_pool_empty_bins"] = int((count == 0).sum())
+    # the sample ops by distribution, 2^20 draws, train and inference
+    n = 1 << 20
+    for op, params, mean, var, m4 in [
+            ("uniform", dict(low=-2.0, high=3.0), 0.5, 25.0 / 12,
+             9.0 / 5 * (25.0 / 12) ** 2),
+            ("normal", dict(loc=1.5, scale=2.0), 1.5, 4.0, 3 * 16.0)]:
+        for is_train in (False, True):
+            ex = getattr(s, op)(shape=(n,), **params).bind(
+                mx.gpu(0), {}, grad_req="null")
+            x = ex.forward(is_train=is_train)[0].handle.double()
+            dm, dv = float(x.mean()) - mean, float(x.var()) - var
+            check(abs(dm) < 4 * np.sqrt(var / n)
+                  and abs(dv) < 4 * np.sqrt((m4 - var ** 2) / n),
+                  "13d %s (train %s): mean %+g, var %+g off" % (
+                      op, is_train, dm, dv))
+            res["%s_%s" % (op, "train" if is_train else "infer")] = (dm, dv)
+    print("13d ops on the card against the CPU: %s; roi_pool: forward "
+          "bit-equal to the plain version over %d ragged rois on a map with "
+          "a NaN and an infinity (%d tied bins, %d giving 0), gradient max abs err %.3g, reruns bit-identical; "
+          "sample ops within 4 sigma over 2^20 draws in both modes  [%s]"
+          % ({k: "%.3g" % v for k, v in res.items()
+              if k in ("SpatialTransformer", "Correlation",
+                       "softmax_cross_entropy", "CTCLoss")}, len(rois),
+             res["roi_pool_ties"], res["roi_pool_empty_bins"], err, card))
+    return res
+
+
+def surface_checks(torch, mx, rcnn):
+    """13e: group2ctx (gpu(0) beside cpu(0)) against a one-device bind, a
+    mem:// round trip of 13a's params, print_summary of 13a's symbol."""
+    s = mx.sym
+    with mx.name.NameManager():
+        with mx.AttrScope(ctx_group="dev1"):
+            fc1 = s.FullyConnected(s.Variable("data"), num_hidden=64,
+                                   name="fc1")
+            act1 = s.Activation(fc1, act_type="relu")
+        with mx.AttrScope(ctx_group="dev2"):
+            net = s.SoftmaxOutput(s.FullyConnected(act1, num_hidden=10,
+                                                   name="fc2"),
+                                  name="softmax")
+    rng = np.random.RandomState(4)
+    shapes, _, _ = net.infer_shape(data=(16, 32), softmax_label=(16,))
+    host = {n: (rng.randn(*sh) * 0.3).astype(np.float32)
+            for n, sh in zip(net.list_arguments(), shapes)}
+    host["softmax_label"] = rng.randint(0, 10, 16).astype(np.float32)
+    runs = []
+    for g2c in (None, {"dev1": mx.gpu(0), "dev2": mx.cpu(0)}):
+        args = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in host.items()}
+        grads = {k: mx.nd.zeros(v.shape, ctx=mx.gpu(0)) for k, v in
+                 host.items() if k != "softmax_label"}
+        ex = net.bind(mx.gpu(0), args, args_grad=grads, group2ctx=g2c)
+        ex.forward(is_train=True)
+        ex.backward()
+        runs.append((ex.outputs[0].asnumpy(),
+                     {k: g.asnumpy() for k, g in grads.items()}))
+    (o1, g1), (o2, g2) = runs
+    check(np.allclose(o2, o1, rtol=1e-5, atol=1e-7), "13e group2ctx outputs")
+    for k in g1:
+        check(np.allclose(g2[k], g1[k], rtol=1e-4, atol=1e-7),
+              "13e group2ctx gradient %s" % k)
+    params = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+              rcnn["args"].items()}
+    mx.nd.save("mem://rcnn/params.nd", params)
+    back = mx.nd.load("mem://rcnn/params.nd", ctx=mx.cpu())
+    check(sorted(back) == sorted(params) and all(
+        np.array_equal(back[k].asnumpy(), rcnn["args"][k]) for k in back),
+        "13e: the mem:// round trip changed 13a's params")
+    mx.filesystem._SCHEMES["mem"].clear()
+    summary = mx.viz.print_summary(rcnn["symbol"], {
+        "data": (RCNN_IMAGES, 3) + RCNN_HW, "rois": (RCNN_ROIS, 5)})
+    check("roi_pool5(ROIPooling)" in summary, "13e: print_summary")
+    print("13e group2ctx {dev1: gpu(0), dev2: cpu(0)} equals the one-device "
+          "bind (outputs rtol 1e-5, grads rtol 1e-4); 13a's %d params "
+          "through mem:// bit-equal" % len(params))
+    return {"params_mem_roundtrip": len(params)}
+
+
+def rcnn_ocr_main_path(torch, mx, kernels, card):
+    """Phase 13: 13a/13b Fast R-CNN, 13c LSTM-OCR, 13d op checks, 13e the
+    executor surface."""
+    rcnn = rcnn_main_path(torch, mx, kernels, card)
+    ocr = ocr_main_path(torch, mx, kernels, card)
+    ops = vision_op_checks(torch, mx, kernels, card)
+    surface = surface_checks(torch, mx, rcnn)
+    for key in ("symbol", "args"):
+        rcnn.pop(key)
+    return {"rcnn": rcnn, "ocr": ocr, "ops": ops, "surface": surface}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -4332,7 +5447,27 @@ def main():
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         model_paths[kernel].update(lm_paths[kernel])
 
-    # 13. report
+    # 13. Fast R-CNN on VGG-16 and LSTM-OCR with WarpCTC at full width, the
+    # slice's ops on the card, the executor surface
+    det = rcnn_ocr_main_path(torch, mx, kernels, card)
+    rcnn, ocr = det["rcnn"], det["ocr"]
+    det_paths = {kernel: {
+        "rcnn_classic": rcnn["classic"]["launches"][kernel],
+        "rcnn_fused": rcnn["fused"]["launches"][kernel],
+        "rcnn_custom_classic": rcnn["custom"]["launches"][kernel],
+        "ocr_classic": ocr["launches_classic"][kernel],
+        "ocr_fused": ocr["launches_fused"][kernel]}
+        for kernel in rcnn["classic"]["launches"]}
+    for kernel, count in rcnn["replays_profiled"]["launches"].items():
+        det_paths[kernel]["rcnn_fused_2_replays_profiled"] = count
+        det_paths[kernel]["ocr_fused_2_replays_profiled"] = \
+            ocr["replays_profiled"]["launches"][kernel]
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update(det_paths[kernel])
+    for kernel in ("linear", "flash_attn", "rtc"):
+        lm_paths[kernel].update(det_paths[kernel])
+
+    # 14. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -4357,7 +5492,14 @@ def main():
                   "bucketed lstm_unroll fit (18 classic steps) and the "
                   "lstm_fused fits (classic: 5 steps; fused: the eager "
                   "step and the capture; replays: two, from the kernel "
-                  "events), none of whose ops has a compiled kernel")
+                  "events), none of whose ops has a compiled kernel; "
+                  "rcnn_*: phase 13a's Fast R-CNN fits on VGG-16 at "
+                  "600x1000 (classic: 5 steps; fused: the eager step and "
+                  "the capture; replays: two, from the kernel events), "
+                  "rcnn_custom_classic: 13b's 3 classic steps with the "
+                  "rois from a Custom op; ocr_*: 13c's LSTM-OCR fits "
+                  "(classic: 5 steps; fused: the eager step and the "
+                  "capture; replays: two)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -4502,6 +5644,32 @@ def main():
                         "many; every time here is the axpy body's",
         "scope": "one push of the axpy body over %d float32 elements"
                  % RTC_N,
+    }, {
+        "name": "roi_pool", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/roi_pool.cu",
+        "replaces": "mxnet_tpu/ops/vision.py:28 (ROIPooling in XLA; no "
+                    "Pallas kernel: a port-only kernel)",
+        "launches": rcnn["classic"]["launches"]["roi_pool"],
+        "launches_by_path": dict(det_paths["roi_pool"], **{
+            k: 0 for k in model_paths["conv_gemm"] if k not in
+            det_paths["roi_pool"]}),
+        "launches_note": fused_note + "; a training step launches "
+                         "roi_pool twice (forward and backward)",
+        "max_abs_err": rcnn["roi_pool"]["bwd_max_abs_err"],
+        "forward_bit_equal": True,
+        "ms": rcnn["roi_pool"]["ms"], "plain_ms": rcnn["roi_pool"]["plain_ms"],
+        "fwd_ms": rcnn["roi_pool"]["fwd_ms"],
+        "bwd_ms": rcnn["roi_pool"]["bwd_ms"],
+        "plain_fwd_ms": rcnn["roi_pool"].get("plain_fwd_ms"),
+        "plain_bwd_ms": rcnn["roi_pool"].get("plain_bwd_ms"),
+        "plain_oom": rcnn["roi_pool"].get("plain_oom"),
+        "bound_ms": rcnn["roi_pool"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes ROIPooling",
+        "scope": "one training step's forward and backward at Fast R-CNN's "
+                 "conv5_3, (2, 512, 37, 62) f32, 128 rois, 7x7 bins; "
+                 "max_abs_err: the backward against the plain version "
+                 "(the forward is bit-equal)",
     }]
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),
@@ -4520,7 +5688,8 @@ def main():
                        "checkpoint_path": {k: v for k, v in ckpt_run.items()
                                            if k != "mod"},
                        "plane_path": plane, "models_path": models,
-                       "optim_path": optim, "lm_path": lm}, f, indent=1)
+                       "optim_path": optim, "lm_path": lm,
+                       "detection_ocr_path": det}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

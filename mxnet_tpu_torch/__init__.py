@@ -9,8 +9,14 @@
 * ``mx.random`` — the seeded random stream; ``mx.engine`` — the
   push/wait dependency engines
 * ``mx.sym`` — symbolic graphs, JSON-compatible with ``mxnet_tpu``,
-  over every registered op (the nn, tensor and sequence ops, the fused
-  RNN on cuDNN)
+  over every registered op (the nn, tensor, sequence, vision and CTC
+  ops, the fused RNN on cuDNN, ROIPooling on a hand-written kernel);
+  ``bind`` places ``ctx_group`` nodes by ``group2ctx``
+* ``mx.operator`` — Custom ops written in Python (CustomOp,
+  CustomOpProp, NumpyOp), run on the host by the classic loop
+* ``mx.viz`` — ``print_summary`` and ``plot_network``;
+  ``mx.filesystem`` — the URI schemes (``mem://``, registered ones)
+  that every save and load takes
 * ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
   classic loop, or ``fused_step=True``: one CUDA graph a batch); the
   bucketing, sequential and Python modules
@@ -50,12 +56,17 @@ from . import random
 from .name import NameManager
 from .attribute import AttrScope
 from . import ops
+from . import operator  # registers Custom before the creators are made
 from .ndarray_ops import init_ndarray_ops
 init_ndarray_ops(ndarray)
 from . import symbol
 from . import symbol as sym
 from .symbol import Symbol
 from . import executor
+from . import executor_manager
+from . import filesystem
+from . import visualization
+from . import visualization as viz
 from . import initializer
 from . import initializer as init
 from . import io

@@ -36,7 +36,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES: Dict[str, str] = {"norm_act": "norm_act.cu",
                            "conv_gemm": "conv_gemm.cu",
                            "linear": "linear.cu",
-                           "flash_attn": "flash_attn.cu"}
+                           "flash_attn": "flash_attn.cu",
+                           "roi_pool": "roi_pool.cu"}
 
 NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -67,6 +68,12 @@ _SIGNATURES = {
     "flash_attn": {
         "flash_attn_fwd": ([_P, _P, _P, _P, _LL, _LL, _LL, _LL, _PLL, _F, _I,
                             _P], _I),
+    },
+    "roi_pool": {
+        "roi_pool_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _F,
+                          _P], _I),
+        "roi_pool_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
+                          _I, _F, _P], _I),
     },
 }
 

@@ -132,7 +132,15 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 
 def atomic_ndarray_save(fname, data) -> None:
-    """Crash-safe :func:`mxnet_tpu_torch.ndarray.save`."""
+    """Crash-safe :func:`mxnet_tpu_torch.ndarray.save` for local paths. A
+    URI (``mem://``, a registered scheme) goes through its handler
+    unchanged: the handler owns atomicity there (MemFS commits a whole
+    blob on close)."""
+    from .filesystem import scheme_of
+
+    if scheme_of(fname) is not None:
+        nd.save(fname, data)
+        return
     with atomic_writer(os.fspath(fname)) as f:
         nd.save_to_stream(f, data)
 

@@ -1,6 +1,6 @@
 """The port's registry of ``MXNET_TPU_*`` environment variables (and the
-two ``MXNET_ENGINE_*`` ones the JAX package reads through
-``base.getenv``), counterpart of ``mxnet_tpu/env.py``.
+``MXNET_ENGINE_*`` and ``MXNET_COMPUTE_DTYPE`` ones the JAX package reads
+through ``base.getenv``), counterpart of ``mxnet_tpu/env.py``.
 
 Every variable the port reads is declared here once, with the JAX
 package's name, type and default, and read through :func:`get`
@@ -133,6 +133,13 @@ declare("MXNET_TPU_ENGINE_SYNC", bool, False,
         "`fused_step` too (it skips that wait by default); set when "
         "debugging to surface device errors at the step that caused "
         "them.", section=_E)
+
+declare("MXNET_COMPUTE_DTYPE", str, None,
+        "The JAX package binds executors to compute in this dtype (mixed "
+        "precision, e.g. `bfloat16`). Not ported yet: set, `bind` and "
+        "`simple_bind` raise naming ROADMAP Queue A item 14b rather than "
+        "run in float32; `compute_dtype=None` at bind overrides it.",
+        section="Executor")
 
 _IN = "Input pipeline"
 declare("MXNET_TPU_DEVICE_STAGING", bool, False,

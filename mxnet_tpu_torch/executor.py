@@ -14,6 +14,13 @@ heads (ones, or the given head gradients), writes or adds the
 gradients into ``grad_arrays``, and only then commits the BatchNorm
 moving statistics that the train forward computed, as the JAX package
 commits them in its fused forward+backward (``executor.py:515-576``).
+
+Model parallelism: bound with ``group2ctx`` (group name -> Context), a
+node whose ``ctx_group`` attribute names a group runs on that group's
+device, its inputs (and aux states) copied there; autograd copies the
+gradients back along the same edges. Outputs come back to the bound
+context. Mixed precision (``compute_dtype`` or ``MXNET_COMPUTE_DTYPE``)
+is not ported: asking for it raises instead of running in float32.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from . import env as _env
 from .base import MXNetError
 from .context import Context
 from .ndarray import NDArray
@@ -29,12 +37,14 @@ from .ops.registry import OpContext
 __all__ = ["Executor", "make_graph_eval"]
 
 
-def make_graph_eval(symbol):
+def make_graph_eval(symbol, node_device=None):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
     aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
     tensors; a dict passed as ``internals`` receives every op output as
-    ``"<node>_<output>"`` (the monitor's names). Returns ``(eval_graph,
-    n_aux)``."""
+    ``"<node>_<output>"`` (the monitor's names). ``node_device(node)``,
+    where given, names the device a node runs on (None: where its inputs
+    are); its inputs and aux states are copied there. Returns
+    ``(eval_graph, n_aux)``."""
     nodes = symbol._topo()
     var_nodes = [n for n in nodes if n.is_variable]
     op_nodes = [n for n in nodes if not n.is_variable]
@@ -55,7 +65,12 @@ def make_graph_eval(symbol):
         for n in op_nodes:
             ins = [env[src.uid][i] for src, i in n.inputs]
             slots = aux_slots.get(n.uid, ())
-            outs, new_aux = n.op.apply(octx, ins, [aux_out[s] for s in slots])
+            aux_in = [aux_out[s] for s in slots]
+            dev = node_device(n) if node_device is not None else None
+            if dev is not None:
+                ins = [x.to(dev) for x in ins]
+                aux_in = [a.to(dev) for a in aux_in]
+            outs, new_aux = n.op.apply(octx, ins, aux_in)
             for s, a in zip(slots, new_aux):
                 aux_out[s] = a
             env[n.uid] = list(outs)
@@ -83,16 +98,33 @@ def grad_req_dict(grad_req, names) -> Dict[str, str]:
     return reqs
 
 
+_UNSET = object()   # compute_dtype not passed: read MXNET_COMPUTE_DTYPE
+
+
 class Executor:
     """A symbol bound to arrays on one device. ``args_grad`` (a list in
     ``list_arguments`` order or a dict by name, entries may be missing)
     holds the gradient arrays; ``grad_req`` is ``"write"``, ``"add"`` or
     ``"null"``, as one string, a list or a dict by name. An argument
-    without a gradient array gets ``"null"``."""
+    without a gradient array gets ``"null"``. ``group2ctx`` places the
+    nodes of each ``ctx_group`` on that group's context;
+    ``shared_exec`` is accepted and, as in the JAX package, shares
+    nothing. ``compute_dtype`` (default: ``MXNET_COMPUTE_DTYPE``) other
+    than None raises: mixed precision is ROADMAP Queue A item 14b."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
                  grad_req="write", aux_states=None,
-                 seed: Optional[int] = None, label_names=None):
+                 seed: Optional[int] = None, label_names=None,
+                 group2ctx=None, shared_exec=None, compute_dtype=_UNSET):
+        if compute_dtype is _UNSET:
+            compute_dtype = _env.get("MXNET_COMPUTE_DTYPE")
+        if compute_dtype is not None:
+            raise MXNetError(
+                "compute_dtype %r (compute_dtype / MXNET_COMPUTE_DTYPE): "
+                "mixed precision is not ported yet (ROADMAP Queue A item "
+                "14b: a bfloat16 conv GEMM); pass compute_dtype=None or "
+                "unset the variable to run in float32" % (compute_dtype,))
+        self._group2ctx = dict(group2ctx or {})
         self._symbol = symbol
         self._label_names = list(label_names or [])
         self._ctx = ctx
@@ -121,7 +153,15 @@ class Executor:
         self.aux_arrays = self._to_list(aux_states or [], self.aux_names,
                                         "aux_states")
         self.aux_dict = dict(zip(self.aux_names, self.aux_arrays))
-        self._eval_graph, _ = make_graph_eval(symbol)
+        node_device = None
+        if self._group2ctx:
+            group2dev = {g: c.torch_device()
+                         for g, c in self._group2ctx.items()}
+
+            def node_device(n):
+                return group2dev.get(n.attrs.get("ctx_group"))
+        self._eval_graph, _ = make_graph_eval(symbol, node_device)
+        self._draws = self.draws_random()
         self._outputs: Optional[List[NDArray]] = None
         # the pending train forward: (heads, leaves by arg index, new aux)
         self._train = None
@@ -151,10 +191,11 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _generator(self) -> torch.Generator:
-        """The generator of the train forward's random ops (Dropout),
-        seeded with ``seed`` or, for an executor bound without one, at
-        its first use from :mod:`mxnet_tpu_torch.random`'s stream, as
-        the JAX package's executor takes its key."""
+        """The generator of the random ops (a train-mode Dropout, the
+        sample ops), seeded with ``seed`` or, for an executor bound
+        without one, at its first use from
+        :mod:`mxnet_tpu_torch.random`'s stream, as the JAX package's
+        executor takes its key."""
         if self._rng is None:
             if self._seed is None:
                 from . import random as _random
@@ -165,20 +206,29 @@ class Executor:
         return self._rng
 
     def draws_random(self) -> bool:
-        """True where a train forward draws from the executor's
-        generator (a Dropout with p > 0)."""
+        """True where a forward draws from the executor's generator (a
+        train-mode Dropout with p > 0, a sample op in either mode)."""
         return any(n.op.draws_random for n in self._symbol._topo()
                    if not n.is_variable)
 
     def run(self, arg_tensors, aux_tensors, is_train=False, internals=None):
         """Evaluate the graph on the given tensors without recording a
         graph (the fused inference step calls this with its packed
-        params)."""
-        rng = self._generator() if is_train else None
+        params). An inference forward hands the ops the generator where
+        the graph holds a random op (a sample op draws in either mode);
+        a graph that draws nothing takes no seed."""
+        rng = self._generator() if is_train or self._draws else None
         with torch.inference_mode():
             outs, _ = self._eval_graph(arg_tensors, aux_tensors, rng,
                                        is_train, internals)
-        return outs
+        return self._home(outs)
+
+    def _home(self, outs):
+        """Outputs on the bound device (a placed node may leave them on
+        its group's)."""
+        if not self._group2ctx:
+            return outs
+        return [o.to(self._device) for o in outs]
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the forward pass; ``kwargs`` update named input arrays.
@@ -200,6 +250,7 @@ class Executor:
             with torch.enable_grad():
                 outs, new_aux = self._eval_graph(
                     leaves, aux, self._generator(), True, internals)
+                outs = self._home(outs)
             self._train = (outs, leaves, new_aux)
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         for name, value in (internals or {}).items():
@@ -307,7 +358,8 @@ class Executor:
                    for shape, arr in zip(aux_shapes, self.aux_arrays)]
         return Executor(self._symbol, self._ctx, new_args, new_grads,
                         self._grad_req, new_aux, seed=self._seed,
-                        label_names=self._label_names)
+                        label_names=self._label_names,
+                        group2ctx=self._group2ctx, compute_dtype=None)
 
     def debug_str(self) -> str:
         """The graph, one node a line: name, op (``var`` for a variable)

@@ -69,8 +69,9 @@ def make_fused_step(module, eval_metric, monitor=None):
     executor), a grad_req other than ``"write"``, or an optimizer without
     a fusable update (``Optimizer._fusable``: SGLD, Test, a subclass that
     overrides ``update`` or ``update_multi``) or with
-    ``MXNET_TPU_FUSED_UPDATE=0``. A default-stat monitor rides the
-    numerics pack."""
+    ``MXNET_TPU_FUSED_UPDATE=0``, or a graph with a Custom node (a host
+    callback, which a CUDA graph cannot hold). A default-stat monitor
+    rides the numerics pack."""
     if not (module.binded and module.for_training
             and module.params_initialized and module.optimizer_initialized):
         raise MXNetError("fused train step: the module must be bound for "
@@ -98,6 +99,7 @@ def make_fused_step(module, eval_metric, monitor=None):
         raise MXNetError("fused train step: grad_req %s on %s accumulates "
                          "across batches; the step needs \"write\""
                          % (sorted({ex._grad_req[n] for n in adds}), adds))
+    _refuse_host_callbacks("fused train step", ex._symbol)
     opt = module._optimizer
     if not opt._fusable() or not _env.get("MXNET_TPU_FUSED_UPDATE"):
         raise MXNetError("fused train step: optimizer %s has no fusable "
@@ -340,12 +342,27 @@ def _views(buf, tensors):
             zip(buf.split([t.numel() for t in tensors]), tensors)]
 
 
+def _refuse_host_callbacks(what, symbol):
+    """Raise naming the graph's Custom nodes: their operators run on the
+    host between launches, which a fused step cannot hold (the JAX
+    package runs the callback inside ``jit``)."""
+    from .operator import custom_nodes
+
+    names = custom_nodes(symbol)
+    if names:
+        raise MXNetError("%s: Custom node(s) %s run their operator on the "
+                         "host, which a CUDA graph cannot hold; train them "
+                         "through the classic loop" % (what, names))
+
+
 def make_fused_infer(executor, data_names, top_k=0):
     """A :class:`FusedInfer` over a bound executor. ``data_names`` are
     the per-batch argument slots; every other argument is packed.
     ``top_k=0`` returns the raw outputs only, ``1`` adds the argmax over
     the last axis of the first output, ``>1`` its top-k values and
-    indices."""
+    indices. A graph with a Custom node raises, naming it; a sample op
+    draws from the executor's generator."""
+    _refuse_host_callbacks("fused inference step", executor._symbol)
     return FusedInfer(executor, data_names, top_k=top_k)
 
 

@@ -512,14 +512,20 @@ def load_from_stream(f, what: str = "<stream>",
 
 
 def save(fname: str, data) -> None:
-    """Save a list or str-keyed dict of NDArrays to a file."""
-    with open(fname, "wb") as f:
+    """Save a list or str-keyed dict of NDArrays to a file; ``fname`` may
+    be a URI (``mem://``, a registered scheme: :mod:`.filesystem`)."""
+    from .filesystem import open_uri
+
+    with open_uri(fname, "wb") as f:
         save_to_stream(f, data)
 
 
 def load(fname: str, ctx: Optional[Context] = None):
-    """Load NDArrays saved by :func:`save` (or by the JAX package)."""
-    with open(fname, "rb") as f:
+    """Load NDArrays saved by :func:`save` (or by the JAX package) from a
+    path or a URI."""
+    from .filesystem import open_uri
+
+    with open_uri(fname, "rb") as f:
         return load_from_stream(f, fname, ctx=ctx)
 
 

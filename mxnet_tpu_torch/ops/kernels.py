@@ -27,6 +27,10 @@ Ported so far (``csrc/``):
 * K6's launches, the runtime-compiled kernels of ``rtc.Rtc``, are
   counted here too (``rtc``).
 
+One kernel here replaces no TPU kernel: ``roi_pool`` (``roi_pool.cu``),
+ROIPooling's forward and backward, which the JAX package leaves to XLA
+as a masked max over the whole map per bin (:func:`roi_pool`).
+
 Every TPU kernel of the JAX package now has its counterpart here. K1, K2
 and K3 run on the tensor cores at float32 accuracy (three TF32 products a
 fragment, ``csrc/tf32x3.cuh``), so their results keep the float32
@@ -48,7 +52,9 @@ __all__ = ["fused_norm_act", "fused_norm_act_plain", "fused_norm_act_bwd",
            "fused_norm_act_bwd_plain", "matmul_f32acc", "matmul_f32acc_plain",
            "conv_dgrad", "conv_wgrad", "conv2d", "fused_linear",
            "fused_linear_plain", "flash_attention", "flash_attention_plain",
-           "reference_attention", "FLASH_MAX_D", "reset_launch_counts",
+           "reference_attention", "FLASH_MAX_D", "roi_pool", "roi_pool_plain",
+           "roi_pool_plain_grad", "roi_pool_fwd", "roi_pool_bwd",
+           "reset_launch_counts",
            "launch_counts", "LAUNCH_KERNELS", "launches_in"]
 
 #: kernel launches since the last reset, one per wrapper call that
@@ -59,6 +65,7 @@ conv_gemm_launches = 0
 linear_launches = 0
 flash_attn_launches = 0
 rtc_launches = 0
+roi_pool_launches = 0
 _count_lock = threading.Lock()
 
 _ACTS = {"none": 0, "relu": 1}
@@ -76,12 +83,14 @@ def launch_counts() -> dict:
             "conv_gemm": conv_gemm_launches,
             "linear": linear_launches,
             "flash_attn": flash_attn_launches,
-            "rtc": rtc_launches}
+            "rtc": rtc_launches,
+            "roi_pool": roi_pool_launches}
 
 
 def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
     global linear_launches, flash_attn_launches, rtc_launches
+    global roi_pool_launches
     with _count_lock:
         norm_act_fwd_launches = 0
         norm_act_bwd_launches = 0
@@ -89,6 +98,7 @@ def reset_launch_counts() -> None:
         linear_launches = 0
         flash_attn_launches = 0
         rtc_launches = 0
+        roi_pool_launches = 0
 
 
 def _count(name: str) -> None:
@@ -106,7 +116,8 @@ LAUNCH_KERNELS = {"norm_act_fwd": ("norm_act_vec_kernel",
                   "norm_act_bwd": ("norm_act_bwd_partial_kernel",),
                   "conv_gemm": ("conv_gemm_kernel",),
                   "linear": ("linear_kernel",),
-                  "flash_attn": ("flash_attn_kernel",)}
+                  "flash_attn": ("flash_attn_kernel",),
+                  "roi_pool": ("roi_pool_fwd_kernel", "roi_pool_bwd_kernel")}
 _LAUNCH_RE = {wrapper: re.compile(r"\b(%s)[<(]" % "|".join(names))
               for wrapper, names in LAUNCH_KERNELS.items()}
 
@@ -693,3 +704,205 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "kernel's 1..%d" % (d, FLASH_MAX_D))
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     return _Flash.apply(q, k, v, bool(causal), scale)
+
+
+# ---------------------------------------------------------------------------
+# roi_pool: ROIPooling's max over bins, a port-only kernel (the JAX package
+# computes it in XLA, mxnet_tpu/ops/vision.py:28)
+# ---------------------------------------------------------------------------
+#: elements of the (rois, C, ph, pw, H, W) masked tensor one chunk of the
+#: plain version builds (1 GiB in float32)
+ROI_PLAIN_CHUNK_ELEMS = 1 << 28
+
+
+def _f32(value, device) -> torch.Tensor:
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
+def _roi_geometry(rois, n, h, w, pooled_size, spatial_scale):
+    """Per roi: the image index (truncated toward zero, negative from the
+    end, clamped, as a JAX gather indexes) and the bins' row and column
+    ranges ``[start, end)``, float32 with the reference's rounding
+    (``vision.py:62-76``): (R,), (R, ph) x 2, (R, pw) x 2."""
+    ph, pw = pooled_size
+    r = rois.float()
+    b = r[:, 0].to(torch.int32)
+    b = torch.where(b < 0, b + n, b).clamp(0, n - 1).long()
+    x1, y1, x2, y2 = (torch.round(r[:, k] * spatial_scale) for k in (1, 2, 3, 4))
+    # divide by tensors: torch's CUDA division by a Python number multiplies
+    # by its reciprocal, which can round differently from the reference's
+    # (and the kernel's) division and move a bin edge
+    bin_h = torch.clamp(y2 - y1 + 1.0, min=1.0) / _f32(ph, r.device)
+    bin_w = torch.clamp(x2 - x1 + 1.0, min=1.0) / _f32(pw, r.device)
+    iy = torch.arange(ph, dtype=torch.float32, device=r.device)
+    ix = torch.arange(pw, dtype=torch.float32, device=r.device)
+    ys = torch.floor(y1[:, None] + iy * bin_h[:, None]).clamp(0, h)
+    ye = torch.ceil(y1[:, None] + (iy + 1) * bin_h[:, None]).clamp(0, h)
+    xs = torch.floor(x1[:, None] + ix * bin_w[:, None]).clamp(0, w)
+    xe = torch.ceil(x1[:, None] + (ix + 1) * bin_w[:, None]).clamp(0, w)
+    return b, ys, ye, xs, xe
+
+
+def _roi_chunk(data, geom, lo, hi):
+    """The reference's masked max for rois ``lo:hi``: every bin masks the
+    whole map, ``torch.amax`` over (H, W) jointly (its VJP splits a tie
+    equally over the tied positions, as JAX's max does), an empty or
+    non-finite bin gives 0 and takes no gradient. A NaN is its bin's max
+    under JAX's max, so a bin that holds one gives 0: the max runs over
+    the map with its NaNs at -inf (amax's VJP would spread 0/0 over a
+    NaN bin) and such bins are zeroed after."""
+    b, ys, ye, xs, xe = (t[lo:hi] for t in geom)
+    h, w = data.shape[2], data.shape[3]
+    rows = torch.arange(h, dtype=torch.float32, device=data.device)
+    cols = torch.arange(w, dtype=torch.float32, device=data.device)
+    row_mask = (rows >= ys[..., None]) & (rows < ye[..., None])  # (r, ph, H)
+    col_mask = (cols >= xs[..., None]) & (cols < xe[..., None])  # (r, pw, W)
+    mask = row_mask[:, :, None, :, None] & col_mask[:, None, :, None, :]
+    # index_select: its backward (index_add_) sums in a fixed order on the
+    # CPU, where indexing's accumulating backward does not
+    img = torch.index_select(data, 0, b)                         # (r, C, H, W)
+    neg = torch.tensor(-math.inf, dtype=data.dtype, device=data.device)
+    nan = torch.isnan(img)
+    masked = torch.where(mask[:, None], torch.where(nan, neg, img)[
+        :, :, None, None], neg)
+    pooled = torch.amax(masked, dim=(-2, -1))                    # (r, C, ph, pw)
+    # NaNs a bin holds: exact counts, as two small products over the masks
+    nans = torch.einsum("rchw,rih,rjw->rcij", nan.to(data.dtype),
+                        row_mask.to(data.dtype), col_mask.to(data.dtype))
+    return torch.where(torch.isfinite(pooled) & (nans == 0), pooled,
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def _roi_chunk_rows(data, pooled_size):
+    c, h, w = data.shape[1:]
+    return max(1, ROI_PLAIN_CHUNK_ELEMS // max(1, c * pooled_size[0]
+                                               * pooled_size[1] * h * w))
+
+
+def roi_pool_plain(data: torch.Tensor, rois: torch.Tensor, pooled_size,
+                   spatial_scale: float) -> torch.Tensor:
+    """ROIPooling as the reference computes it (``vision.py:52-89``): the
+    masked max over the whole map for each bin, in chunks of rois so that
+    a chunk's mask stays under :data:`ROI_PLAIN_CHUNK_ELEMS` elements.
+    Differentiable through autograd (which keeps every chunk's masked
+    tensor: the CPU tests' sizes); :func:`roi_pool_plain_grad` is the
+    bounded-memory gradient."""
+    n, _, h, w = data.shape
+    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale)
+    step = _roi_chunk_rows(data, pooled_size)
+    parts = [_roi_chunk(data, geom, lo, lo + step)
+             for lo in range(0, rois.shape[0], step)]
+    if not parts:
+        return data.new_zeros((0, data.shape[1]) + tuple(pooled_size))
+    return torch.cat(parts)
+
+
+def roi_pool_plain_grad(data: torch.Tensor, rois: torch.Tensor, g,
+                        pooled_size, spatial_scale: float) -> torch.Tensor:
+    """The gradient of :func:`roi_pool_plain` into ``data`` for the
+    cotangent ``g``, one chunk of rois at a time (each chunk's graph is
+    freed before the next), summed over the chunks in order."""
+    n, _, h, w = data.shape
+    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale)
+    step = _roi_chunk_rows(data, pooled_size)
+    dx = torch.zeros_like(data)
+    for lo in range(0, rois.shape[0], step):
+        with torch.enable_grad():
+            d = data.detach().requires_grad_()
+            out = _roi_chunk(d, geom, lo, lo + step)
+            dx += torch.autograd.grad(out, d, g[lo:lo + step])[0]
+    return dx
+
+
+def _roi_args(data, rois, pooled_size, spatial_scale):
+    n, c, h, w = data.shape
+    return (n, c, h, w, rois.shape[0], int(pooled_size[0]),
+            int(pooled_size[1]), ctypes.c_float(spatial_scale))
+
+
+def _check_roi_cuda(fn, *tensors):
+    _check_cuda(fn, *tensors)
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise MXNetError("%s: float32 tensors only, got %s" % (fn, t.dtype))
+
+
+def roi_pool_fwd(data, rois, pooled_size, spatial_scale):
+    """Launch ``roi_pool``'s forward on CUDA tensors: ``(out, count)``,
+    the bins' maxima (R, C, ph, pw) and the count of positions tied for
+    each (int32, 0 for a bin that gives 0)."""
+    _check_roi_cuda("roi_pool", data, rois)
+    ph, pw = pooled_size
+    out = torch.empty((rois.shape[0], data.shape[1], ph, pw),
+                      dtype=torch.float32, device=data.device)
+    count = torch.empty(out.shape, dtype=torch.int32, device=data.device)
+    from .. import _build
+
+    lib = _build.load("roi_pool")
+    with torch.cuda.device(data.device):
+        rc = lib.roi_pool_fwd(data.data_ptr(), rois.data_ptr(),
+                              out.data_ptr(), count.data_ptr(),
+                              *_roi_args(data, rois, pooled_size,
+                                         spatial_scale), _stream(data))
+    if rc != 0:
+        raise MXNetError("roi_pool_fwd launch failed: CUDA error %d" % rc)
+    _count("roi_pool_launches")
+    return out, count
+
+
+def roi_pool_bwd(data, rois, out, count, g, pooled_size, spatial_scale):
+    """Launch ``roi_pool``'s backward on CUDA tensors: the gradient into
+    ``data``, ``g / count`` to each position tied for its bin's max,
+    summed in one fixed order (no atomics)."""
+    _check_roi_cuda("roi_pool", data, rois, out, g)
+    _check_cuda("roi_pool", count)
+    dx = torch.empty_like(data)
+    from .. import _build
+
+    lib = _build.load("roi_pool")
+    with torch.cuda.device(data.device):
+        rc = lib.roi_pool_bwd(data.data_ptr(), rois.data_ptr(),
+                              out.data_ptr(), count.data_ptr(), g.data_ptr(),
+                              dx.data_ptr(),
+                              *_roi_args(data, rois, pooled_size,
+                                         spatial_scale), _stream(data))
+    if rc != 0:
+        raise MXNetError("roi_pool_bwd launch failed: CUDA error %d" % rc)
+    _count("roi_pool_launches")
+    return dx
+
+
+class _ROIPool(torch.autograd.Function):
+    """Forward and backward through ``roi_pool``'s two kernels; the rois
+    take no gradient (the reference rounds them)."""
+
+    @staticmethod
+    def forward(ctx, data, rois, pooled_size, spatial_scale):
+        out, count = roi_pool_fwd(data, rois, pooled_size, spatial_scale)
+        ctx.geom = (pooled_size, spatial_scale)
+        ctx.save_for_backward(data, rois, out, count)
+        ctx.mark_non_differentiable(count)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, rois, out, count = ctx.saved_tensors
+        dx = roi_pool_bwd(data, rois, out, count, g.contiguous(), *ctx.geom)
+        return dx, None, None, None
+
+
+def roi_pool(data: torch.Tensor, rois: torch.Tensor, pooled_size,
+             spatial_scale: float) -> torch.Tensor:
+    """ROIPooling of NCHW ``data`` over (R, 5) ``rois`` ``[batch_index,
+    x1, y1, x2, y2]`` to (R, C, ph, pw), differentiable in ``data``.
+
+    On CUDA tensors (float32, contiguous) the forward and the backward
+    each launch one ``roi_pool`` kernel, or raise; on CPU tensors:
+    :func:`roi_pool_plain` through autograd."""
+    pooled_size = (int(pooled_size[0]), int(pooled_size[1]))
+    if data.dim() != 4 or rois.dim() != 2 or rois.shape[1] != 5:
+        raise MXNetError("roi_pool: data must be NCHW and rois (R, 5), got "
+                         "%s and %s" % (tuple(data.shape), tuple(rois.shape)))
+    if data.device.type == "cpu" and rois.device.type == "cpu":
+        return roi_pool_plain(data, rois, pooled_size, spatial_scale)
+    return _ROIPool.apply(data, rois, pooled_size, float(spatial_scale))

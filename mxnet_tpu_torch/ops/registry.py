@@ -56,7 +56,8 @@ class Param:
 
 class OpContext:
     """Per-invocation context handed to ``apply``: the training-mode flag
-    and a ``torch.Generator`` for random ops (None at inference)."""
+    and the ``torch.Generator`` of the random ops (None where the graph
+    draws nothing)."""
 
     __slots__ = ("is_train", "rng")
 
@@ -109,7 +110,8 @@ class Operator:
 
     @property
     def draws_random(self) -> bool:
-        """True where a train-mode ``apply`` draws from ``OpContext.rng``."""
+        """True where ``apply`` draws from ``OpContext.rng``: in train mode
+        (Dropout), or in either mode (the sample ops)."""
         return False
 
     def infer_shape(self, in_shapes: List[Optional[Tuple[int, ...]]]):

@@ -5,13 +5,12 @@ pad-to-4``, little-endian; the upper 3 bits of ``lrecord`` are the
 continuation flag), an indexed variant with a ``key\\toffset`` text
 index, and the image-record header that ``ImageRecordIter`` reads
 (label and ids ahead of the payload). The bytes on disk are the JAX
-package's, both ways. Local paths only: the JAX package's URI schemes
-(``mem://`` and registered filesystems) are not ported. PIL is imported
+package's, both ways. A file may be a local path or a URI of
+:mod:`.filesystem` (``mem://``, a registered scheme). PIL is imported
 by :func:`pack_img` and :func:`unpack_img` alone.
 """
 from __future__ import annotations
 
-import os
 import struct
 from collections import namedtuple
 from typing import Optional
@@ -19,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from .base import MXNetError
+from .filesystem import exists, open_uri
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
            "pack_img", "unpack_img"]
@@ -43,7 +43,7 @@ class MXRecordIO:
         if self.flag not in ("r", "w"):
             raise MXNetError("invalid flag %s" % self.flag)
         self.writable = self.flag == "w"
-        self.fp = open(self.uri, "wb" if self.writable else "rb")
+        self.fp = open_uri(self.uri, "wb" if self.writable else "rb")
 
     def close(self):
         if self.fp is not None:
@@ -106,8 +106,8 @@ class MXIndexedRecordIO(MXRecordIO):
         self.keys = []
         self.key_type = key_type
         super().__init__(uri, flag)
-        if not self.writable and os.path.exists(idx_path):
-            with open(idx_path, "rb") as fin:
+        if not self.writable and exists(idx_path):
+            with open_uri(idx_path, "rb") as fin:
                 for line in fin.read().decode().splitlines():
                     if not line.strip():
                         continue
@@ -120,7 +120,7 @@ class MXIndexedRecordIO(MXRecordIO):
         # the records first: a failing index write must not lose them
         super().close()
         if self.writable and self.idx:
-            with open(self.idx_path, "wb") as fout:
+            with open_uri(self.idx_path, "wb") as fout:
                 for key in self.keys:
                     fout.write(("%s\t%d\n" % (key, self.idx[key])).encode())
 

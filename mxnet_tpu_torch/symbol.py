@@ -425,9 +425,12 @@ class Symbol:
                            "heads": heads}, indent=2)
 
     def save(self, fname: str) -> None:
-        """Write :meth:`tojson` to ``fname`` (UTF-8), as the JAX package's
+        """Write :meth:`tojson` to ``fname`` (UTF-8; a path or a URI of
+        :mod:`mxnet_tpu_torch.filesystem`), as the JAX package's
         ``Symbol.save`` does; either package's :func:`load` reads it."""
-        with open(fname, "wb") as f:
+        from .filesystem import open_uri
+
+        with open_uri(fname, "wb") as f:
             f.write(self.tojson().encode("utf-8"))
 
     # -- binding -----------------------------------------------------------
@@ -436,11 +439,14 @@ class Symbol:
         (the optimizer reads ``__lr_mult__``/``__wd_mult__`` here)."""
         return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
-        """Infer shapes, allocate zero arrays on ``ctx`` (and a gradient
-        array for every argument whose ``grad_req`` is not ``"null"``)
-        and bind. Dtypes come from :meth:`infer_type` seeded with
-        ``type_dict``: float32 unless propagation gives another."""
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
+        """Infer shapes (``kwargs``: name -> shape), allocate zero arrays on
+        ``ctx`` (and a gradient array for every argument whose
+        ``grad_req`` is not ``"null"``) and bind, with ``group2ctx`` and
+        ``shared_exec`` as :meth:`bind` takes them. Dtypes come from
+        :meth:`infer_type` seeded with ``type_dict``: float32 unless
+        propagation gives another."""
         from . import ndarray as nd
         from .executor import grad_req_dict
 
@@ -455,16 +461,23 @@ class Symbol:
                  if reqs[n] != "null"}
         aux = [nd.zeros(s, ctx=ctx, dtype=t)
                for s, t in zip(aux_shapes, aux_dtypes)]
-        return self.bind(ctx, args, grads, grad_req=grad_req, aux_states=aux)
+        return self.bind(ctx, args, grads, grad_req=grad_req, aux_states=aux,
+                         group2ctx=group2ctx, shared_exec=shared_exec)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None, **kwargs):
         """Bind arrays (a list in ``list_arguments`` order, or a dict by
         name) to this graph on ``ctx``; ``args_grad`` receives the
-        gradients of ``backward`` by ``grad_req``."""
+        gradients of ``backward`` by ``grad_req``. ``group2ctx`` (group
+        name -> Context) runs each node of a ``ctx_group`` on its group's
+        context; ``shared_exec`` is accepted; ``kwargs`` go to the
+        :class:`~mxnet_tpu_torch.executor.Executor` (``compute_dtype``,
+        ``label_names``, ``seed``)."""
         from .executor import Executor
 
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec,
+                        **kwargs)
 
     def eval(self, ctx=None, **kwargs):
         """Bind to the NDArrays given by name (on ``ctx``, the current
@@ -498,6 +511,11 @@ class _GradOp(Operator):
 
     def list_auxiliary_states(self):
         return self._base.list_auxiliary_states()
+
+    @property
+    def draws_random(self) -> bool:
+        return any(n.op.draws_random for n in self._base._topo()
+                   if not n.is_variable)
 
     def infer_shape(self, in_shapes):
         known = {n: s for n, s in zip(self._arg_names, in_shapes)
@@ -588,8 +606,11 @@ def load_json(json_str: str) -> Symbol:
 
 
 def load(fname: str) -> Symbol:
-    """A symbol from a JSON file that either package's ``save`` wrote."""
-    with open(fname, "rb") as f:
+    """A symbol from a JSON file (a path or a URI) that either package's
+    ``save`` wrote."""
+    from .filesystem import open_uri
+
+    with open_uri(fname, "rb") as f:
         return load_json(f.read().decode("utf-8"))
 
 

@@ -2,12 +2,29 @@
 tests). Inputs are numpy arrays from seeded RandomStates; each graph runs
 through the JAX package (on the CPU, Pallas kernels in interpret mode)
 and through its port in ``mxnet_tpu_torch`` with ``ctx=cpu()``."""
+import importlib.util
+import os
+
 import numpy as np
 import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu.models  # noqa: F401  (jmx.models)
 import mxnet_tpu_torch as tmx
+
+
+def _load_chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: chip_smoke.py as a module: the tests build narrow versions of its
+#: models and feed them with its iterators (one copy of each builder)
+chip_smoke = _load_chip_smoke()
 
 
 def bf16_round(x: np.ndarray) -> np.ndarray:

@@ -6,6 +6,7 @@ package, so it also runs where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -235,7 +236,7 @@ def test_small_resnet_training_step_on_card_matches_cpu(card):
     # 17 convolutions, each followed by a BatchNorm; the stem needs no dgrad
     assert res[0][2] == {"norm_act_fwd": 17, "norm_act_bwd": 17,
                          "conv_gemm": 33, "linear": 0, "flash_attn": 0,
-                         "rtc": 0}
+                         "rtc": 0, "roi_pool": 0}
     np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-4)
     for k in res[1][1]:
         np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=1e-3,
@@ -507,7 +508,8 @@ def _small_resnet_fit(x, y, fused_step, mod=None,
 
 
 _SMALL_RESNET_STEP = {"norm_act_fwd": 17, "norm_act_bwd": 17,
-                      "conv_gemm": 33, "linear": 0, "flash_attn": 0}
+                      "conv_gemm": 33, "linear": 0, "flash_attn": 0,
+                      "roi_pool": 0}
 
 
 def _steps(n, rtc=None):
@@ -962,3 +964,60 @@ def test_regression_head_folds_its_metric_in_the_graph(card):
             np.mean([np.abs(e).mean() for e in errs]),
             np.mean([np.sqrt((e ** 2).mean()) for e in errs])]
     np.testing.assert_allclose(metric.get()[1], want, rtol=1e-6)
+
+
+# -- roi_pool: ROIPooling's port-only kernel --------------------------------
+def _roi_case(card, seed=5):
+    """Fast R-CNN's conv5_3 shape at half the channels, a zero plateau,
+    and ragged rois: inside, past the edge (empty bins), smaller than the
+    bin grid, a fractional image index; a NaN and an infinity in the map
+    (their bins give 0 and take no gradient)."""
+    gen = torch.Generator().manual_seed(seed)
+    feat = torch.relu(torch.randn(2, 256, 37, 62, generator=gen))
+    feat[0, :, :12, :20] = 0.0
+    feat[1, 3, 20, 30] = math.nan
+    feat[0, 5, 25, 40] = math.inf
+    x1 = torch.randint(0, 800, (60,), generator=gen).float()
+    y1 = torch.randint(0, 450, (60,), generator=gen).float()
+    rois = torch.stack([torch.arange(60.0) % 2, x1, y1,
+                        x1 + torch.randint(8, 400, (60,), generator=gen),
+                        y1 + torch.randint(8, 300, (60,), generator=gen)], 1)
+    rois = torch.cat([rois, torch.tensor([[0, 0, 0, 400, 250],
+                                          [1, 900, 500, 1400, 900],
+                                          [0, 100, 100, 104, 104],
+                                          [1.9, 0, 0, 999, 599]])])
+    g = torch.randn(len(rois), 256, 7, 7, generator=gen)
+    return feat, rois, g
+
+
+def test_roi_pool_matches_plain(card):
+    """Forward bit-equal to the plain version (the reference's masked max),
+    the gradient within 1e-6 of its largest element (the sums run in
+    another order), reruns bit-identical, one launch each way."""
+    feat, rois, g = _roi_case(card)
+    fc, rc, gc = feat.to(card), rois.to(card), g.to(card)
+    d = fc.clone().requires_grad_()
+    before = kernels.roi_pool_launches
+    out = kernels.roi_pool(d, rc, (7, 7), 1.0 / 16)
+    dx, = torch.autograd.grad(out, d, gc)
+    assert kernels.roi_pool_launches == before + 2
+    again, count = kernels.roi_pool_fwd(fc, rc, (7, 7), 1.0 / 16)
+    dx2 = kernels.roi_pool_bwd(fc, rc, again, count, gc, (7, 7), 1.0 / 16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(dx, dx2)
+    plain = kernels.roi_pool_plain(fc, rc, (7, 7), 1.0 / 16)
+    assert torch.equal(out, plain)
+    pdx = kernels.roi_pool_plain_grad(fc, rc, gc, (7, 7), 1.0 / 16)
+    assert float((dx - pdx).abs().max()) <= 1e-6 * float(pdx.abs().max())
+    assert int((count > 1).sum()) > 0 and int((count == 0).sum()) > 0
+    assert bool(torch.isfinite(dx).all())
+    assert float(dx[1, 3, 20, 30]) == 0.0 and float(dx[0, 5, 25, 40]) == 0.0
+    assert torch.equal(out.cpu(), kernels.roi_pool(feat, rois, (7, 7),
+                                                   1.0 / 16))
+
+
+def test_roi_pool_refuses_float64(card):
+    x = torch.zeros((1, 1, 4, 4), dtype=torch.float64, device=card)
+    with pytest.raises(tmx.MXNetError, match="float32"):
+        kernels.roi_pool(x, torch.zeros((1, 5), dtype=torch.float64,
+                                        device=card), (1, 1), 1.0)

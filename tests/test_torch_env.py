@@ -33,7 +33,8 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
 # read by the JAX package through base.getenv(name, default), outside its
 # registry: (name, the default it passes)
 PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),
-              ("MXNET_ENGINE_INFO", False)]
+              ("MXNET_ENGINE_INFO", False),
+              ("MXNET_COMPUTE_DTYPE", None)]
 
 
 def test_the_port_declares_the_variables_it_reads():
@@ -47,7 +48,9 @@ def test_plain_variable_matches_the_reference_getenv(name, default,
     from mxnet_tpu.base import getenv
 
     mine = tenv.var(name)
-    assert (mine.type, mine.default) == (type(default), default)
+    # a None default reads the raw string, as getenv returns it
+    assert (mine.type, mine.default) == (
+        str if default is None else type(default), default)
     monkeypatch.delenv(name, raising=False)
     assert tenv.get(name) == getenv(name, default)
     monkeypatch.setenv(name, {bool: "1", str: "NaiveEngine"}[mine.type])

@@ -97,9 +97,11 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     tk.fused_linear(x, x, act="tanh")
     q = x.reshape(1, 16, 1, 8)
     tk.flash_attention(q, q, q, causal=True)
+    tk.roi_pool(x.reshape(2, 1, 8, 8), torch.tensor([[0, 0, 0, 7, 7.0]]),
+                (2, 2), 1.0)
     assert tk.launch_counts() == {"norm_act_fwd": 0, "norm_act_bwd": 0,
                                   "conv_gemm": 0, "linear": 0,
-                                  "flash_attn": 0, "rtc": 0}
+                                  "flash_attn": 0, "rtc": 0, "roi_pool": 0}
 
 
 def _bn_pair(dtype_j, dtype_t, shape, monkeypatch):

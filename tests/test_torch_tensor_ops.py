@@ -394,13 +394,9 @@ def test_argmax_channel_and_cast_have_no_float_gradient():
     assert not got[1]["data"].any()
 
 
-# the reference names the port does not register yet: ROADMAP.md Queue A
-# item 7c (vision, ctc, Custom) and the Caffe plugin of item 13; a later
-# slice may only shrink this set
-NOT_YET_PORTED = {
-    "correlation", "roipooling", "spatialtransformer", "_sample_normal",
-    "normal", "_sample_uniform", "uniform", "softmax_cross_entropy",
-    "warpctc", "ctcloss", "ctc_loss", "custom", "caffeop", "caffeloss"}
+# the reference names the port does not register yet: the Caffe plugin
+# of ROADMAP.md Queue A item 13; a later slice may only shrink this set
+NOT_YET_PORTED = {"caffeop", "caffeloss"}
 
 
 def test_registry_resolves_every_reference_name_but_the_remainder():
