@@ -10,12 +10,12 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every hand-written kernel from mxnet_tpu_torch/csrc, one nvcc
    per source, all at once; the K3, K1 and K2 libraries must hold TF32
    tensor-core MMA instructions (HMMA with TF32 operands in cuobjdump
-   -sass).
+   -sass), and K3's bf16 and f16 ones too (its 16-bit mainloop).
 3. kernel parity on the card, at the shapes the main paths give each
    kernel plus ragged ones: K4 (norm_act_fwd) and K5 (norm_act_bwd)
-   against their plain PyTorch versions, K3 (conv_gemm) against a
-   float64 product of the same operands; reruns of K3 and K5 must be
-   bit-identical.
+   against their plain PyTorch versions (f32, bf16, and f16 bit-equal),
+   K3 (conv_gemm) against a float64 product of the same operands (f32,
+   bf16 and f16 operands); reruns of K3 and K5 must be bit-identical.
    K2 (flash_attn) against its plain version (reference attention,
    mask -1e30) at the demo shape of examples/long_context, each head
    width the kernel instantiates and ragged T and D, reruns
@@ -232,7 +232,38 @@ Phases, in order; any failure exits non-zero before the last line:
    inference. (e) group2ctx with gpu(0) beside cpu(0) against a
    one-device bind, 13a's params through mem://, print_summary of
    13a's graph.
-14. report: one JSON line of kernel records, the card line, then
+14. mixed precision and the adaptive serving plane. (a) K3 over the
+   step's 105 products with bf16 and with f16 operands, timed beside
+   the plain version, the one-call yardstick (torch.mm with a float32
+   result where this torch has it, else torch.matmul in the 16-bit type)
+   and the bound (989 TFLOP/s or 3.35 TB/s). (c) phase 6's fit under
+   compute_dtype bfloat16: the classic loop, then fit(fused_step=True)
+   from the same weights: one capture; params, moving statistics,
+   losses and the metric bit-equal; params, gradients and aux float32;
+   K3 105, K4 53 and K5 53 a step, every one with bf16 operands (the
+   launch records, and the kernel events of two profiled replays by
+   their template instantiation); every param changed, losses finite;
+   host step ms, img/s, peak memory and the breakdown by group beside
+   phase 6's f32 numbers; one classic bf16 step at batch 2 on the card
+   against the CPU (loss within rtol 1e-2; the whole update within twice
+   the CPU's own bf16-to-f32 distance, normwise); 3 float16 steps, fused bit-equal to classic. (d) the
+   trained bf16 model behind InferenceServer (ladder 1-32, adaptive,
+   SLO 50 ms): seeded open-loop Poisson arrivals from two client threads,
+   an interactive lane (1-4 rows, deadline 50 ms) and a batch lane (16
+   rows, deadline 200 ms), 5 s at 800 img/s then 2 s at 3000 img/s;
+   served probabilities against a direct bf16 forward of the same rows
+   (2e-2) and the f32 server (5e-2), argmax equal where the top-2
+   log-probability margin exceeds 0.1; no interactive request shed while
+   an expired batch-lane request is pending; ladder shapes only, one
+   dispatch a batch, K4 53 a batch in bf16; refresh_from_snapshot of a
+   snapshot with one changed param copies that param alone into the
+   served pack, in place; p50/p99 by lane, img/s, served and shed by
+   lane, dispatch reasons, mean occupancy and the controller state. The
+   trained model's outputs are one-hot to float32, so the probabilities
+   are held again on phase 5's seeded weights, requests of 1-32 rows
+   through a bf16 server against a direct bf16 forward (0.1 of the
+   largest probability) and an f32 server (0.25 of it).
+15. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -351,10 +382,10 @@ def norm_act_fwd_parity(torch, kernels, shapes):
     dtype and act; a nonzero offset starts x that many elements into
     its buffer, off the 16-byte alignment the vector path needs."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     cases = 0
     for rows, c, offset in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             base = (torch.randn(rows * c + offset, generator=gen,
                                 device="cuda") * 2.0 + 0.5).to(dtype)
             x = base[offset:].view(rows, c)
@@ -369,6 +400,8 @@ def norm_act_fwd_parity(torch, kernels, shapes):
                 mag = want.double().abs()
                 if dtype == torch.float32:
                     bound = 1e-6 * torch.clamp(mag, min=1.0)
+                elif dtype == torch.float16:
+                    bound = torch.zeros_like(mag)   # bit-equal
                 else:
                     bound = _bf16_ulp(torch, want)
                 bad = int((diff > bound).sum())
@@ -376,7 +409,7 @@ def norm_act_fwd_parity(torch, kernels, shapes):
                       "norm_act_fwd %s %s act=%s: %d values off (max "
                       "diff %g)" % ((rows, c, offset), dtype, act, bad,
                                     float(diff.max())))
-                name = "float32" if dtype == torch.float32 else "bfloat16"
+                name = str(dtype).replace("torch.", "")
                 worst[name] = max(worst[name], float(diff.max()))
                 cases += 1
     return worst, cases
@@ -444,11 +477,11 @@ def norm_act_bwd_parity(torch, kernels, shapes):
     within one ulp; dscale/dshift within 1e-5 * sum|term| of a float64
     sum; a rerun bit-identical."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {"dx_float32": 0.0, "dx_bfloat16": 0.0, "sums_abs": 0.0,
-             "sums_rel": 0.0}
+    worst = {"dx_float32": 0.0, "dx_bfloat16": 0.0, "dx_float16": 0.0,
+             "sums_abs": 0.0, "sums_rel": 0.0}
     cases = 0
     for rows, c, offset in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             base = (torch.randn(rows * c + offset, generator=gen,
                                 device="cuda") * 2.0 + 0.5).to(dtype)
             x = base[offset:].view(rows, c)
@@ -466,10 +499,10 @@ def norm_act_bwd_parity(torch, kernels, shapes):
                 pdx, _, _ = kernels.fused_norm_act_bwd_plain(
                     x, scale, shift, g, act)
                 diff = (got[0].double() - pdx.double()).abs()
-                if dtype == torch.float32:
+                if dtype != torch.bfloat16:
                     ok = float(diff.max()) == 0.0
-                    worst["dx_float32"] = max(worst["dx_float32"],
-                                              float(diff.max()))
+                    key = "dx_" + str(dtype).replace("torch.", "")
+                    worst[key] = max(worst[key], float(diff.max()))
                 else:
                     ok = bool((diff <= _bf16_ulp(torch, pdx)).all())
                     worst["dx_bfloat16"] = max(worst["dx_bfloat16"],
@@ -567,15 +600,17 @@ def conv_gemm_shapes(mx):
     return counts
 
 
-def conv_gemm_parity(torch, kernels, shapes):
-    """K3 against a float64 product of the same operands, float32 and
-    bfloat16 operands: every element within 1e-6 * sum|a||b|; a rerun
+def conv_gemm_parity(torch, kernels, shapes, dtypes=("float32", "bfloat16")):
+    """K3 against a float64 product of the same operands, for each of
+    ``dtypes`` (float32, bfloat16, float16; the 16-bit ones through the
+    16-bit mainloop): every element within 1e-6 * sum|a||b|; a rerun
     bit-identical."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    worst = {"abs_float32": 0.0, "abs_bfloat16": 0.0, "rel": 0.0}
+    worst = {"abs_float32": 0.0, "abs_bfloat16": 0.0, "abs_float16": 0.0,
+             "rel": 0.0, "rel_16": 0.0}
     cases = 0
     for m, n, k, trans in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, d) for d in dtypes):
             a = torch.randn(*((k, m) if trans else (m, k)), generator=gen,
                             device="cuda").to(dtype)
             b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
@@ -591,10 +626,12 @@ def conv_gemm_parity(torch, kernels, shapes):
             check(bool((err <= 1e-6 * mag).all()),
                   where + ": error %g above 1e-6 * sum|a||b|"
                   % float((err - 1e-6 * mag).max()))
-            name = "abs_float32" if dtype == torch.float32 else "abs_bfloat16"
+            name = "abs_" + str(dtype).replace("torch.", "")
             worst[name] = max(worst[name], float(err.max()))
-            worst["rel"] = max(worst["rel"], float(
-                (err / torch.clamp(mag, min=1e-30)).max()))
+            rel = float((err / torch.clamp(mag, min=1e-30)).max())
+            worst["rel"] = max(worst["rel"], rel)
+            if dtype != torch.float32:
+                worst["rel_16"] = max(worst["rel_16"], rel)
             cases += 1
             del a, b, ad, err, mag, got, again
     return worst, cases
@@ -1074,9 +1111,10 @@ def entry_points_main_path(torch, mx, kernels):
     return res
 
 
-def build_module(mx, ctx, batch, arg_np=None, aux_np=None):
+def build_module(mx, ctx, batch, arg_np=None, aux_np=None,
+                 compute_dtype=None):
     sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
-    mod = mx.mod.Module(sym, context=ctx)
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
     mod.bind(data_shapes=[("data", (batch,) + IMAGE)], for_training=False)
     if arg_np is None:
         mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.0,
@@ -1292,12 +1330,12 @@ def _train_group(name):
     return "other"
 
 
-def train_module(mx, ctx, batch, seed):
+def train_module(mx, ctx, batch, seed, compute_dtype=None):
     """ResNet-50 NHWC bound for training at ``batch``, Xavier weights
     (fan-in, magnitude 2) from ``seed``; the same seed gives the same
-    weights on every device."""
+    weights on every device. ``compute_dtype`` is the Module's."""
     sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
-    mod = mx.mod.Module(sym, context=ctx)
+    mod = mx.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
     mod.bind(data_shapes=[("data", (batch,) + IMAGE)],
              label_shapes=[("softmax_label", (batch,))], for_training=True)
     mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.0,
@@ -1593,7 +1631,7 @@ def fused_breakdown(torch, mx, kernels, step, metric, images, labels,
     return res
 
 
-def gate_module(mx, ctx, gamma_b3=None):
+def gate_module(mx, ctx, gamma_b3=None, compute_dtype=None):
     """The training gate's network: :func:`train_module` at batch 2 with
     the gamma of each residual block's last BatchNorm at ``gamma_b3``
     (default GATE_GAMMA_B3)
@@ -1606,7 +1644,7 @@ def gate_module(mx, ctx, gamma_b3=None):
     misses rtol 1e-3 / atol 1e-5 by 2.3e-4 at the stem
     (tools/torch_gate_conditioning.py)."""
     gamma_b3 = GATE_GAMMA_B3 if gamma_b3 is None else gamma_b3
-    mod = train_module(mx, ctx, 2, seed=1)
+    mod = train_module(mx, ctx, 2, seed=1, compute_dtype=compute_dtype)
     args, aux = mod.get_params()
     for name, arr in args.items():
         if name.endswith("_b3_bn_gamma"):
@@ -5266,6 +5304,602 @@ def rcnn_ocr_main_path(torch, mx, kernels, card):
     return {"rcnn": rcnn, "ocr": ocr, "ops": ops, "surface": surface}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: mixed precision and the adaptive serving plane: ResNet-50 NHWC
+# trained and served in bfloat16
+# ---------------------------------------------------------------------------
+F16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 and fp16
+MP_DTYPE = "bfloat16"
+MP_F16_STEPS = 3               # float16 batches through both loops
+MP_GATE_LOSS_RTOL = 1e-2       # card vs CPU in bfloat16, batch 2: the loss
+MP_GATE_NOISE = 2.0            # ... and the update, against bf16's own noise
+MP_LADDER = (1, 2, 4, 8, 16, 32)
+MP_SLO_MS = 50.0
+MP_LANES = {"interactive": {"rows": (1, 4), "deadline_ms": 50.0},
+            "batch": {"rows": (16, 16), "deadline_ms": 200.0}}
+MP_PHASES = ((5.0, 800.0), (2.0, 3000.0))   # (seconds, images a second)
+MP_POOL = 256                  # distinct seeded images the requests draw
+MP_PROB_VS_F32 = 0.05          # served bf16 probabilities vs the f32 server
+MP_PROB_VS_DIRECT = 0.02       # ... vs a direct bf16 forward of the rows
+MP_DECISIVE = 0.1              # top-2 log-probability margin held to argmax
+# phase 5's unsaturated weights: bounds relative to the largest probability
+# (bf16 keeps 8 bits: each of ~50 layers rounds by 2^-9 relative, so a
+# logit of magnitude a few moves by hundredths, a probability by percents;
+# a bucket's other cuDNN algorithm moves it by less)
+MP_REL_VS_F32 = 0.25
+MP_REL_VS_DIRECT = 0.1
+MP_REL_DECISIVE = 0.5
+
+
+def _mm_f32_out(torch):
+    """``torch.mm(a, b, out_dtype=torch.float32)`` where this torch has
+    it (the one-call yardstick of a 16-bit product with a float32 result),
+    else None."""
+    a = torch.ones(2, 2, device="cuda", dtype=torch.bfloat16)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return None
+    return lambda x, y: torch.mm(x, y, out_dtype=torch.float32)
+
+
+def conv_gemm_timing16(torch, kernels, counts, dtype, reps=20):
+    """K3 with 16-bit operands at the step's products beside the plain
+    version (widened float32 products, TF32 off) and the nearest one-call
+    yardstick (``torch.mm`` with a float32 output, else ``torch.matmul``
+    in the 16-bit type, which rounds its output); the bound is the longer
+    of 2MNK at the dense 16-bit rate and the bytes (2-byte operands read,
+    the float32 result written) at the memory rate."""
+    flush = torch.empty(64 << 20, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mm32 = _mm_f32_out(torch)
+    lib_call = ("torch.mm(out_dtype=float32)" if mm32 is not None
+                else "torch.matmul in %s" % dtype)
+    rows_out = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0}
+    for (m, n, k, trans), cnt in sorted(counts.items()):
+        a = torch.randn(*((k, m) if trans else (m, k)), generator=gen,
+                        device="cuda").to(dtype)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+        at = a.t() if trans else a
+        kern = time_ms(torch, lambda: kernels.matmul_f32acc(a, b, trans),
+                       flush, reps)
+        plain = time_ms(torch, lambda: kernels.matmul_f32acc_plain(
+            a, b, trans), flush, reps)
+        lib = time_ms(torch, (lambda: mm32(at, b)) if mm32 is not None
+                      else (lambda: torch.matmul(at, b)), flush, reps)
+        nbytes = (m * k + k * n) * 2 + m * n * 4
+        flops = 2 * m * n * k
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F16_FLOPS_PER_S)
+        rows_out.append({"m": m, "n": n, "k": k, "transpose_a": trans,
+                         "per_step": cnt, "ms": kern, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": bound,
+                         "tflops": flops / kern / 1e9})
+        tot["ms"] += cnt * kern
+        tot["plain_ms"] += cnt * plain
+        tot["library_ms"] += cnt * lib
+        tot["bytes"] += cnt * nbytes
+        tot["flops"] += cnt * flops
+        del a, b, at
+    t_bytes = tot["bytes"] / HBM_BYTES_PER_S
+    t_flops = tot["flops"] / F16_FLOPS_PER_S
+    tot["bound_ms"] = 1e3 * max(t_bytes, t_flops)
+    tot["bound_by"] = "operations" if t_flops >= t_bytes else "bytes"
+    tot["library_call"] = lib_call
+    return rows_out, tot
+
+
+def _typed_launches(torch, kernels, names, dtype):
+    """The compiled kernels' launches among profiler kernel ``names``,
+    and how many of the K3/K4/K5 ones ran their ``dtype`` instantiation
+    (conv_gemm_kernel<__nv_bfloat16|__half, ...>, norm_act's
+    Half16<false|true>)."""
+    tags = {torch.bfloat16: ("__nv_bfloat16", "Half16<false>"),
+            torch.float16: ("__half", "Half16<true>")}[dtype]
+    typed = {"conv_gemm": 0, "norm_act_fwd": 0, "norm_act_bwd": 0}
+    for name in names:
+        counted = kernels.launches_in([name])
+        for key in typed:
+            if counted[key] and any(t + "," in name or t + ">" in name
+                                    for t in tags):
+                typed[key] += 1
+    return kernels.launches_in(names), typed
+
+
+def _mp_profile(torch, mx, kernels, step, metric, images, labels, dtype):
+    """fused_breakdown of two replays, with the kernel events' names
+    kept to check the typed instantiations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    res = fused_breakdown(torch, mx, kernels, step, metric, images, labels)
+    batch = mx.io.DataBatch([images], [labels])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step.step(batch, metric)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    res["typed_launches"] = _typed_launches(torch, kernels, names, dtype)[1]
+    return res
+
+
+def _mp_dtype_ok(kernels, steps, dtype_name):
+    """Every K3/K4/K5 launch a fit's wrappers counted ran ``dtype_name``
+    operands."""
+    rec = kernels.launch_records()
+    want = _resnet_launches(steps)
+    return all(rec.get(k, {}) == {dtype_name: want[k]}
+               for k in ("conv_gemm", "norm_act_fwd", "norm_act_bwd")), rec
+
+
+def mp_fit(torch, mx, kernels, dtype, fused, steps, images, labels):
+    """fit_module of ResNet-50 NHWC at batch 32 from train_module's seed-0
+    weights under ``compute_dtype=dtype``, checked: the launches of every
+    step (classic) or of the eager step and the capture (fused), each
+    with ``dtype`` operands; finite losses; every param and moving
+    statistic changed; params, gradients and aux float32."""
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0, compute_dtype=dtype)
+    args0, aux0 = (_host(p) for p in mod.get_params())
+    run = fit_module(torch, mx, kernels, mod, images[:steps * BATCH],
+                     labels[:steps * BATCH], fused)
+    counted = 2 if fused else steps
+    loop = "%s %s" % (dtype, "fused" if fused else "classic")
+    ok, rec = _mp_dtype_ok(kernels, counted, dtype)
+    print("phase 14 %s: %d steps, launches by dtype %s, losses %s"
+          % (loop, steps, rec, ["%.4f" % v for v in run["losses"]]))
+    check(ok, "%s launches by dtype %s, want 105/53/53 a step of %s"
+          % (loop, rec, dtype))
+    check(all(np.isfinite(run["losses"])), "%s losses %s"
+          % (loop, run["losses"]))
+    unchanged = [k for k in args0 if np.array_equal(args0[k],
+                                                    run["args"][k])]
+    check(not unchanged, "%s: params unchanged: %s" % (loop, unchanged))
+    stale = [k for k in aux0 if np.array_equal(aux0[k], run["aux"][k])]
+    check(not stale, "%s: moving statistics unchanged: %s" % (loop, stale))
+    ex = mod._exec_group.executor
+    dtypes = {str(a.handle.dtype) for a in
+              ex.arg_arrays + [g for g in ex.grad_arrays if g is not None]
+              + ex.aux_arrays}
+    check(dtypes == {"torch.float32"}, "%s: params/grads/aux in %s"
+          % (loop, dtypes))
+    return run
+
+
+def mp_gate(mx, images, labels):
+    """One classic bfloat16 step at batch 2 on the card against the port
+    on the CPU in bfloat16, same params and data, with the CPU's float32
+    step beside them: the loss within rtol MP_GATE_LOSS_RTOL, and the
+    card's whole update (every param's, end to end) no further from the
+    CPU's bfloat16 update than MP_GATE_NOISE times the CPU's own
+    bfloat16-to-float32 distance. A fixed fraction cannot be held: at
+    batch 2 a random ResNet-50's step is chaotic (a stage-3 BatchNorm
+    sees 98 rows a channel; phase 6's gate lowers the residual gammas
+    for it in float32), and 16-bit rounding feeds that chaos 2^16 times
+    more than float32 does (the first run: 0.24 of the update's norm
+    whole, 0.51 at the stem's BatchNorm gamma, loss equal to 7 digits).
+    The per-tensor worst is printed."""
+    res = []
+    t0 = time.perf_counter()
+    for ctx, dtype in ((mx.gpu(0), MP_DTYPE), (mx.cpu(), MP_DTYPE),
+                       (mx.cpu(), None)):
+        mod = gate_module(mx, ctx, compute_dtype=dtype)
+        before = _host(mod.get_params()[0])
+        mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+        mod.forward_backward(mx.io.DataBatch([images[:2]], [labels[:2]]))
+        mod.update()
+        probs = mod.get_outputs()[0].asnumpy().astype(np.float64)
+        loss = float(-np.log(probs[np.arange(2),
+                                   labels[:2].astype(int)]).mean())
+        after = _host(mod.get_params()[0])
+        res.append((loss, {k: after[k] - before[k] for k in after}))
+    (lg, ug), (lc, uc), (l32, u32) = res
+
+    def dist(a, b):
+        return float(np.sqrt(sum(np.sum((a[k] - b[k]) ** 2.0) for k in b)))
+
+    norm = float(np.sqrt(sum(np.sum(uc[k] ** 2.0) for k in uc)))
+    whole, noise = dist(ug, uc) / norm, dist(uc, u32) / norm
+    worst = max((float(np.linalg.norm(ug[k] - uc[k])
+                        / max(np.linalg.norm(uc[k]), 1e-30)), k)
+                for k in uc if np.linalg.norm(uc[k]) > 0)
+    print("phase 14c gate (batch 2): loss card bf16 %.6f, CPU bf16 %.6f, "
+          "CPU f32 %.6f; update card vs CPU bf16 %.3g of its norm, CPU bf16 "
+          "vs f32 %.3g (bound: %g x that), worst tensor %.3g at %s, %.1f s"
+          % (lg, lc, l32, whole, noise, MP_GATE_NOISE, worst[0], worst[1],
+             time.perf_counter() - t0))
+    check(abs(lg - lc) <= MP_GATE_LOSS_RTOL * abs(lc),
+          "bf16 loss %g on the card, %g on the CPU" % (lg, lc))
+    check(whole <= MP_GATE_NOISE * noise, "bf16 update off by %g of its "
+          "norm, %g x the CPU's bf16-to-f32 distance" % (whole,
+                                                        whole / noise))
+    return {"loss_card": lg, "loss_cpu": lc, "loss_cpu_f32": l32,
+            "whole_update": whole, "bf16_vs_f32": noise,
+            "worst_update": worst[0], "worst_param": worst[1]}
+
+
+def mp_train_path(torch, mx, kernels, card, images, labels, f32_classic,
+                  f32_fused):
+    """14c: phase 6's fit under compute_dtype bfloat16, classic then
+    fused from the same weights; the card-vs-CPU gate; float16 fused
+    against classic."""
+    classic = mp_fit(torch, mx, kernels, MP_DTYPE, False, TRAIN_STEPS,
+                     images, labels)
+    classic["breakdown"] = train_breakdown(
+        torch, mx, kernels, classic.pop("mod"), images[:BATCH],
+        labels[:BATCH])
+    check_profiled_launches("phase 14 bf16 classic", classic["breakdown"])
+    fused = mp_fit(torch, mx, kernels, MP_DTYPE, True, TRAIN_STEPS, images,
+                   labels)
+    mod = fused.pop("mod")
+    step = mod._fused_step
+    counters = {"eager_steps": step.eager_steps, "captures": step.captures,
+                "dispatches": step.dispatches}
+    check(counters == {"eager_steps": 1, "captures": 1,
+                       "dispatches": TRAIN_STEPS - 1},
+          "bf16 fused counters %s" % counters)
+    _same_run("bf16 fused vs classic", fused, classic)
+    fused["breakdown"] = _mp_profile(torch, mx, kernels, step,
+                                     fused["metric"], images[:BATCH],
+                                     labels[:BATCH], torch.bfloat16)
+    check_profiled_launches("phase 14 bf16 fused", fused["breakdown"])
+    typed = fused["breakdown"]["typed_launches"]
+    check(typed == {k: v for k, v in _resnet_launches(2).items()
+                    if k in typed},
+          "bf16 replays ran %s bfloat16 K3/K4/K5 instantiations, want "
+          "105/53/53 a replay" % typed)
+    for run in (classic, fused):
+        run.pop("metric", None)
+        del run["args"], run["aux"]
+    for loop, run, ref in (("classic", classic, f32_classic),
+                           ("fused", fused, f32_fused)):
+        print("phase 14c %s, ResNet-50 NHWC batch 32, bf16 / f32: host step "
+              "%.3f / %.3f ms, %.1f / %.1f img/s, device %.3f / %.3f ms a "
+              "step, busy %.1f%% / %.1f%%, peak %.3f / %.3f GB  [%s]"
+              % (loop, run["step_ms"], ref["step_ms"], run["img_per_s"],
+                 ref["img_per_s"], run["breakdown"]["device_ms_per_step"],
+                 ref["breakdown"]["device_ms_per_step"],
+                 100 * run["breakdown"]["busy_share"],
+                 100 * ref["breakdown"]["busy_share"],
+                 run["peak_bytes"] / 1e9, ref["peak_bytes"] / 1e9, card))
+    groups = sorted(set(fused["breakdown"]["by_group_ms"])
+                    | set(f32_fused["breakdown"]["by_group_ms"]))
+    for g in groups:
+        print("  %-30s bf16 %.4f / f32 %.4f ms a replay"
+              % (g, fused["breakdown"]["by_group_ms"].get(g, 0.0),
+                 f32_fused["breakdown"]["by_group_ms"].get(g, 0.0)))
+    for label, run in (("bf16", fused), ("f32", f32_fused)):
+        for k in run["breakdown"].get("top_kernels", [])[:12]:
+            print("    %s top: %.4f ms  %s" % (label, k["ms_per_step"],
+                                              k["name"][:110]))
+    gate = mp_gate(mx, images, labels)
+    f16c = mp_fit(torch, mx, kernels, "float16", False, MP_F16_STEPS,
+                  images, labels)
+    f16f = mp_fit(torch, mx, kernels, "float16", True, MP_F16_STEPS,
+                  images, labels)
+    check(f16f["mod"]._fused_step.captures == 1, "f16 fused: captures %d"
+          % f16f["mod"]._fused_step.captures)
+    _same_run("f16 fused vs classic", f16f, f16c)
+    print("phase 14c float16: %d steps fused bit-equal to classic, one "
+          "capture, losses %s" % (MP_F16_STEPS, ["%.4f" % v for v in
+                                                 f16f["losses"]]))
+    f16 = {"classic_launches": f16c["launches"],
+           "fused_launches": f16f["launches"], "losses": f16f["losses"],
+           "step_ms": {"classic": f16c["step_ms"], "fused": f16f["step_ms"]}}
+    return {"classic": classic, "fused": fused, "counters": counters,
+            "gate": gate, "float16": f16, "mod": mod}
+
+
+def _poisson_arrivals(rng, seconds, img_rate):
+    """Open-loop arrivals of both lanes over ``seconds`` at ``img_rate``
+    images a second, half of them from each lane: (t, lane, rows)."""
+    out = []
+    for lane, spec in MP_LANES.items():
+        lo, hi = spec["rows"]
+        rate = 0.5 * img_rate / ((lo + hi) / 2.0)
+        t = rng.exponential(1.0 / rate)
+        while t < seconds:
+            out.append((t, lane, int(rng.randint(lo, hi + 1))))
+            t += rng.exponential(1.0 / rate)
+    return sorted(out)
+
+
+def mp_serve_path(torch, mx, kernels, card, trained):
+    """14d: the trained bf16 ResNet-50 behind InferenceServer (ladder
+    1-32, adaptive, SLO 50 ms), seeded open-loop Poisson traffic in two
+    lanes from two client threads; the phase's checks."""
+    args, aux = trained.get_params()
+    arg_np = {k: v.asnumpy() for k, v in args.items()}
+    aux_np = {k: v.asnumpy() for k, v in aux.items()}
+    mod = build_module(mx, mx.gpu(0), BATCH, arg_np, aux_np,
+                       compute_dtype=MP_DTYPE)
+    rng = np.random.RandomState(14)
+    pool = rng.randn(MP_POOL, *IMAGE).astype(np.float32)
+    # direct forwards of every pool row: bf16 and f32, batch 32
+    ex = mod._exec_group.executor
+    direct = np.concatenate([ex.forward(data=pool[i:i + BATCH])[0].asnumpy()
+                             for i in range(0, MP_POOL, BATCH)])
+    ref32 = build_module(mx, mx.gpu(0), BATCH, arg_np, aux_np)
+    with mx.serving.InferenceServer(ref32, top_k=0, max_batch=BATCH,
+                                    buckets=MP_LADDER, adaptive=False) as s32:
+        f32 = np.concatenate([s32.infer([pool[i:i + BATCH]], timeout=300)[0]
+                              for i in range(0, MP_POOL, BATCH)])
+    srv = mx.serving.InferenceServer(mod, top_k=0, max_batch=BATCH,
+                                     buckets=MP_LADDER, slo_ms=MP_SLO_MS,
+                                     adaptive=True)
+    sched = srv.scheduler
+    shed_violations = []
+    plain_shed = sched._maybe_shed
+
+    def watched_shed(now):
+        # the order guarantee: no interactive request is shed while an
+        # expired batch-lane request stays pending
+        before = {id(r): r for r in sched._pending}
+        plain_shed(now)
+        kept = {id(r) for r in sched._pending}
+        shed = [r for k, r in before.items() if k not in kept]
+        if any(r.priority == "interactive" for r in shed) and any(
+                r.priority == "batch" and r.t_deadline is not None
+                and now > r.t_deadline for r in sched._pending):
+            shed_violations.append(now)
+
+    sched._maybe_shed = watched_shed
+    try:
+        for rung in MP_LADDER:   # warm each bucket: libraries, cuDNN picks
+            srv.infer([pool[:rung]], timeout=300)
+        warm = sched.occupancy_snapshot()
+        dispatches0 = srv._fused.dispatches
+        traj0 = len(sched.wait_trajectory())
+        arrivals = _poisson_arrivals(np.random.RandomState(15),
+                                     MP_PHASES[0][0], MP_PHASES[0][1])
+        arrivals += [(t + MP_PHASES[0][0], lane, rows) for t, lane, rows in
+                     _poisson_arrivals(np.random.RandomState(16),
+                                       MP_PHASES[1][0], MP_PHASES[1][1])]
+        reqs = {lane: [] for lane in MP_LANES}
+        kernels.reset_launch_counts()
+        t_start = time.perf_counter()
+
+        def client(lane):
+            pick = np.random.RandomState(17 + len(lane))
+            for t, l, rows in arrivals:
+                if l != lane:
+                    continue
+                delay = t_start + t - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                i = int(pick.randint(0, MP_POOL - rows + 1))
+                reqs[lane].append((t, i, sched.submit(
+                    [pool[i:i + rows]],
+                    deadline_ms=MP_LANES[lane]["deadline_ms"],
+                    priority=lane)))
+
+        threads = [threading.Thread(target=client, args=(lane,))
+                   for lane in MP_LANES]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        check(not any(th.is_alive() for th in threads), "a client hung")
+        for lane in reqs:
+            for _, _, r in reqs[lane]:
+                r._done.wait(300)
+        wall = time.perf_counter() - t_start
+        launches = kernels.launch_counts()
+        records = kernels.launch_records()
+        stats = srv.stats()
+        traj = sched.wait_trajectory()[traj0:]
+        occ = sched.occupancy_snapshot()
+        dispatches = srv._fused.dispatches - dispatches0
+    finally:
+        sched._maybe_shed = plain_shed
+    # checks
+    batches = occ["batches"] - warm["batches"]
+    check(dispatches == batches, "%d dispatches for %d batches"
+          % (dispatches, batches))
+    check({t["bucket"] for t in traj} <= set(MP_LADDER),
+          "off-ladder buckets %s" % sorted({t["bucket"] for t in traj}))
+    check(srv.compiles <= len(MP_LADDER), "%d batch shapes" % srv.compiles)
+    check(launches["norm_act_fwd"] == BN_LAYERS * batches
+          and records.get("norm_act_fwd") == {MP_DTYPE: BN_LAYERS * batches},
+          "serving launches %s (%s) for %d batches" % (launches, records,
+                                                       batches))
+    check(not shed_violations, "an interactive request was shed while an "
+          "expired batch-lane request was pending (%d times)"
+          % len(shed_violations))
+    lane_out = {}
+    worst_direct = worst_f32 = 0.0
+    decisive = agree = 0
+    for lane, items in reqs.items():
+        lat, served, shed = [], 0, 0
+        for _, i, r in items:
+            if isinstance(r.error, mx.serving.RequestShed):
+                shed += 1
+                continue
+            check(r.error is None, "request failed: %r" % r.error)
+            served += 1
+            lat.append(r.latency_ms)
+            probs = r.result[0]
+            want = direct[i:i + r.rows]
+            check(np.all(np.isfinite(probs)), "non-finite probabilities")
+            worst_direct = max(worst_direct,
+                               float(np.abs(probs - want).max()))
+            worst_f32 = max(worst_f32, float(np.abs(
+                probs - f32[i:i + r.rows]).max()))
+            with np.errstate(divide="ignore"):
+                top2 = np.log(np.sort(want, axis=1)[:, -2:].astype(
+                    np.float64))
+            sure = top2[:, 1] - top2[:, 0] > MP_DECISIVE
+            decisive += int(sure.sum())
+            agree += int((probs.argmax(1) == want.argmax(1))[sure].sum())
+        comps = {}
+        for _, _, r in items:
+            for k, v in (r.components or {}).items():
+                comps.setdefault(k, []).append(v)
+        lane_out[lane] = {
+            "requests": len(items), "served": served, "shed": shed,
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+            "components_p50_ms": {k: float(np.median(v))
+                                  for k, v in comps.items()}}
+    rows_served = occ["served"] - warm["served"]
+    reasons = {}
+    for t in traj:
+        reasons[t["reason"]] = reasons.get(t["reason"], 0) + 1
+    print("phase 14d serving, bf16 ResNet-50 NHWC, ladder %s, SLO %.0f ms, "
+          "adaptive: %.1f s, %d rows served (%.1f img/s), %d batches, mean "
+          "occupancy %.3f, reasons %s, controller %s  [%s]"
+          % (list(MP_LADDER), MP_SLO_MS, wall, rows_served,
+             rows_served / wall, batches,
+             (occ["occ_sum"] - warm["occ_sum"]) / max(batches, 1), reasons,
+             sched.controller_state(), card))
+    for lane, st in lane_out.items():
+        print("  lane %-11s %5d requests, %5d served, %4d shed, p50 %s ms, "
+              "p99 %s ms; component medians %s"
+              % (lane, st["requests"], st["served"], st["shed"],
+                 st["p50_ms"], st["p99_ms"],
+                 {k: round(v, 3) for k, v in
+                  st["components_p50_ms"].items()}))
+    print("  served vs direct bf16 forward: max abs %.3g (bound %g); vs the "
+          "f32 server: max abs %.3g (bound %g); argmax equal on %d of %d "
+          "decisive rows (top-2 log-probability margin > %g)"
+          % (worst_direct, MP_PROB_VS_DIRECT, worst_f32, MP_PROB_VS_F32,
+             agree, decisive, MP_DECISIVE))
+    check(worst_direct <= MP_PROB_VS_DIRECT, "served probabilities %g off "
+          "the direct bf16 forward" % worst_direct)
+    check(worst_f32 <= MP_PROB_VS_F32, "served probabilities %g off the "
+          "f32 server's" % worst_f32)
+    check(decisive > 0 and agree == decisive, "argmax equal on %d of %d "
+          "decisive rows" % (agree, decisive))
+    # delta refresh from a snapshot: seed, change one param, refresh
+    payload = mx.checkpoint.snapshot(trained)
+    srv.refresh_from_snapshot(payload)
+    fused = srv._fused
+    seeded = fused.last_refresh_changed
+    ptrs = [t.data_ptr() for t in fused._param_vals]
+    compiles = srv.compiles
+    name = "fc1_weight" if "fc1_weight" in payload["params"] else sorted(
+        payload["params"])[-1]
+    new = dict(payload)
+    new["params"] = dict(payload["params"])
+    new["params"][name] = payload["params"][name] * np.float32(1.5)
+    new["param_digests"] = dict(payload["param_digests"])
+    new["param_digests"][name] = mx.checkpoint.param_digest(
+        new["params"][name])
+    srv.refresh_from_snapshot(new)
+    changed, moved = fused.last_refresh_changed, fused.last_refresh_bytes
+    srv.infer([pool[:1]], timeout=300)
+    srv.close()
+    pos = [mod._exec_group.executor.arg_names[i]
+           for i in fused._p_idx].index(name)
+    check(srv._fused is fused and changed == 1
+          and moved == new["params"][name].nbytes
+          and [t.data_ptr() for t in fused._param_vals] == ptrs
+          and srv.compiles == compiles,
+          "refresh: changed %d (want 1), %d bytes, packed tensors kept %s, "
+          "batch shapes %d -> %d" % (changed, moved, [t.data_ptr() for t in
+                                                    fused._param_vals] ==
+                                     ptrs, compiles, srv.compiles))
+    check(np.array_equal(fused._param_vals[pos].cpu().numpy(),
+                         new["params"][name]),
+          "the served pack does not hold the refreshed %s" % name)
+    print("  refresh_from_snapshot: seeded %d params, then 1 changed param "
+          "(%s, %d bytes) copied in place, no new batch shape"
+          % (seeded, name, moved))
+    return {"lanes": lane_out, "wall_s": wall, "rows_served": rows_served,
+            "img_per_s": rows_served / wall, "batches": batches,
+            "reasons": reasons, "mean_occupancy":
+                (occ["occ_sum"] - warm["occ_sum"]) / max(batches, 1),
+            "controller": sched.controller_state(), "launches": launches,
+            "launch_records": records, "stats": stats,
+            "max_abs_vs_direct": worst_direct, "max_abs_vs_f32": worst_f32,
+            "decisive_rows": decisive, "refresh_seeded": seeded,
+            "trajectory": traj}
+
+
+def mp_serve_parity(mx):
+    """The bf16 server's probabilities where they are not saturated:
+    phase 5's seeded weights (the trained model's outputs are one-hot to
+    float32, so there the comparisons below hold trivially). Requests of
+    1-32 rows over seeded images through a bf16 InferenceServer (ladder
+    1-32) against a direct bf16 Executor.forward of the same rows (batch
+    32) within MP_REL_VS_DIRECT of the largest probability, and against
+    an f32 server within MP_REL_VS_F32 of it; argmax equal where the
+    direct forward's top-2 log-probability margin exceeds
+    MP_REL_DECISIVE."""
+    rng = np.random.RandomState(18)
+    pool = rng.randn(BATCH * 4, *IMAGE).astype(np.float32)
+    mod16 = build_module(mx, mx.gpu(0), BATCH, compute_dtype=MP_DTYPE)
+    ex = mod16._exec_group.executor
+    direct = np.concatenate([ex.forward(data=pool[i:i + BATCH])[0].asnumpy()
+                             for i in range(0, len(pool), BATCH)])
+    args, aux = mod16.get_params()
+    mod32 = build_module(mx, mx.gpu(0), BATCH,
+                         {k: v.asnumpy() for k, v in args.items()},
+                         {k: v.asnumpy() for k, v in aux.items()})
+    got = {}
+    for name, mod in (("bf16", mod16), ("f32", mod32)):
+        with mx.serving.InferenceServer(mod, top_k=0, max_batch=BATCH,
+                                        buckets=MP_LADDER,
+                                        adaptive=False) as srv:
+            parts, off = [], 0
+            for rows in (1, 3, 8, 17, 32, 32, 32, 2):
+                rows = min(rows, BATCH, len(pool) - off)
+                if rows <= 0:
+                    break
+                parts.append(srv.infer([pool[off:off + rows]],
+                                       timeout=300)[0])
+                off += rows
+            got[name] = np.concatenate(parts)
+    n = len(got["bf16"])
+    top = float(got["f32"].max())
+    vs_direct = float(np.abs(got["bf16"] - direct[:n]).max()) / top
+    vs_f32 = float(np.abs(got["bf16"] - got["f32"]).max()) / top
+    with np.errstate(divide="ignore"):
+        top2 = np.log(np.sort(direct[:n], axis=1)[:, -2:].astype(
+            np.float64))
+    sure = top2[:, 1] - top2[:, 0] > MP_REL_DECISIVE
+    agree = int((got["bf16"].argmax(1) == direct[:n].argmax(1))[sure].sum())
+    print("phase 14d probabilities, phase 5's weights (largest %.3g): bf16 "
+          "served vs direct bf16 forward max abs %.3g of the largest (bound "
+          "%g), vs the f32 server %.3g (bound %g); argmax equal on %d of %d "
+          "rows whose top-2 log-probability margin exceeds %g"
+          % (top, vs_direct, MP_REL_VS_DIRECT, vs_f32, MP_REL_VS_F32, agree,
+             int(sure.sum()), MP_REL_DECISIVE))
+    check(vs_direct <= MP_REL_VS_DIRECT, "bf16 served probabilities %g "
+          "(of the largest) off the direct forward" % vs_direct)
+    check(vs_f32 <= MP_REL_VS_F32, "bf16 served probabilities %g (of the "
+          "largest) off the f32 server's" % vs_f32)
+    check(agree == int(sure.sum()), "argmax differs on %d decisive rows"
+          % (int(sure.sum()) - agree))
+    return {"vs_direct_of_largest": vs_direct, "vs_f32_of_largest": vs_f32,
+            "decisive_rows": int(sure.sum()), "rows": n,
+            "largest_probability": top}
+
+
+def mixed_precision_main_path(torch, mx, kernels, card, images, labels,
+                              f32_classic, f32_fused, gemms):
+    """Phase 14: (a) K3's 16-bit products over the step, timed; (c)
+    training in bf16 and f16; (d) serving the trained bf16 model."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype).replace("torch.", "")
+        rows, tot = conv_gemm_timing16(torch, kernels, gemms, dtype)
+        out["k3_" + name] = {"shapes": rows, "total": tot}
+        print("phase 14a conv_gemm per step (105 launches, %s): kernel %.4f "
+              "ms, plain %.4f ms, %s %.4f ms, bound %.4f ms (%s), %.1f "
+              "TFLOP  [%s]" % (name, tot["ms"], tot["plain_ms"],
+                               tot["library_call"], tot["library_ms"],
+                               tot["bound_ms"], tot["bound_by"],
+                               tot["flops"] / 1e12, card))
+    train = mp_train_path(torch, mx, kernels, card, images, labels,
+                          f32_classic, f32_fused)
+    out["train"] = train
+    out["serve"] = mp_serve_path(torch, mx, kernels, card, train.pop("mod"))
+    out["serve"]["parity_untrained"] = mp_serve_parity(mx)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -5321,28 +5955,38 @@ def main():
           "TF32): %s" % sass)
     check(all(sass.values()), "a kernel that must run on the tensor cores "
           "holds no TF32 MMA instruction: %s" % sass)
+    mma16 = _build.mma_counts("conv_gemm")
+    print("conv_gemm tensor-core MMA instructions by operand type "
+          "(cuobjdump -sass): %s" % mma16)
+    check(mma16["bf16"] > 0 and mma16["f16"] > 0, "conv_gemm holds no "
+          "bf16 or f16 MMA instruction: %s" % mma16)
 
     # 3. parity on the card
     counts = bn_shapes(mx)
     shapes = [(r, c, 0) for r, c in sorted(counts)] + RAGGED_SHAPES
     fwd_worst, cases = norm_act_fwd_parity(torch, kernels, shapes)
-    print("norm_act_fwd parity: %d cases, max abs err f32 %g, bf16 %g"
-          % (cases, fwd_worst["float32"], fwd_worst["bfloat16"]))
+    print("norm_act_fwd parity: %d cases, max abs err f32 %g, bf16 %g, "
+          "f16 %g (bit-equal)" % (cases, fwd_worst["float32"],
+                                  fwd_worst["bfloat16"], fwd_worst["float16"]))
     bwd_worst, cases = norm_act_bwd_parity(torch, kernels, shapes)
     print("norm_act_bwd parity: %d cases, reruns bit-identical, dx max abs "
-          "err f32 %g, bf16 %g; dscale/dshift vs float64: max abs err %g, "
-          "max %.3g of sum|term| (bound 1e-5)"
+          "err f32 %g, bf16 %g, f16 %g; dscale/dshift vs float64: max abs "
+          "err %g, max %.3g of sum|term| (bound 1e-5)"
           % (cases, bwd_worst["dx_float32"], bwd_worst["dx_bfloat16"],
-             bwd_worst["sums_abs"], bwd_worst["sums_rel"]))
+             bwd_worst["dx_float16"], bwd_worst["sums_abs"],
+             bwd_worst["sums_rel"]))
     gemms = conv_gemm_shapes(mx)
     gemm_worst, cases = conv_gemm_parity(
-        torch, kernels, sorted(gemms) + RAGGED_GEMMS)
+        torch, kernels, sorted(gemms) + RAGGED_GEMMS,
+        ("float32", "bfloat16", "float16"))
     print("conv_gemm parity: %d cases (%d distinct products of the step + "
-          "%d ragged, f32 and bf16 operands), reruns bit-identical, max abs "
-          "err vs float64 f32 %g, bf16 %g; max %.3g of sum|a||b| (bound "
-          "1e-6)" % (cases, len(gemms), len(RAGGED_GEMMS),
-                     gemm_worst["abs_float32"], gemm_worst["abs_bfloat16"],
-                     gemm_worst["rel"]))
+          "%d ragged, f32, bf16 and f16 operands), reruns bit-identical, "
+          "max abs err vs float64 f32 %g, bf16 %g, f16 %g; max %.3g of "
+          "sum|a||b| (16-bit %.3g; bound 1e-6)"
+          % (cases, len(gemms), len(RAGGED_GEMMS),
+             gemm_worst["abs_float32"], gemm_worst["abs_bfloat16"],
+             gemm_worst["abs_float16"], gemm_worst["rel"],
+             gemm_worst["rel_16"]))
     flash_worst, cases = flash_parity(torch, kernels)
     print("flash_attn parity: %d cases (%d shapes, causal and not), reruns "
           "bit-identical, max abs err vs plain %g (bound rtol 2e-4 / atol "
@@ -5467,7 +6111,28 @@ def main():
     for kernel in ("linear", "flash_attn", "rtc"):
         lm_paths[kernel].update(det_paths[kernel])
 
-    # 14. report
+    # 14. mixed precision and the adaptive serving plane: ResNet-50 NHWC
+    # trained and served in bfloat16
+    mp = mixed_precision_main_path(torch, mx, kernels, card, images,
+                                   labels, train, fused, gemms)
+    mp_train, mp_serve = mp["train"], mp["serve"]
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update({
+            "mp_bf16_classic": mp_train["classic"]["launches"][kernel],
+            "mp_bf16_fused": mp_train["fused"]["launches"][kernel],
+            "mp_bf16_fused_2_replays_profiled":
+                mp_train["fused"]["breakdown"]["launches"][kernel],
+            "mp_f16_classic": mp_train["float16"]["classic_launches"][kernel],
+            "mp_f16_fused": mp_train["float16"]["fused_launches"][kernel],
+            "mp_bf16_serve": mp_serve["launches"][kernel]})
+    for kernel in ("linear", "flash_attn", "rtc"):
+        lm_paths[kernel].update({
+            "mp_bf16_classic": mp_train["classic"]["launches"][kernel],
+            "mp_bf16_fused": mp_train["fused"]["launches"][kernel],
+            "mp_bf16_serve": mp_serve["launches"][kernel]})
+    k3b, k3h = mp["k3_bfloat16"]["total"], mp["k3_float16"]["total"]
+
+    # 15. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -5499,7 +6164,12 @@ def main():
                   "rcnn_custom_classic: 13b's 3 classic steps with the "
                   "rois from a Custom op; ocr_*: 13c's LSTM-OCR fits "
                   "(classic: 5 steps; fused: the eager step and the "
-                  "capture; replays: two)")
+                  "capture; replays: two); mp_*: phase 14's ResNet-50 "
+                  "NHWC fits at batch 32 under compute_dtype bfloat16 "
+                  "(classic: 5 steps; fused: the eager step and the "
+                  "capture; replays: two) and float16 (3 steps; fused: "
+                  "the eager step and the capture), and its bf16 "
+                  "InferenceServer's Poisson traffic")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -5520,6 +6190,7 @@ def main():
         "max_abs_err": fwd_worst["float32"],
         "max_err_f32": fwd_worst["float32"],
         "max_err_bf16": fwd_worst["bfloat16"],
+        "max_err_f16": fwd_worst["float16"],
         "ms": fwd_tot["ms"], "plain_ms": fwd_tot["plain_ms"],
         "bound_ms": fwd_tot["bound_ms"], "bound_by": "bytes",
         "library_ms": fwd_tot["library_ms"],
@@ -5543,6 +6214,7 @@ def main():
         "max_abs_err": max(bwd_worst["dx_float32"], bwd_worst["sums_abs"]),
         "max_err_dx_f32": bwd_worst["dx_float32"],
         "max_err_dx_bf16": bwd_worst["dx_bfloat16"],
+        "max_err_dx_f16": bwd_worst["dx_float16"],
         "max_sum_err_of_abs_sum": bwd_worst["sums_rel"],
         "ms": bwd_tot["ms"], "plain_ms": bwd_tot["plain_ms"],
         "bound_ms": bwd_tot["bound_ms"], "bound_by": "bytes",
@@ -5573,6 +6245,18 @@ def main():
                            models["k3_parity"]["abs_float32"]),
         "max_err_bf16": max(gemm_worst["abs_bfloat16"],
                             models["k3_parity"]["abs_bfloat16"]),
+        "max_err_f16": gemm_worst["abs_float16"],
+        "max_err_of_abs_product_16bit": gemm_worst["rel_16"],
+        "mma_sass": mma16,
+        "bf16_ms": k3b["ms"], "bf16_plain_ms": k3b["plain_ms"],
+        "bf16_bound_ms": k3b["bound_ms"], "bf16_bound_by": k3b["bound_by"],
+        "bf16_library_ms": k3b["library_ms"],
+        "bf16_library_call": k3b["library_call"],
+        "f16_ms": k3h["ms"], "f16_plain_ms": k3h["plain_ms"],
+        "f16_bound_ms": k3h["bound_ms"], "f16_library_ms": k3h["library_ms"],
+        "bf16_launches": mp_train["classic"]["launches"]["conv_gemm"],
+        "launch_records_note": "mp_* paths: every K3/K4/K5 launch with "
+                               "16-bit operands (launch_records)",
         "max_err_of_abs_product": max(gemm_worst["rel"],
                                       models["k3_parity"]["rel"]),
         "ms": gemm_tot["ms"], "plain_ms": gemm_tot["plain_ms"],
@@ -5689,7 +6373,8 @@ def main():
                                            if k != "mod"},
                        "plane_path": plane, "models_path": models,
                        "optim_path": optim, "lm_path": lm,
-                       "detection_ocr_path": det}, f, indent=1)
+                       "detection_ocr_path": det,
+                       "mixed_precision_path": mp}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

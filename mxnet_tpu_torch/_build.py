@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 from .base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "library_path",
-           "find_nvcc", "tf32_mma_count"]
+           "find_nvcc", "mma_counts", "tf32_mma_count"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -99,8 +99,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    # the source, every header of csrc/ (gemm_tile.cuh, tf32x3.cuh) and the
-    # flags name the build
+    # the source, every header of csrc/ (gemm_tile.cuh, gemm_tile16.cuh,
+    # tf32x3.cuh) and the flags name the build
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [SOURCES[name]] + sorted(
             f for f in os.listdir(_SRC_DIR) if f.endswith(".cuh")):
@@ -159,15 +159,33 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def tf32_mma_count(name: str) -> int:
-    """Tensor-core MMA instructions with TF32 operands (``HMMA ... TF32``
-    lines of ``cuobjdump -sass``) in kernel ``name``'s library, built first
-    if needed: the proof that a kernel runs on the tensor cores."""
+def mma_counts(name: str) -> Dict[str, int]:
+    """Tensor-core MMA instructions in kernel ``name``'s library by
+    operand type, from its ``cuobjdump -sass`` (built first if needed):
+    ``tf32`` (``HMMA.1688.F32.TF32``), ``bf16`` (``HMMA.16816.F32.BF16``)
+    and ``f16`` (``HMMA.16816.F32`` with no other operand type). The proof
+    that a kernel's typed path runs on the tensor cores."""
     build_all([name])
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", library_path(name)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise MXNetError("cuobjdump failed for %s: %s" % (name, res.stderr))
-    return sum(1 for line in res.stdout.splitlines()
-               if "HMMA" in line and "TF32" in line)
+    counts = {"tf32": 0, "bf16": 0, "f16": 0}
+    for line in res.stdout.splitlines():
+        if "HMMA" not in line:
+            continue
+        if "TF32" in line:
+            counts["tf32"] += 1
+        elif "BF16" in line:
+            counts["bf16"] += 1
+        elif "HMMA.16816" in line:
+            counts["f16"] += 1
+    return counts
+
+
+def tf32_mma_count(name: str) -> int:
+    """Tensor-core MMA instructions with TF32 operands (``HMMA ... TF32``
+    lines of ``cuobjdump -sass``) in kernel ``name``'s library, built first
+    if needed: the proof that a kernel runs on the tensor cores."""
+    return mma_counts(name)["tf32"]

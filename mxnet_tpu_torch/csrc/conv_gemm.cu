@@ -25,19 +25,22 @@
 //    of 4 floats (the stem's M = 147) are copied 4 bytes at a time.
 //  * Split K for products with few output tiles and a long K (the weight gradients: M*N
 //    small, K = N*HO*WO large), in chunks of at least 256.
-//  * Operands float32 (three TF32 products a fragment) or bfloat16 (widened to float32 on
-//    the way into shared memory; exact in TF32, so one product), accumulator and output
-//    float32, as `preferred_element_type=jnp.float32` has it.
+//  * Operands float32 (three TF32 products a fragment), or bfloat16 or float16 through the
+//    16-bit mainloop of gemm_tile16.cuh (operands 16-bit in shared memory, one m16n8k16
+//    MMA a fragment, exact products, at the tensor cores' 16-bit rate); accumulator and
+//    output float32, as `preferred_element_type=jnp.float32` has it.
 //
 // Interface: plain C functions, launched on the caller's stream, allocating nothing
 // and never synchronising. conv_gemm returns cudaGetLastError() after its launches;
 // 0 means they were accepted.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gemm_tile.cuh"
+#include "gemm_tile16.cuh"
 
 namespace {
 
@@ -47,12 +50,12 @@ constexpr long long kMinSplitK = 256;   // least K a split takes
 
 // C[z] = op(A)[:, kz] @ B[kz, :] over K range kz = [z * k_chunk, (z + 1) * k_chunk) of
 // blockIdx.z = z; C[z] is C itself when there is one split, else slice z of the
-// scratch. A is (M, K) row-major, or (K, M) row-major when TRANS_A; B is (K, N).
+// scratch. A is (M, K) row-major, or (K, M) row-major when TRANS_A; B is (K, N). T float
+// runs the 3xTF32 mainloop, a 16-bit T (__nv_bfloat16, __half) gemm_tile16's.
 template <typename T, int BN, bool TRANS_A>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 conv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __restrict__ C,
                  int M, int N, int K, int k_chunk) {
-  using S = Smem<BN, TRANS_A, true>;
   extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -62,16 +65,31 @@ conv_gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, float* __rest
   const bool va = rows_aligned16(A, TRANS_A ? M : K);
   const bool vb = rows_aligned16(B, N);
 
-  auto load = [&](float* As, float* Bs, int k0) {
-    if (TRANS_A)
-      copy_tile<BK, BM, S::A::stride>(As, A, M, k0, kend, m0, M, va);
-    else
-      copy_tile<BM, BK, S::A::stride>(As, A, K, m0, M, k0, kend, va);
-    copy_tile<BK, BN, S::B::stride>(Bs, B, N, k0, kend, n0, N, vb);
-  };
-
   float acc[Warps<BN>::MI][Warps<BN>::NI][4];
-  mainloop<BN, TRANS_A, true, sizeof(T) == 2>(smem, load, kbeg, kend, acc);
+  if constexpr (sizeof(T) == 2) {
+    using S = gemm_tile16::Smem<BN, TRANS_A>;
+    const uint16_t* A16 = reinterpret_cast<const uint16_t*>(A);
+    const uint16_t* B16 = reinterpret_cast<const uint16_t*>(B);
+    auto load = [&](uint16_t* As, uint16_t* Bs, int k0) {
+      if (TRANS_A)
+        gemm_tile16::copy_tile<BK, BM, S::A::stride>(As, A16, M, k0, kend, m0, M, va);
+      else
+        gemm_tile16::copy_tile<BM, BK, S::A::stride>(As, A16, K, m0, M, k0, kend, va);
+      gemm_tile16::copy_tile<BK, BN, S::B::stride>(Bs, B16, N, k0, kend, n0, N, vb);
+    };
+    gemm_tile16::mainloop<T, BN, TRANS_A>(reinterpret_cast<uint16_t*>(smem), load, kbeg, kend,
+                                          acc);
+  } else {
+    using S = Smem<BN, TRANS_A, true>;
+    auto load = [&](float* As, float* Bs, int k0) {
+      if (TRANS_A)
+        copy_tile<BK, BM, S::A::stride>(As, A, M, k0, kend, m0, M, va);
+      else
+        copy_tile<BM, BK, S::A::stride>(As, A, K, m0, M, k0, kend, va);
+      copy_tile<BK, BN, S::B::stride>(Bs, B, N, k0, kend, n0, N, vb);
+    };
+    mainloop<BN, TRANS_A, true>(smem, load, kbeg, kend, acc);
+  }
 
   const bool vec2 = (N % 2) == 0;
   for_each_pair<BN>(acc, m0, n0, [&](int m, int n, float v0, float v1) {
@@ -100,7 +118,8 @@ conv_gemm_splitk_reduce_kernel(const float* __restrict__ ws, float* __restrict__
 template <typename T, int BN, bool TRANS_A>
 cudaError_t launch_gemm(const void* a, const void* b, float* out, int m, int n, int k,
                         int k_chunk, int splits, cudaStream_t stream) {
-  constexpr size_t smem = Smem<BN, TRANS_A, true>::bytes;
+  constexpr size_t smem = sizeof(T) == 2 ? gemm_tile16::Smem<BN, TRANS_A>::bytes
+                                         : Smem<BN, TRANS_A, true>::bytes;
   const cudaError_t err = cudaFuncSetAttribute(conv_gemm_kernel<T, BN, TRANS_A>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
@@ -138,25 +157,28 @@ extern "C" long long conv_gemm_k_chunk(long long m, long long n, long long k) {
 }
 
 // a: (m, k) row-major, or (k, m) when trans_a; b: (k, n) row-major; both float32
-// (dtype 0) or bfloat16 (dtype 1), contiguous. c: (m, n) float32 output. k_chunk as
-// conv_gemm_k_chunk gives it and splits = ceil(k / k_chunk); ws: (splits, m, n)
-// float32 scratch when splits > 1, else unused (may be null).
+// (dtype 0), bfloat16 (dtype 1) or float16 (dtype 2), contiguous. c: (m, n) float32
+// output. k_chunk as conv_gemm_k_chunk gives it and splits = ceil(k / k_chunk); ws:
+// (splits, m, n) float32 scratch when splits > 1, else unused (may be null).
 extern "C" int conv_gemm(const void* a, const void* b, void* c, void* ws, long long m,
                          long long n, long long k, int trans_a, int dtype, long long k_chunk,
                          int splits, void* stream) {
   const long long lim = 0x7fffffffLL;
-  if (m <= 0 || n <= 0 || k <= 0 || m > lim || n > lim || k > lim || (dtype != 0 && dtype != 1) ||
+  if (m <= 0 || n <= 0 || k <= 0 || m > lim || n > lim || k > lim || dtype < 0 || dtype > 2 ||
       k_chunk <= 0 || k_chunk % BK != 0 || splits < 1 || splits > kMaxSplits ||
       (k + k_chunk - 1) / k_chunk != splits || (splits > 1 && ws == nullptr) ||
       (m + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(c);
+  const bool ta = trans_a != 0;
   const cudaError_t err =
-      dtype == 0 ? launch_typed<float>(a, b, out, (int)m, (int)n, (int)k, trans_a != 0,
-                                       (int)k_chunk, splits, s)
-                 : launch_typed<__nv_bfloat16>(a, b, out, (int)m, (int)n, (int)k, trans_a != 0,
-                                               (int)k_chunk, splits, s);
+      dtype == 0   ? launch_typed<float>(a, b, out, (int)m, (int)n, (int)k, ta, (int)k_chunk,
+                                         splits, s)
+      : dtype == 1 ? launch_typed<__nv_bfloat16>(a, b, out, (int)m, (int)n, (int)k, ta,
+                                                 (int)k_chunk, splits, s)
+                   : launch_typed<__half>(a, b, out, (int)m, (int)n, (int)k, ta, (int)k_chunk,
+                                          splits, s);
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const long long mn = m * n;

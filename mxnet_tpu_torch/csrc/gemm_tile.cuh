@@ -9,9 +9,10 @@
 //    each) or, for BN = 64, 4 x 2 (32 x 32 each); a warp's tile is MI x NI m16n8k8 products.
 //  * The products run on the tensor cores at float32 accuracy: each fragment is read from a
 //    float32 tile in shared memory, split into TF32 hi and lo parts in registers and
-//    multiplied as hi*lo + lo*hi + hi*hi (tf32x3.cuh). Operands that are exact in TF32
-//    (bfloat16, widened) take the hi*hi product alone. A step's products chain into a
+//    multiplied as hi*lo + lo*hi + hi*hi (tf32x3.cuh). A step's products chain into a
 //    fragment from zero, which is then added to the accumulator with rounding to nearest.
+//    16-bit operands (K3's bfloat16 and float16) take gemm_tile16.cuh's mainloop instead,
+//    on the same tiles, warps, split-K rule and reduce.
 //  * A ring of STAGES shared-memory stages of BK = 32 along K, fed by cp.async: the loads of
 //    the next STAGES - 1 steps are in flight while one step is multiplied; one __syncthreads
 //    a step. An operand whose rows are 16-byte aligned is copied in 16-byte pieces, any other
@@ -32,7 +33,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,33 +138,11 @@ __device__ __forceinline__ void copy_tile(float* s, const float* __restrict__ g,
   tf32x3::copy_tile<ROWS, COLS, SS, NTH>(s, g, ld, row0, rend, col0, cend, vec);
 }
 
-// The same for bfloat16, loaded through registers and widened (exact) into a float32 tile.
-template <int ROWS, int COLS, int SS>
-__device__ __forceinline__ void copy_tile(float* s, const __nv_bfloat16* __restrict__ g,
-                                          long long ld, int row0, int rend, int col0, int cend,
-                                          bool) {
-  constexpr int CPR = COLS / 4;
-  static_assert((ROWS * CPR) % NT == 0, "tile does not divide among the threads");
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int r = e / CPR, c = (e % CPR) * 4;
-    const int gr = row0 + r, gc = col0 + c;
-    const __nv_bfloat16* src = g + (long long)gr * ld + gc;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (gr < rend && gc + j < cend) ? __bfloat162float(src[j]) : 0.f;
-    *reinterpret_cast<float4*>(s + r * SS + c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
 // acc = A[:, kbeg:kend] @ B[kbeg:kend, :] for the block's TM x BN tile, NW warps. load(As,
 // Bs, k0) copies the K step at k0 into a stage's A and B tiles (copy_tile), zero outside the
 // operands and [kbeg, kend); it may issue cp.async copies, which the loop commits and waits
-// for. EXACT: the operands are exact in TF32, one product a fragment.
-template <int BN, bool A_KMAJOR, bool B_KMAJOR, bool EXACT, int TM = BM, int NW = 8,
-          typename Load>
+// for.
+template <int BN, bool A_KMAJOR, bool B_KMAJOR, int TM = BM, int NW = 8, typename Load>
 __device__ __forceinline__ void mainloop(
     float* smem, Load&& load, int kbeg, int kend,
     float (&acc)[Warps<BN, TM, NW>::MI][Warps<BN, TM, NW>::NI][4]) {
@@ -219,14 +197,7 @@ __device__ __forceinline__ void mainloop(
         }
       }
 #pragma unroll
-      for (int j = 0; j < W::NI; ++j) {
-        if constexpr (EXACT) {
-          b[ks][j].hi[0] = braw[j][0];
-          b[ks][j].hi[1] = braw[j][1];
-        } else {
-          tf32x3::split(braw[j], b[ks][j]);
-        }
-      }
+      for (int j = 0; j < W::NI; ++j) tf32x3::split(braw[j], b[ks][j]);
     }
     // a row of m16 blocks at a time: the step's products chain into p from zero, then
     // into acc with rounding to nearest
@@ -240,15 +211,10 @@ __device__ __forceinline__ void mainloop(
           tf32x3::frag_a_kmajor(As + ks * 8 * SA + wm + i * 16, SA, araw);
         else
           tf32x3::frag_a_rows(As + (wm + i * 16) * SA + ks * 8, SA, araw);
-        if constexpr (EXACT) {
+        tf32x3::Split<4> a;
+        tf32x3::split(araw, a);
 #pragma unroll
-          for (int j = 0; j < W::NI; ++j) tf32x3::mma(p[j], araw, b[ks][j].hi);
-        } else {
-          tf32x3::Split<4> a;
-          tf32x3::split(araw, a);
-#pragma unroll
-          for (int j = 0; j < W::NI; ++j) tf32x3::mma3(p[j], a, b[ks][j]);
-        }
+        for (int j = 0; j < W::NI; ++j) tf32x3::mma3(p[j], a, b[ks][j]);
       }
 #pragma unroll
       for (int j = 0; j < W::NI; ++j) tf32x3::add(acc[i][j], p[j]);

@@ -105,7 +105,7 @@ linear_kernel(const float* __restrict__ X, const float* __restrict__ W,
   };
 
   float acc[Warps<BN, TM, NW>::MI][Warps<BN, TM, NW>::NI][4];
-  mainloop<BN, false, false, false, TM, NW>(smem, load, kbeg, kend, acc);
+  mainloop<BN, false, false, TM, NW>(smem, load, kbeg, kend, acc);
 
   if constexpr (SPLIT) {
     if (splits > 1) {

@@ -13,7 +13,7 @@
 // What the forward's design does about that:
 //  * x is viewed as (rows, C) channels-last; C is the innermost, contiguous axis.
 //  * Vector path: when C is a multiple of the 16-byte vector width (4 float32 or
-//    8 bfloat16 values) and every pointer is 16-byte aligned, each thread moves
+//    8 bfloat16 or float16 values) and every pointer is 16-byte aligned, each thread moves
 //    16 bytes per load and per store, so a warp touches 512 contiguous bytes: the
 //    widest coalesced access the memory system serves. Because C is a multiple
 //    of the width, one vector never straddles two rows, and all its values share
@@ -33,7 +33,10 @@
 //    (__fmul_rn, __fadd_rn, no fused multiply-add), which is what the plain
 //    PyTorch version `x.float() * scale + shift` does on the same card, so the
 //    two agree bit for bit. bfloat16 converts with __bfloat162float and
-//    __float2bfloat16 (round to nearest even), as torch's own casts do.
+//    __float2bfloat16, float16 with __half2float and __float2half_rn (round to
+//    nearest even), as torch's own casts do. The TPU kernel takes float32 and
+//    bfloat16 only (pallas_kernels.py:560-575), so the JAX package's float16
+//    BatchNorm runs XLA's `x * scale + shift`, which this computes.
 //  * ReLU is `y < 0 ? 0 : y`, so a NaN propagates as it does through torch.relu.
 //
 // Backward. Replaces `_norm_act_bwd_call` (pallas_kernels.py:610), the backward
@@ -65,6 +68,7 @@
 // launches; 0 means the launches were accepted.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,19 +98,28 @@ struct F32 {
   }
 };
 
-struct BF16 {
+// A 16-bit type's bits <-> float32: bfloat16 or, HALF, float16. Conversions round to
+// nearest even, as torch's own casts do.
+template <bool HALF>
+struct Bits16 {
+  __device__ static float to_float(unsigned short s) {
+    if constexpr (HALF) return __half2float(__ushort_as_half(s));
+    else return __bfloat162float(__ushort_as_bfloat16(s));
+  }
+  __device__ static unsigned short from_float(float v) {
+    if constexpr (HALF) return __half_as_ushort(__float2half_rn(v));
+    else return __bfloat16_as_ushort(__float2bfloat16(v));
+  }
+};
+
+template <bool HALF>
+struct Half16 {
+  using C = Bits16<HALF>;
   static constexpr int kVec = 8;
-  __device__ static float lo(unsigned int w) {
-    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w & 0xffffu)));
-  }
-  __device__ static float hi(unsigned int w) {
-    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w >> 16)));
-  }
-  __device__ static unsigned int bits(float v) {
-    return (unsigned int)__bfloat16_as_ushort(__float2bfloat16(v));
-  }
+  __device__ static float lo(unsigned int w) { return C::to_float((unsigned short)(w & 0xffffu)); }
+  __device__ static float hi(unsigned int w) { return C::to_float((unsigned short)(w >> 16)); }
   __device__ static unsigned int pack(float a, float b) {
-    return bits(a) | (bits(b) << 16);
+    return (unsigned int)C::from_float(a) | ((unsigned int)C::from_float(b) << 16);
   }
   __device__ static void load(const void* p, long long i, float (&f)[kVec]) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
@@ -128,13 +141,15 @@ struct BF16 {
     reinterpret_cast<uint4*>(p)[i] = v;
   }
   __device__ static float load1(const void* p, long long i) {
-    const unsigned short s = __ldg(reinterpret_cast<const unsigned short*>(p) + i);
-    return __bfloat162float(__ushort_as_bfloat16(s));
+    return C::to_float(__ldg(reinterpret_cast<const unsigned short*>(p) + i));
   }
   __device__ static void store1(void* p, long long i, float v) {
-    reinterpret_cast<unsigned short*>(p)[i] = (unsigned short)bits(v);
+    reinterpret_cast<unsigned short*>(p)[i] = C::from_float(v);
   }
 };
+
+using BF16 = Half16<false>;
+using F16 = Half16<true>;
 
 template <bool RELU>
 __device__ __forceinline__ float scale_shift(float x, float s, float b) {
@@ -351,11 +366,11 @@ void launch_bwd(const void* x, const float* sc, const float* sh, const void* g, 
 
 }  // namespace
 
-// x, y: (rows, channels) contiguous, float32 (dtype 0) or bfloat16 (dtype 1).
-// scale, shift: (channels,) contiguous float32. relu: 0 = none, 1 = relu.
+// x, y: (rows, channels) contiguous, float32 (dtype 0), bfloat16 (dtype 1) or float16
+// (dtype 2). scale, shift: (channels,) contiguous float32. relu: 0 = none, 1 = relu.
 extern "C" int norm_act_fwd(const void* x, const void* scale, const void* shift, void* y,
                             long long rows, int channels, int dtype, int relu, void* stream) {
-  if (rows < 0 || channels <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (rows < 0 || channels <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   const long long n = rows * (long long)channels;
   if (n == 0) return 0;
   const int vec_width = dtype == 0 ? F32::kVec : BF16::kVec;
@@ -367,9 +382,12 @@ extern "C" int norm_act_fwd(const void* x, const void* scale, const void* shift,
   if (dtype == 0) {
     if (relu) launch<F32, true>(x, sc, sh, y, n, channels, vec, s);
     else launch<F32, false>(x, sc, sh, y, n, channels, vec, s);
-  } else {
+  } else if (dtype == 1) {
     if (relu) launch<BF16, true>(x, sc, sh, y, n, channels, vec, s);
     else launch<BF16, false>(x, sc, sh, y, n, channels, vec, s);
+  } else {
+    if (relu) launch<F16, true>(x, sc, sh, y, n, channels, vec, s);
+    else launch<F16, false>(x, sc, sh, y, n, channels, vec, s);
   }
   return (int)cudaGetLastError();
 }
@@ -380,7 +398,8 @@ extern "C" int norm_act_bwd_row_blocks(long long rows, int channels) {
   return bwd_row_blocks(rows, channels);
 }
 
-// x, g, dx: (rows, channels) contiguous, float32 (dtype 0) or bfloat16 (dtype 1).
+// x, g, dx: (rows, channels) contiguous, float32 (dtype 0), bfloat16 (dtype 1) or
+// float16 (dtype 2).
 // scale, shift: (channels,) float32. dscale, dshift: (channels,) float32 outputs.
 // partial: (row_blocks, 2, channels) float32 scratch, row_blocks as
 // norm_act_bwd_row_blocks gives it. relu: 0 = none, 1 = relu.
@@ -388,7 +407,7 @@ extern "C" int norm_act_bwd(const void* x, const void* scale, const void* shift,
                             void* dx, void* dscale, void* dshift, void* partial,
                             long long rows, int channels, int row_blocks, int dtype, int relu,
                             void* stream) {
-  if (rows <= 0 || channels <= 0 || (dtype != 0 && dtype != 1) ||
+  if (rows <= 0 || channels <= 0 || dtype < 0 || dtype > 2 ||
       row_blocks != bwd_row_blocks(rows, channels))
     return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
@@ -400,9 +419,12 @@ extern "C" int norm_act_bwd(const void* x, const void* scale, const void* shift,
   if (dtype == 0) {
     if (relu) launch_bwd<F32, true>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
     else launch_bwd<F32, false>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
-  } else {
+  } else if (dtype == 1) {
     if (relu) launch_bwd<BF16, true>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
     else launch_bwd<BF16, false>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
+  } else {
+    if (relu) launch_bwd<F16, true>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
+    else launch_bwd<F16, false>(x, sc, sh, g, dx, dsc, dsh, part, rows, channels, row_blocks, s);
   }
   return (int)cudaGetLastError();
 }

@@ -135,11 +135,13 @@ declare("MXNET_TPU_ENGINE_SYNC", bool, False,
         "them.", section=_E)
 
 declare("MXNET_COMPUTE_DTYPE", str, None,
-        "The JAX package binds executors to compute in this dtype (mixed "
-        "precision, e.g. `bfloat16`). Not ported yet: set, `bind` and "
-        "`simple_bind` raise naming ROADMAP Queue A item 14b rather than "
-        "run in float32; `compute_dtype=None` at bind overrides it.",
-        section="Executor")
+        "Mixed precision: executors bound without a `compute_dtype` "
+        "compute in this dtype (`bfloat16` or `float16`). Every floating "
+        "argument but the labels is cast on its way into the graph and "
+        "every floating output back to float32; params, gradients and "
+        "aux states stay float32 (the classic loop, the fused step and "
+        "`FusedInfer` alike). `compute_dtype=None` at bind forces "
+        "float32; any other name raises.", section="Executor")
 
 _IN = "Input pipeline"
 declare("MXNET_TPU_DEVICE_STAGING", bool, False,
@@ -297,6 +299,50 @@ declare("MXNET_TPU_CKPT_GRACE_S", float, 25.0,
 # ---------------------------------------------------------------------------
 # docs generation
 # ---------------------------------------------------------------------------
+
+_S = "Serving"
+declare("MXNET_TPU_SERVE_PORT", str, "",
+        "Start the serving-tier metrics/health server on this port when "
+        "an `InferenceServer` comes up (`/metrics`, `/healthz`). Port "
+        "`0` binds an ephemeral port (tests). Unset: reuse a server "
+        "already started via `MXNET_TPU_METRICS_PORT`, else none.",
+        section=_S)
+declare("MXNET_TPU_SERVE_MAX_BATCH", int, 64,
+        "Upper bound on how many rows the batcher coalesces into one "
+        "`FusedInfer` call; also the top rung of the padded bucket "
+        "ladder.", section=_S)
+declare("MXNET_TPU_SERVE_MAX_WAIT_MS", float, 2.0,
+        "How long the batcher holds an incomplete batch open for more "
+        "arrivals before dispatching what it has (the static window; "
+        "the adaptive controller starts from it).", section=_S)
+declare("MXNET_TPU_SERVE_BUCKETS", str, "",
+        "Comma-separated padded batch-size ladder (e.g. `1,2,4,8,16`). "
+        "Every dispatched batch is padded up to the next rung. Unset: "
+        "powers of two from 1 up to `MXNET_TPU_SERVE_MAX_BATCH`.",
+        section=_S)
+declare("MXNET_TPU_SERVE_SLO_MS", float, 0.0,
+        "Per-request latency SLO in milliseconds. When the p99 over the "
+        "sliding SLO window exceeds it, `/healthz` turns `degraded` "
+        "(HTTP 503). `0` disables SLO enforcement (latency is still "
+        "measured).", section=_S)
+declare("MXNET_TPU_SERVE_ADAPTIVE", bool, True,
+        "Adaptive deadline-aware scheduling: a closed-loop controller "
+        "replaces the fixed `MXNET_TPU_SERVE_MAX_WAIT_MS` window, "
+        "widening it while the recent p99 has headroom against "
+        "`MXNET_TPU_SERVE_SLO_MS` and collapsing it near breach; "
+        "dispatch is earliest-deadline-first with overload shedding. "
+        "Needs a nonzero SLO; without one the static window applies.",
+        section=_S)
+declare("MXNET_TPU_SERVE_DEADLINE_MS", float, 0.0,
+        "Default per-request deadline of the interactive lane when the "
+        "caller passes no `deadline_ms`. `0`: the SLO when the adaptive "
+        "scheduler is active, else no implicit deadline.", section=_S)
+declare("MXNET_TPU_SERVE_BATCH_DEADLINE_MS", float, 0.0,
+        "Default per-request deadline of the `batch` lane. `0`: 4x the "
+        "interactive default. Batch-lane requests ride along in the "
+        "capacity the interactive lane leaves free and are shed first "
+        "under overload.", section=_S)
+
 
 DOC_BEGIN = ("<!-- BEGIN MXNET_TPU_TORCH ENV REGISTRY (generated from "
              "mxnet_tpu_torch/env.py by env.sync_docs; do not edit by "

@@ -19,8 +19,17 @@ Model parallelism: bound with ``group2ctx`` (group name -> Context), a
 node whose ``ctx_group`` attribute names a group runs on that group's
 device, its inputs (and aux states) copied there; autograd copies the
 gradients back along the same edges. Outputs come back to the bound
-context. Mixed precision (``compute_dtype`` or ``MXNET_COMPUTE_DTYPE``)
-is not ported: asking for it raises instead of running in float32.
+context.
+
+Mixed precision (``compute_dtype``, default ``MXNET_COMPUTE_DTYPE``,
+as ``executor.py:220-231, 326-369`` of the JAX package has it): every
+floating argument but the labels is cast to the compute dtype
+(bfloat16 or float16) on its way into the graph, and every floating
+output is cast back to float32. The cast sits in the one graph function
+that ``forward``, ``backward``, :meth:`Executor.run` (so ``FusedInfer``)
+and the fused train step all evaluate, so they share the numerics.
+Params, gradients and aux states stay float32: autograd through the
+cast hands float32 gradients to the float32 leaves.
 """
 from __future__ import annotations
 
@@ -34,7 +43,10 @@ from .context import Context
 from .ndarray import NDArray
 from .ops.registry import OpContext
 
-__all__ = ["Executor", "make_graph_eval"]
+__all__ = ["Executor", "make_graph_eval", "resolve_compute_dtype"]
+
+#: the compute dtypes mixed precision takes, by the JAX package's names
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def make_graph_eval(symbol, node_device=None):
@@ -101,6 +113,43 @@ def grad_req_dict(grad_req, names) -> Dict[str, str]:
 _UNSET = object()   # compute_dtype not passed: read MXNET_COMPUTE_DTYPE
 
 
+def resolve_compute_dtype(compute_dtype=_UNSET) -> Optional[torch.dtype]:
+    """The torch dtype of ``compute_dtype``: ``MXNET_COMPUTE_DTYPE`` when
+    not passed, None (float32) for an explicit None, else ``"bfloat16"``,
+    ``"float16"`` or one of those torch dtypes. Any other value raises,
+    naming the setting."""
+    if compute_dtype is _UNSET:
+        compute_dtype = _env.get("MXNET_COMPUTE_DTYPE")
+    if compute_dtype is None:
+        return None
+    if isinstance(compute_dtype, torch.dtype):
+        dtype = compute_dtype
+    else:
+        dtype = COMPUTE_DTYPES.get(str(compute_dtype))
+    if dtype not in COMPUTE_DTYPES.values():
+        raise MXNetError(
+            "invalid compute dtype %r (MXNET_COMPUTE_DTYPE / "
+            "compute_dtype); expected 'bfloat16' or 'float16'"
+            % (compute_dtype,))
+    return dtype
+
+
+def _cast_graph(eval_graph, arg_names, label_names, dtype):
+    """``eval_graph`` with its floating arguments, labels excepted, cast
+    to ``dtype`` on the way in and its floating outputs cast to float32
+    on the way out (the JAX package's ``_run_graph``)."""
+    cast = [n not in label_names for n in arg_names]
+
+    def run_graph(arg_list, aux_list, rng, is_train, internals=None):
+        args = [a.to(dtype) if c and a.is_floating_point() else a
+                for a, c in zip(arg_list, cast)]
+        outs, aux = eval_graph(args, aux_list, rng, is_train, internals)
+        return [o.float() if o.is_floating_point() else o
+                for o in outs], aux
+
+    return run_graph
+
+
 class Executor:
     """A symbol bound to arrays on one device. ``args_grad`` (a list in
     ``list_arguments`` order or a dict by name, entries may be missing)
@@ -109,24 +158,23 @@ class Executor:
     without a gradient array gets ``"null"``. ``group2ctx`` places the
     nodes of each ``ctx_group`` on that group's context;
     ``shared_exec`` is accepted and, as in the JAX package, shares
-    nothing. ``compute_dtype`` (default: ``MXNET_COMPUTE_DTYPE``) other
-    than None raises: mixed precision is ROADMAP Queue A item 14b."""
+    nothing. ``compute_dtype`` (default: ``MXNET_COMPUTE_DTYPE``;
+    None forces float32) runs the graph in bfloat16 or float16 with
+    float32 params, gradients, aux states and outputs; ``label_names``
+    (default: the arguments whose names end in ``label``) are never
+    cast."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
                  grad_req="write", aux_states=None,
                  seed: Optional[int] = None, label_names=None,
                  group2ctx=None, shared_exec=None, compute_dtype=_UNSET):
-        if compute_dtype is _UNSET:
-            compute_dtype = _env.get("MXNET_COMPUTE_DTYPE")
-        if compute_dtype is not None:
-            raise MXNetError(
-                "compute_dtype %r (compute_dtype / MXNET_COMPUTE_DTYPE): "
-                "mixed precision is not ported yet (ROADMAP Queue A item "
-                "14b: a bfloat16 conv GEMM); pass compute_dtype=None or "
-                "unset the variable to run in float32" % (compute_dtype,))
+        self._compute_dtype = resolve_compute_dtype(compute_dtype)
         self._group2ctx = dict(group2ctx or {})
         self._symbol = symbol
-        self._label_names = list(label_names or [])
+        # never cast; a plain bind falls back to the "*label" convention
+        self._label_names = (list(label_names) if label_names is not None
+                             else [n for n in symbol.list_arguments()
+                                   if n.endswith("label")])
         self._ctx = ctx
         self._device = ctx.torch_device()
         self._seed = seed
@@ -161,6 +209,10 @@ class Executor:
             def node_device(n):
                 return group2dev.get(n.attrs.get("ctx_group"))
         self._eval_graph, _ = make_graph_eval(symbol, node_device)
+        if self._compute_dtype is not None:
+            self._eval_graph = _cast_graph(self._eval_graph, self.arg_names,
+                                           set(self._label_names),
+                                           self._compute_dtype)
         self._draws = self.draws_random()
         self._outputs: Optional[List[NDArray]] = None
         # the pending train forward: (heads, leaves by arg index, new aux)
@@ -306,6 +358,11 @@ class Executor:
                 arr.handle.copy_(new)
 
     @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """The dtype the graph computes in, None for float32."""
+        return self._compute_dtype
+
+    @property
     def outputs(self) -> List[NDArray]:
         if self._outputs is None:
             raise MXNetError("no forward has been run")
@@ -331,7 +388,8 @@ class Executor:
                 **kwargs) -> "Executor":
         """Rebind to new input shapes. Each argument, gradient and aux
         array whose shape is unchanged is shared; the others are new
-        zeros. ``grad_req``, the label names and the seed carry over.
+        zeros. ``grad_req``, the label names, the compute dtype and the
+        seed carry over.
         Names in ``fresh_args`` always get new storage, so writes through
         the new executor cannot reach the old one's inputs."""
         from . import ndarray as nd
@@ -359,7 +417,8 @@ class Executor:
         return Executor(self._symbol, self._ctx, new_args, new_grads,
                         self._grad_req, new_aux, seed=self._seed,
                         label_names=self._label_names,
-                        group2ctx=self._group2ctx, compute_dtype=None)
+                        group2ctx=self._group2ctx,
+                        compute_dtype=self._compute_dtype)
 
     def debug_str(self) -> str:
         """The graph, one node a line: name, op (``var`` for a variable)

@@ -39,7 +39,9 @@ module holds, never replaying a graph over storage the module let go.
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
 call: place the batch on the device, run the forward and the argmax or
-top-k under ``torch.inference_mode()``, and hand back device tensors.
+top-k under ``torch.inference_mode()``, and hand back device tensors. A
+delta refresh (``refresh_params(host_params, digests)``) copies only the
+params whose digest changed into the packed tensors, in place.
 """
 from __future__ import annotations
 
@@ -371,7 +373,17 @@ class FusedInfer:
     the number of distinct batch shapes seen (PyTorch compiles nothing;
     the count mirrors the JAX package's, whose executable cache it
     bounds, and under the serving ladder it stays at most the number of
-    buckets)."""
+    buckets). The forward runs the executor's graph function, so a
+    ``compute_dtype`` bind serves in that dtype with float32 outputs.
+
+    The serving surface of ``mxnet_tpu/fused_step.py:693-1029``:
+    :attr:`idempotent`, :meth:`stale_for`, :meth:`place_batch` and
+    :meth:`refresh_params`' delta refresh."""
+
+    #: a call reads the packed params and writes nothing they hold, so
+    #: serving a retried request twice is harmless: the scheduler's
+    #: request-id dedup of completed requests keys off this
+    idempotent = True
 
     def __init__(self, executor, data_names, top_k=0):
         self._ex = executor
@@ -388,20 +400,95 @@ class FusedInfer:
         self._device = executor._device
         self._seen_sigs = set()
         self.dispatches = 0
+        self._param_vals = None
+        self._aux_vals = None
+        # per-param sha256 of the resident pack (checkpoint.param_digest,
+        # as a snapshot's manifest records it); None: unknown provenance,
+        # so the next delta refresh moves every param and seeds them
+        self._digests = None
+        self.last_refresh_bytes = 0
+        self.last_refresh_ms = 0.0
+        self.last_refresh_changed = 0
+        self.last_refresh_skipped = 0
         self.refresh_params()
 
     @property
     def compiles(self) -> int:
         return len(self._seen_sigs)
 
-    def refresh_params(self):
-        """(Re)pack the non-data arguments and auxiliary states: a copy
-        on the device, so later writes to the executor's arrays reach
-        serving only through this call (as with the JAX package)."""
+    def stale_for(self, executor) -> bool:
+        """True when ``executor`` is not the one this step packs and runs
+        (the module was bound again): serve through a new step."""
+        return executor is not self._ex
+
+    def refresh_params(self, host_params=None, digests=None):
+        """Repack the non-data arguments and auxiliary states.
+
+        * With no arguments (after ``module.set_params``): a copy of every
+          argument and aux array on the device, so later writes to the
+          executor's arrays reach serving only through this call (as with
+          the JAX package). The resident digests become unknown.
+        * With ``host_params`` (name -> host array) and optionally
+          ``digests`` (name -> sha256, a snapshot's ``param_digests``;
+          hashed here where missing): the delta refresh. Only params
+          whose digest differs from the resident pack's are copied, in
+          place, into the packed tensors and through to the executor's
+          arrays; names that are not packed params are ignored.
+
+        ``last_refresh_bytes`` / ``_changed`` / ``_skipped`` / ``_ms``
+        describe the call; telemetry ``infer.refresh_bytes``,
+        ``infer.refresh_changed``, ``infer.refresh_skipped`` and
+        ``infer.refresh_ms``."""
+        import time
+
+        from .checkpoint import param_digest
+
         ex = self._ex
-        self._param_vals = [ex.arg_arrays[i].handle.detach().clone()
-                            for i in self._p_idx]
-        self._aux_vals = [a.handle.detach().clone() for a in ex.aux_arrays]
+        t0 = time.perf_counter()
+        moved = changed = skipped = 0
+        if host_params is None:
+            self._param_vals = [ex.arg_arrays[i].handle.detach().clone()
+                                for i in self._p_idx]
+            self._aux_vals = [a.handle.detach().clone()
+                              for a in ex.aux_arrays]
+            changed = len(self._param_vals)
+            moved = sum(v.numel() * v.element_size()
+                        for v in self._param_vals)
+            self._digests = None
+        else:
+            pos_of = {ex.arg_names[i]: pos
+                      for pos, i in enumerate(self._p_idx)}
+            known = self._digests
+            new_digests = dict(known or {})
+            for name, host in host_params.items():
+                pos = pos_of.get(name)
+                if pos is None:
+                    continue
+                digest = (digests or {}).get(name) or param_digest(host)
+                if known is not None and known.get(name) == digest:
+                    skipped += 1
+                    continue
+                host = np.ascontiguousarray(np.asarray(host))
+                dst = self._param_vals[pos]
+                if tuple(host.shape) != tuple(dst.shape):
+                    raise MXNetError("refresh_params: '%s' is %s, the "
+                                     "served param %s" % (
+                                         name, host.shape, tuple(dst.shape)))
+                src = torch.from_numpy(host).to(dst.device, dst.dtype)
+                dst.copy_(src)
+                ex.arg_arrays[self._p_idx[pos]].handle.copy_(src)
+                new_digests[name] = digest
+                changed += 1
+                moved += int(host.nbytes)
+            self._digests = new_digests
+        self.last_refresh_bytes = moved
+        self.last_refresh_changed = changed
+        self.last_refresh_skipped = skipped
+        self.last_refresh_ms = (time.perf_counter() - t0) * 1e3
+        _tel.inc("infer.refresh_bytes", moved)
+        _tel.inc("infer.refresh_changed", changed)
+        _tel.inc("infer.refresh_skipped", skipped)
+        _tel.observe("infer.refresh_ms", self.last_refresh_ms)
 
     def place_batch(self, arrays):
         """Host arrays (or tensors) of one batch -> tensors on the
@@ -418,9 +505,12 @@ class FusedInfer:
         top_k=0, ``(argmax,)`` for top_k=1, ``(values, indices)``
         otherwise. Results stay on the device."""
         d_vals = self.place_batch(arrays)
-        self._seen_sigs.add(tuple((tuple(v.shape), str(v.dtype))
-                                  for v in d_vals))
+        sig = tuple((tuple(v.shape), str(v.dtype)) for v in d_vals)
+        if sig not in self._seen_sigs:
+            self._seen_sigs.add(sig)
+            _tel.inc("infer.recompiles")
         self.dispatches += 1
+        _tel.inc("infer.dispatches")
         full = [None] * len(self._ex.arg_names)
         for pos, i in enumerate(self._p_idx):
             full[i] = self._param_vals[pos]

@@ -1,6 +1,7 @@
-"""Device staging and the feed scheduler, counterpart of that part of
-``mxnet_tpu/io_pipeline.py`` (the decode workers and the shared-memory
-ring are not ported yet: ROADMAP.md Queue A item 9).
+"""Device staging, the feed scheduler and the serving tier's request
+stager, counterpart of that part of ``mxnet_tpu/io_pipeline.py`` (the
+decode workers and the shared-memory ring are not ported yet: ROADMAP.md
+Queue A item 9).
 
 On a card a batch is staged in three moves: a host copy into a pinned
 buffer from a small ring, a ``non_blocking`` host-to-device copy on a
@@ -22,6 +23,10 @@ iterator and drop their read-ahead on a seek. ``fit`` wraps its
 iterator with :func:`maybe_wrap_feed_scheduler` and
 :func:`maybe_wrap_device_staging` (``MXNET_TPU_FEED_DEPTH``,
 ``MXNET_TPU_DEVICE_STAGING``).
+
+:class:`RequestStager` builds one serving batch: the queued requests'
+rows concatenated and padded to the scheduled bucket, then placed on the
+device by the server's ``place`` function.
 """
 from __future__ import annotations
 
@@ -36,12 +41,13 @@ import torch
 
 from . import env as _env
 from . import telemetry as _tel
+from .base import MXNetError
 from .context import current_context
 from .io import DataBatch, DataIter
 from .ndarray import NDArray, _host_tensor
 
 __all__ = ["DeviceStagingIter", "FeedScheduler", "maybe_wrap_device_staging",
-           "maybe_wrap_feed_scheduler"]
+           "maybe_wrap_feed_scheduler", "RequestStager"]
 
 
 def _as_host(x) -> torch.Tensor:
@@ -409,3 +415,74 @@ def maybe_wrap_feed_scheduler(data_iter: DataIter, group=None) -> DataIter:
         "feed scheduler enabled: %d staged batches in flight ahead of %s",
         depth, type(data_iter).__name__)
     return FeedScheduler(data_iter, depth=depth, group=group)
+
+
+# ---------------------------------------------------------------------------
+# serving-tier request staging
+# ---------------------------------------------------------------------------
+
+class RequestStager:
+    """Staging of serving request batches (:mod:`mxnet_tpu_torch.serving`),
+    as ``mxnet_tpu/io_pipeline.py:812-897`` stages them.
+
+    One scheduled batch is the queued requests' payloads concatenated
+    along the batch axis and padded with zero rows up to the scheduled
+    bucket, then placed through the caller's ``place`` function
+    (``FusedInfer.place_batch``: onto the card). Padding to a ladder rung
+    keeps every dispatch one of at most ``len(buckets)`` shapes. The pad
+    rows are one cached zero block a (rows, shape, dtype), not a fresh
+    allocation a dispatch. A single payload that already fills its bucket
+    skips the concatenation and the pad (``serve.stage_fastpath``).
+
+    Telemetry: ``serve.h2d_bytes`` (host bytes handed to ``place``) and
+    ``serve.pad_rows``; ``last_fastpath`` and ``last_bytes`` describe the
+    latest :meth:`stage` call."""
+
+    def __init__(self, place=None):
+        self._place = place
+        self.last_fastpath = False
+        self.last_bytes = 0
+        self._pad_cache: dict = {}
+
+    def rebind_place(self, place) -> None:
+        """Place later batches with ``place`` (a server rebuilt its
+        ``FusedInfer`` after a re-bind). The pad cache stays: its blocks
+        are host arrays."""
+        self._place = place
+
+    def _pad_rows(self, pad: int, shape: tuple, dtype) -> np.ndarray:
+        key = (pad, shape, np.dtype(dtype).str)
+        block = self._pad_cache.get(key)
+        if block is None:
+            block = np.zeros((pad,) + shape, dtype)
+            if len(self._pad_cache) >= 64:   # ladder shapes are few
+                self._pad_cache.clear()
+            self._pad_cache[key] = block
+        return block
+
+    def stage(self, rows, bucket: int):
+        """``rows`` holds one payload (a sequence of arrays, rows first)
+        a queued request, all of one arity. Returns ``(placed, pad)``:
+        the placed arrays of ``bucket`` rows and the zero rows added."""
+        n = sum(int(r[0].shape[0]) for r in rows)
+        if n > bucket:
+            raise MXNetError("request batch of %d rows scheduled into a "
+                             "bucket of %d" % (n, bucket))
+        pad = bucket - n
+        self.last_fastpath = len(rows) == 1 and pad == 0
+        if self.last_fastpath:
+            batch = [np.asarray(a) for a in rows[0]]
+            _tel.inc("serve.stage_fastpath")
+        else:
+            batch = [np.concatenate([np.asarray(a) for a in col], axis=0)
+                     for col in zip(*rows)]
+            if pad:
+                batch = [np.concatenate(
+                    [b, self._pad_rows(pad, b.shape[1:], b.dtype)], axis=0)
+                    for b in batch]
+        placed = self._place(batch) if self._place is not None else batch
+        self.last_bytes = sum(int(b.nbytes) for b in batch)
+        _tel.inc("serve.h2d_bytes", self.last_bytes)
+        if pad:
+            _tel.inc("serve.pad_rows", pad)
+        return placed, pad

@@ -18,7 +18,7 @@ from typing import Dict, List, Sequence
 
 from ..base import MXNetError
 from ..context import Context
-from ..executor import Executor
+from ..executor import _UNSET, Executor
 from ..io import DataDesc
 from ..ndarray import HostToDevice, NDArray, zeros
 
@@ -29,7 +29,8 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts: Sequence[Context], data_shapes,
                  label_shapes, param_names: List[str], for_training: bool,
                  inputs_need_grad: bool = False, grad_req: str = "write",
-                 fixed_param_names=(), shared_group=None):
+                 fixed_param_names=(), shared_group=None,
+                 compute_dtype=_UNSET):
         if len(contexts) != 1:
             raise MXNetError("the port binds one device; got %s"
                              % list(contexts))
@@ -93,7 +94,8 @@ class DataParallelExecutorGroup:
                and shared_aux[n].shape == tuple(s) else zeros(s, ctx=ctx)
                for n, s in zip(self.aux_names, aux_shapes)]
         self.executor = Executor(symbol, ctx, args, grads, reqs, aux,
-                                 label_names=self.label_names)
+                                 label_names=self.label_names,
+                                 compute_dtype=compute_dtype)
         self.execs = [self.executor]
         self._loaders = None
 

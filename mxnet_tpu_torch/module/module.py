@@ -8,6 +8,7 @@ from typing import Dict, Optional
 
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
+from ..executor import _UNSET
 from ..initializer import Uniform
 from ..io import DataDesc
 from .. import kvstore as kvs
@@ -22,12 +23,18 @@ __all__ = ["Module"]
 class Module(BaseModule):
     """``context`` defaults to the current context, ``gpu(0)`` unless a
     ``with mx.cpu():`` scope is open; a CUDA context without a card
-    raises :class:`~mxnet_tpu_torch.base.DeviceUnavailableError` here."""
+    raises :class:`~mxnet_tpu_torch.base.DeviceUnavailableError` here.
+    ``compute_dtype`` (default ``MXNET_COMPUTE_DTYPE``, None for
+    float32) is the executor's mixed precision: the graph computes in
+    bfloat16 or float16, the labels stay as they are, and params,
+    gradients and aux states stay float32."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None):
+                 context=None, fixed_param_names=None,
+                 compute_dtype=_UNSET):
         super().__init__(logger=logger)
+        self._compute_dtype = compute_dtype
         if context is None:
             context = current_context()
         if isinstance(context, Context):
@@ -125,6 +132,7 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, grad_req, self._fixed_param_names,
+            compute_dtype=self._compute_dtype,
             shared_group=(shared_module._exec_group
                           if shared_module is not None else None))
         self.for_training = for_training

@@ -34,7 +34,9 @@ as a masked max over the whole map per bin (:func:`roi_pool`).
 Every TPU kernel of the JAX package now has its counterpart here. K1, K2
 and K3 run on the tensor cores at float32 accuracy (three TF32 products a
 fragment, ``csrc/tf32x3.cuh``), so their results keep the float32
-contracts of their plain versions.
+contracts of their plain versions. K3 with bfloat16 or float16 operands
+runs its own 16-bit mainloop (``csrc/gemm_tile16.cuh``: exact products,
+float32 sums), and K4/K5 take both 16-bit types with float32 math.
 """
 from __future__ import annotations
 
@@ -66,10 +68,13 @@ linear_launches = 0
 flash_attn_launches = 0
 rtc_launches = 0
 roi_pool_launches = 0
+#: (wrapper, dtype name) -> launches since the last reset: which of a
+#: kernel's typed paths ran (``launch_records``)
+_by_dtype: dict = {}
 _count_lock = threading.Lock()
 
 _ACTS = {"none": 0, "relu": 1}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LINEAR_ACTS = {"none": 0, "relu": 1, "tanh": 2, "sigmoid": 3}
 #: the widest head dimension K2 takes (pallas_kernels.py:253)
 FLASH_MAX_D = 256
@@ -87,11 +92,24 @@ def launch_counts() -> dict:
             "roi_pool": roi_pool_launches}
 
 
+def launch_records() -> dict:
+    """The launches since the last reset by kernel and operand dtype,
+    ``{"conv_gemm": {"bfloat16": 105}, ...}``: which typed path of each
+    kernel ran. Every launch counted by :func:`launch_counts` is here
+    under its dtype."""
+    with _count_lock:
+        out: dict = {}
+        for (name, dtype), n in _by_dtype.items():
+            out.setdefault(name, {})[dtype] = n
+        return out
+
+
 def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
     global linear_launches, flash_attn_launches, rtc_launches
     global roi_pool_launches
     with _count_lock:
+        _by_dtype.clear()
         norm_act_fwd_launches = 0
         norm_act_bwd_launches = 0
         conv_gemm_launches = 0
@@ -101,9 +119,13 @@ def reset_launch_counts() -> None:
         roi_pool_launches = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, dtype: torch.dtype = torch.float32) -> None:
+    """One launch of ``name`` (the ``<kernel>_launches`` counter) with
+    operands of ``dtype``."""
+    key = (name[:-len("_launches")], str(dtype).replace("torch.", ""))
     with _count_lock:
         globals()[name] += 1
+        _by_dtype[key] = _by_dtype.get(key, 0) + 1
 
 
 #: the CUDA kernel that each wrapper's launch starts with (K3 and K5 may
@@ -189,7 +211,8 @@ def _check_norm_act(fn, x, scale, shift, act):
         raise MXNetError("%s: act must be one of %s, got %r"
                          % (fn, sorted(_ACTS), act))
     if x.dtype not in _DTYPES:
-        raise MXNetError("%s: dtype %s not supported (float32, bfloat16)"
+        raise MXNetError("%s: dtype %s not supported (float32, bfloat16, "
+                         "float16)"
                          % (fn, x.dtype))
     c = x.shape[-1] if x.dim() else 0
     if tuple(scale.shape) != (c,) or tuple(shift.shape) != (c,):
@@ -216,7 +239,7 @@ def _norm_act_fwd(x, sc, sh, act):
                               _DTYPES[x.dtype], _ACTS[act], _stream(x))
     if rc != 0:
         raise MXNetError("norm_act_fwd launch failed: CUDA error %d" % rc)
-    _count("norm_act_fwd_launches")
+    _count("norm_act_fwd_launches", x.dtype)
     return y
 
 
@@ -260,7 +283,7 @@ def fused_norm_act_bwd(x: torch.Tensor, scale: torch.Tensor,
                               _DTYPES[x.dtype], _ACTS[act], _stream(x))
     if rc != 0:
         raise MXNetError("norm_act_bwd launch failed: CUDA error %d" % rc)
-    _count("norm_act_bwd_launches")
+    _count("norm_act_bwd_launches", x.dtype)
     return dx, dscale, dshift
 
 
@@ -283,7 +306,8 @@ class _NormAct(torch.autograd.Function):
 def fused_norm_act(x: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, act: str = "none") -> torch.Tensor:
     """``act(x * scale + shift)`` with per-channel ``scale``/``shift``
-    over the last axis of a channels-last ``x`` (float32 or bfloat16;
+    over the last axis of a channels-last ``x`` (float32, bfloat16 or
+    float16;
     any rank; any row and channel count). ``scale`` and ``shift`` are
     widened to float32 before the math, as the JAX wrapper does
     (``pallas_kernels.py:684-685``); autograd sees that cast, so their
@@ -304,7 +328,8 @@ def matmul_f32acc_plain(a: torch.Tensor, b: torch.Tensor,
                         transpose_a: bool = False) -> torch.Tensor:
     """``a @ b`` or ``a.T @ b`` in float32 (``pallas_kernels.py:319-365``
     in plain torch): the operands are widened to float32, which is exact
-    for bfloat16, so the products are exact and the sum is float32."""
+    for bfloat16 and float16, so the products are exact and the sum is
+    float32."""
     a = a.float()
     return (a.t() if transpose_a else a) @ b.float()
 
@@ -313,16 +338,19 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
                   transpose_a: bool = False) -> torch.Tensor:
     """``a @ b``, or ``a.T @ b`` with ``transpose_a`` (the transpose is
     folded into the kernel's tile loads, never materialised), for 2-D
-    float32 or bfloat16 operands of one dtype; float32 result.
+    float32, bfloat16 or float16 operands of one dtype; float32 result.
 
     On CUDA tensors: launches ``conv_gemm`` (contiguous operands; any M,
-    N and K) or raises. On CPU tensors: :func:`matmul_f32acc_plain`."""
+    N and K; float32 operands take the 3xTF32 mainloop, 16-bit ones the
+    native 16-bit mainloop) or raises. On CPU tensors:
+    :func:`matmul_f32acc_plain`."""
     if a.dim() != 2 or b.dim() != 2:
         raise MXNetError("matmul_f32acc: operands must be 2-D, got %s and %s"
                          % (tuple(a.shape), tuple(b.shape)))
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
-        raise MXNetError("matmul_f32acc: operands must both be float32 or "
-                         "both bfloat16, got %s and %s" % (a.dtype, b.dtype))
+        raise MXNetError("matmul_f32acc: operands must both be float32, "
+                         "both bfloat16 or both float16, got %s and %s"
+                         % (a.dtype, b.dtype))
     k, m = a.shape if transpose_a else (a.shape[1], a.shape[0])
     if b.shape[0] != k:
         raise MXNetError("matmul_f32acc: inner dimensions differ: %s%s @ %s"
@@ -349,7 +377,7 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
                            splits, _stream(a))
     if rc != 0:
         raise MXNetError("conv_gemm launch failed: CUDA error %d" % rc)
-    _count("conv_gemm_launches")
+    _count("conv_gemm_launches", a.dtype)
     return c
 
 
@@ -824,7 +852,9 @@ def _check_roi_cuda(fn, *tensors):
     _check_cuda(fn, *tensors)
     for t in tensors:
         if t.dtype != torch.float32:
-            raise MXNetError("%s: float32 tensors only, got %s" % (fn, t.dtype))
+            raise MXNetError("%s: float32 tensors only, got %s (a 16-bit "
+                             "roi_pool is ROADMAP.md Queue B item 7)"
+                             % (fn, t.dtype))
 
 
 def roi_pool_fwd(data, rois, pooled_size, spatial_scale):

@@ -151,4 +151,5 @@ class Rtc:
             _nvrtc.launch(fn, index, grid, block,
                           [t.data_ptr() for t in tensors],
                           torch.cuda.current_stream(index).cuda_stream)
-        kernels._count("rtc_launches")
+        kernels._count("rtc_launches", tensors[0].dtype if tensors
+                       else torch.float32)

@@ -22,6 +22,7 @@ import torch
 
 from .attribute import AttrScope
 from .base import MXNetError
+from .executor import _UNSET
 from .name import NameManager
 from .ops import OP_REGISTRY, Operator, create_operator
 from .ops.registry import get_operator_class
@@ -440,11 +441,13 @@ class Symbol:
         return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
-                    group2ctx=None, shared_exec=None, **kwargs):
+                    group2ctx=None, shared_exec=None, compute_dtype=_UNSET,
+                    label_names=None, **kwargs):
         """Infer shapes (``kwargs``: name -> shape), allocate zero arrays on
         ``ctx`` (and a gradient array for every argument whose
         ``grad_req`` is not ``"null"``) and bind, with ``group2ctx`` and
-        ``shared_exec`` as :meth:`bind` takes them. Dtypes come from
+        ``shared_exec`` as :meth:`bind` takes them, and the executor's
+        ``compute_dtype`` and ``label_names``. Dtypes come from
         :meth:`infer_type` seeded with ``type_dict``: float32 unless
         propagation gives another."""
         from . import ndarray as nd
@@ -462,7 +465,8 @@ class Symbol:
         aux = [nd.zeros(s, ctx=ctx, dtype=t)
                for s, t in zip(aux_shapes, aux_dtypes)]
         return self.bind(ctx, args, grads, grad_req=grad_req, aux_states=aux,
-                         group2ctx=group2ctx, shared_exec=shared_exec)
+                         group2ctx=group2ctx, shared_exec=shared_exec,
+                         compute_dtype=compute_dtype, label_names=label_names)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None, **kwargs):

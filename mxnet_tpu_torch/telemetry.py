@@ -147,10 +147,18 @@ class Histogram:
     def count(self) -> int:
         return self._count
 
-    def export(self) -> dict:
+    def quantile(self, q: float) -> Optional[float]:
+        """The ``q`` quantile of the sample ring (nearest rank, as
+        :func:`sample_quantile`), None while empty."""
+        with self._lock:
+            sample = sorted(self._ring)
+        return sample_quantile(sample, q)
+
+    def export(self, include_sample: bool = False) -> dict:
         """Summary: count, sum, mean, min, max, p50/p90/p99 of the sample
         ring (nearest rank) and the cumulative counts of each finite
-        bucket."""
+        bucket; with ``include_sample`` the sorted ring rides along, so a
+        federator can merge exact percentiles."""
         with self._lock:
             n, s = self._count, self._sum
             lo, hi = self._min, self._max
@@ -163,12 +171,51 @@ class Histogram:
         buckets = {"bounds": list(self.bounds), "counts": cum}
         if n == 0:
             return {"count": 0, "buckets": buckets}
-        m = len(sample)
-        return {"count": n, "sum": s, "mean": s / n, "min": lo, "max": hi,
-                "p50": sample[m // 2],
-                "p90": sample[min(m - 1, int(m * 0.9))],
-                "p99": sample[min(m - 1, int(m * 0.99))],
-                "buckets": buckets}
+        out = {"count": n, "sum": s, "mean": s / n, "min": lo, "max": hi,
+               "p50": sample_quantile(sample, 0.5),
+               "p90": sample_quantile(sample, 0.9),
+               "p99": sample_quantile(sample, 0.99),
+               "buckets": buckets}
+        if include_sample:
+            out["sample"] = sample
+        return out
+
+
+def sample_quantile(sample: Sequence[float], q: float) -> Optional[float]:
+    """Quantile of a pre-sorted sample by the nearest-rank convention of
+    :meth:`Histogram.export` (``sample[int(m * q)]``, clamped; the median
+    ``sample[m // 2]``). None for an empty sample."""
+    m = len(sample)
+    if m == 0:
+        return None
+    if q == 0.5:
+        return sample[m // 2]
+    return sample[min(m - 1, int(m * q))]
+
+
+def bucket_quantile(buckets: dict, count: int, q: float,
+                    hi: Optional[float] = None) -> Optional[float]:
+    """Quantile interpolated from a cumulative-bucket export
+    (``{"bounds": [...], "counts": [...]}``): linear within the bucket
+    that holds the target rank; ranks past the last finite bound clamp to
+    ``hi`` (the observed max) or the last bound. None when empty."""
+    if count <= 0 or not buckets:
+        return None
+    bounds = buckets.get("bounds") or []
+    counts = buckets.get("counts") or []
+    target = q * count
+    prev_bound, prev_cum = 0.0, 0
+    for bound, cum in zip(bounds, counts):
+        if cum >= target:
+            in_bucket = cum - prev_cum
+            if in_bucket <= 0:
+                return bound
+            frac = (target - prev_cum) / in_bucket
+            return prev_bound + (bound - prev_bound) * min(1.0, frac)
+        prev_bound, prev_cum = bound, cum
+    if hi is not None:
+        return float(hi)
+    return float(bounds[-1]) if bounds else None
 
 
 def _get(name: str, cls, **kw):

@@ -39,11 +39,12 @@ def card():
                                           ((1568, 2048), 0),
                                           ((1000, 100), 0), ((7, 3), 0),
                                           ((64, 5000), 0), ((4096, 64), 1)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("act", ["none", "relu"])
 def test_norm_act_fwd_matches_plain(card, shape, offset, dtype, act):
-    """float32: bit-equal (the kernel rounds the product and the sum
-    apart, as the plain version does); bfloat16: within one ulp."""
+    """float32 and float16: bit-equal (the kernel rounds the product and
+    the sum apart, as the plain version does, and both round to float16
+    to nearest even); bfloat16: within one ulp."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=card).manual_seed(0)
     rows, c = shape
@@ -58,8 +59,8 @@ def test_norm_act_fwd_matches_plain(card, shape, offset, dtype, act):
     assert kernels.norm_act_fwd_launches == before + 1
     want = kernels.fused_norm_act_plain(x, scale, shift, act)
     diff = (got.double() - want.double()).abs()
-    if dtype == "float32":
-        assert float(diff.max()) == 0.0
+    if dtype != "bfloat16":
+        assert torch.equal(got, want)
     else:
         mag = torch.clamp(want.double().abs(), min=2.0 ** -126)
         assert bool((diff <= torch.exp2(torch.floor(torch.log2(mag)) - 7))
@@ -113,11 +114,11 @@ def _ulp_bf16(t):
                                           ((1568, 2048), 0),
                                           ((1000, 100), 0), ((7, 3), 0),
                                           ((64, 5000), 0), ((4096, 64), 1)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("act", ["none", "relu"])
 def test_norm_act_bwd_matches_plain(card, shape, offset, dtype, act):
-    """dx: float32 bit-equal to the plain version, bfloat16 within one
-    ulp; dscale/dshift within 1e-5 of sum|term| of a float64 sum; a
+    """dx: float32 and float16 bit-equal to the plain version, bfloat16
+    within one ulp; dscale/dshift within 1e-5 of sum|term| of a float64 sum; a
     rerun bit-identical (two stages, no atomics)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=card).manual_seed(1)
@@ -136,8 +137,8 @@ def test_norm_act_bwd_matches_plain(card, shape, offset, dtype, act):
         assert torch.equal(a, b)
     pdx, _, _ = kernels.fused_norm_act_bwd_plain(x, scale, shift, g, act)
     diff = (dx.double() - pdx.double()).abs()
-    if dtype == "float32":
-        assert float(diff.max()) == 0.0
+    if dtype != "bfloat16":
+        assert torch.equal(dx, pdx)
     else:
         assert bool((diff <= _ulp_bf16(pdx)).all())
     xd, gd = x.double(), g.double()
@@ -155,20 +156,22 @@ def test_norm_act_bwd_matches_plain(card, shape, offset, dtype, act):
                                          (1568, 2048, 512, False),
                                          (257, 33, 1001, True),
                                          (129, 65, 7, False), (1, 1, 1, True)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_conv_gemm_matches_float64(card, m, n, k, trans, dtype):
     """Each element within 1e-6 * sum|a||b| of the float64 product of the
-    same operands; a rerun bit-identical (split K sums in order)."""
+    same operands (16-bit operands through the 16-bit mainloop); a rerun
+    bit-identical (split K sums in order)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=card).manual_seed(2)
     a = torch.randn(*((k, m) if trans else (m, k)), generator=gen,
                     device=card).to(dt)
     b = torch.randn(k, n, generator=gen, device=card).to(dt)
-    before = kernels.conv_gemm_launches
+    kernels.reset_launch_counts()
     got = kernels.matmul_f32acc(a, b, trans)
     again = kernels.matmul_f32acc(a, b, trans)
     torch.cuda.synchronize()
-    assert kernels.conv_gemm_launches == before + 2
+    assert kernels.conv_gemm_launches == 2
+    assert kernels.launch_records()["conv_gemm"] == {dtype: 2}
     assert torch.equal(got, again)
     ad = a.double().t() if trans else a.double()
     ref = ad @ b.double()
@@ -343,6 +346,15 @@ def test_kernels_run_tf32_tensor_core_mma(card, name):
     from mxnet_tpu_torch import _build
 
     assert _build.tf32_mma_count(name) > 0
+
+
+def test_conv_gemm_runs_16bit_tensor_core_mma(card):
+    """K3's 16-bit mainloop is built on the tensor cores: the library
+    holds bfloat16 and float16 HMMA instructions beside the TF32 ones."""
+    from mxnet_tpu_torch import _build
+
+    counts = _build.mma_counts("conv_gemm")
+    assert counts["tf32"] > 0 and counts["bf16"] > 0 and counts["f16"] > 0
 
 
 def cuda_kernels(fn):

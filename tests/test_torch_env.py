@@ -29,7 +29,13 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              # image records: process decode is refused
              "MXNET_TPU_DECODE_PROCS",
              # the optimizers' multi-tensor update and the engines
-             "MXNET_TPU_FUSED_UPDATE", "MXNET_TPU_ENGINE_SYNC"]
+             "MXNET_TPU_FUSED_UPDATE", "MXNET_TPU_ENGINE_SYNC",
+             # the serving tier's knobs
+             "MXNET_TPU_SERVE_PORT", "MXNET_TPU_SERVE_MAX_BATCH",
+             "MXNET_TPU_SERVE_MAX_WAIT_MS", "MXNET_TPU_SERVE_BUCKETS",
+             "MXNET_TPU_SERVE_SLO_MS", "MXNET_TPU_SERVE_ADAPTIVE",
+             "MXNET_TPU_SERVE_DEADLINE_MS",
+             "MXNET_TPU_SERVE_BATCH_DEADLINE_MS"]
 # read by the JAX package through base.getenv(name, default), outside its
 # registry: (name, the default it passes)
 PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),

@@ -104,24 +104,35 @@ def test_simple_bind_takes_group2ctx_and_shared_exec():
 
 
 def test_compute_dtype_raises_naming_the_slice(monkeypatch):
+    """Mixed precision is ported: a bad dtype name raises naming the
+    setting, bfloat16 binds (by keyword, by the variable, through
+    Module) with float32 outputs, and an explicit None overrides the
+    variable."""
     net = _mp_net(tmx)
     monkeypatch.delenv("MXNET_COMPUTE_DTYPE", raising=False)
     args = net.simple_bind(tmx.cpu(), data=(4, 10)).arg_dict
-    with pytest.raises(tmx.MXNetError, match="14b"):
-        net.bind(tmx.cpu(), args, compute_dtype="bfloat16")
+    with pytest.raises(tmx.MXNetError, match="MXNET_COMPUTE_DTYPE"):
+        net.bind(tmx.cpu(), args, compute_dtype="bf16")
+    ex16 = net.bind(tmx.cpu(), args, compute_dtype="bfloat16")
+    assert ex16.compute_dtype == torch.bfloat16
+    assert ex16.forward()[0].handle.dtype == torch.float32
     net.bind(tmx.cpu(), args, compute_dtype=None)
     with pytest.raises(TypeError):
         net.bind(tmx.cpu(), args, no_such_keyword=1)
     monkeypatch.setenv("MXNET_COMPUTE_DTYPE", "bfloat16")
-    with pytest.raises(tmx.MXNetError, match="MXNET_COMPUTE_DTYPE"):
-        net.simple_bind(tmx.cpu(), data=(4, 10))
+    assert net.simple_bind(tmx.cpu(), data=(4, 10)).compute_dtype \
+        == torch.bfloat16
     mod = tmx.mod.Module(net, context=tmx.cpu())
-    with pytest.raises(tmx.MXNetError, match="14b"):
-        mod.bind(data_shapes=[("data", (4, 10))],
-                 label_shapes=[("softmax_label", (4,))])
+    mod.bind(data_shapes=[("data", (4, 10))],
+             label_shapes=[("softmax_label", (4,))])
+    assert mod._exec_group.executor.compute_dtype == torch.bfloat16
     # an explicit None overrides the variable
     ex = net.bind(tmx.cpu(), args, compute_dtype=None)
+    assert ex.compute_dtype is None
     assert ex.forward()[0].shape == (4, 4)
+    monkeypatch.setenv("MXNET_COMPUTE_DTYPE", "float8")
+    with pytest.raises(tmx.MXNetError, match="MXNET_COMPUTE_DTYPE"):
+        net.simple_bind(tmx.cpu(), data=(4, 10))
 
 
 def _mgr_net(pkg):

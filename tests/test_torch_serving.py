@@ -169,3 +169,218 @@ def test_training_entry_points_name_the_training_slice():
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         mod.init_params()
         mod.init_optimizer(kvstore="dist_async")
+
+
+# ---------------------------------------------------------------------------
+# the adaptive serving plane (the JAX package's serving.py and telemetry
+# quantiles as the reference)
+# ---------------------------------------------------------------------------
+import json  # noqa: E402
+import urllib.error  # noqa: E402
+import urllib.request  # noqa: E402
+
+import mxnet_tpu.telemetry as jtel  # noqa: E402
+import mxnet_tpu_torch.telemetry as ttel  # noqa: E402
+from mxnet_tpu_torch import checkpoint as tckpt  # noqa: E402
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 500.0
+
+    def __call__(self):
+        return self.t
+
+
+def _dbl(placed):
+    return [np.asarray(placed[0]) * 2.0], ()
+
+
+def test_lanes_deadlines_and_default_deadlines():
+    """The interactive lane defaults to the SLO deadline and the batch
+    lane to four times it; an unknown lane raises naming the lanes."""
+    clk = _Clock()
+    s = BatchScheduler(_dbl, [(4, 2)], max_batch=4, slo_ms=40.0,
+                       adaptive=True, clock=clk, autostart=False)
+    try:
+        a = s.submit(np.ones((1, 2), np.float32))
+        b = s.submit(np.ones((1, 2), np.float32), priority="batch")
+        c = s.submit(np.ones((1, 2), np.float32), deadline_ms=7.0)
+        assert (a.deadline_ms, b.deadline_ms, c.deadline_ms) == (
+            40.0, 160.0, 7.0)
+        assert a.t_deadline == pytest.approx(500.04)
+        with pytest.raises(tmx.MXNetError, match="priority lane"):
+            s.submit(np.ones((1, 2), np.float32), priority="bulk")
+        clk.t += 0.1
+        while s.step() not in (None, "wait"):
+            pass
+        assert s.lane_stats() == {"interactive": {"served": 2, "shed": 0},
+                                  "batch": {"served": 1, "shed": 0}}
+    finally:
+        s.close()
+
+
+class _Idem:
+    idempotent = True
+
+    def __call__(self, placed):
+        return [np.asarray(placed[0]) + 1.0], ()
+
+
+@pytest.mark.parametrize("idempotent", [True, False])
+def test_request_id_dedup(idempotent):
+    """A request id in flight returns the first request always; a served
+    one only under an idempotent infer fn (FusedInfer is)."""
+    tmx.telemetry.reset()
+    tmx.telemetry.enable()
+    try:
+        fn = _Idem() if idempotent else _dbl
+        s = BatchScheduler(fn, [(4, 2)], max_batch=4, clock=_Clock(),
+                           autostart=False)
+        x = np.ones((1, 2), np.float32)
+        first = s.submit(x, request_id="r1")
+        assert s.submit(x, request_id="r1") is first
+        assert s.in_flight() == 1
+        while not first.done():
+            s._clock.t += 0.01
+            s.step()
+        again = s.submit(x, request_id="r1")
+        assert (again is first) == idempotent
+        assert tmx.telemetry.peek("serve.duplicate_requests") == (
+            2 if idempotent else 1)
+        s.close()
+    finally:
+        tmx.telemetry.reset()
+        tmx.telemetry.disable()
+
+
+def _fc_module(ctx, seed=0):
+    s = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=4,
+                               name="fc")
+    s = tmx.sym.SoftmaxOutput(s, name="softmax")
+    mod = tmx.mod.Module(s, context=ctx)
+    mod.bind([("data", (4, 3))], for_training=False)
+    rng = np.random.RandomState(seed)
+    mod.set_params({"fc_weight": tmx.nd.array(rng.randn(4, 3), ctx=ctx),
+                    "fc_bias": tmx.nd.array(rng.randn(4), ctx=ctx)}, {})
+    return mod
+
+
+def test_refresh_from_snapshot_moves_only_changed_params():
+    """The first delta refresh seeds every param; after one param changes
+    a snapshot's refresh copies that param alone into the served pack, in
+    place, and the served rows follow it; an identical resend moves
+    nothing."""
+    mod = _fc_module(tmx.cpu())
+    x = np.arange(12, dtype=np.float32).reshape(4, 3) / 4
+    with tmx.serving.InferenceServer(mod, top_k=0, max_batch=4) as srv:
+        packed = list(srv._fused._param_vals)
+        srv.refresh_from_snapshot(tckpt.snapshot(mod))
+        assert srv._fused.last_refresh_changed == 2
+        w = mod.get_params()[0]["fc_weight"].asnumpy()
+        mod.set_params({"fc_weight": tmx.nd.array(w * 3, ctx=tmx.cpu())},
+                       {}, allow_missing=True)
+        payload = tckpt.snapshot(mod)
+        srv.refresh_from_snapshot(payload)
+        fused = srv._fused
+        assert (fused.last_refresh_changed, fused.last_refresh_skipped) == (
+            1, 1)
+        assert fused.last_refresh_bytes == payload["params"][
+            "fc_weight"].nbytes
+        assert all(a is b for a, b in zip(packed, fused._param_vals))
+        (probs,) = srv.infer([x])
+        want = mod.predict(x).asnumpy()
+        np.testing.assert_allclose(probs, want, rtol=1e-6, atol=1e-7)
+        srv.refresh_from_snapshot(payload)
+        assert (fused.last_refresh_changed, fused.last_refresh_bytes) == (
+            0, 0)
+
+
+def test_stale_for_after_a_rebind_rebuilds_the_step():
+    mod = _fc_module(tmx.cpu())
+    x = np.arange(12, dtype=np.float32).reshape(4, 3) / 4
+    with tmx.serving.InferenceServer(mod, top_k=1, max_batch=4) as srv:
+        old = srv._fused
+        assert srv._fused.idempotent
+        assert not old.stale_for(mod._exec_group.executor)
+        args, aux = mod.get_params()
+        mod.bind([("data", (4, 3))], for_training=False, force_rebind=True)
+        mod.set_params(args, aux)
+        assert old.stale_for(mod._exec_group.executor)
+        srv.refresh_params()
+        assert srv._fused is not old
+        assert srv.scheduler._infer is srv._fused
+        assert not srv._fused.stale_for(mod._exec_group.executor)
+        (top,) = srv.infer([x])
+        assert top.tolist() == mod.predict(x).asnumpy().argmax(1).tolist()
+
+
+def _get(port, path):
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                    timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def test_health_info_metrics_payload_and_slo_probe():
+    """``/healthz`` carries the server's in-flight count and controller
+    state, and turns degraded (503) naming the SLO probe once the p99
+    breaks the SLO; ``metrics_payload`` exports the scheduler's series."""
+    tmx.telemetry.enable()
+    mod = _fc_module(tmx.cpu())
+    x = np.ones((2, 3), np.float32)
+    try:
+        with tmx.serving.InferenceServer(mod, top_k=1, max_batch=4, port=0,
+                                         slo_ms=1e-6) as srv:
+            assert srv.scheduler.adaptive
+            srv.infer([x])
+            status, body = _get(srv.port, "/healthz")
+            payload = json.loads(body)
+            assert status == 503 and payload["status"] == "degraded"
+            probe = [v for k, v in payload["probes"].items()
+                     if k.startswith("serve_slo:")]
+            assert probe and probe[0]["slo_ms"] == 1e-6
+            for key in ("in_flight", "requests_served", "adaptive",
+                        "adaptive_wait_ms", "arrival_rate_rps",
+                        "queue_depth"):
+                assert key in payload, key
+            assert payload["requests_served"] == 2
+            mp = srv.metrics_payload()
+            assert mp["serve.requests_served"] == 2
+            assert mp["serve.batches"] == 1 and mp["serve.compiles"] == 1
+            assert mp["serve.slo_breaches"] == 1
+            assert mp["serve.request_ms"]["count"] == 1
+            assert len(mp["serve.request_ms"]["sample"]) == 1
+            st = srv.stats()
+            assert st["lanes"]["interactive"]["served"] == 1
+        with tmx.serving.InferenceServer(mod, top_k=1, max_batch=4,
+                                         port=0) as srv:
+            srv.infer([x])
+            status, body = _get(srv.port, "/healthz")
+            assert status == 200 and json.loads(body)["status"] == "ok"
+    finally:
+        tmx.telemetry.disable()
+
+
+def test_quantiles_match_the_reference_telemetry():
+    rng = np.random.RandomState(4)
+    values = list(rng.lognormal(1.0, 1.2, 700))
+    th, jh = ttel.Histogram("x"), jtel.Histogram("x")
+    for v in values:
+        th.observe(v)
+        jh.observe(v)
+    assert th.export(include_sample=True) == jh.export(include_sample=True)
+    sample = sorted(values)
+    for q in (0.0, 0.1, 0.5, 0.9, 0.99, 0.999, 1.0):
+        assert ttel.sample_quantile(sample, q) == jtel.sample_quantile(
+            sample, q)
+        assert th.quantile(q) == jtel.sample_quantile(
+            sorted(values[-512:]), q)
+        ex = jh.export()
+        assert ttel.bucket_quantile(ex["buckets"], ex["count"], q,
+                                    hi=ex["max"]) == jtel.bucket_quantile(
+            ex["buckets"], ex["count"], q, hi=ex["max"])
+    assert ttel.sample_quantile([], 0.5) is None
+    assert ttel.bucket_quantile({}, 0, 0.5) is None
