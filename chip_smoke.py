@@ -229,7 +229,12 @@ Phases, in order; any failure exits non-zero before the last line:
    and an infinity (their bins give 0, no gradient), reruns
    bit-identical;
    uniform and normal by distribution over 2^20 draws in train and in
-   inference. (e) group2ctx with gpu(0) beside cpu(0) against a
+   inference; the bfloat16 ROIPooling repair: roi_pool in bf16 and f16
+   at 13a's shape (forward bit-equal to the plain version, gradient
+   within 8 epsilons of the dtype of the sum of its terms' magnitudes,
+   timed), then 3 steps of 13a's Fast R-CNN under compute_dtype
+   bfloat16 through both loops from the same weights: one capture,
+   bit-equal, roi_pool 2 launches a step, all bf16. (e) group2ctx with gpu(0) beside cpu(0) against a
    one-device bind, 13a's params through mem://, print_summary of
    13a's graph.
 14. mixed precision and the adaptive serving plane. (a) K3 over the
@@ -263,7 +268,30 @@ Phases, in order; any failure exits non-zero before the last line:
    are held again on phase 5's seeded weights, requests of 1-32 rows
    through a bf16 server against a direct bf16 forward (0.1 of the
    largest probability) and an f32 server (0.25 of it).
-15. report: one JSON line of kernel records, the card line, then
+15. the input plane at full width. (a) crop_norm, the device feed's
+   crop, mirror and normalisation of uint8 frames, at (32, 256, 256, 3)
+   -> 224 with seeded offsets and half the rows mirrored, in NHWC and
+   NCHW: bit-equal to its plain version; timed beside the plain version
+   and the byte bound (the crops read, the float32 batch written). (b)
+   1024 seeded 256x256x3 frames with labels 0-999 written in the decoded
+   cache's layout (201 MB; no JPEG decode: the card's machine has no
+   PIL); ResNet-50 NHWC at batch 32 (phase 6's weights and SGD) trained
+   one epoch (32 steps) through fit(fused_step=True) from
+   CachedImageRecordIter(device_feed=True, rand_crop, rand_mirror, the
+   upstream means) with MXNET_TPU_FEED_DEPTH=2: one capture; launches
+   (the eager step and the capture) K3 210, K4 106, K5 106, crop_norm 2,
+   and two profiled replays the same; params after 4 steps bit-equal to
+   the classic loop's over the same iterator seed (which materialises
+   through crop_norm); ndarray.h2d_bytes a batch at most a third of the
+   float32 crops'; host step ms, img/s, device ms and busy share,
+   io.feed_stall_ms, and the fed img/s over phase 6's device-resident
+   img/s. (c) the same fit for 8 steps in device_augment and host-crop
+   mode: img/s of each. (d) a snapshot after step 5 (MXNET_TPU_CKPT_DIR);
+   a fresh iterator seeked to its data state hands out the uninterrupted
+   run's next batch (frames and aug values) bit for bit, and a fresh
+   module and iterator resumed from it train the rest of the epoch to
+   (b)'s losses and params bit for bit, one capture.
+16. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -1102,7 +1130,7 @@ def entry_points_main_path(torch, mx, kernels):
              res["attention"]["ring"]["max_abs_err"], worst,
              tuple(feats.shape), fc_err, launches))
     want_counts = {"norm_act_fwd": 0, "norm_act_bwd": 0, "conv_gemm": 0,
-                   "linear": 1, "flash_attn": 2, "rtc": 2, "roi_pool": 0}
+                   "linear": 1, "flash_attn": 2, "rtc": 2, "roi_pool": 0, "crop_norm": 0}
     check(launches == want_counts, "entry-point launches %s, want %s (K2 "
           "once for each ulysses forward, the forward and the one under the "
           "backward)" % (launches, want_counts))
@@ -1361,7 +1389,7 @@ def _resnet_launches(steps):
     return {"norm_act_fwd": BN_LAYERS * steps,
             "norm_act_bwd": BN_LAYERS * steps,
             "conv_gemm": CONV_GEMMS * steps, "linear": 0, "flash_attn": 0,
-            "roi_pool": 0}
+            "roi_pool": 0, "crop_norm": 0}
 
 
 def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None,
@@ -1550,39 +1578,58 @@ def train_breakdown(torch, mx, kernels, mod, images, labels):
     return _profile_steps(torch, kernels, classic_step)
 
 
-def _profile_steps(torch, kernels, run_step, reps=2, group=None):
+def _profile_steps(torch, kernels, run_step, reps=2, group=None,
+                   warm=False):
     """Kernel time by group (``group``, default _train_group), the busy
     share and the compiled kernels' launches (``kernels.launches_in``
     over the kernel events) of ``reps`` calls of ``run_step`` under
-    torch.profiler."""
+    torch.profiler. With ``warm``, one more call runs first in the same
+    session and is not counted: late in the whole run the profiler missed
+    the first kernels of a session's first CUDA graph replay (15b's
+    crop_norm, its graph's first node), so only the device events from a
+    spin kernel launched after that call on are read."""
     group = group or _train_group
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if warm:
+            run_step()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)     # the marker: a kernel of its own
         t0 = time.perf_counter()
         for _ in range(reps):
             run_step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     groups, kernels_us, names = {}, [], []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        names += [e.key] * e.count
-        us = float(e.self_device_time_total)
-        kernels_us.append((us, e.key))
-        g = group(e.key)
+    if warm:
+        (mark,) = [e for e in events if "spin_kernel" in e.name]
+        events = [e for e in events if e is not mark
+                  and e.time_range.start >= mark.time_range.start]
+        by_name = {}
+        for e in events:
+            us, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + float(e.time_range.elapsed_us()),
+                               count + 1)
+        averages = [(n, us, count) for n, (us, count) in by_name.items()]
+    else:
+        averages = [(e.key, float(e.self_device_time_total), e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+    for key, us, count in averages:
+        names += [key] * count
+        kernels_us.append((us, key))
+        g = group(key)
         groups[g] = groups.get(g, 0.0) + us
     busy_us = sum(us for us, _ in kernels_us)
     check(busy_us > 0, "the profiler saw no device time")
     kernels_us.sort(reverse=True)
     # kernels on several streams overlap (cuDNN's RNN does): the union of
     # their intervals is the time the card was busy
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     union_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -1767,7 +1814,7 @@ def mnist_main_path(torch, mx, kernels, card):
             gemms = 3 if net == "lenet" else 0
             want = {"norm_act_fwd": 0, "norm_act_bwd": 0,
                     "conv_gemm": 2 * gemms, "linear": 0, "flash_attn": 0,
-                    "roi_pool": 0}
+                    "roi_pool": 0, "crop_norm": 0}
             check(launches == dict(want, rtc=0), "mnist %s launches %s "
                   "(the eager step and the capture), want %s"
                   % (net, launches, want))
@@ -2900,7 +2947,7 @@ def model_path(torch, mx, kernels, card, spec):
           % (name, len(convs), sum(gemms.values()), n_convs, k3_step))
     images, labels = model_data(name, side)
     zero = {"norm_act_fwd": 0, "norm_act_bwd": 0, "linear": 0,
-            "flash_attn": 0, "rtc": 0, "roi_pool": 0}
+            "flash_attn": 0, "rtc": 0, "roi_pool": 0, "crop_norm": 0}
 
     def fit(fused, wrap=None):
         mod = model_module(mx, sym, mx.gpu(0), shape)
@@ -4559,12 +4606,15 @@ def _zero_launches(kernels):
 
 
 def rcnn_module(mx, sym, data_names, label_names, batch, init_args=None,
-                ctx=None):
+                ctx=None, compute_dtype=None):
     """``sym`` bound for training on ``ctx`` (default: the card) at
     ``batch``'s shapes with conv1_x and conv2_x fixed; Xavier (fan-in,
-    magnitude 2) from seed 0, or ``init_args``."""
+    magnitude 2) from seed 0, or ``init_args``; ``compute_dtype`` the
+    Module's when given."""
+    dtype = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
     mod = mx.mod.Module(sym, data_names=data_names, label_names=label_names,
-                        context=ctx or mx.gpu(0), fixed_param_names=RCNN_FIXED)
+                        context=ctx or mx.gpu(0), fixed_param_names=RCNN_FIXED,
+                        **dtype)
     mod.bind(data_shapes=[(n, batch[n].shape) for n in data_names],
              label_shapes=[(n, batch[n].shape) for n in label_names],
              for_training=True)
@@ -5293,15 +5343,149 @@ def surface_checks(torch, mx, rcnn):
 
 
 def rcnn_ocr_main_path(torch, mx, kernels, card):
-    """Phase 13: 13a/13b Fast R-CNN, 13c LSTM-OCR, 13d op checks, 13e the
-    executor surface."""
+    """Phase 13: 13a/13b Fast R-CNN, 13c LSTM-OCR, 13d op checks and the
+    bfloat16 ROIPooling repair, 13e the executor surface."""
     rcnn = rcnn_main_path(torch, mx, kernels, card)
     ocr = ocr_main_path(torch, mx, kernels, card)
     ops = vision_op_checks(torch, mx, kernels, card)
+    ops["bf16"] = rcnn_bf16_checks(torch, mx, kernels, card, rcnn["symbol"])
     surface = surface_checks(torch, mx, rcnn)
     for key in ("symbol", "args"):
         rcnn.pop(key)
     return {"rcnn": rcnn, "ocr": ocr, "ops": ops, "surface": surface}
+
+
+RCNN_BF16_STEPS = 3
+#: the 16-bit roi_pool backward against the plain version, in units of the
+#: dtype's epsilon of the sum of the terms' magnitudes at each pixel (the
+#: kernel sums in float32, the plain version in the dtype; the bound of
+#: tests/test_torch_queue_c.py against JAX)
+ROI_16_EPS = 8
+
+
+def roi_pool_16bit(torch, kernels, rois, dtype):
+    """roi_pool in ``dtype`` at 13a's shape (relu'd seeded normals,
+    (2, 512, 37, 62), the path's rois): the forward bit-equal to the plain
+    version, the gradient within ROI_16_EPS epsilons of the dtype of the
+    sum of its terms' magnitudes (the kernel's gradient for |g|), reruns
+    bit-identical; the kernel's and the plain version's times."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w = RCNN_HW[0] // 16, RCNN_HW[1] // 16
+    feat = torch.relu(torch.randn(RCNN_IMAGES, 512, h, w, generator=gen,
+                                  device="cuda")).to(dtype)
+    g = torch.randn(len(rois), 512, 7, 7, generator=gen,
+                    device="cuda").to(dtype)
+    args = ((7, 7), 1.0 / 16)
+    flush = torch.empty(64 << 20, device="cuda")
+    out, count = kernels.roi_pool_fwd(feat, rois, *args)
+    dx = kernels.roi_pool_bwd(feat, rois, out, count, g, *args)
+    out2, _ = kernels.roi_pool_fwd(feat, rois, *args)
+    dx2 = kernels.roi_pool_bwd(feat, rois, out, count, g, *args)
+    name = str(dtype).replace("torch.", "")
+    check(out.dtype == dx.dtype == dtype and torch.equal(out, out2)
+          and torch.equal(dx, dx2), "13d roi_pool %s: reruns differ" % name)
+    with torch.no_grad():
+        plain = kernels.roi_pool_plain(feat, rois, *args)
+    pdx = kernels.roi_pool_plain_grad(feat, rois, g, *args)
+    check(torch.equal(out, plain), "13d roi_pool %s: forward differs from "
+          "the plain version" % name)
+    abs_sum = kernels.roi_pool_bwd(feat, rois, out, count, g.abs(),
+                                   *args).double()
+    err = (dx.double() - pdx.double()).abs()
+    eps = torch.finfo(dtype).eps
+    rel = float((err / abs_sum.clamp(min=1e-30)).max()) / eps
+    check(bool((err <= ROI_16_EPS * eps * abs_sum).all()), "13d roi_pool "
+          "%s: gradient off the plain version by %.3g epsilons of the sum "
+          "of its terms (bound %d)" % (name, rel, ROI_16_EPS))
+    res = {"fwd_ms": time_ms(torch, lambda: kernels.roi_pool_fwd(
+        feat, rois, *args), flush),
+        "bwd_ms": time_ms(torch, lambda: kernels.roi_pool_bwd(
+            feat, rois, out, count, g, *args), flush),
+        "plain_fwd_ms": time_ms(torch, lambda: kernels.roi_pool_plain(
+            feat, rois, *args), flush, reps=3),
+        "plain_bwd_ms": time_ms(torch, lambda: kernels.roi_pool_plain_grad(
+            feat, rois, g, *args), flush, reps=3),
+        "bwd_max_abs_err": float(err.max()), "bwd_max_eps_of_abs_sum": rel}
+    b2 = 2
+    nbytes = (b2 * (feat.numel() * 2 + out.numel() + g.numel() + dx.numel())
+              + 4 * rois.numel() + 4 * count.numel())
+    res.update(ms=res["fwd_ms"] + res["bwd_ms"],
+               plain_ms=res["plain_fwd_ms"] + res["plain_bwd_ms"],
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    del feat, g, out, count, dx, dx2, out2, plain, pdx, abs_sum, flush
+    torch.cuda.empty_cache()
+    return res
+
+
+def rcnn_bf16_checks(torch, mx, kernels, card, sym):
+    """13d, the bfloat16 ROIPooling repair: roi_pool in bfloat16 and
+    float16 at 13a's shape against the plain version, then
+    RCNN_BF16_STEPS steps of 13a's Fast R-CNN under compute_dtype
+    bfloat16 through the classic loop and the fused step from the same
+    Xavier weights: one capture, params, losses and metric bit-equal,
+    roi_pool 2 launches a step, every one in bfloat16."""
+    batches = rcnn_batches(rcnn_scenes(RCNN_BF16_STEPS))
+    rois = torch.from_numpy(batches[0]["rois"]).cuda()
+    res = {name: roi_pool_16bit(torch, kernels, rois, dt)
+           for name, dt in (("bfloat16", torch.bfloat16),
+                            ("float16", torch.float16))}
+    labels = [torch.from_numpy(b["label"]).cuda() for b in batches]
+    zero = _zero_launches(kernels)
+    runs = {}
+    for fused in (False, True):
+        mod = rcnn_module(mx, sym, RCNN_DATA, RCNN_LABELS, batches[0],
+                          compute_dtype="bfloat16")
+        run = rcnn_fit(torch, mx, kernels, mod,
+                       ListIter(mx, batches, RCNN_DATA, RCNN_LABELS), fused,
+                       rcnn_metric(mx),
+                       lambda param, outs: labels[param.nbatch])
+        run["records"] = kernels.launch_records().get("roi_pool", {})
+        if fused:
+            step = mod._fused_step
+            run["counters"] = (step.eager_steps, step.captures,
+                               step.dispatches)
+        runs["fused" if fused else "classic"] = run
+        del mod
+        torch.cuda.empty_cache()
+    classic, fused = runs["classic"], runs["fused"]
+    check(classic["launches"] == dict(zero, conv_gemm=RCNN_K3_STEP
+                                      * RCNN_BF16_STEPS,
+                                      roi_pool=2 * RCNN_BF16_STEPS),
+          "13d bf16 classic launches %s" % classic["launches"])
+    check(fused["launches"] == dict(zero, conv_gemm=2 * RCNN_K3_STEP,
+                                    roi_pool=4),
+          "13d bf16 fused launches %s (the eager step and the capture)"
+          % fused["launches"])
+    check(classic["records"] == {"bfloat16": 2 * RCNN_BF16_STEPS}
+          and fused["records"] == {"bfloat16": 4}, "13d: roi_pool launches "
+          "by dtype %s / %s, want all bfloat16"
+          % (classic["records"], fused["records"]))
+    check(fused["counters"] == (1, 1, RCNN_BF16_STEPS - 1),
+          "13d bf16 fused counters %s" % (fused["counters"],))
+    check(all(np.isfinite(classic["losses"]).ravel()), "13d bf16 losses %s"
+          % classic["losses"])
+    _same_fit("13d bf16 fused against classic", fused, classic)
+    res["fit"] = {k: {"losses": r["losses"], "launches": r["launches"],
+                      "step_ms": r["step_ms"], "records": r["records"]}
+                  for k, r in runs.items()}
+    b, f = res["bfloat16"], res["float16"]
+    print("13d roi_pool at (2, 512, %d, %d), %d rois, 7x7 in bf16 / f16: "
+          "forward bit-equal to the plain version, gradient within %.3g / "
+          "%.3g epsilons of the sum of its terms (bound %d), reruns "
+          "bit-identical; forward %.4f / %.4f ms, backward %.4f / %.4f ms, "
+          "plain %.3f + %.3f / %.3f + %.3f ms, bound %.4f ms  [%s]"
+          % (RCNN_HW[0] // 16, RCNN_HW[1] // 16, len(rois),
+             b["bwd_max_eps_of_abs_sum"], f["bwd_max_eps_of_abs_sum"],
+             ROI_16_EPS, b["fwd_ms"], f["fwd_ms"], b["bwd_ms"], f["bwd_ms"],
+             b["plain_fwd_ms"], b["plain_bwd_ms"], f["plain_fwd_ms"],
+             f["plain_bwd_ms"], b["bound_ms"], card))
+    print("13d Fast R-CNN under compute_dtype bfloat16, %d steps: fused "
+          "bit-equal to classic (params, losses, metric), one capture, "
+          "launches classic %s, fused %s, roi_pool by dtype %s; host step "
+          "%.3f / %.3f ms  [%s]"
+          % (RCNN_BF16_STEPS, classic["launches"], fused["launches"],
+             classic["records"], classic["step_ms"], fused["step_ms"], card))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -5900,6 +6084,398 @@ def mixed_precision_main_path(torch, mx, kernels, card, images, labels,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the input plane: ResNet-50 trained from the uint8 decoded-image
+# cache, the crop and normalisation inside the fused step's CUDA graph
+# ---------------------------------------------------------------------------
+FEED_FRAMES = 1024             # seeded 256x256x3 frames in the cache: 201 MB
+FEED_STORE = 256               # the store: the 224 crop plus its margin
+FEED_CROP = 224
+FEED_MEAN = (123.68, 116.779, 103.939)   # examples/image_classification
+FEED_DEPTH = 2                 # MXNET_TPU_FEED_DEPTH of every phase-15 fit
+FEED_PARITY_STEPS = 4          # fused against classic after this many steps
+FEED_MODE_STEPS = 8            # 15c's fits in the other modes
+FEED_SNAPSHOT_STEP = 5         # 15d: the snapshot's step
+
+
+class Take:
+    """The first ``n`` batches of each epoch of ``base``; the checkpoint
+    state is the base's, and a seek counts the batches it consumed."""
+
+    def __init__(self, base, n):
+        self.base, self.n, self.batch_size = base, n, base.batch_size
+        self._k = 0
+
+    @property
+    def provide_data(self):
+        return self.base.provide_data
+
+    @property
+    def provide_label(self):
+        return self.base.provide_label
+
+    def reset(self):
+        self.base.reset()
+        self._k = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._k >= self.n:
+            raise StopIteration
+        self._k += 1
+        return self.base.next()
+
+    next = __next__
+
+    def get_checkpoint_state(self):
+        return self.base.get_checkpoint_state()
+
+    def set_checkpoint_state(self, state):
+        self._k = int(state.get("batches", 0))
+        self.base.set_checkpoint_state(state)
+
+
+def write_feed_cache(prefix, seed=0):
+    """FEED_FRAMES seeded uint8 frames of FEED_STORE^2 x 3 with labels
+    0-999 in the decoded cache's layout (mxnet_tpu_torch/io_cache.py):
+    what build_decoded_cache writes, without the JPEG decode (PIL), which
+    the card's machine lacks."""
+    rng = np.random.RandomState(seed)
+    shape = (FEED_FRAMES, FEED_STORE, FEED_STORE, 3)
+    data = np.lib.format.open_memmap(prefix + ".data", mode="w+",
+                                     dtype=np.uint8, shape=shape)
+    for lo in range(0, FEED_FRAMES, 128):
+        rows = min(128, FEED_FRAMES - lo)
+        data[lo:lo + rows] = rng.randint(0, 256, (rows,) + shape[1:],
+                                         dtype=np.uint8)
+    data.flush()
+    del data
+    with open(prefix + ".label", "wb") as f:
+        np.save(f, (np.arange(FEED_FRAMES) % 1000).astype(np.float32)
+                .reshape(-1, 1))
+    with open(prefix + ".meta.json", "w") as f:
+        json.dump({"num": FEED_FRAMES, "height": FEED_STORE,
+                   "width": FEED_STORE, "channels": 3, "label_width": 1,
+                   "version": 1}, f)
+
+
+def feed_iter(mx, prefix, mode):
+    """The cached iterator of train_imagenet.py's recipe (random crops
+    and mirrors, the upstream means), NHWC, seed 0: ``mode`` "feed"
+    (device_feed), "augment" (device_augment) or "host" (host crops,
+    normalised on the card)."""
+    flags = {"feed": {"device_feed": True}, "augment": {"device_augment": True},
+             "host": {"device_feed": False}}[mode]
+    with mx.gpu(0):
+        return mx.io_cache.CachedImageRecordIter(
+            prefix, (3, FEED_CROP, FEED_CROP), BATCH, shuffle=True,
+            rand_crop=True, rand_mirror=True, seed=0, output_layout="NHWC",
+            mean_r=FEED_MEAN[0], mean_g=FEED_MEAN[1], mean_b=FEED_MEAN[2],
+            **flags)
+
+
+def feed_fit(torch, mx, kernels, it, fused, after_batch=None, env=()):
+    """Module.fit of ResNet-50 NHWC (train_module's seed-0 weights, phase
+    6's SGD) over ``it`` on the card with MXNET_TPU_FEED_DEPTH=FEED_DEPTH
+    and the variables ``env`` (pairs), telemetry on, launch counts zeroed
+    just before and read just after. Per step: the loss of the forward's
+    probabilities against the batch's labels and the host clock at the
+    batch-end callback, the card synchronised; then ``after_batch(param,
+    mod)``."""
+    tel = mx.telemetry
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    losses, marks = [], []
+
+    def on_batch(param):
+        probs = param.locals["self"].get_outputs()[0].handle
+        lab = param.locals["data_batch"].label[0].handle.to(probs.device,
+                                                            torch.int64)
+        losses.append(-torch.log(probs.gather(1, lab[:, None])).mean())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if after_batch is not None:
+            after_batch(param, mod)
+
+    env = dict(env, MXNET_TPU_FEED_DEPTH=str(FEED_DEPTH))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    mx.random.seed(0)
+    tel.reset()
+    tel.enable()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+                eval_metric=mx.metric.Accuracy(),
+                batch_end_callback=on_batch, fused_step=fused)
+        launches = kernels.launch_counts()
+        stall = (tel.peek("io.feed_stall_ms", "hist_sum") or 0.0,
+                 tel.peek("io.feed_stall_ms") or 0)
+        h2d = tel.peek("ndarray.h2d_bytes") or 0
+        feed_batches = tel.peek("step.fused_feed_batches") or 0
+        restores = tel.peek("ckpt.restores") or 0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tel.disable()
+        tel.reset()
+    steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    step_ms = float(np.median(steps_ms))
+    run = {"mod": mod, "launches": launches,
+           "losses": [float(v) for v in losses], "steps_ms": steps_ms,
+           "step_ms": step_ms, "img_per_s": BATCH * 1e3 / step_ms,
+           "stall_ms_sum": stall[0], "stall_count": stall[1],
+           "h2d_bytes": h2d, "feed_batches": feed_batches,
+           "restores": restores}
+    run["args"], run["aux"] = (_host(p) for p in mod.get_params())
+    if fused:
+        step = mod._fused_step
+        run["counters"] = (step.eager_steps, step.captures, step.dispatches)
+    return run
+
+
+def crop_norm_timing(torch, kernels, card):
+    """15a: crop_norm at ResNet-50's feed, (32, 256, 256, 3) uint8 cut to
+    224, seeded offsets, half the rows mirrored, the upstream means: bit-
+    equal to the plain version in both layouts; the kernel's time (CUDA
+    events, L2 flushed) beside the plain version's and the byte bound
+    (the crops read as uint8, the batch written as float32)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 256, (BATCH, FEED_STORE, FEED_STORE, 3),
+                      dtype=torch.uint8, device="cuda", generator=gen)
+    margin = FEED_STORE - FEED_CROP + 1
+    tops = torch.randint(0, margin, (BATCH,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    lefts = torch.randint(0, margin, (BATCH,), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    mirror = torch.arange(BATCH, device="cuda") % 2 == 0
+    mean = torch.tensor(FEED_MEAN, device="cuda")
+    scale = torch.ones(1, device="cuda")
+    args = (x, tops, lefts, mirror, mean, scale, (FEED_CROP, FEED_CROP))
+    flush = torch.empty(64 << 20, device="cuda")
+    res = {}
+    for layout in ("NHWC", "NCHW"):
+        got = kernels.crop_norm(*args, layout)
+        again = kernels.crop_norm(*args, layout)
+        want = kernels.crop_normalize_plain(*args, layout)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(got, again),
+              "15a crop_norm %s differs from the plain version (max abs err "
+              "%g)" % (layout, float((got - want).abs().max())))
+        res[layout] = {
+            "ms": time_ms(torch, lambda: kernels.crop_norm(*args, layout),
+                          flush),
+            "plain_ms": time_ms(torch, lambda: kernels.crop_normalize_plain(
+                *args, layout), flush)}
+    crop = BATCH * FEED_CROP * FEED_CROP * 3
+    nbytes = crop + 4 * crop + 4 * (3 * BATCH + 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    del x, flush
+    torch.cuda.empty_cache()
+    out = dict(res["NHWC"], bound_ms=bound, bound_by="bytes", bytes=nbytes,
+               nchw_ms=res["NCHW"]["ms"], nchw_plain_ms=res["NCHW"]["plain_ms"],
+               max_abs_err=0.0)
+    print("15a crop_norm %s uint8 -> %d crops, half mirrored: bit-equal "
+          "to the plain version in NHWC and NCHW; NHWC %.4f ms (plain "
+          "%.4f), NCHW %.4f ms (plain %.4f), bound %.4f ms (%d bytes at "
+          "3.35 TB/s)  [%s]"
+          % ((BATCH, FEED_STORE, FEED_STORE, 3), FEED_CROP, out["ms"],
+             out["plain_ms"], out["nchw_ms"], out["nchw_plain_ms"], bound,
+             nbytes, card))
+    return out
+
+
+def feed_main_path(torch, mx, kernels, card, resident):
+    """Phase 15: (a) crop_norm against its plain version and timed; (b)
+    ResNet-50 NHWC trained for one epoch from a uint8 cache through
+    fit(fused_step=True), the crop and normalisation inside the graph,
+    against the classic loop; (c) the same fit in device_augment and
+    host-crop mode; (d) a snapshot after step FEED_SNAPSHOT_STEP resumed
+    in a fresh iterator and module. ``resident`` is phase 6's fused run
+    (device-resident float32 batches), whose img/s the fed rate is read
+    against."""
+    res = {"crop_norm": crop_norm_timing(torch, kernels, card)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_feed_")
+    try:
+        prefix = os.path.join(tmp, "imagenet")
+        t0 = time.perf_counter()
+        write_feed_cache(prefix)
+        write_s = time.perf_counter() - t0
+        # (b) one epoch through the fused step, the params after
+        # FEED_PARITY_STEPS kept for the classic loop's
+        kept = {}
+
+        def keep(param, mod):
+            if param.nbatch == FEED_PARITY_STEPS - 1:
+                kept["args"], kept["aux"] = (_host(p) for p in
+                                             mod.get_params())
+
+        fed = feed_fit(torch, mx, kernels, feed_iter(mx, prefix, "feed"),
+                       True, keep)
+        steps = FEED_FRAMES // BATCH
+        check(len(fed["losses"]) == steps and all(np.isfinite(fed["losses"])),
+              "15b losses %s" % fed["losses"])
+        check(fed["counters"] == (1, 1, steps - 1), "15b fused counters %s, "
+              "want one eager step, one capture, a replay a batch after"
+              % (fed["counters"],))
+        want = dict(_resnet_launches(2), rtc=0, crop_norm=2)
+        check(fed["launches"] == want, "15b launches %s, want %s (the eager "
+              "step and the capture)" % (fed["launches"], want))
+        check(fed["feed_batches"] == steps, "15b step.fused_feed_batches %s"
+              % fed["feed_batches"])
+        f32_batch = BATCH * FEED_CROP * FEED_CROP * 3 * 4
+        h2d_batch = fed["h2d_bytes"] / steps
+        check(h2d_batch <= f32_batch / 3, "15b: %d bytes a batch to the "
+              "card, more than a third of the float32 crops' %d"
+              % (h2d_batch, f32_batch))
+        classic = feed_fit(torch, mx, kernels,
+                           Take(feed_iter(mx, prefix, "feed"),
+                                FEED_PARITY_STEPS), False)
+        check(classic["launches"] == dict(_resnet_launches(FEED_PARITY_STEPS),
+                                          rtc=0, crop_norm=FEED_PARITY_STEPS),
+              "15b classic launches %s" % classic["launches"])
+        _check_params_equal("15b fused against classic after %d steps"
+                            % FEED_PARITY_STEPS, kept, classic)
+        check(classic["losses"] == fed["losses"][:FEED_PARITY_STEPS],
+              "15b losses classic %s, fused %s" % (classic["losses"],
+                                                   fed["losses"]))
+        # two replays under the profiler, each with a batch staged on the
+        # card as the fit's feed scheduler stages it
+        step, metric = fed["mod"]._fused_step, mx.metric.Accuracy()
+        staged = mx.io_pipeline.DeviceStagingIter(
+            feed_iter(mx, prefix, "feed"), ctx=mx.gpu(0))
+        batch = next(staged)
+        step.step(batch, metric)
+        torch.cuda.synchronize()
+        prof = _profile_steps(torch, kernels,
+                              lambda: step.step(batch, metric), warm=True)
+        check(prof["launches"] == dict(_resnet_launches(2), crop_norm=2),
+              "15b: two profiled replays ran %s" % prof["launches"])
+        del fed["mod"], step, batch, staged
+        gc.collect()
+        torch.cuda.empty_cache()
+        ratio = fed["img_per_s"] / resident["img_per_s"]
+        stall = fed["stall_ms_sum"] / max(fed["stall_count"], 1)
+        print("15b ResNet-50 NHWC from the uint8 cache (%d frames of "
+              "%dx%dx3, written in %.1f s), fit(fused_step=True), feed "
+              "depth %d: host step %.3f ms, %.1f img/s, device %.3f ms a "
+              "step, busy %.1f%%, io.feed_stall_ms %.3f a step; %d bytes a "
+              "batch to the card against %d for float32 crops (%.4f); "
+              "launches %s, two replays %s; fused bit-equal to the classic "
+              "loop after %d steps; fed / device-resident (phase 6) img/s "
+              "%.4f  [%s]"
+              % (FEED_FRAMES, FEED_STORE, FEED_STORE, write_s, FEED_DEPTH,
+                 fed["step_ms"], fed["img_per_s"], prof["device_ms_per_step"],
+                 100 * prof["busy_share"], stall, h2d_batch, f32_batch,
+                 h2d_batch / f32_batch, fed["launches"], prof["launches"],
+                 FEED_PARITY_STEPS, ratio, card))
+        res["feed"] = {k: v for k, v in fed.items() if k not in ("args",
+                                                                 "aux")}
+        res["feed"].update(breakdown=prof, ratio_to_resident=ratio,
+                           stall_ms_per_step=stall,
+                           h2d_bytes_per_batch=h2d_batch,
+                           f32_bytes_per_batch=f32_batch,
+                           cache_write_s=write_s)
+        res["classic"] = {"launches": classic["launches"],
+                          "losses": classic["losses"]}
+        # (c) the other two modes
+        for mode in ("augment", "host"):
+            run = feed_fit(torch, mx, kernels,
+                           Take(feed_iter(mx, prefix, mode), FEED_MODE_STEPS),
+                           True)
+            check(run["counters"] == (1, 1, FEED_MODE_STEPS - 1)
+                  and all(np.isfinite(run["losses"])),
+                  "15c %s: counters %s, losses %s"
+                  % (mode, run["counters"], run["losses"]))
+            check(run["launches"] == dict(_resnet_launches(2), rtc=0,
+                                          crop_norm=FEED_MODE_STEPS),
+                  "15c %s launches %s (crop_norm in the iterator, a batch)"
+                  % (mode, run["launches"]))
+            res[mode] = {k: run[k] for k in ("step_ms", "img_per_s",
+                                             "launches", "stall_ms_sum",
+                                             "h2d_bytes", "losses")}
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("15c %d steps each: device_augment %.1f img/s (host step %.3f "
+              "ms), host crops %.1f img/s (%.3f ms), beside 15b's device "
+              "feed %.1f img/s (%.3f ms)  [%s]"
+              % (FEED_MODE_STEPS, res["augment"]["img_per_s"],
+                 res["augment"]["step_ms"], res["host"]["img_per_s"],
+                 res["host"]["step_ms"], fed["img_per_s"], fed["step_ms"],
+                 card))
+        res["resume"] = feed_resume(torch, mx, kernels, card, prefix, fed,
+                                    tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def feed_resume(torch, mx, kernels, card, prefix, fed, tmp):
+    """15d: a fit of FEED_SNAPSHOT_STEP steps with MXNET_TPU_CKPT_DIR
+    (a snapshot at its last step); a fresh iterator seeked to the
+    snapshot's data state hands out 15b's next batch (frames and aug
+    values) bit for bit; a fresh module and iterator resumed from the
+    snapshot train the rest of the epoch to 15b's losses and params bit
+    for bit, with one capture."""
+    directory = os.path.join(tmp, "ckpt")
+    snap = feed_fit(torch, mx, kernels,
+                    Take(feed_iter(mx, prefix, "feed"), FEED_SNAPSHOT_STEP),
+                    True, env={"MXNET_TPU_CKPT_DIR": directory,
+                               "MXNET_TPU_CKPT_EVERY_N_STEPS":
+                                   str(FEED_SNAPSHOT_STEP),
+                               "MXNET_TPU_CKPT_RESUME": "0"})
+    del snap["mod"]
+    check(snap["losses"] == fed["losses"][:FEED_SNAPSHOT_STEP],
+          "15d: losses with the snapshot %s, 15b's %s"
+          % (snap["losses"], fed["losses"][:FEED_SNAPSHOT_STEP]))
+    found = mx.checkpoint.SnapshotStore(directory).load_latest()
+    check(found is not None and found[0]["nbatch"] == FEED_SNAPSHOT_STEP - 1,
+          "15d: no snapshot of step %d" % FEED_SNAPSHOT_STEP)
+    payload = found[0]
+    state = dict(payload["data_iter"], batches=FEED_SNAPSHOT_STEP)
+    seeked = feed_iter(mx, prefix, "feed")
+    seeked.set_checkpoint_state(state)
+    straight = feed_iter(mx, prefix, "feed")
+    straight.reset()
+    for _ in range(FEED_SNAPSHOT_STEP):
+        next(straight)
+    got, want = next(seeked), next(straight)
+    check(np.array_equal(got.data[0].asnumpy(), want.data[0].asnumpy())
+          and np.array_equal(got.label[0].asnumpy(), want.label[0].asnumpy())
+          and all(np.array_equal(np.asarray(got.aug[k]),
+                                 np.asarray(want.aug[k])) for k in want.aug),
+          "15d: the seeked iterator's batch %d differs from the "
+          "uninterrupted one's" % FEED_SNAPSHOT_STEP)
+    resumed = feed_fit(torch, mx, kernels, feed_iter(mx, prefix, "feed"),
+                       True, env={"MXNET_TPU_CKPT_DIR": directory,
+                                  "MXNET_TPU_CKPT_EVERY_N_STEPS": "0",
+                                  "MXNET_TPU_CKPT_RESUME": "1"})
+    del resumed["mod"]
+    steps = FEED_FRAMES // BATCH
+    check(resumed["restores"] == 1, "15d: restores %s" % resumed["restores"])
+    check(resumed["counters"] == (1, 1, steps - FEED_SNAPSHOT_STEP - 1),
+          "15d: resumed counters %s" % (resumed["counters"],))
+    check(resumed["losses"] == fed["losses"][FEED_SNAPSHOT_STEP:],
+          "15d: resumed losses differ from 15b's")
+    _check_params_equal("15d resumed against 15b", resumed, fed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("15d snapshot after step %d, resumed in a fresh iterator and "
+          "module: batch %d's frames and aug values bit-equal to the "
+          "uninterrupted run's, the remaining %d steps' losses and the "
+          "params bit-equal to 15b's, counters %s  [%s]"
+          % (FEED_SNAPSHOT_STEP, FEED_SNAPSHOT_STEP,
+             steps - FEED_SNAPSHOT_STEP, resumed["counters"], card))
+    return {"losses": resumed["losses"], "counters": resumed["counters"],
+            "launches": resumed["launches"]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -6132,7 +6708,25 @@ def main():
             "mp_bf16_serve": mp_serve["launches"][kernel]})
     k3b, k3h = mp["k3_bfloat16"]["total"], mp["k3_float16"]["total"]
 
-    # 15. report
+    # 15. the input plane: ResNet-50 trained from the uint8 cache, the crop
+    # and normalisation inside the fused step's graph
+    feed = feed_main_path(torch, mx, kernels, card, fused)
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update({
+            "feed_fused": feed["feed"]["launches"][kernel],
+            "feed_fused_2_replays_profiled":
+                feed["feed"]["breakdown"]["launches"][kernel],
+            "feed_classic": feed["classic"]["launches"][kernel],
+            "feed_augment_fused": feed["augment"]["launches"][kernel],
+            "feed_host_fused": feed["host"]["launches"][kernel],
+            "feed_resume_fused": feed["resume"]["launches"][kernel]})
+    for kernel in ("linear", "flash_attn", "rtc"):
+        lm_paths[kernel].update({
+            "feed_fused": feed["feed"]["launches"][kernel],
+            "feed_classic": feed["classic"]["launches"][kernel]})
+    roi16 = det["ops"]["bf16"]
+
+    # 16. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -6169,7 +6763,13 @@ def main():
                   "(classic: 5 steps; fused: the eager step and the "
                   "capture; replays: two) and float16 (3 steps; fused: "
                   "the eager step and the capture), and its bf16 "
-                  "InferenceServer's Poisson traffic")
+                  "InferenceServer's Poisson traffic; feed_*: phase 15's "
+                  "ResNet-50 NHWC fits at batch 32 from the uint8 cache "
+                  "with feed depth 2 (fused: 32 steps of the device feed, "
+                  "the eager step and the capture; replays: two; classic: "
+                  "4 steps; augment/host: 8 steps in device_augment and "
+                  "host-crop mode, crop_norm launched by the iterator; "
+                  "resume: 15d's resumed fit)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -6350,10 +6950,57 @@ def main():
         "bound_ms": rcnn["roi_pool"]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "library_note": "no PyTorch call computes ROIPooling",
+        "bf16_ms": roi16["bfloat16"]["ms"],
+        "bf16_fwd_ms": roi16["bfloat16"]["fwd_ms"],
+        "bf16_bwd_ms": roi16["bfloat16"]["bwd_ms"],
+        "bf16_plain_ms": roi16["bfloat16"]["plain_ms"],
+        "bf16_bound_ms": roi16["bfloat16"]["bound_ms"],
+        "bf16_bwd_max_eps_of_abs_sum":
+            roi16["bfloat16"]["bwd_max_eps_of_abs_sum"],
+        "f16_ms": roi16["float16"]["ms"],
+        "f16_plain_ms": roi16["float16"]["plain_ms"],
+        "f16_bwd_max_eps_of_abs_sum":
+            roi16["float16"]["bwd_max_eps_of_abs_sum"],
+        "bf16_launches_by_path": {
+            "rcnn_bf16_%s" % k: v["launches"]["roi_pool"]
+            for k, v in roi16["fit"].items()},
         "scope": "one training step's forward and backward at Fast R-CNN's "
                  "conv5_3, (2, 512, 37, 62) f32, 128 rois, 7x7 bins; "
                  "max_abs_err: the backward against the plain version "
-                 "(the forward is bit-equal)",
+                 "(the forward is bit-equal); bf16_*/f16_*: the same in "
+                 "16 bits (13d), the backward within %d epsilons of the "
+                 "sum of its terms' magnitudes" % ROI_16_EPS,
+    }, {
+        "name": "crop_norm", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/crop_norm.cu",
+        "replaces": "mxnet_tpu/io_cache.py:455 and mxnet_tpu/fused_step.py"
+                    ":543 (the device feed's crop and normalisation in XLA; "
+                    "no Pallas kernel: a port-only kernel)",
+        "launches": feed["feed"]["launches"]["crop_norm"],
+        "launches_by_path": {
+            "feed_fused": feed["feed"]["launches"]["crop_norm"],
+            "feed_fused_2_replays_profiled":
+                feed["feed"]["breakdown"]["launches"]["crop_norm"],
+            "feed_classic": feed["classic"]["launches"]["crop_norm"],
+            "feed_augment_fused": feed["augment"]["launches"]["crop_norm"],
+            "feed_host_fused": feed["host"]["launches"]["crop_norm"],
+            "feed_resume_fused": feed["resume"]["launches"]["crop_norm"]},
+        "launches_note": fused_note + "; a fused step launches crop_norm "
+                         "once, inside its graph; the classic loop once a "
+                         "batch when it materialises the feed",
+        "max_abs_err": feed["crop_norm"]["max_abs_err"],
+        "ms": feed["crop_norm"]["ms"], "plain_ms": feed["crop_norm"]["plain_ms"],
+        "nchw_ms": feed["crop_norm"]["nchw_ms"],
+        "nchw_plain_ms": feed["crop_norm"]["nchw_plain_ms"],
+        "bound_ms": feed["crop_norm"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call crops, mirrors and "
+                        "normalises",
+        "scope": "one launch at ResNet-50's feed, (32, 256, 256, 3) uint8 "
+                 "-> (32, 224, 224, 3) float32 NHWC, half the rows "
+                 "mirrored; bound: the crops' bytes read once, the batch "
+                 "written once, at 3.35 TB/s; max_abs_err: against the "
+                 "plain version (bit-equal)",
     }]
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),
@@ -6374,7 +7021,8 @@ def main():
                        "plane_path": plane, "models_path": models,
                        "optim_path": optim, "lm_path": lm,
                        "detection_ocr_path": det,
-                       "mixed_precision_path": mp}, f, indent=1)
+                       "mixed_precision_path": mp,
+                       "feed_path": feed}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

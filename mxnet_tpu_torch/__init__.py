@@ -28,8 +28,10 @@
   fit's health and input plane: the stats pack and its guards, the
   step trace with its detectors and metrics server, device staging
 * ``mx.io``, ``mx.recordio`` — data iterators (in-memory, MNIST, CSV,
-  image records with their decoder, resizing and prefetching) and the
-  RecordIO files they read
+  image records with their decoder on threads or worker processes,
+  resizing and prefetching) and the RecordIO files they read;
+  ``mx.io_cache`` — the decoded uint8 image cache and its iterator,
+  whose device feed the fused step crops and normalises in its graph
 * ``mx.optimizer`` (SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, SGLD,
   Test), ``mx.lr_scheduler``, ``mx.metric``, ``mx.init``,
   ``mx.callback``, ``mx.kv`` — the training loop's parts
@@ -71,6 +73,7 @@ from . import initializer
 from . import initializer as init
 from . import io
 from . import io_pipeline
+from . import io_cache
 from . import recordio
 from . import lr_scheduler
 from . import optimizer

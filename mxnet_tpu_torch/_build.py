@@ -37,7 +37,8 @@ SOURCES: Dict[str, str] = {"norm_act": "norm_act.cu",
                            "conv_gemm": "conv_gemm.cu",
                            "linear": "linear.cu",
                            "flash_attn": "flash_attn.cu",
-                           "roi_pool": "roi_pool.cu"}
+                           "roi_pool": "roi_pool.cu",
+                           "crop_norm": "crop_norm.cu"}
 
 NVCC_FLAGS: List[str] = ["-gencode", "arch=compute_90a,code=sm_90a",
                          "-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -70,10 +71,11 @@ _SIGNATURES = {
                             _P], _I),
     },
     "roi_pool": {
-        "roi_pool_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _F,
-                          _P], _I),
-        "roi_pool_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I,
-                          _I, _F, _P], _I),
+        "roi_pool_fwd": ([_P] * 5 + [_I] * 4 + [_LL, _I, _I, _F, _I, _P], _I),
+        "roi_pool_bwd": ([_P] * 7 + [_I] * 4 + [_LL, _I, _I, _F, _I, _P], _I),
+    },
+    "crop_norm": {
+        "crop_norm": ([_P] * 7 + [_I] * 7 + [_P], _I),
     },
 }
 

@@ -327,7 +327,13 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         gen.set_state(torch.from_numpy(np.ascontiguousarray(rng_torch)))
     seek = getattr(train_data, "set_checkpoint_state", None)
     if callable(seek):
-        seek({"batches": int(payload.get("nbatch", -1)) + 1})
+        state = {"batches": int(payload.get("nbatch", -1)) + 1}
+        # an iterator whose stream is keyed by its epoch (the decoded-image
+        # cache's shuffle and crops) seeks into the saved epoch
+        saved = payload.get("data_iter") or {}
+        if "epoch" in saved:
+            state["epoch"] = saved["epoch"]
+        seek(state)
     _tel.inc("ckpt.restores")
     return {"epoch": int(payload["epoch"]), "nbatch": int(payload["nbatch"]),
             "step": int(payload["step"]), "dp": saved_dp}

@@ -159,11 +159,44 @@ declare("MXNET_TPU_FEED_DEPTH", int, 0,
         "StepTrace's dominant-cause labeling. Default 0 (off).",
         section=_IN)
 declare("MXNET_TPU_DECODE_PROCS", int, 0,
-        "Decode image records with N worker processes (the same as "
-        "`ImageRecordIter(..., preprocess_mode=\"process\")`). Process "
-        "decode is not ported: above 0, `ImageRecordIter` raises "
-        "`MXNetError` rather than decode on threads. Default 0: the thread "
-        "pool (`preprocess_threads`).", section=_IN)
+        "Decode image records with N worker processes writing into the "
+        "shared-memory batch ring (the same as "
+        "`ImageRecordIter(..., preprocess_mode=\"process\")`; the variable "
+        "also sets the worker count). Default 0: the thread pool "
+        "(`preprocess_threads`).", section=_IN)
+declare("MXTPU_CACHE_BUILD_TIMEOUT", float, 24 * 3600.0,
+        "Seconds `io_cache.build_decoded_cache` waits for another "
+        "builder's lock on the same cache prefix before it raises (a lock "
+        "of a builder that died on this host is broken at once).",
+        section=_IN)
+declare("MXNET_TPU_DECODE_RING", int, 0,
+        "Batch slots in the shared-memory ring (default "
+        "`max(2, 2 x workers)`): the decode-ahead depth, at "
+        "`slots x batch_bytes` of /dev/shm.", section=_IN)
+declare("MXNET_TPU_DECODE_START", str, "spawn",
+        "Multiprocessing start method of the decode workers (`fork` is "
+        "unsafe in a process with threads and a live CUDA context).",
+        section=_IN)
+declare("MXNET_TPU_DECODE_TIMEOUT", float, 120.0,
+        "Seconds the consumer waits on the ring before it declares the "
+        "pipeline wedged and goes on decoding in process "
+        "(`io.pipeline.fallbacks`).", section=_IN)
+declare("MXNET_TPU_DEVICE_FEED", bool, False,
+        "`CachedImageRecordIter` hands out the raw uint8 stored frames with "
+        "the augmentation deferred to the consumer (`batch.aug`: crop "
+        "offsets, mirror flags, mean, scale) instead of float32 crops: at "
+        "most 1/3 of the bytes to the card, and the fused train step runs "
+        "the crop, mirror and normalisation (the `crop_norm` kernel) as the "
+        "first node of its CUDA graph. The same as constructing the "
+        "iterator with `device_feed=True`. The classic loop materialises "
+        "such a batch through the same kernel; the results are bit-equal "
+        "either way.", section=_IN)
+declare("MXNET_TPU_AUG_REPLICAS", int, 0,
+        "Data-parallel replica count for `CachedImageRecordIter`'s deferred "
+        "augmentation draws (the same as `aug_replicas=N`): the crop and "
+        "mirror draws are keyed per (epoch, batch, replica), so each "
+        "replica's rows of a batch come from their own stream. Default 0 "
+        "(one stream, the single-replica draws).", section=_IN)
 
 _TEL = "Telemetry"
 declare("MXNET_TPU_TELEMETRY", bool, False,

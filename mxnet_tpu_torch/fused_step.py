@@ -26,10 +26,21 @@ metric sums on a device predicate when a gradient is not finite; the
 aux states and the pack still advance on such a step, as in the JAX
 package.
 
+A device-feed batch (``io_cache.CachedImageRecordIter(device_feed=
+True)``: raw uint8 frames, with the crop offsets, mirror flags, mean and
+scale in ``batch.aug``) is copied into step-owned device buffers, only
+its labels go through the group's loader, and the step function's first
+node is the ``crop_norm`` kernel, which crops, mirrors and normalises the
+frames into the bound data array: one graph serves every batch, mean
+and scale (``step.fused_feed_batches`` counts such batches). A graph with
+more than one data input materialises the batch instead, as the JAX
+package does. Under ``compute_dtype`` the feed still writes float32,
+which the executor's cast wrapper casts.
+
 The graph reads and writes fixed addresses: the bound weights and
 gradients, the aux states, the optimizer states, the metric's device
-accumulator, the numerics pack with the pre-step copies, and the
-executor's generator. A checkpoint restore
+accumulator, the numerics pack with the pre-step copies, the feed's
+buffers, and the executor's generator. A checkpoint restore
 (:mod:`mxnet_tpu_torch.checkpoint`) therefore copies into those tensors
 and never replaces one, so the next replay runs on the restored values.
 The step captures again when the update's structure changes or when a
@@ -54,7 +65,7 @@ from . import telemetry as _tel
 from .base import MXNetError
 from .kvstore import _LOCAL
 from .metric import CompositeEvalMetric
-from .ndarray import NDArray
+from .ndarray import HostToDevice, NDArray
 from .optimizer import _state_tensors
 
 __all__ = ["make_fused_step", "FusedTrainStep", "make_fused_infer",
@@ -161,6 +172,10 @@ class FusedTrainStep:
         self._graph = None
         self._structure = None
         self._captured = []
+        #: the device feed's buffers and loaders (one set a frame shape,
+        #: crop and layout), and the set the graph was captured with
+        self._feed = None
+        self._captured_feed = None
         self.eager_steps = 0
         self.captures = 0
         self.dispatches = 0
@@ -178,10 +193,20 @@ class FusedTrainStep:
         return [(i, w.handle, g.handle, _state_tensors(s))
                 for i, w, g, s in arrays], arrays
 
-    def _body(self, items, structure, hyper):
+    def _body(self, items, structure, hyper, feed=None):
         """The step function: everything between the batch's copy in and
-        the host's next look, with no host sync."""
+        the host's next look, with no host sync. With ``feed`` (the device
+        feed's buffers) it starts by cropping and normalising the frames
+        into the bound data array."""
         ex = self._ex
+        if feed is not None:
+            from .ops import kernels
+
+            b, (_, crop, layout) = feed["bufs"], feed["key"]
+            name = self._module._exec_group.data_names[0]
+            kernels.crop_norm(b["x"], b["tops"], b["lefts"], b["mirror"],
+                              b["mean"], b["scale"], crop, layout,
+                              out=ex.arg_dict[name].handle)
         # an installed monitor is served from the pack, not by callback
         callback, ex._monitor_callback = ex._monitor_callback, None
         try:
@@ -248,24 +273,67 @@ class FusedTrainStep:
         if group.executor is not ex:
             raise MXNetError("fused train step: the module was bound again "
                              "after the step was built; build a new step")
-        group.load_data_batch(data_batch)
+        aug = getattr(data_batch, "aug", None)
+        if aug is not None and len(group.data_names) != 1:
+            # the in-graph crop is for the one image input of the cached
+            # iterators; anything else materialises
+            from .io_cache import materialize_device_feed
+
+            data_batch = materialize_device_feed(data_batch, group.context)
+            aug = None
+        feed = None
+        if aug is None:
+            group.load_data_batch(data_batch)
+        else:
+            feed = self._load_feed(data_batch, aug)
+            group.load_label_batch(data_batch)
+            _tel.inc("step.fused_feed_batches")
         items, arrays = self._params()
         opt = self._optimizer
         structure = opt.structure([i for i, _, _, _ in items])
         rows = opt.plan(arrays, structure)
         hyper = opt.scalars(ex._device, rows.shape).copy(rows)
         if ex._device.type != "cuda":
-            self._body(items, structure, hyper)
+            self._body(items, structure, hyper, feed)
             self.eager_steps += 1
         elif self.eager_steps == 0:
-            self._warm_up(items, structure, hyper)
+            self._warm_up(items, structure, hyper, feed)
         else:
-            self._replay(items, structure, hyper)
+            self._replay(items, structure, hyper, feed)
         ex._outputs = [NDArray(t, ex._ctx) for t in self._outs]
         if self._numwatch is not None:
             self._numwatch.stepped()
         if self._fold is None:
             eval_metric.update(data_batch.label, ex._outputs)
+
+    def _load_feed(self, data_batch, aug):
+        """Copy a device-feed batch's frames and augmentation into the
+        step's buffers (allocated for the first batch of a frame shape,
+        crop and layout; the same storage from then on)."""
+        frames = data_batch.data[0]
+        key = (tuple(frames.shape), tuple(int(v) for v in aug["crop"]),
+               aug["layout"])
+        feed = self._feed
+        if feed is None or feed["key"] != key:
+            dev = self._ex._device
+            b, c = key[0][0], key[0][3]
+            bufs = {"x": torch.empty(key[0], dtype=torch.uint8, device=dev),
+                    "tops": torch.empty(b, dtype=torch.int32, device=dev),
+                    "lefts": torch.empty(b, dtype=torch.int32, device=dev),
+                    "mirror": torch.empty(b, dtype=torch.uint8, device=dev),
+                    "mean": torch.empty(c, dtype=torch.float32, device=dev),
+                    "scale": torch.empty(1, dtype=torch.float32, device=dev)}
+            feed = self._feed = {"key": key, "bufs": bufs, "loaders": {
+                k: HostToDevice(v) for k, v in bufs.items()}}
+        host = {"x": frames,
+                "tops": np.asarray(aug["tops"], np.int32),
+                "lefts": np.asarray(aug["lefts"], np.int32),
+                "mirror": np.asarray(aug["mirror"], np.uint8),
+                "mean": np.asarray(aug["mean"], np.float32),
+                "scale": np.asarray(aug["scale"], np.float32).reshape(1)}
+        for k, loader in feed["loaders"].items():
+            loader.copy(host[k])
+        return feed
 
     # -- the card ----------------------------------------------------------
     def _side_stream(self):
@@ -283,14 +351,15 @@ class FusedTrainStep:
         main.wait_stream(s)
         self.eager_steps += 1
 
-    def _replay(self, items, structure, hyper):
+    def _replay(self, items, structure, hyper, feed):
         tensors = [t for _, w, g, s in items for t in (w, g) + s]
-        if structure != self._structure or len(tensors) != len(
-                self._captured) or any(a is not b for a, b in
-                                       zip(tensors, self._captured)):
-            self._graph = self._capture(items, structure, hyper)
+        if structure != self._structure or feed is not self._captured_feed \
+                or len(tensors) != len(self._captured) or any(
+                    a is not b for a, b in zip(tensors, self._captured)):
+            self._graph = self._capture(items, structure, hyper, feed)
             self._structure = structure
             self._captured = tensors
+            self._captured_feed = feed
         try:
             self._graph.replay()
         except RuntimeError as e:

@@ -7,9 +7,10 @@ the ``data_iter`` registry.
 
 Batches are port NDArrays on the CPU (the reference's are NDArrays on
 its default device); the executor group copies them onto the card.
-Image records decode on the host with PIL, on a thread pool; the JAX
-package's process decode (``preprocess_mode="process"``) is not ported
-and raises.
+Image records decode on the host with PIL, on a thread pool or, with
+``preprocess_mode="process"`` (``MXNET_TPU_DECODE_PROCS``), in worker
+processes through :mod:`~mxnet_tpu_torch.io_pipeline`'s shared-memory
+ring; both give the same batches bit for bit.
 """
 from __future__ import annotations
 
@@ -565,6 +566,19 @@ class RecordDecoder:
                                                          dtype=np.float32)
         self.label_width = label_width
 
+    def config(self) -> dict:
+        """Picklable keyword arguments that rebuild this decoder, bit for
+        bit, in another process."""
+        return {"data_shape": self.data_shape, "seed": self.seed,
+                "rand_crop": self.rand_crop, "rand_mirror": self.rand_mirror,
+                "resize": self.resize, "scale": self.scale,
+                "max_rotate_angle": self.max_rotate_angle,
+                "rotate": self.rotate, "rotate_list": self.rotate_list,
+                "max_shear_ratio": self.max_shear_ratio, "pad": self.pad,
+                "fill_value": self.fill_value, "random_h": self.random_h,
+                "random_s": self.random_s, "random_l": self.random_l,
+                "mean": self.mean, "label_width": self.label_width}
+
     def derive_rng(self, epoch: int, idx: int) -> np.random.RandomState:
         """The augmentation RNG of record ``idx`` in ``epoch``."""
         mixed = (self.seed * 0x9E3779B1 + epoch * 1000003
@@ -725,8 +739,14 @@ class ImageRecordIter(DataIter):
     count in ``io.decoded_records`` and repeated reads of one batch in
     ``io.decode_cache_hit``.
 
-    Process decode (``preprocess_mode="process"``, or
-    ``MXNET_TPU_DECODE_PROCS`` > 0) is not ported and raises."""
+    ``preprocess_mode="process"`` (or ``MXNET_TPU_DECODE_PROCS`` > 0,
+    which also sets the worker count; else ``preprocess_threads``
+    workers) decodes in worker processes into a shared-memory ring
+    (:class:`~mxnet_tpu_torch.io_pipeline.ProcessDecodePipeline`), with
+    the same batches. A pipeline that fails to start, a dead worker or a
+    wedged ring moves the iterator to in-process decode for good
+    (``io.pipeline.fallbacks``, ``io.pipeline.worker_crashes``), as the
+    JAX package does; :meth:`close` stops the workers."""
 
     def __init__(self, path_imgrec: str, data_shape, batch_size: int,
                  path_imgidx: Optional[str] = None, label_width: int = 1,
@@ -752,13 +772,10 @@ class ImageRecordIter(DataIter):
         if preprocess_mode not in ("thread", "process"):
             raise MXNetError("preprocess_mode must be 'thread' or "
                              "'process', got %r" % (preprocess_mode,))
-        if preprocess_mode == "process":
-            raise MXNetError(
-                "ImageRecordIter: process decode (preprocess_mode="
-                "'process' or MXNET_TPU_DECODE_PROCS=%d) is not ported; it "
-                "comes with ROADMAP Queue A item 9. Use preprocess_mode="
-                "'thread' and unset MXNET_TPU_DECODE_PROCS" % procs)
         self.preprocess_mode = preprocess_mode
+        self._num_procs = procs if procs > 0 else max(1,
+                                                      int(preprocess_threads))
+        self._proc_pipe = None
         self.data_shape = tuple(data_shape)
         self.batch_size = batch_size
         self.preprocess_threads = max(1, int(preprocess_threads))
@@ -886,10 +903,17 @@ class ImageRecordIter(DataIter):
             for f in futs:
                 f.cancel()
         self._inflight.clear()
+        if self._proc_pipe is not None:
+            # parked ring results belong to the finished epoch
+            self._proc_pipe.flush()
         self._cache_cursor = None
 
     def close(self):
-        """Shut the decode pool down; the next batch starts a new one."""
+        """Stop the decode workers (and free their shared memory) and shut
+        the decode pool down; the next batch starts what it needs."""
+        pipe, self._proc_pipe = self._proc_pipe, None
+        if pipe is not None:
+            pipe.shutdown()
         pool, self._pool = self._pool, None
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)
@@ -944,10 +968,57 @@ class ImageRecordIter(DataIter):
             return list(pool.map(lambda i: self._decode_at(ep, i), idxs))
         return [self._decode_at(ep, i) for i in idxs]
 
+    # -- process decode (io_pipeline) --------------------------------------
+    def _ensure_pipe(self):
+        """The worker pipeline, started at first use in process mode; a
+        start that fails moves the iterator to in-process decode."""
+        if self.preprocess_mode != "process":
+            return None
+        if self._proc_pipe is None:
+            from . import io_pipeline
+
+            try:
+                self._proc_pipe = io_pipeline.ProcessDecodePipeline(
+                    self._records, self._decoder.config(), self.batch_size,
+                    label_width=self.label_width,
+                    num_workers=self._num_procs)
+            except Exception as e:
+                self._disable_process_mode("pipeline startup failed: %s" % e)
+                return None
+        return self._proc_pipe
+
+    def _disable_process_mode(self, reason: str):
+        """Drop the worker pipeline and decode in process from here on."""
+        logging.warning(
+            "ImageRecordIter: multi-process decode disabled (%s); "
+            "falling back to in-process decode", reason)
+        _tel.inc("io.pipeline.fallbacks")
+        pipe, self._proc_pipe = self._proc_pipe, None
+        self.preprocess_mode = "thread"
+        if pipe is not None:
+            pipe.shutdown()
+
     def _decode_batch(self):
         if self._cache_cursor == self.cursor:
             _tel.inc("io.decode_cache_hit")
             return self._cache
+        pipe = self._ensure_pipe()
+        if pipe is not None:
+            from .io_pipeline import PipelineError
+
+            try:
+                imgs, labels = pipe.get_batch(self.cursor, self._epoch,
+                                              limit=self.num_data)
+            except PipelineError as e:
+                # a dead worker or a wedged ring: decode in process
+                _tel.inc("io.pipeline.worker_crashes")
+                self._disable_process_mode(str(e))
+            else:
+                labels = np.ascontiguousarray(
+                    labels[:, 0] if self.label_width == 1 else labels)
+                self._cache = (imgs, labels)
+                self._cache_cursor = self.cursor
+                return self._cache
         results = self._gather(self.cursor)
         if self._pool is not None:
             # keep the pool decoding the next batches while this one is

@@ -1,19 +1,34 @@
-"""Device staging, the feed scheduler and the serving tier's request
-stager, counterpart of that part of ``mxnet_tpu/io_pipeline.py`` (the
-decode workers and the shared-memory ring are not ported yet: ROADMAP.md
-Queue A item 9).
+"""The input pipeline, counterpart of ``mxnet_tpu/io_pipeline.py``:
+process decode into a shared-memory batch ring, device staging, the
+feed scheduler and the serving tier's request stager.
+
+Process decode (``ImageRecordIter(preprocess_mode="process")`` or
+``MXNET_TPU_DECODE_PROCS``): :class:`ShmRecordStore` lays the record
+bytes out once in a shared-memory segment, :class:`ShmBatchRing` holds
+batch-sized float32 slots in another, and :class:`ProcessDecodePipeline`
+hands ``(cursor, epoch, slot)`` tasks to spawned workers
+(:func:`_decode_worker_main`), which decode a whole batch in place into
+its slot with the iterator's :class:`~mxnet_tpu_torch.io.RecordDecoder`.
+Every augmentation draw is keyed by (epoch, record index), so any worker
+count gives the thread path's batches bit for bit. A worker touches no
+card and imports neither ``jax`` nor ``mxnet_tpu``. Every wait has a
+deadline; a dead worker or a wedged ring raises :class:`PipelineError`,
+on which ``ImageRecordIter`` goes on decoding in process.
 
 On a card a batch is staged in three moves: a host copy into a pinned
 buffer from a small ring, a ``non_blocking`` host-to-device copy on a
 dedicated copy stream into fresh device tensors, and an event recorded
-after that copy. ``next()`` makes the consumer's current stream wait on
-the event and marks the tensors as used by that stream
-(``record_stream``), so the caching allocator hands their memory out
-again only after the consumer's work on them has run; the host thread
-never waits for the card's compute. A ring slot is rewritten only after
-the copy out of it has completed (its event). Every pinned buffer is
-allocated when the first batch is staged, before the first training
-step. On the CPU a staged batch is a copy of the base iterator's.
+after that copy (an array already on the card is copied device to
+device on that stream, after the work that made it). ``next()`` makes
+the consumer's current stream wait on the event and marks the tensors as
+used by that stream (``record_stream``), so the caching allocator hands
+their memory out again only after the consumer's work on them has run;
+the host thread never waits for the card's compute. A ring slot is
+rewritten only after the copy out of it has completed (its event). Every
+pinned buffer is allocated when the first batch is staged, before the
+first training step. On the CPU a staged batch is a copy of the base
+iterator's. A device-feed batch keeps its ``aug`` (the crop offsets,
+mirror flags, mean and scale, on the host) through staging.
 
 :class:`DeviceStagingIter` stages batch N+1 when it hands out batch N;
 :class:`FeedScheduler` keeps ``depth`` staged batches in flight from a
@@ -31,10 +46,13 @@ device by the server's ``place`` function.
 from __future__ import annotations
 
 import logging
+import multiprocessing
 import queue as _queue
+import struct
 import threading
 import time
-from typing import Optional
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,18 +61,409 @@ from . import env as _env
 from . import telemetry as _tel
 from .base import MXNetError
 from .context import current_context
-from .io import DataBatch, DataIter
+from .io import DataBatch, DataIter, RecordDecoder
 from .ndarray import NDArray, _host_tensor
 
-__all__ = ["DeviceStagingIter", "FeedScheduler", "maybe_wrap_device_staging",
-           "maybe_wrap_feed_scheduler", "RequestStager"]
+__all__ = ["PipelineError", "ShmRecordStore", "ShmBatchRing",
+           "ProcessDecodePipeline", "DeviceStagingIter", "FeedScheduler",
+           "maybe_wrap_device_staging", "maybe_wrap_feed_scheduler",
+           "RequestStager"]
 
 
-def _as_host(x) -> torch.Tensor:
+class PipelineError(MXNetError):
+    """A decode worker died or the ring stalled past its deadline; the
+    iterator goes on decoding in process."""
+
+
+# ---------------------------------------------------------------------------
+# shared-memory layouts
+# ---------------------------------------------------------------------------
+
+class ShmRecordStore:
+    """Raw record bytes in one shared-memory segment, laid out
+    ``<Q n><Q offsets[n+1]><blob>`` in the parent's record order (its
+    shuffle included), so a record index means the same record in every
+    worker."""
+
+    def __init__(self, shm, owner: bool):
+        self._shm = shm
+        self._owner = owner
+        self.n = struct.unpack_from("<Q", shm.buf, 0)[0]
+        self._offsets = np.frombuffer(shm.buf, dtype=np.uint64,
+                                      count=self.n + 1, offset=8)
+        self._base = 8 + (self.n + 1) * 8
+
+    @classmethod
+    def create(cls, records: Sequence[bytes]) -> "ShmRecordStore":
+        from multiprocessing import shared_memory
+
+        n = len(records)
+        blob = sum(len(r) for r in records)
+        shm = shared_memory.SharedMemory(create=True,
+                                         size=max(1, 8 + (n + 1) * 8 + blob))
+        struct.pack_into("<Q", shm.buf, 0, n)
+        offsets = np.ndarray((n + 1,), dtype=np.uint64, buffer=shm.buf,
+                             offset=8)
+        base = 8 + (n + 1) * 8
+        pos = 0
+        for i, rec in enumerate(records):
+            offsets[i] = pos
+            shm.buf[base + pos:base + pos + len(rec)] = rec
+            pos += len(rec)
+        offsets[n] = pos
+        del offsets
+        return cls(shm, owner=True)
+
+    @classmethod
+    def attach(cls, name: str) -> "ShmRecordStore":
+        from multiprocessing import shared_memory
+
+        return cls(shared_memory.SharedMemory(name=name), owner=False)
+
+    @property
+    def name(self) -> str:
+        return self._shm.name
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get(self, i: int) -> bytes:
+        lo, hi = int(self._offsets[i]), int(self._offsets[i + 1])
+        return bytes(self._shm.buf[self._base + lo:self._base + hi])
+
+    def close(self):
+        self._offsets = None    # no numpy view may outlive the mapping
+        try:
+            self._shm.close()
+            if self._owner:
+                self._shm.unlink()
+        except Exception:
+            pass
+
+
+class ShmBatchRing:
+    """Preallocated batch slots in shared memory: each holds ``(batch,
+    *data_shape)`` float32 images and a ``(batch, label_width)`` float32
+    label block, which workers fill in place (a batch is never
+    pickled)."""
+
+    def __init__(self, num_slots: int, batch_size: int, data_shape,
+                 label_width: int = 1, name: Optional[str] = None):
+        from multiprocessing import shared_memory
+
+        self.num_slots = int(num_slots)
+        self.batch_size = int(batch_size)
+        self.data_shape = tuple(data_shape)
+        self.label_width = int(label_width)
+        self._img_bytes = self.batch_size * int(np.prod(self.data_shape)) * 4
+        self._lbl_bytes = self.batch_size * self.label_width * 4
+        self.slot_bytes = self._img_bytes + self._lbl_bytes
+        if name is None:
+            self._shm = shared_memory.SharedMemory(
+                create=True, size=max(1, self.num_slots * self.slot_bytes))
+            self._owner = True
+        else:
+            self._shm = shared_memory.SharedMemory(name=name)
+            self._owner = False
+
+    def meta(self) -> dict:
+        """What a worker needs to attach (picklable)."""
+        return {"name": self._shm.name, "num_slots": self.num_slots,
+                "batch_size": self.batch_size, "data_shape": self.data_shape,
+                "label_width": self.label_width}
+
+    @classmethod
+    def attach(cls, meta: dict) -> "ShmBatchRing":
+        return cls(meta["num_slots"], meta["batch_size"], meta["data_shape"],
+                   meta["label_width"], name=meta["name"])
+
+    def img_view(self, slot: int) -> np.ndarray:
+        return np.ndarray((self.batch_size,) + self.data_shape,
+                          dtype=np.float32, buffer=self._shm.buf,
+                          offset=slot * self.slot_bytes)
+
+    def label_view(self, slot: int) -> np.ndarray:
+        return np.ndarray((self.batch_size, self.label_width),
+                          dtype=np.float32, buffer=self._shm.buf,
+                          offset=slot * self.slot_bytes + self._img_bytes)
+
+    def close(self):
+        try:
+            self._shm.close()
+            if self._owner:
+                self._shm.unlink()
+        except Exception:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# worker process
+# ---------------------------------------------------------------------------
+
+def _decode_worker_main(worker_id: int, decoder_cfg: dict, batch_size: int,
+                        label_width: int, store_name: str, ring_meta: dict,
+                        task_q, result_q):
+    """One decode worker: takes ``(cursor, epoch, slot)`` tasks, decodes
+    the batch at ``cursor`` into ring slot ``slot`` and reports ``(cursor,
+    epoch, slot, error, seconds)``. Ends on the ``None`` task or when its
+    parent is gone. Host work only: numpy, PIL and the record format."""
+    store = ring = None
+    try:
+        store = ShmRecordStore.attach(store_name)
+        ring = ShmBatchRing.attach(ring_meta)
+        decoder = RecordDecoder(**decoder_cfg)
+        parent = multiprocessing.parent_process()
+        while True:
+            try:
+                task = task_q.get(timeout=1.0)
+            except _queue.Empty:
+                if parent is not None and not parent.is_alive():
+                    return
+                continue
+            if task is None:
+                return
+            cursor, epoch, slot = task
+            t0 = time.perf_counter()
+            err = None
+            try:
+                imgs = ring.img_view(slot)
+                labels = ring.label_view(slot)
+                for j in range(batch_size):
+                    idx = cursor + j
+                    img, lab = decoder.decode(store.get(idx % store.n),
+                                              decoder.derive_rng(epoch, idx))
+                    imgs[j] = img
+                    if label_width == 1:
+                        labels[j, 0] = float(lab.ravel()[0])
+                    else:
+                        labels[j, :] = lab.ravel()[:label_width]
+                decoder.normalize_inplace(imgs)
+                del imgs, labels    # no view may outlive the mapping
+            except BaseException as e:  # reported; the parent decides
+                err = "%s: %s" % (type(e).__name__, e)
+            result_q.put((cursor, epoch, slot, err, time.perf_counter() - t0))
+    except (KeyboardInterrupt, BrokenPipeError):
+        pass
+    finally:
+        if store is not None:
+            store.close()
+        if ring is not None:
+            ring.close()
+
+
+# ---------------------------------------------------------------------------
+# parent-side pipeline
+# ---------------------------------------------------------------------------
+
+class ProcessDecodePipeline:
+    """The decode workers and the shared-memory ring; serves batches by
+    cursor and schedules read-ahead.
+
+    The parent assigns ring slots and queues ``(cursor, epoch, slot)``
+    tasks; completions come back in any order and wait in a ready table
+    until the consumer asks for their cursor. A completion of an older
+    epoch (after ``flush``) is dropped and its slot reclaimed, so a reset
+    mid-epoch neither leaks a slot nor feeds a stale batch. Workers start
+    with ``start_method`` (``MXNET_TPU_DECODE_START``, spawn by default);
+    the ring has ``num_slots`` (``MXNET_TPU_DECODE_RING``, default
+    ``max(2, 2 x workers)``); a wait longer than ``timeout``
+    (``MXNET_TPU_DECODE_TIMEOUT``) seconds raises :class:`PipelineError`.
+
+    Telemetry: ``io.pipeline.decode_ms``, ``io.pipeline.stalls`` and
+    ``io.pipeline.stall_ms``, gauges ``io.pipeline.workers_alive`` and
+    ``io.pipeline.ring_occupancy``."""
+
+    def __init__(self, records: Sequence[bytes], decoder_cfg: dict,
+                 batch_size: int, label_width: int = 1, num_workers: int = 2,
+                 num_slots: Optional[int] = None,
+                 start_method: Optional[str] = None,
+                 timeout: Optional[float] = None):
+        self.batch_size = int(batch_size)
+        self.num_workers = max(1, int(num_workers))
+        ctx = multiprocessing.get_context(
+            start_method or _env.get("MXNET_TPU_DECODE_START"))
+        slots = num_slots or _env.get("MXNET_TPU_DECODE_RING") \
+            or max(2, 2 * self.num_workers)
+        self.timeout = timeout if timeout is not None \
+            else _env.get("MXNET_TPU_DECODE_TIMEOUT")
+        self._store = ShmRecordStore.create(records)
+        self._ring = ShmBatchRing(slots, batch_size,
+                                  decoder_cfg["data_shape"], label_width)
+        self._task_q = ctx.Queue()
+        self._result_q = ctx.Queue()
+        self._free: List[int] = list(range(slots))
+        self._pending: Dict[Tuple[int, int], int] = {}
+        self._ready: Dict[Tuple[int, int], int] = {}
+        self._closed = False
+        self._procs = []
+        try:
+            for i in range(self.num_workers):
+                p = ctx.Process(
+                    target=_decode_worker_main,
+                    args=(i, decoder_cfg, batch_size, label_width,
+                          self._store.name, self._ring.meta(),
+                          self._task_q, self._result_q),
+                    daemon=True, name="mxtpu-decode-%d" % i)
+                p.start()
+                self._procs.append(p)
+        except BaseException:
+            self.shutdown()
+            raise
+        # the segments must not outlive a pipeline that is collected
+        self._finalizer = weakref.finalize(
+            self, ProcessDecodePipeline._cleanup,
+            self._procs, self._task_q, self._store, self._ring)
+
+    @property
+    def num_slots(self) -> int:
+        return self._ring.num_slots
+
+    def workers_alive(self) -> bool:
+        return all(p.is_alive() for p in self._procs)
+
+    # -- scheduling --------------------------------------------------------
+    def schedule(self, cursor: int, epoch: int) -> bool:
+        """Queue the decode of the batch at ``cursor`` if a slot is free;
+        True when it is queued or done."""
+        key = (cursor, epoch)
+        if key in self._pending or key in self._ready or not self._free:
+            return key in self._pending or key in self._ready
+        slot = self._free.pop()
+        self._pending[key] = slot
+        self._task_q.put((cursor, epoch, slot))
+        return True
+
+    def prefetch(self, cursor: int, epoch: int, limit: int):
+        """Queue the batches after ``cursor`` while slots are free."""
+        for k in range(1, self.num_slots):
+            nxt = cursor + k * self.batch_size
+            if nxt >= limit or not self._free:
+                break
+            self.schedule(nxt, epoch)
+
+    def _drain_one(self, timeout: float, epoch: int) -> bool:
+        """Take one completion off the result queue; False on timeout.
+        Raises on a dead worker or a decode error."""
+        try:
+            cursor, ep, slot, err, dur = self._result_q.get(timeout=timeout)
+        except _queue.Empty:
+            if not self.workers_alive():
+                raise PipelineError(
+                    "decode worker died (exitcodes %s)"
+                    % [p.exitcode for p in self._procs])
+            return False
+        self._pending.pop((cursor, ep), None)
+        if err is not None:
+            self._free.append(slot)
+            raise MXNetError("decode worker failed on batch at cursor %d: %s"
+                             % (cursor, err))
+        if ep != epoch:
+            self._free.append(slot)     # an older epoch's: reclaimed
+        else:
+            self._ready[(cursor, ep)] = slot
+            _tel.observe("io.pipeline.decode_ms", dur * 1e3)
+        return True
+
+    def get_batch(self, cursor: int, epoch: int,
+                  limit: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """The decoded batch at ``cursor`` (images, labels), copied out of
+        the ring (its slot freed); schedules the cursor and, with
+        ``limit``, the batches after it."""
+        key = (cursor, epoch)
+        self.schedule(cursor, epoch)
+        if limit is not None:
+            self.prefetch(cursor, epoch, limit)
+        if _tel.enabled():
+            _tel.set_gauge("io.pipeline.workers_alive",
+                           float(sum(p.is_alive() for p in self._procs)))
+        stalled = key not in self._ready
+        t0 = time.perf_counter()
+        while key not in self._ready:
+            if time.perf_counter() - t0 > self.timeout:
+                raise PipelineError(
+                    "decode pipeline stalled %.0fs waiting for cursor %d"
+                    % (self.timeout, cursor))
+            self._drain_one(0.2, epoch)
+            # a drained completion of an older epoch may have freed the
+            # slot this cursor needs
+            self.schedule(cursor, epoch)
+        if stalled:
+            _tel.inc("io.pipeline.stalls")
+            _tel.observe("io.pipeline.stall_ms",
+                         (time.perf_counter() - t0) * 1e3)
+        slot = self._ready.pop(key)
+        imgs = np.array(self._ring.img_view(slot))
+        labels = np.array(self._ring.label_view(slot))
+        self._free.append(slot)
+        _tel.set_gauge("io.pipeline.ring_occupancy",
+                       self.num_slots - len(self._free))
+        if limit is not None:
+            self.prefetch(cursor, epoch, limit)
+        return imgs, labels
+
+    def flush(self):
+        """Forget the parked results (a reset). Queued tasks keep their
+        slots; their completions are reclaimed as stale."""
+        for slot in self._ready.values():
+            self._free.append(slot)
+        self._ready.clear()
+
+    # -- teardown ----------------------------------------------------------
+    @staticmethod
+    def _cleanup(procs, task_q, store, ring):
+        for p in procs:
+            if p.is_alive():
+                try:
+                    task_q.put_nowait(None)
+                except Exception:
+                    pass
+        for p in procs:
+            p.join(timeout=1.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=1.0)
+        try:
+            task_q.close()
+            task_q.cancel_join_thread()
+        except Exception:
+            pass
+        store.close()
+        ring.close()
+
+    def shutdown(self):
+        """Stop the workers (the ``None`` task, then terminate) and free
+        the shared memory; bounded in time, never raises."""
+        if self._closed:
+            return
+        self._closed = True
+        if hasattr(self, "_finalizer"):
+            self._finalizer.detach()
+        ProcessDecodePipeline._cleanup(self._procs, self._task_q,
+                                       self._store, self._ring)
+        try:
+            self._result_q.close()
+            self._result_q.cancel_join_thread()
+        except Exception:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# device staging
+# ---------------------------------------------------------------------------
+
+def _as_tensor(x) -> torch.Tensor:
+    """An array of a batch as a tensor where it lies (host data as a CPU
+    tensor)."""
     if isinstance(x, NDArray):
         x = x.handle
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu()
+        return x.detach()
     return _host_tensor(np.asarray(x))
 
 
@@ -72,33 +481,46 @@ class _Stager:
 
     def stage(self, arrays):
         """Device tensors of ``arrays`` and the event after their copy
-        (None on the CPU)."""
-        host = [_as_host(a) for a in arrays]
+        (None on the CPU). Host arrays go through the pinned ring; an
+        array already on the card is copied device to device on the copy
+        stream, after the work of the stream that made it."""
+        tensors = [_as_tensor(a) for a in arrays]
         if self.device.type != "cuda":
-            return [t.clone() for t in host], None
+            return [t.cpu().clone() for t in tensors], None
         if self._ring is None:
             self._stream = torch.cuda.Stream(self.device)
-            self._ring = [[[torch.empty(t.shape, dtype=t.dtype,
-                                        pin_memory=True) for t in host],
+            self._ring = [[[None if t.is_cuda else
+                            torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True) for t in tensors],
                            torch.cuda.Event()]
                           for _ in range(self._n_slots)]
         bufs, done = self._ring[self._turn]
         self._turn = (self._turn + 1) % self._n_slots
         done.synchronize()   # the copy out of this slot has run
-        for i, t in enumerate(host):
-            if bufs[i].shape != t.shape or bufs[i].dtype != t.dtype:
+        for i, t in enumerate(tensors):
+            if t.is_cuda:
+                continue
+            if bufs[i] is None or bufs[i].shape != t.shape \
+                    or bufs[i].dtype != t.dtype:
                 # a batch of another shape: a new buffer for this slot
                 bufs[i] = torch.empty(t.shape, dtype=t.dtype,
                                       pin_memory=True)
             bufs[i].copy_(t)
+        if any(t.is_cuda for t in tensors):
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        staged = []
         with torch.cuda.stream(self._stream):
-            staged = [torch.empty(b.shape, dtype=b.dtype, device=self.device)
-                      for b in bufs]
-            for d, b in zip(staged, bufs):
-                d.copy_(b, non_blocking=True)
+            for t, b in zip(tensors, bufs):
+                src = t if t.is_cuda else b
+                d = torch.empty(src.shape, dtype=src.dtype,
+                                device=self.device)
+                d.copy_(src, non_blocking=True)
+                if t.is_cuda:
+                    t.record_stream(self._stream)
+                staged.append(d)
             done.record(self._stream)
         _tel.inc("ndarray.h2d_bytes", sum(t.numel() * t.element_size()
-                                          for t in host))
+                                          for t in tensors if not t.is_cuda))
         return staged, done
 
 
@@ -180,6 +602,11 @@ class DeviceStagingIter(DataIter):
                            provide_data=batch.provide_data,
                            provide_label=batch.provide_label)
         staged._staged_event = event
+        # a device-feed batch's deferred augmentation: dropping it would
+        # feed the raw stored frames to the model
+        aug = getattr(batch, "aug", None)
+        if aug is not None:
+            staged.aug = aug
         return staged
 
     def next(self) -> DataBatch:

@@ -124,13 +124,29 @@ class DataParallelExecutorGroup:
         """Copy a batch's data and labels (NDArrays, tensors or host
         arrays) into the bound arrays, in place: host arrays through a
         pinned buffer, arrays already on the card (a staged batch) device
-        to device on the current stream."""
-        descs = self.data_shapes + self.label_shapes
+        to device on the current stream. A device-feed batch (``aug``:
+        uint8 frames whose crop and normalisation are deferred) is
+        materialised first on this group's device, through the same
+        ``crop_norm`` kernel the fused step runs in its graph."""
+        if getattr(data_batch, "aug", None) is not None:
+            from ..io_cache import materialize_device_feed
+
+            data_batch = materialize_device_feed(data_batch, self.context)
+        self._load(self.data_shapes, data_batch.data, 0)
+        self.load_label_batch(data_batch)
+
+    def load_label_batch(self, data_batch):
+        """Copy only the batch's labels into the bound label arrays: the
+        fused step's device feed writes the data array itself."""
+        self._load(self.label_shapes, data_batch.label or [],
+                   len(self.data_shapes))
+
+    def _load(self, descs, arrays, first):
         if self._loaders is None:
             self._loaders = [HostToDevice(self.executor.arg_dict[d.name]
-                                          .handle) for d in descs]
-        arrays = list(data_batch.data) + list(data_batch.label or [])
-        for desc, loader, arr in zip(descs, self._loaders, arrays):
+                                          .handle)
+                             for d in self.data_shapes + self.label_shapes]
+        for desc, loader, arr in zip(descs, self._loaders[first:], arrays):
             if tuple(arr.shape) != tuple(loader.dst.shape):
                 raise MXNetError("batch '%s' has shape %s, bound for %s"
                                  % (desc.name, tuple(arr.shape),

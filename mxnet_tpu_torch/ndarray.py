@@ -24,6 +24,7 @@ import torch
 
 from .base import (DTYPE_ID_TO_TORCH, DTYPE_TORCH_TO_ID, MXNetError,
                    mx_real_t, torch_dtype)
+from . import telemetry as _tel
 from .context import Context, current_context
 
 __all__ = ["NDArray", "HostToDevice", "array", "empty", "zeros", "ones",
@@ -311,7 +312,8 @@ class HostToDevice:
     host buffers, used in turn, and one asynchronous copy on the current
     stream; :meth:`copy` waits for the copy out of its buffer two calls
     back before it rewrites it, so the host may run two copies ahead of
-    the card. On the CPU it is a plain copy."""
+    the card, and counts the bytes in ``ndarray.h2d_bytes``. On the CPU
+    it is a plain copy."""
 
     def __init__(self, dst: torch.Tensor):
         self.dst = dst
@@ -337,6 +339,7 @@ class HostToDevice:
         host.copy_(src)
         self.dst.copy_(host, non_blocking=True)
         done.record()
+        _tel.inc("ndarray.h2d_bytes", host.numel() * host.element_size())
         return self.dst
 
 

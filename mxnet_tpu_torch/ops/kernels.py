@@ -27,9 +27,12 @@ Ported so far (``csrc/``):
 * K6's launches, the runtime-compiled kernels of ``rtc.Rtc``, are
   counted here too (``rtc``).
 
-One kernel here replaces no TPU kernel: ``roi_pool`` (``roi_pool.cu``),
+Two kernels here replace no TPU kernel: ``roi_pool`` (``roi_pool.cu``),
 ROIPooling's forward and backward, which the JAX package leaves to XLA
-as a masked max over the whole map per bin (:func:`roi_pool`).
+as a masked max over the whole map per bin (:func:`roi_pool`), and
+``crop_norm`` (``crop_norm.cu``), the device feed's crop, mirror and
+normalisation of uint8 frames, which the JAX package jits
+(:func:`crop_norm`).
 
 Every TPU kernel of the JAX package now has its counterpart here. K1, K2
 and K3 run on the tensor cores at float32 accuracy (three TF32 products a
@@ -56,7 +59,7 @@ __all__ = ["fused_norm_act", "fused_norm_act_plain", "fused_norm_act_bwd",
            "fused_linear_plain", "flash_attention", "flash_attention_plain",
            "reference_attention", "FLASH_MAX_D", "roi_pool", "roi_pool_plain",
            "roi_pool_plain_grad", "roi_pool_fwd", "roi_pool_bwd",
-           "reset_launch_counts",
+           "crop_norm", "crop_normalize_plain", "reset_launch_counts",
            "launch_counts", "LAUNCH_KERNELS", "launches_in"]
 
 #: kernel launches since the last reset, one per wrapper call that
@@ -68,6 +71,7 @@ linear_launches = 0
 flash_attn_launches = 0
 rtc_launches = 0
 roi_pool_launches = 0
+crop_norm_launches = 0
 #: (wrapper, dtype name) -> launches since the last reset: which of a
 #: kernel's typed paths ran (``launch_records``)
 _by_dtype: dict = {}
@@ -89,7 +93,8 @@ def launch_counts() -> dict:
             "linear": linear_launches,
             "flash_attn": flash_attn_launches,
             "rtc": rtc_launches,
-            "roi_pool": roi_pool_launches}
+            "roi_pool": roi_pool_launches,
+            "crop_norm": crop_norm_launches}
 
 
 def launch_records() -> dict:
@@ -107,7 +112,7 @@ def launch_records() -> dict:
 def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
     global linear_launches, flash_attn_launches, rtc_launches
-    global roi_pool_launches
+    global roi_pool_launches, crop_norm_launches
     with _count_lock:
         _by_dtype.clear()
         norm_act_fwd_launches = 0
@@ -117,6 +122,7 @@ def reset_launch_counts() -> None:
         flash_attn_launches = 0
         rtc_launches = 0
         roi_pool_launches = 0
+        crop_norm_launches = 0
 
 
 def _count(name: str, dtype: torch.dtype = torch.float32) -> None:
@@ -139,7 +145,8 @@ LAUNCH_KERNELS = {"norm_act_fwd": ("norm_act_vec_kernel",
                   "conv_gemm": ("conv_gemm_kernel",),
                   "linear": ("linear_kernel",),
                   "flash_attn": ("flash_attn_kernel",),
-                  "roi_pool": ("roi_pool_fwd_kernel", "roi_pool_bwd_kernel")}
+                  "roi_pool": ("roi_pool_fwd_kernel", "roi_pool_bwd_kernel"),
+                  "crop_norm": ("crop_norm_kernel",)}
 _LAUNCH_RE = {wrapper: re.compile(r"\b(%s)[<(]" % "|".join(names))
               for wrapper, names in LAUNCH_KERNELS.items()}
 
@@ -743,32 +750,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 ROI_PLAIN_CHUNK_ELEMS = 1 << 28
 
 
-def _f32(value, device) -> torch.Tensor:
-    return torch.tensor(float(value), dtype=torch.float32, device=device)
-
-
-def _roi_geometry(rois, n, h, w, pooled_size, spatial_scale):
+def _roi_geometry(rois, n, h, w, pooled_size, spatial_scale, dtype):
     """Per roi: the image index (truncated toward zero, negative from the
-    end, clamped, as a JAX gather indexes) and the bins' row and column
-    ranges ``[start, end)``, float32 with the reference's rounding
-    (``vision.py:62-76``): (R,), (R, ph) x 2, (R, pw) x 2."""
+    end, clamped, as a JAX gather indexes), int64 (R,), and the bins' row
+    and column ranges ``[start, end)``, int32 (R, ph) x 2 and (R, pw) x 2.
+
+    The edges follow the reference's arithmetic in the data's ``dtype``
+    (``vision.py:55-76``), every operation rounded to it as JAX rounds
+    it: ``round(roi * scale)``, ``y2 - y1 + 1``, the division by ``ph``,
+    ``iy * bin_h``, the sum, ``floor``/``ceil``/``clip``; a row belongs
+    to a bin where the dtype's ``arange`` of rows lies in its range, so
+    an edge is the count of rows below it. The plain version's table;
+    ``csrc/roi_pool.cu``'s ``roi_geom_kernel`` computes the same one on
+    the card, operation for operation."""
     ph, pw = pooled_size
-    r = rois.float()
+    dev = rois.device
+
+    def const(v):
+        # a fill on the device: a CUDA graph's capture allows no copy from
+        # pageable host memory
+        return torch.full((), v, dtype=dtype, device=dev)
+
+    r = rois.to(dtype)
     b = r[:, 0].to(torch.int32)
     b = torch.where(b < 0, b + n, b).clamp(0, n - 1).long()
-    x1, y1, x2, y2 = (torch.round(r[:, k] * spatial_scale) for k in (1, 2, 3, 4))
-    # divide by tensors: torch's CUDA division by a Python number multiplies
-    # by its reciprocal, which can round differently from the reference's
-    # (and the kernel's) division and move a bin edge
-    bin_h = torch.clamp(y2 - y1 + 1.0, min=1.0) / _f32(ph, r.device)
-    bin_w = torch.clamp(x2 - x1 + 1.0, min=1.0) / _f32(pw, r.device)
-    iy = torch.arange(ph, dtype=torch.float32, device=r.device)
-    ix = torch.arange(pw, dtype=torch.float32, device=r.device)
-    ys = torch.floor(y1[:, None] + iy * bin_h[:, None]).clamp(0, h)
-    ye = torch.ceil(y1[:, None] + (iy + 1) * bin_h[:, None]).clamp(0, h)
-    xs = torch.floor(x1[:, None] + ix * bin_w[:, None]).clamp(0, w)
-    xe = torch.ceil(x1[:, None] + (ix + 1) * bin_w[:, None]).clamp(0, w)
-    return b, ys, ye, xs, xe
+    # multiply and divide by tensors of the dtype: a Python number would
+    # be applied in float32 (or, on the card, as a reciprocal), not as the
+    # reference's dtype constant
+    x1, y1, x2, y2 = (torch.round(r[:, k] * const(spatial_scale))
+                      for k in (1, 2, 3, 4))
+    one = const(1.0)
+    bin_h = torch.maximum(y2 - y1 + one, one) / const(ph)
+    bin_w = torch.maximum(x2 - x1 + one, one) / const(pw)
+    iy = torch.arange(ph, dtype=dtype, device=dev)
+    ix = torch.arange(pw, dtype=dtype, device=dev)
+    lim_h, lim_w, zero = const(h), const(w), const(0.0)
+    edges = (torch.floor(y1[:, None] + iy * bin_h[:, None]),
+             torch.ceil(y1[:, None] + (iy + one) * bin_h[:, None]),
+             torch.floor(x1[:, None] + ix * bin_w[:, None]),
+             torch.ceil(x1[:, None] + (ix + one) * bin_w[:, None]))
+    rows = torch.arange(h, dtype=dtype, device=dev)
+    cols = torch.arange(w, dtype=dtype, device=dev)
+    out = []
+    for e, lim, grid in zip(edges, (lim_h, lim_h, lim_w, lim_w),
+                            (rows, rows, cols, cols)):
+        e = torch.minimum(torch.maximum(e, zero), lim)
+        out.append((grid < e[..., None]).sum(-1, dtype=torch.int32))
+    return (b,) + tuple(out)
 
 
 def _roi_chunk(data, geom, lo, hi):
@@ -781,8 +809,8 @@ def _roi_chunk(data, geom, lo, hi):
     NaN bin) and such bins are zeroed after."""
     b, ys, ye, xs, xe = (t[lo:hi] for t in geom)
     h, w = data.shape[2], data.shape[3]
-    rows = torch.arange(h, dtype=torch.float32, device=data.device)
-    cols = torch.arange(w, dtype=torch.float32, device=data.device)
+    rows = torch.arange(h, dtype=torch.int32, device=data.device)
+    cols = torch.arange(w, dtype=torch.int32, device=data.device)
     row_mask = (rows >= ys[..., None]) & (rows < ye[..., None])  # (r, ph, H)
     col_mask = (cols >= xs[..., None]) & (cols < xe[..., None])  # (r, pw, W)
     mask = row_mask[:, :, None, :, None] & col_mask[:, None, :, None, :]
@@ -795,8 +823,8 @@ def _roi_chunk(data, geom, lo, hi):
         :, :, None, None], neg)
     pooled = torch.amax(masked, dim=(-2, -1))                    # (r, C, ph, pw)
     # NaNs a bin holds: exact counts, as two small products over the masks
-    nans = torch.einsum("rchw,rih,rjw->rcij", nan.to(data.dtype),
-                        row_mask.to(data.dtype), col_mask.to(data.dtype))
+    nans = torch.einsum("rchw,rih,rjw->rcij", nan.float(), row_mask.float(),
+                        col_mask.float())
     return torch.where(torch.isfinite(pooled) & (nans == 0), pooled,
                        torch.zeros((), dtype=data.dtype, device=data.device))
 
@@ -816,7 +844,8 @@ def roi_pool_plain(data: torch.Tensor, rois: torch.Tensor, pooled_size,
     tensor: the CPU tests' sizes); :func:`roi_pool_plain_grad` is the
     bounded-memory gradient."""
     n, _, h, w = data.shape
-    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale)
+    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale,
+                         data.dtype)
     step = _roi_chunk_rows(data, pooled_size)
     parts = [_roi_chunk(data, geom, lo, lo + step)
              for lo in range(0, rois.shape[0], step)]
@@ -831,7 +860,8 @@ def roi_pool_plain_grad(data: torch.Tensor, rois: torch.Tensor, g,
     cotangent ``g``, one chunk of rois at a time (each chunk's graph is
     freed before the next), summed over the chunks in order."""
     n, _, h, w = data.shape
-    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale)
+    geom = _roi_geometry(rois, n, h, w, pooled_size, spatial_scale,
+                         data.dtype)
     step = _roi_chunk_rows(data, pooled_size)
     dx = torch.zeros_like(data)
     for lo in range(0, rois.shape[0], step):
@@ -842,49 +872,58 @@ def roi_pool_plain_grad(data: torch.Tensor, rois: torch.Tensor, g,
     return dx
 
 
-def _roi_args(data, rois, pooled_size, spatial_scale):
+def _roi_cuda(fn, data, rois, pooled_size, *more):
+    """Checks for a launch; the rois in ``data``'s dtype, the int32
+    scratch of the kernel's geometry table, and the size arguments."""
+    _check_cuda(fn, data, rois, *more)
+    for t in (data,) + more:
+        if t.dtype not in _DTYPES:
+            raise MXNetError("%s: dtype %s not supported (float32, bfloat16, "
+                             "float16)" % (fn, t.dtype))
+        if t.dtype != data.dtype:
+            raise MXNetError("%s: tensors of %s and %s" % (fn, data.dtype,
+                                                           t.dtype))
     n, c, h, w = data.shape
-    return (n, c, h, w, rois.shape[0], int(pooled_size[0]),
-            int(pooled_size[1]), ctypes.c_float(spatial_scale))
-
-
-def _check_roi_cuda(fn, *tensors):
-    _check_cuda(fn, *tensors)
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise MXNetError("%s: float32 tensors only, got %s (a 16-bit "
-                             "roi_pool is ROADMAP.md Queue B item 7)"
-                             % (fn, t.dtype))
+    ph, pw = int(pooled_size[0]), int(pooled_size[1])
+    r = rois.shape[0]
+    table = torch.empty(r * (1 + 2 * (ph + pw)), dtype=torch.int32,
+                        device=data.device)
+    return (rois.to(data.dtype).contiguous(), table,
+            (n, c, h, w, r, ph, pw))
 
 
 def roi_pool_fwd(data, rois, pooled_size, spatial_scale):
-    """Launch ``roi_pool``'s forward on CUDA tensors: ``(out, count)``,
-    the bins' maxima (R, C, ph, pw) and the count of positions tied for
-    each (int32, 0 for a bin that gives 0)."""
-    _check_roi_cuda("roi_pool", data, rois)
-    ph, pw = pooled_size
-    out = torch.empty((rois.shape[0], data.shape[1], ph, pw),
-                      dtype=torch.float32, device=data.device)
+    """Launch ``roi_pool``'s forward on CUDA tensors (float32, bfloat16 or
+    float16 ``data``): ``(out, count)``, the bins' maxima (R, C, ph, pw)
+    in ``data``'s dtype and the count of positions tied for each (int32,
+    0 for a bin that gives 0). The bins are computed on the card in
+    ``data``'s dtype, as :func:`_roi_geometry` computes them."""
+    rois, table, sizes = _roi_cuda("roi_pool", data, rois, pooled_size)
+    out = torch.empty((rois.shape[0], data.shape[1]) + tuple(pooled_size),
+                      dtype=data.dtype, device=data.device)
     count = torch.empty(out.shape, dtype=torch.int32, device=data.device)
     from .. import _build
 
     lib = _build.load("roi_pool")
     with torch.cuda.device(data.device):
         rc = lib.roi_pool_fwd(data.data_ptr(), rois.data_ptr(),
-                              out.data_ptr(), count.data_ptr(),
-                              *_roi_args(data, rois, pooled_size,
-                                         spatial_scale), _stream(data))
+                              table.data_ptr(), out.data_ptr(),
+                              count.data_ptr(), *sizes,
+                              ctypes.c_float(spatial_scale),
+                              _DTYPES[data.dtype], _stream(data))
     if rc != 0:
         raise MXNetError("roi_pool_fwd launch failed: CUDA error %d" % rc)
-    _count("roi_pool_launches")
+    _count("roi_pool_launches", data.dtype)
     return out, count
 
 
 def roi_pool_bwd(data, rois, out, count, g, pooled_size, spatial_scale):
     """Launch ``roi_pool``'s backward on CUDA tensors: the gradient into
-    ``data``, ``g / count`` to each position tied for its bin's max,
-    summed in one fixed order (no atomics)."""
-    _check_roi_cuda("roi_pool", data, rois, out, g)
+    ``data``, ``g / count`` (in ``data``'s dtype) to each position tied
+    for its bin's max, summed in float32 in one fixed order (no atomics)
+    and rounded to the dtype once."""
+    rois, table, sizes = _roi_cuda("roi_pool", data, rois, pooled_size,
+                                   out, g)
     _check_cuda("roi_pool", count)
     dx = torch.empty_like(data)
     from .. import _build
@@ -892,13 +931,13 @@ def roi_pool_bwd(data, rois, out, count, g, pooled_size, spatial_scale):
     lib = _build.load("roi_pool")
     with torch.cuda.device(data.device):
         rc = lib.roi_pool_bwd(data.data_ptr(), rois.data_ptr(),
-                              out.data_ptr(), count.data_ptr(), g.data_ptr(),
-                              dx.data_ptr(),
-                              *_roi_args(data, rois, pooled_size,
-                                         spatial_scale), _stream(data))
+                              table.data_ptr(), out.data_ptr(),
+                              count.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                              *sizes, ctypes.c_float(spatial_scale),
+                              _DTYPES[data.dtype], _stream(data))
     if rc != 0:
         raise MXNetError("roi_pool_bwd launch failed: CUDA error %d" % rc)
-    _count("roi_pool_launches")
+    _count("roi_pool_launches", data.dtype)
     return dx
 
 
@@ -926,9 +965,10 @@ def roi_pool(data: torch.Tensor, rois: torch.Tensor, pooled_size,
     """ROIPooling of NCHW ``data`` over (R, 5) ``rois`` ``[batch_index,
     x1, y1, x2, y2]`` to (R, C, ph, pw), differentiable in ``data``.
 
-    On CUDA tensors (float32, contiguous) the forward and the backward
-    each launch one ``roi_pool`` kernel, or raise; on CPU tensors:
-    :func:`roi_pool_plain` through autograd."""
+    On CUDA tensors (float32, bfloat16 or float16, contiguous) the forward
+    and the backward each launch one ``roi_pool`` kernel, or raise; on CPU
+    tensors: :func:`roi_pool_plain` through autograd. The bins are
+    computed in ``data``'s dtype on either path (:func:`_roi_geometry`)."""
     pooled_size = (int(pooled_size[0]), int(pooled_size[1]))
     if data.dim() != 4 or rois.dim() != 2 or rois.shape[1] != 5:
         raise MXNetError("roi_pool: data must be NCHW and rois (R, 5), got "
@@ -936,3 +976,108 @@ def roi_pool(data: torch.Tensor, rois: torch.Tensor, pooled_size,
     if data.device.type == "cpu" and rois.device.type == "cpu":
         return roi_pool_plain(data, rois, pooled_size, spatial_scale)
     return _ROIPool.apply(data, rois, pooled_size, float(spatial_scale))
+
+
+# ---------------------------------------------------------------------------
+# crop_norm: the device feed's crop, mirror and normalisation, a port-only
+# kernel (the JAX package jits it: mxnet_tpu/io_cache.py:455, :675,
+# mxnet_tpu/fused_step.py:543)
+# ---------------------------------------------------------------------------
+_LAYOUTS = ("NCHW", "NHWC")
+
+
+def _crop_shape(x, crop_hw, layout):
+    if layout not in _LAYOUTS:
+        raise MXNetError("crop_norm: layout must be NCHW or NHWC, got %r"
+                         % (layout,))
+    if x.dim() != 4 or x.dtype != torch.uint8:
+        raise MXNetError("crop_norm: frames must be uint8 (B, H, W, C), got "
+                         "%s %s" % (x.dtype, tuple(x.shape)))
+    b, sh, sw, c = x.shape
+    h, w = int(crop_hw[0]), int(crop_hw[1])
+    if not (0 < h <= sh and 0 < w <= sw):
+        raise MXNetError("crop_norm: crop %dx%d outside the %dx%d frames"
+                         % (h, w, sh, sw))
+    return (b, c, h, w) if layout == "NCHW" else (b, h, w, c)
+
+
+def crop_normalize_plain(x, tops, lefts, mirror, mean, scale, crop_hw,
+                         layout="NCHW"):
+    """The plain version of :func:`crop_norm`, by index grids: each
+    frame's crop at ``(top, left)`` (clamped into the frame, as
+    ``dynamic_slice`` clamps), its columns reversed where ``mirror``,
+    then ``(x - mean) * scale`` in float32 and the layout."""
+    b, sh, sw, _ = x.shape
+    h, w = int(crop_hw[0]), int(crop_hw[1])
+    dev = x.device
+    t = tops.to(dev, torch.long).clamp(0, sh - h)
+    l = lefts.to(dev, torch.long).clamp(0, sw - w)
+    cols = torch.arange(w, device=dev)
+    ys = t[:, None] + torch.arange(h, device=dev)                # (B, h)
+    xs = torch.where(mirror.to(dev, torch.bool)[:, None],
+                     l[:, None] + (w - 1 - cols), l[:, None] + cols)
+    crop = x[torch.arange(b, device=dev)[:, None, None], ys[:, :, None],
+             xs[:, None, :]]                                     # (B, h, w, C)
+    y = (crop.to(torch.float32) - mean.to(dev, torch.float32)) \
+        * scale.to(dev, torch.float32).reshape(())
+    return y.permute(0, 3, 1, 2).contiguous() if layout == "NCHW" else y
+
+
+def crop_norm(x: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
+              mirror: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
+              crop_hw, layout: str = "NCHW",
+              out: torch.Tensor = None) -> torch.Tensor:
+    """uint8 frames ``x`` (B, SH, SW, C) -> float32 ``(x[b, t+y, l+x', c]
+    - mean[c]) * scale`` of shape (B, C, h, w) (``layout`` NCHW) or (B, h,
+    w, C) (NHWC), where ``x'`` runs backwards where ``mirror[b]``: the
+    arithmetic of the JAX package's jitted augment, bit for bit.
+
+    ``tops``/``lefts`` are int32 (B,), ``mirror`` bool or uint8 (B,),
+    ``mean`` float32 (C,), ``scale`` float32 with one element; each is
+    read from device memory, so a CUDA graph that holds the launch serves
+    new values. ``out``, when given, is written in place (contiguous
+    float32 of the result's shape) and returned.
+
+    On CUDA tensors: launches ``crop_norm`` (one launch) or raises. On CPU
+    tensors: :func:`crop_normalize_plain`."""
+    shape = _crop_shape(x, crop_hw, layout)
+    if tuple(tops.shape) != (shape[0],) or tuple(lefts.shape) != (shape[0],) \
+            or tuple(mirror.shape) != (shape[0],):
+        raise MXNetError("crop_norm: tops, lefts and mirror must be (%d,)"
+                         % shape[0])
+    if tuple(mean.shape) != (x.shape[3],) or scale.numel() != 1:
+        raise MXNetError("crop_norm: mean must be (%d,) and scale one value, "
+                         "got %s and %s" % (x.shape[3], tuple(mean.shape),
+                                            tuple(scale.shape)))
+    if out is not None and (tuple(out.shape) != shape
+                            or out.dtype != torch.float32):
+        raise MXNetError("crop_norm: out must be float32 %s, got %s %s"
+                         % (shape, out.dtype, tuple(out.shape)))
+    args = (x, tops, lefts, mirror, mean, scale)
+    if all(t.device.type == "cpu" for t in args):
+        y = crop_normalize_plain(*args, crop_hw, layout)
+        return y if out is None else out.copy_(y)
+    _check_cuda("crop_norm", *args, *(() if out is None else (out,)))
+    if tops.dtype != torch.int32 or lefts.dtype != torch.int32 \
+            or mirror.dtype not in (torch.bool, torch.uint8) \
+            or mean.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise MXNetError("crop_norm: tops/lefts int32, mirror bool or uint8, "
+                         "mean/scale float32; got %s %s %s %s %s"
+                         % (tops.dtype, lefts.dtype, mirror.dtype, mean.dtype,
+                            scale.dtype))
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    from .. import _build
+
+    lib = _build.load("crop_norm")
+    b, sh, sw, c = x.shape
+    with torch.cuda.device(x.device):
+        rc = lib.crop_norm(x.data_ptr(), tops.data_ptr(), lefts.data_ptr(),
+                           mirror.data_ptr(), mean.data_ptr(),
+                           scale.data_ptr(), out.data_ptr(), b, sh, sw, c,
+                           int(crop_hw[0]), int(crop_hw[1]),
+                           int(layout == "NCHW"), _stream(x))
+    if rc != 0:
+        raise MXNetError("crop_norm launch failed: CUDA error %d" % rc)
+    _count("crop_norm_launches", torch.uint8)
+    return out

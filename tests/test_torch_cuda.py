@@ -239,7 +239,7 @@ def test_small_resnet_training_step_on_card_matches_cpu(card):
     # 17 convolutions, each followed by a BatchNorm; the stem needs no dgrad
     assert res[0][2] == {"norm_act_fwd": 17, "norm_act_bwd": 17,
                          "conv_gemm": 33, "linear": 0, "flash_attn": 0,
-                         "rtc": 0, "roi_pool": 0}
+                         "rtc": 0, "roi_pool": 0, "crop_norm": 0}
     np.testing.assert_allclose(res[0][0], res[1][0], rtol=1e-4)
     for k in res[1][1]:
         np.testing.assert_allclose(res[0][1][k], res[1][1][k], rtol=1e-3,
@@ -521,7 +521,7 @@ def _small_resnet_fit(x, y, fused_step, mod=None,
 
 _SMALL_RESNET_STEP = {"norm_act_fwd": 17, "norm_act_bwd": 17,
                       "conv_gemm": 33, "linear": 0, "flash_attn": 0,
-                      "roi_pool": 0}
+                      "roi_pool": 0, "crop_norm": 0}
 
 
 def _steps(n, rtc=None):
@@ -1033,3 +1033,100 @@ def test_roi_pool_refuses_float64(card):
     with pytest.raises(tmx.MXNetError, match="float32"):
         kernels.roi_pool(x, torch.zeros((1, 5), dtype=torch.float64,
                                         device=card), (1, 1), 1.0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_roi_pool_16bit_matches_plain(card, dtype):
+    """In bfloat16 and float16: the forward bit-equal to the plain version
+    (the bins in the data's dtype on both paths), reruns bit-identical;
+    the gradient within 8 epsilons of the dtype of the sum of its terms'
+    magnitudes at each pixel (the kernel sums in float32, the plain
+    version in the dtype)."""
+    feat, rois, g = _roi_case(card)
+    dt = getattr(torch, dtype)
+    fc, rc, gc = feat.to(card, dt), rois.to(card), g.to(card, dt)
+    out, count = kernels.roi_pool_fwd(fc, rc, (7, 7), 1.0 / 16)
+    dx = kernels.roi_pool_bwd(fc, rc, out, count, gc, (7, 7), 1.0 / 16)
+    dx2 = kernels.roi_pool_bwd(fc, rc, out, count, gc, (7, 7), 1.0 / 16)
+    assert out.dtype == dx.dtype == dt and torch.equal(dx, dx2)
+    assert torch.equal(out, kernels.roi_pool_plain(fc, rc, (7, 7), 1.0 / 16))
+    pdx = kernels.roi_pool_plain_grad(fc, rc, gc, (7, 7), 1.0 / 16)
+    abs_sum = kernels.roi_pool_bwd(fc, rc, out, count, gc.abs(), (7, 7),
+                                   1.0 / 16).double()
+    err = (dx.double() - pdx.double()).abs()
+    assert bool((err <= 8 * torch.finfo(dt).eps * abs_sum).all())
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_crop_norm_matches_plain(card, layout):
+    """ResNet-50's feed: 32 frames of 256x256x3 cut to 224, seeded
+    offsets, half the rows mirrored, the upstream means: bit-equal to the
+    plain version, one launch, and written in place through ``out``."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randint(0, 256, (32, 256, 256, 3), dtype=torch.uint8,
+                      device=card, generator=gen)
+    tops = torch.randint(0, 33, (32,), dtype=torch.int32, device=card,
+                         generator=gen)
+    lefts = torch.randint(0, 33, (32,), dtype=torch.int32, device=card,
+                          generator=gen)
+    mirror = torch.arange(32, device=card) % 2 == 0
+    mean = torch.tensor([123.68, 116.779, 103.939], device=card)
+    scale = torch.tensor([1 / 58.0], device=card)
+    before = kernels.crop_norm_launches
+    got = kernels.crop_norm(x, tops, lefts, mirror, mean, scale, (224, 224),
+                            layout)
+    assert kernels.crop_norm_launches == before + 1
+    want = kernels.crop_normalize_plain(x, tops, lefts, mirror, mean, scale,
+                                        (224, 224), layout)
+    assert torch.equal(got, want)
+    out = torch.empty_like(got)
+    assert kernels.crop_norm(x, tops, lefts, mirror.to(torch.uint8), mean,
+                             scale, (224, 224), layout, out=out) is out
+    assert torch.equal(out, want)
+
+
+def test_fused_feed_captures_once_and_equals_classic(card, tmp_path):
+    """A small NHWC ResNet trained from a device-feed cache on the card:
+    the fused step captures once, replays every later batch (crop_norm
+    inside the graph), and its params equal the classic loop's (which
+    materialises through crop_norm) bit for bit."""
+    import json as _json
+
+    from mxnet_tpu_torch import io_cache
+
+    rng = np.random.RandomState(0)
+    prefix = str(tmp_path / "c")
+    n, side = 64, 40
+    np.lib.format.open_memmap(prefix + ".data", mode="w+", dtype=np.uint8,
+                              shape=(n, side, side, 3))[:] = \
+        rng.randint(0, 256, (n, side, side, 3))
+    np.save(prefix + ".label", (np.arange(n) % 10).astype(np.float32)
+            .reshape(n, 1))
+    import os
+    os.replace(prefix + ".label.npy", prefix + ".label")
+    with open(prefix + ".meta.json", "w") as f:
+        _json.dump({"num": n, "height": side, "width": side, "channels": 3,
+                    "label_width": 1, "version": 1}, f)
+    runs = []
+    for fused in (False, True):
+        it = io_cache.CachedImageRecordIter(
+            prefix, (3, 32, 32), 8, rand_crop=True, rand_mirror=True,
+            device_feed=True, output_layout="NHWC", mean_r=120.0,
+            mean_g=110.0, mean_b=100.0, scale=1 / 64.0)
+        sym = tmx.models.get_resnet([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                                    num_classes=10, small_input=True,
+                                    layout="NHWC")
+        mod = tmx.mod.Module(sym, context=tmx.gpu(0))
+        tmx.random.seed(0)
+        mod.fit(it, num_epoch=1, fused_step=fused, optimizer="sgd",
+                initializer=tmx.init.Xavier(rnd_type="gaussian",
+                                            factor_type="in", magnitude=2),
+                optimizer_params={"learning_rate": 0.01, "momentum": 0.9})
+        if fused:
+            step = mod._fused_step
+            assert (step.eager_steps, step.captures, step.dispatches) == \
+                (1, 1, n // 8 - 1)
+        runs.append({k: v.asnumpy().copy()
+                     for k, v in mod.get_params()[0].items()})
+    for k in runs[0]:
+        np.testing.assert_array_equal(runs[1][k], runs[0][k], err_msg=k)

@@ -26,8 +26,10 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_NUMWATCH_EXPLODE_K", "MXNET_TPU_NUMWATCH_DEAD_UW",
              "MXNET_TPU_NUMWATCH_MAX_SKIPS",
              "MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN",
-             # image records: process decode is refused
-             "MXNET_TPU_DECODE_PROCS",
+             # the input plane: process decode and the uint8 device feed
+             "MXNET_TPU_DECODE_PROCS", "MXNET_TPU_DECODE_RING",
+             "MXNET_TPU_DECODE_START", "MXNET_TPU_DECODE_TIMEOUT",
+             "MXNET_TPU_DEVICE_FEED", "MXNET_TPU_AUG_REPLICAS",
              # the optimizers' multi-tensor update and the engines
              "MXNET_TPU_FUSED_UPDATE", "MXNET_TPU_ENGINE_SYNC",
              # the serving tier's knobs
@@ -43,9 +45,23 @@ PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),
               ("MXNET_COMPUTE_DTYPE", None)]
 
 
+# read by the JAX package straight from os.environ: (name, its default)
+OS_VARS = [("MXTPU_CACHE_BUILD_TIMEOUT", 24 * 3600)]
+
+
 def test_the_port_declares_the_variables_it_reads():
     assert sorted(tenv.declared()) == sorted(
-        PORT_VARS + [name for name, _ in PLAIN_VARS])
+        PORT_VARS + [name for name, _ in PLAIN_VARS + OS_VARS])
+
+
+@pytest.mark.parametrize("name,default", OS_VARS)
+def test_os_variable_matches_the_reference_read(name, default, monkeypatch):
+    """The port reads it through its registry, as float(os.environ.get(
+    name, default)) in mxnet_tpu/io_cache.py reads it."""
+    monkeypatch.delenv(name, raising=False)
+    assert tenv.get(name) == float(os.environ.get(name, default))
+    monkeypatch.setenv(name, "0.25")
+    assert tenv.get(name) == float(os.environ.get(name, default)) == 0.25
 
 
 @pytest.mark.parametrize("name,default", PLAIN_VARS)

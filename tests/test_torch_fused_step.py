@@ -378,12 +378,15 @@ _KERNEL_EVENTS = [
     "(anonymous namespace)::roi_pool_bwd_kernel(float const*, float "
     "const*, float const*, int const*, float const*, float*, int, int, "
     "int, int, long long, int, int, float)",
+    "(anonymous namespace)::crop_norm_kernel(unsigned char const*, int "
+    "const*, int const*, unsigned char const*, float const*, float const*, "
+    "float*, int, int, int, int, int, int, int)",
 ]
 
 
 @pytest.mark.parametrize("wrapper,want", [
     ("conv_gemm", 1), ("norm_act_fwd", 2), ("norm_act_bwd", 1),
-    ("linear", 1), ("flash_attn", 1), ("roi_pool", 2)])
+    ("linear", 1), ("flash_attn", 1), ("roi_pool", 2), ("crop_norm", 1)])
 def test_launches_in_counts_each_wrappers_first_kernel(wrapper, want):
     """A replay's launches are counted from the profiler's kernel events:
     each wrapper's launch is its first kernel (K3's and K5's reduce
@@ -392,10 +395,11 @@ def test_launches_in_counts_each_wrappers_first_kernel(wrapper, want):
     LAUNCH_KERNELS gives is a __global__ kernel of the wrapper's source."""
     counts = kernels.launches_in(_KERNEL_EVENTS * 3)
     assert counts[wrapper] == 3 * want
-    assert sum(counts.values()) == 3 * 8
+    assert sum(counts.values()) == 3 * 9
     source = {"conv_gemm": "conv_gemm", "norm_act_fwd": "norm_act",
               "norm_act_bwd": "norm_act", "linear": "linear",
-              "flash_attn": "flash_attn", "roi_pool": "roi_pool"}[wrapper]
+              "flash_attn": "flash_attn", "roi_pool": "roi_pool",
+              "crop_norm": "crop_norm"}[wrapper]
     path = os.path.join(os.path.dirname(tmx.__file__), "csrc",
                         source + ".cu")
     with open(path) as f:

@@ -101,7 +101,7 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
                 (2, 2), 1.0)
     assert tk.launch_counts() == {"norm_act_fwd": 0, "norm_act_bwd": 0,
                                   "conv_gemm": 0, "linear": 0,
-                                  "flash_attn": 0, "rtc": 0, "roi_pool": 0}
+                                  "flash_attn": 0, "rtc": 0, "roi_pool": 0, "crop_norm": 0}
 
 
 def _bn_pair(dtype_j, dtype_t, shape, monkeypatch):

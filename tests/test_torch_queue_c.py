@@ -8,9 +8,14 @@ against the JAX package on the CPU:
    and ``Predictor.reshape``;
 7. ``Module.iter_predict``, ``get_symbol`` and ``output_shapes``;
 8. ``name.Prefix``, ``Registry.list_names``, ``NDArray.writable``,
-   ``context.num_devices`` and ``Context.devtype2str``.
+   ``context.num_devices`` and ``Context.devtype2str``;
+9. ROIPooling's bins in the data's dtype: in bfloat16 and float16 the
+   reference computes each bin's edges in that dtype, and the port
+   computed them in float32 (77 of 3136 values differed in bfloat16 at
+   the seeded case below).
 
-Forward values within rtol 1e-5 / atol 1e-6, gradients rtol 1e-4."""
+Forward values within rtol 1e-5 / atol 1e-6, gradients rtol 1e-4; item
+9's forward exactly, its gradient as stated there."""
 import io
 
 import numpy as np
@@ -376,3 +381,59 @@ def test_ndarray_writable_matches_jax():
         a.writable = False
         with pytest.raises(pkg.MXNetError):
             a[0] = 5.0
+
+
+# -- item 9: ROIPooling in the data's dtype -----------------------------------
+def _roi_case():
+    """A seeded map (2, 4, 37, 62) and 16 rois up to x = 1000, pooled 7x7
+    at scale 1/16 (conv5 of a 600x1000 image)."""
+    rng = np.random.RandomState(0)
+    data = rng.randn(2, 4, 37, 62).astype(np.float32)
+    n = 16
+    x1, y1 = rng.uniform(0, 1000, n), rng.uniform(0, 600, n)
+    rois = np.stack([rng.randint(0, 2, n), x1, y1,
+                     x1 + rng.uniform(0, 300, n),
+                     y1 + rng.uniform(0, 200, n)], 1).astype(np.float32)
+    g = rng.randn(n, 4, 7, 7).astype(np.float32)
+    return data, rois, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_roipooling_in_the_data_dtype_matches_jax(dtype):
+    """Both packages' ROIPooling.apply on the same values in ``dtype``:
+    the forward equal bit for bit (a max is exact in any dtype, so equal
+    bins give equal values). The gradient: JAX sums each pixel's terms
+    g / count in ``dtype``, the port (the plain version here; the kernel
+    on the card) sums them with other roundings, so they agree within
+    8 units of ``dtype``'s epsilon of the sum of the terms' magnitudes at
+    each pixel (that sum is the gradient for the cotangent |g|)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mxnet_tpu.ops.vision import ROIPooling as JaxROIPooling
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.ops.vision import ROIPooling
+
+    data, rois, g = _roi_case()
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    params = dict(pooled_size=(7, 7), spatial_scale=1.0 / 16)
+    jop = JaxROIPooling(**params)
+    jout, vjp = jax.vjp(
+        lambda d: jop.apply(None, [d, jnp.asarray(rois).astype(jd)],
+                            [])[0][0], jnp.asarray(data).astype(jd))
+    (jdx,) = vjp(jnp.asarray(g).astype(jd))
+    x = torch.from_numpy(data).to(td).requires_grad_()
+    out = ROIPooling(**params).apply(
+        None, [x, torch.from_numpy(rois).to(td)], [])[0][0]
+    (dx,) = torch.autograd.grad(out, x, torch.from_numpy(g).to(td))
+    assert out.dtype == dx.dtype == td
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    abs_sum = kernels.roi_pool_plain_grad(
+        x.detach(), torch.from_numpy(rois), torch.from_numpy(g).to(td).abs(),
+        (7, 7), 1.0 / 16).double().numpy()
+    err = np.abs(dx.double().numpy()
+                 - np.asarray(jdx.astype(jnp.float32), np.float64))
+    eps = float(torch.finfo(td).eps)
+    assert (err <= 8 * eps * abs_sum).all(), float(
+        (err / np.maximum(abs_sum, 1e-30)).max() / eps)

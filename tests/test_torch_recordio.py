@@ -248,16 +248,17 @@ def test_decode_counters(rec_files):
 
 
 def test_process_decode_raises(rec_files, monkeypatch):
-    """Process decode is not ported: asked for by argument or by
-    MXNET_TPU_DECODE_PROCS, the port raises instead of decoding on
-    threads."""
+    """Only an unknown preprocess_mode raises: process decode (ported
+    with the input plane; tests/test_torch_io_pipeline.py decodes with
+    it) is chosen by argument or by MXNET_TPU_DECODE_PROCS, which also
+    sets the worker count, as in the JAX package."""
     kw = dict(path_imgrec=rec_files[1], data_shape=(3, 28, 28),
               batch_size=BATCH)
-    with pytest.raises(tmx.MXNetError, match="Queue A item 9"):
-        tmx.io.ImageRecordIter(preprocess_mode="process", **kw)
+    with tmx.io.ImageRecordIter(preprocess_mode="process", **kw) as it:
+        assert it.preprocess_mode == "process" and it._proc_pipe is None
     monkeypatch.setenv("MXNET_TPU_DECODE_PROCS", "2")
-    with pytest.raises(tmx.MXNetError, match="MXNET_TPU_DECODE_PROCS=2"):
-        tmx.io.ImageRecordIter(**kw)
+    with tmx.io.ImageRecordIter(**kw) as it:
+        assert it.preprocess_mode == "process" and it._num_procs == 2
     with pytest.raises(tmx.MXNetError, match="thread"):
         tmx.io.ImageRecordIter(preprocess_mode="fork", **kw)
 
@@ -394,6 +395,7 @@ def test_mx_data_iter_matches_jax(rec_files, tmp_path):
                  for pkg in (jmx, tmx)]
         _assert_same_walks(walks[1], walks[0])
     assert sorted(n for n, _ in tmx.io._REG.items()) == \
-        ["csviter", "imagerecorditer", "mnistiter", "ndarrayiter"]
+        ["cachedimagerecorditer", "csviter", "imagerecorditer", "mnistiter",
+         "ndarrayiter"]
     with pytest.raises(tmx.MXNetError, match="not registered"):
         tmx.io.MXDataIter("NoSuchIter")
