@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every hand-written kernel from mxnet_tpu_torch/csrc, one nvcc
    per source, all at once; the K3, K1 and K2 libraries must hold TF32
    tensor-core MMA instructions (HMMA with TF32 operands in cuobjdump
-   -sass), and K3's bf16 and f16 ones too (its 16-bit mainloop).
+   -sass), and K3's library bf16 and f16 wgmma ones (HGMMA: its 16-bit
+   mainloop) and no 16-bit mma.sync (HMMA.16816).
 3. kernel parity on the card, at the shapes the main paths give each
    kernel plus ragged ones: K4 (norm_act_fwd) and K5 (norm_act_bwd)
    against their plain PyTorch versions (f32, bf16, and f16 bit-equal),
@@ -238,16 +239,20 @@ Phases, in order; any failure exits non-zero before the last line:
    one-device bind, 13a's params through mem://, print_summary of
    13a's graph.
 14. mixed precision and the adaptive serving plane. (a) K3 over the
-   step's 105 products with bf16 and with f16 operands, timed beside
-   the plain version, the one-call yardstick (torch.mm with a float32
-   result where this torch has it, else torch.matmul in the 16-bit type)
-   and the bound (989 TFLOP/s or 3.35 TB/s). (c) phase 6's fit under
+   step's 105 products with bf16 and with f16 operands, laid out as the
+   convolution path hands them over (the stem's 147-wide patch rows at a
+   pitch of 152), timed beside the plain version, the one-call yardstick
+   (torch.mm with a float32 result where this torch has it, else
+   torch.matmul in the 16-bit type) and the bound (989 TFLOP/s or 3.35
+   TB/s), a line a product (TFLOP/s, share of the bound) and the padded
+   copy that a contiguous stem operand would take. (c) phase 6's fit under
    compute_dtype bfloat16: the classic loop, then fit(fused_step=True)
    from the same weights: one capture; params, moving statistics,
    losses and the metric bit-equal; params, gradients and aux float32;
    K3 105, K4 53 and K5 53 a step, every one with bf16 operands (the
    launch records, and the kernel events of two profiled replays by
-   their template instantiation); every param changed, losses finite;
+   their template instantiation), no padded copy of a K3 operand;
+   every param changed, losses finite;
    host step ms, img/s, peak memory and the breakdown by group beside
    phase 6's f32 numbers; one classic bf16 step at batch 2 on the card
    against the CPU (loss within rtol 1e-2; the whole update within twice
@@ -5533,7 +5538,11 @@ def conv_gemm_timing16(torch, kernels, counts, dtype, reps=20):
     yardstick (``torch.mm`` with a float32 output, else ``torch.matmul``
     in the 16-bit type, which rounds its output); the bound is the longer
     of 2MNK at the dense 16-bit rate and the bytes (2-byte operands read,
-    the float32 result written) at the memory rate."""
+    the float32 result written) at the memory rate. Operands come as the
+    convolution path gives them: an A whose rows are not a multiple of 8
+    elements (the stem's 147) at the padded pitch ``_patches`` writes,
+    read in place; ``pad_copy_ms`` is the copy (``kernels.pitched16``)
+    that the same values, contiguous, would take in the wrapper."""
     flush = torch.empty(64 << 20, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     mm32 = _mm_f32_out(torch)
@@ -5546,9 +5555,17 @@ def conv_gemm_timing16(torch, kernels, counts, dtype, reps=20):
         a = torch.randn(*((k, m) if trans else (m, k)), generator=gen,
                         device="cuda").to(dtype)
         b = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+        pad = None
+        if a.shape[1] % 8:
+            pad = time_ms(torch, lambda: kernels.pitched16(a), flush, reps)
+            a = kernels.pitched16(a)
         at = a.t() if trans else a
+        kernels.reset_launch_counts()
         kern = time_ms(torch, lambda: kernels.matmul_f32acc(a, b, trans),
                        flush, reps)
+        check(kernels.conv_gemm_pad_copies == 0, "conv_gemm %s %s: the "
+              "wrapper copied an operand the conv path lays out"
+              % ((m, n, k, trans), dtype))
         plain = time_ms(torch, lambda: kernels.matmul_f32acc_plain(
             a, b, trans), flush, reps)
         lib = time_ms(torch, (lambda: mm32(at, b)) if mm32 is not None
@@ -5559,7 +5576,16 @@ def conv_gemm_timing16(torch, kernels, counts, dtype, reps=20):
         rows_out.append({"m": m, "n": n, "k": k, "transpose_a": trans,
                          "per_step": cnt, "ms": kern, "plain_ms": plain,
                          "library_ms": lib, "bound_ms": bound,
-                         "tflops": flops / kern / 1e9})
+                         "tflops": flops / kern / 1e9,
+                         "share_of_bound": bound / kern,
+                         "pad_copy_ms": pad})
+        print("  conv_gemm %s (%6d, %4d, %6d, %s) x%-2d kernel %.4f ms  "
+              "%s %.4f ms  bound %.4f ms  %.1f TFLOP/s  %.2f of the bound%s"
+              % (str(dtype).replace("torch.", ""), m, n, k,
+                 "T" if trans else "N", cnt, kern,
+                 "torch.mm" if mm32 is not None else "torch.matmul", lib,
+                 bound, flops / kern / 1e9, bound / kern,
+                 "" if pad is None else "  (padded copy %.4f ms)" % pad))
         tot["ms"] += cnt * kern
         tot["plain_ms"] += cnt * plain
         tot["library_ms"] += cnt * lib
@@ -5635,6 +5661,9 @@ def mp_fit(torch, mx, kernels, dtype, fused, steps, images, labels):
           % (loop, steps, rec, ["%.4f" % v for v in run["losses"]]))
     check(ok, "%s launches by dtype %s, want 105/53/53 a step of %s"
           % (loop, rec, dtype))
+    check(kernels.conv_gemm_pad_copies == 0, "%s: %d padded copies of K3 "
+          "operands (the conv path lays them out at a readable pitch)"
+          % (loop, kernels.conv_gemm_pad_copies))
     check(all(np.isfinite(run["losses"])), "%s losses %s"
           % (loop, run["losses"]))
     unchanged = [k for k in args0 if np.array_equal(args0[k],
@@ -6532,10 +6561,13 @@ def main():
     check(all(sass.values()), "a kernel that must run on the tensor cores "
           "holds no TF32 MMA instruction: %s" % sass)
     mma16 = _build.mma_counts("conv_gemm")
-    print("conv_gemm tensor-core MMA instructions by operand type "
-          "(cuobjdump -sass): %s" % mma16)
-    check(mma16["bf16"] > 0 and mma16["f16"] > 0, "conv_gemm holds no "
-          "bf16 or f16 MMA instruction: %s" % mma16)
+    print("conv_gemm tensor-core MMA instructions by instruction and "
+          "operand type (cuobjdump -sass): %s" % mma16)
+    check(mma16["hgmma"]["bf16"] > 0 and mma16["hgmma"]["f16"] > 0,
+          "conv_gemm holds no bf16 or f16 wgmma (HGMMA): %s" % mma16)
+    check(mma16["hmma"]["bf16"] == 0 and mma16["hmma"]["f16"] == 0,
+          "conv_gemm still holds a 16-bit mma.sync (HMMA.16816): %s"
+          % mma16)
 
     # 3. parity on the card
     counts = bn_shapes(mx)
@@ -6852,6 +6884,9 @@ def main():
         "bf16_bound_ms": k3b["bound_ms"], "bf16_bound_by": k3b["bound_by"],
         "bf16_library_ms": k3b["library_ms"],
         "bf16_library_call": k3b["library_call"],
+        "bf16_pad_copy_ms": [r["pad_copy_ms"] for r in
+                             mp["k3_bfloat16"]["shapes"]
+                             if r["pad_copy_ms"] is not None],
         "f16_ms": k3h["ms"], "f16_plain_ms": k3h["plain_ms"],
         "f16_bound_ms": k3h["bound_ms"], "f16_library_ms": k3h["library_ms"],
         "bf16_launches": mp_train["classic"]["launches"]["conv_gemm"],

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +27,7 @@ from typing import Dict, List, Optional
 from .base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "library_path",
-           "find_nvcc", "mma_counts", "tf32_mma_count"]
+           "find_nvcc", "mma_counts", "sass_mma_counts", "tf32_mma_count"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -58,8 +59,9 @@ _SIGNATURES = {
     },
     "conv_gemm": {
         "conv_gemm_k_chunk": ([_LL, _LL, _LL], _LL),
-        "conv_gemm": ([_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _LL, _I, _P],
-                      _I),
+        "conv_gemm16_k_chunk": ([_LL, _LL, _LL], _LL),
+        "conv_gemm": ([_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _I, _LL,
+                       _I, _P], _I),
     },
     "linear": {
         "linear_k_chunk": ([_LL, _LL, _LL], _LL),
@@ -101,7 +103,7 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    # the source, every header of csrc/ (gemm_tile.cuh, gemm_tile16.cuh,
+    # the source, every header of csrc/ (gemm_tile.cuh, gemm_wgmma16.cuh,
     # tf32x3.cuh) and the flags name the build
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [SOURCES[name]] + sorted(
@@ -161,33 +163,49 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def mma_counts(name: str) -> Dict[str, int]:
-    """Tensor-core MMA instructions in kernel ``name``'s library by
-    operand type, from its ``cuobjdump -sass`` (built first if needed):
-    ``tf32`` (``HMMA.1688.F32.TF32``), ``bf16`` (``HMMA.16816.F32.BF16``)
-    and ``f16`` (``HMMA.16816.F32`` with no other operand type). The proof
-    that a kernel's typed path runs on the tensor cores."""
+#: a tensor-core instruction in ``cuobjdump -sass`` text: HMMA (mma.sync)
+#: or HGMMA (wgmma), then its dot-separated modifiers
+_MMA_RE = re.compile(r"\b(HGMMA|HMMA)((?:\.\w+)+)")
+#: operand types named in an MMA's modifiers; none of them means float16
+_MMA_TYPES = ("TF32", "BF16", "E4M3", "E5M2")
+
+
+def sass_mma_counts(sass: str) -> Dict[str, Dict[str, int]]:
+    """Tensor-core MMA instructions in ``cuobjdump -sass`` text by
+    instruction and operand type: ``{"hmma": {...}, "hgmma": {...}}``,
+    each ``{"tf32": n, "bf16": n, "f16": n}``. ``HMMA.1688.F32.TF32`` is
+    an ``mma.sync`` with TF32 operands, ``HMMA.16816.F32.BF16`` one with
+    bf16 operands and ``HMMA.16816.F32`` one with f16 operands;
+    ``HGMMA.64x128x16.F32.BF16`` and ``HGMMA.64x64x16.F32`` are ``wgmma``
+    with bf16 and f16 operands. fp8 products are not counted."""
+    counts = {op: {"tf32": 0, "bf16": 0, "f16": 0} for op in ("hmma", "hgmma")}
+    for line in sass.splitlines():
+        match = _MMA_RE.search(line)
+        if match is None:
+            continue
+        mods = match.group(2).split(".")[1:]
+        kind = next((t for t in _MMA_TYPES if t in mods), "F16")
+        if kind in ("TF32", "BF16", "F16"):
+            counts[match.group(1).lower()][kind.lower()] += 1
+    return counts
+
+
+def mma_counts(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`sass_mma_counts` of kernel ``name``'s library, from its
+    ``cuobjdump -sass`` (built first if needed): the proof that a
+    kernel's typed paths run on the tensor cores, and on which
+    instructions."""
     build_all([name])
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", library_path(name)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise MXNetError("cuobjdump failed for %s: %s" % (name, res.stderr))
-    counts = {"tf32": 0, "bf16": 0, "f16": 0}
-    for line in res.stdout.splitlines():
-        if "HMMA" not in line:
-            continue
-        if "TF32" in line:
-            counts["tf32"] += 1
-        elif "BF16" in line:
-            counts["bf16"] += 1
-        elif "HMMA.16816" in line:
-            counts["f16"] += 1
-    return counts
+    return sass_mma_counts(res.stdout)
 
 
 def tf32_mma_count(name: str) -> int:
     """Tensor-core MMA instructions with TF32 operands (``HMMA ... TF32``
     lines of ``cuobjdump -sass``) in kernel ``name``'s library, built first
     if needed: the proof that a kernel runs on the tensor cores."""
-    return mma_counts(name)["tf32"]
+    return mma_counts(name)["hmma"]["tf32"]

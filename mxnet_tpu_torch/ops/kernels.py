@@ -38,8 +38,9 @@ Every TPU kernel of the JAX package now has its counterpart here. K1, K2
 and K3 run on the tensor cores at float32 accuracy (three TF32 products a
 fragment, ``csrc/tf32x3.cuh``), so their results keep the float32
 contracts of their plain versions. K3 with bfloat16 or float16 operands
-runs its own 16-bit mainloop (``csrc/gemm_tile16.cuh``: exact products,
-float32 sums), and K4/K5 take both 16-bit types with float32 math.
+runs its own 16-bit mainloop, written for Hopper (``csrc/gemm_wgmma16.cuh``:
+TMA loads, wgmma, exact products, float32 sums), and K4/K5 take both
+16-bit types with float32 math.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ __all__ = ["fused_norm_act", "fused_norm_act_plain", "fused_norm_act_bwd",
            "reference_attention", "FLASH_MAX_D", "roi_pool", "roi_pool_plain",
            "roi_pool_plain_grad", "roi_pool_fwd", "roi_pool_bwd",
            "crop_norm", "crop_normalize_plain", "reset_launch_counts",
-           "launch_counts", "LAUNCH_KERNELS", "launches_in"]
+           "launch_counts", "LAUNCH_KERNELS", "launches_in", "pitched16"]
 
 #: kernel launches since the last reset, one per wrapper call that
 #: launched its kernel
@@ -72,6 +73,9 @@ flash_attn_launches = 0
 rtc_launches = 0
 roi_pool_launches = 0
 crop_norm_launches = 0
+#: padded copies ``matmul_f32acc`` made of 16-bit operands whose rows the
+#: 16-bit mainloop cannot read in place (:func:`pitched16`)
+conv_gemm_pad_copies = 0
 #: (wrapper, dtype name) -> launches since the last reset: which of a
 #: kernel's typed paths ran (``launch_records``)
 _by_dtype: dict = {}
@@ -113,8 +117,10 @@ def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
     global linear_launches, flash_attn_launches, rtc_launches
     global roi_pool_launches, crop_norm_launches
+    global conv_gemm_pad_copies
     with _count_lock:
         _by_dtype.clear()
+        conv_gemm_pad_copies = 0
         norm_act_fwd_launches = 0
         norm_act_bwd_launches = 0
         conv_gemm_launches = 0
@@ -142,7 +148,7 @@ def _count(name: str, dtype: torch.dtype = torch.float32) -> None:
 LAUNCH_KERNELS = {"norm_act_fwd": ("norm_act_vec_kernel",
                                    "norm_act_scalar_kernel"),
                   "norm_act_bwd": ("norm_act_bwd_partial_kernel",),
-                  "conv_gemm": ("conv_gemm_kernel",),
+                  "conv_gemm": ("conv_gemm_kernel", "conv_gemm16_kernel"),
                   "linear": ("linear_kernel",),
                   "flash_attn": ("flash_attn_kernel",),
                   "roi_pool": ("roi_pool_fwd_kernel", "roi_pool_bwd_kernel"),
@@ -167,15 +173,17 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(fn: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device, contiguous, of a supported dtype."""
+def _check_cuda(fn: str, *tensors: torch.Tensor,
+                contiguous: bool = True) -> None:
+    """Every tensor on one CUDA device and, unless told otherwise,
+    contiguous."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise MXNetError("%s: unsupported device %s" % (fn, dev))
     for t in tensors:
         if t.device != dev:
             raise MXNetError("%s: tensors on %s and %s" % (fn, dev, t.device))
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise MXNetError("%s: tensors must be contiguous, got strides %s"
                              % (fn, t.stride()))
 
@@ -341,16 +349,31 @@ def matmul_f32acc_plain(a: torch.Tensor, b: torch.Tensor,
     return (a.t() if transpose_a else a) @ b.float()
 
 
+def pitched16(t: torch.Tensor) -> torch.Tensor:
+    """A 2-D 16-bit ``t``'s values in fresh memory at a pitch of a
+    multiple of 8 elements, as a ``(rows, cols)`` view: what the 16-bit
+    mainloop reads in place (the pad is never read)."""
+    rows, cols = t.shape
+    pitch = max(-(-cols // 8) * 8, 8)
+    out = t.new_empty((rows, pitch))[:, :cols]
+    out.copy_(t)
+    return out
+
+
 def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
                   transpose_a: bool = False) -> torch.Tensor:
     """``a @ b``, or ``a.T @ b`` with ``transpose_a`` (the transpose is
     folded into the kernel's tile loads, never materialised), for 2-D
     float32, bfloat16 or float16 operands of one dtype; float32 result.
 
-    On CUDA tensors: launches ``conv_gemm`` (contiguous operands; any M,
-    N and K; float32 operands take the 3xTF32 mainloop, 16-bit ones the
-    native 16-bit mainloop) or raises. On CPU tensors:
-    :func:`matmul_f32acc_plain`."""
+    On CUDA tensors: launches ``conv_gemm`` (any M, N and K; float32
+    operands, contiguous, take the 3xTF32 mainloop; 16-bit ones the
+    Hopper mainloop, which reads row-major operands at any pitch of a
+    multiple of 8 elements, as :func:`_patches` writes them) or raises. A
+    16-bit operand it cannot read in place (a contiguous one whose rows
+    are not a multiple of 8 elements, a misaligned start) is copied first
+    by :func:`pitched16`, counted in ``conv_gemm_pad_copies``. On CPU
+    tensors: :func:`matmul_f32acc_plain`."""
     if a.dim() != 2 or b.dim() != 2:
         raise MXNetError("matmul_f32acc: operands must be 2-D, got %s and %s"
                          % (tuple(a.shape), tuple(b.shape)))
@@ -366,40 +389,70 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
     n = b.shape[1]
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_f32acc_plain(a, b, transpose_a)
-    _check_cuda("matmul_f32acc", a, b)
+    wide = a.dtype == torch.float32
+    _check_cuda("matmul_f32acc", a, b, contiguous=wide)
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    if not wide:
+        a, b = _in_place16(a), _in_place16(b)
     from .. import _build
 
     lib = _build.load("conv_gemm")
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        chunk = lib.conv_gemm_k_chunk(m, n, k)
+        chunk = (lib.conv_gemm_k_chunk if wide
+                 else lib.conv_gemm16_k_chunk)(m, n, k)
         splits = -(-k // chunk)
         ws = (torch.empty((splits, m, n), dtype=torch.float32,
                           device=a.device) if splits > 1 else None)
         rc = lib.conv_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                            None if ws is None else ws.data_ptr(), m, n, k,
-                           int(bool(transpose_a)), _DTYPES[a.dtype], chunk,
-                           splits, _stream(a))
+                           *((k if not transpose_a else m, n) if wide else
+                             (a.stride(0), b.stride(0))),
+                           int(bool(transpose_a)),
+                           _DTYPES[a.dtype], chunk, splits, _stream(a))
     if rc != 0:
         raise MXNetError("conv_gemm launch failed: CUDA error %d" % rc)
     _count("conv_gemm_launches", a.dtype)
     return c
 
 
+def _in_place16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the 16-bit mainloop reads it in place (TMA's
+    conditions: unit column stride, a pitch of a multiple of 8 elements
+    and at least the row, a 16-byte aligned start), else its
+    :func:`pitched16` copy, counted."""
+    global conv_gemm_pad_copies
+    if (t.stride(1) == 1 and t.stride(0) % 8 == 0
+            and t.stride(0) >= max(t.shape[1], 1)
+            and t.data_ptr() % 16 == 0):
+        return t
+    with _count_lock:
+        conv_gemm_pad_copies += 1
+    return pitched16(t)
+
+
 def _patches(x, kh, kw, stride, dilate, out_hw):
     """im2col over an already padded NHWC tensor: (N, Hp, Wp, C) ->
     (N*HO*WO, KH*KW*C), minor order (kh, kw, c), taps ``dilate`` apart
     (``pallas_kernels.py:368-387``). One strided view and one copy; a 1x1
-    stride-1 window over a contiguous tensor is a view, no copy."""
+    stride-1 window over a contiguous tensor is a view, no copy. In 16
+    bits a row that is not a multiple of 8 elements (the stem's 7*7*3 =
+    147, a 3x3 window over 3 channels) is written at a pitch of the next
+    multiple of 8, a view whose pad is never read: the 16-bit mainloop
+    reads it in place."""
     n, _, _, c = x.shape
     ho, wo = out_hw
+    cols = kh * kw * c
     sn, sh, sw, sc = x.stride()
     win = x.as_strided((n, ho, wo, kh, kw, c),
                        (sn, sh * stride[0], sw * stride[1], sh * dilate[0],
                         sw * dilate[1], sc))
-    return win.reshape(n * ho * wo, kh * kw * c).contiguous()
+    if x.element_size() != 2 or cols % 8 == 0:
+        return win.reshape(n * ho * wo, cols).contiguous()
+    out = x.new_empty((n * ho * wo, -(-cols // 8) * 8))[:, :cols]
+    out.view(n, ho, wo, kh, kw, c).copy_(win)
+    return out
 
 
 def _dilate_pad(g, stride, lead, trail):

@@ -155,12 +155,19 @@ def test_norm_act_bwd_matches_plain(card, shape, offset, dtype, act):
                                          (4608, 512, 1568, True),
                                          (1568, 2048, 512, False),
                                          (257, 33, 1001, True),
-                                         (129, 65, 7, False), (1, 1, 1, True)])
+                                         (129, 65, 7, False), (1, 1, 1, True),
+                                         (27, 64, 20000, True),
+                                         (300, 96, 1000, False),
+                                         (40, 24, 3000, True),
+                                         (40, 24, 3000, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_conv_gemm_matches_float64(card, m, n, k, trans, dtype):
     """Each element within 1e-6 * sum|a||b| of the float64 product of the
     same operands (16-bit operands through the 16-bit mainloop); a rerun
-    bit-identical (split K sums in order)."""
+    bit-identical (split K sums in order). Fast R-CNN's first weight
+    gradient (M = 27), K not a multiple of the 16-bit K block (64), M and
+    N under 64 both ways; contiguous 16-bit operands of odd width (M 147,
+    27, 257, 129, 1, N 33, 65, 1) take the counted padded copy."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=card).manual_seed(2)
     a = torch.randn(*((k, m) if trans else (m, k)), generator=gen,
@@ -314,6 +321,37 @@ def test_conv_gemm_misaligned_operands(card, trans):
     assert bool(((got.double() - ad @ b.double()).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_conv_gemm_16bit_reads_a_pitched_operand(card, trans, dtype):
+    """A 16-bit A at a padded pitch (the stem's 147 at 152, as _patches
+    writes it; a 160-pitch window into a wider buffer) is read in place:
+    no padded copy, within 1e-6 * sum|a||b| of float64, a rerun
+    bit-identical. The same values contiguous take one counted copy and
+    give the same bits."""
+    dt = getattr(torch, dtype)
+    m, n, k = (147, 64, 30000) if trans else (3000, 96, 147)
+    rows, cols = (k, m) if trans else (m, k)
+    gen = torch.Generator(device=card).manual_seed(12)
+    for pitch in (152, 160):
+        buf = torch.randn(rows, pitch, generator=gen, device=card).to(dt)
+        a = buf[:, :cols]
+        b = torch.randn(k, n, generator=gen, device=card).to(dt)
+        kernels.reset_launch_counts()
+        got = kernels.matmul_f32acc(a, b, trans)
+        again = kernels.matmul_f32acc(a, b, trans)
+        torch.cuda.synchronize()
+        assert kernels.conv_gemm_pad_copies == 0
+        assert torch.equal(got, again)
+        ad = a.double().t() if trans else a.double()
+        bound = 1e-6 * (ad.abs() @ b.double().abs())
+        assert bool(((got.double() - ad @ b.double()).abs() <= bound).all())
+        dense = kernels.matmul_f32acc(a.contiguous(), b, trans)
+        torch.cuda.synchronize()
+        assert kernels.conv_gemm_pad_copies == 1
+        assert torch.equal(dense, got)
+
+
 def _conv_gemm_model(m, n, k, sms):
     return torch_tf32x3_model.k_chunk(m, n, k,
                                       torch_tf32x3_model.CONV_MIN_SPLIT, sms)
@@ -321,8 +359,9 @@ def _conv_gemm_model(m, n, k, sms):
 
 @pytest.mark.parametrize("name,fn,model", [
     ("conv_gemm", "conv_gemm_k_chunk", _conv_gemm_model),
+    ("conv_gemm", "conv_gemm16_k_chunk", torch_tf32x3_model.k_chunk16),
     ("linear", "linear_k_chunk", torch_tf32x3_model.linear_k_chunk)],
-    ids=["conv_gemm", "linear"])
+    ids=["conv_gemm", "conv_gemm16", "linear"])
 def test_k_chunk_matches_the_cpu_model(card, name, fn, model):
     """The built split-K rule gives the K ranges that the CPU model of the
     kernels' arithmetic (tests/torch_tf32x3_model.py) splits by."""
@@ -349,12 +388,15 @@ def test_kernels_run_tf32_tensor_core_mma(card, name):
 
 
 def test_conv_gemm_runs_16bit_tensor_core_mma(card):
-    """K3's 16-bit mainloop is built on the tensor cores: the library
-    holds bfloat16 and float16 HMMA instructions beside the TF32 ones."""
+    """K3's 16-bit mainloop runs on wgmma: the library holds bfloat16 and
+    float16 HGMMA instructions and no 16-bit mma.sync (HMMA.16816), beside
+    the float32 path's TF32 HMMA ones."""
     from mxnet_tpu_torch import _build
 
     counts = _build.mma_counts("conv_gemm")
-    assert counts["tf32"] > 0 and counts["bf16"] > 0 and counts["f16"] > 0
+    assert counts["hgmma"]["bf16"] > 0 and counts["hgmma"]["f16"] > 0
+    assert counts["hmma"]["bf16"] == 0 and counts["hmma"]["f16"] == 0
+    assert counts["hmma"]["tf32"] > 0
 
 
 def cuda_kernels(fn):

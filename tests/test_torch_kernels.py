@@ -174,3 +174,73 @@ def test_batchnorm_symbol_goes_through_kernel_wrapper(monkeypatch):
         ex.aux_dict["bn_moving_var"][:] = 1.0
         ex.forward(data=np.ones(shape, np.float32))
         assert len(calls) == want
+
+
+# cuobjdump -sass lines of the tensor-core instructions: wgmma with bf16
+# and f16 operands (HGMMA; float16 names no operand type, as in HMMA),
+# mma.sync with bf16 and TF32 operands, and instructions that are none
+@pytest.mark.parametrize("line,op,kind", [
+    ("        /*0c70*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8].tnspB, R24,"
+     " gsb0 ;", "hgmma", "bf16"),
+    ("        /*0c70*/  HGMMA.64x64x16.F32 R24, gdesc[UR4].tnspA.tnspB, RZ,"
+     " !UPT, gsb0 ;", "hgmma", "f16"),
+    ("        /*0a10*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;", "hmma",
+     "bf16"),
+    ("        /*0a10*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;", "hmma",
+     "tf32"),
+    ("        /*0b00*/  WARPGROUP.ARRIVE ;", None, None),
+    ("        /*0b10*/  HGMMA.64x128x32.F32.E4M3.E4M3 R24, gdesc[UR8], R24 ;",
+     None, None)])
+def test_sass_mma_counts_by_instruction_and_type(line, op, kind):
+    """_build.sass_mma_counts (the parser behind chip_smoke's phase-2
+    check) files each SASS line under its instruction and operand type,
+    and counts nothing else (no fp8)."""
+    from mxnet_tpu_torch import _build
+
+    counts = _build.sass_mma_counts("\n".join(["", line, "  NOP ;"]))
+    want = {o: {"tf32": 0, "bf16": 0, "f16": 0} for o in ("hmma", "hgmma")}
+    if op is not None:
+        want[op][kind] = 1
+    assert counts == want
+
+
+def test_sass_mma_counts_sums_a_listing():
+    from mxnet_tpu_torch import _build
+
+    text = "\n".join(["HGMMA.64x128x16.F32.BF16 R0, gdesc[UR4], R0 ;"] * 3
+                     + ["HGMMA.64x64x16.F32 R0, gdesc[UR4], R0 ;"] * 2
+                     + ["HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"] * 5
+                     + ["HMMA.16816.F32 R4, R8, R12, R4 ;"])
+    assert _build.sass_mma_counts(text) == {
+        "hmma": {"tf32": 5, "bf16": 0, "f16": 1},
+        "hgmma": {"tf32": 0, "bf16": 3, "f16": 2}}
+
+
+# demangled kernel names as torch.profiler reports them for the 16-bit
+# mainloop's instantiations, the float32 kernel and the split-K reduce
+K3_16 = {"bfloat16": "void (anonymous namespace)::conv_gemm16_kernel<"
+                     "__nv_bfloat16, 128, true>(CUtensorMap_st, "
+                     "CUtensorMap_st, float*, int, int, int, int, long long)",
+         "float16": "void (anonymous namespace)::conv_gemm16_kernel<__half, "
+                    "64, false>(CUtensorMap_st, CUtensorMap_st, float*, int, "
+                    "int, int, int, long long)"}
+K3_32 = ("void (anonymous namespace)::conv_gemm_kernel<float, 64, true>("
+         "float const*, float const*, float*, int, int, int, int)")
+K3_REDUCE = ("void (anonymous namespace)::conv_gemm_splitk_reduce_kernel("
+             "float const*, float*, long long, int)")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_launches_in_counts_the_16bit_kernel_by_its_type(dtype):
+    """kernels.launches_in counts each K3 instantiation once (not its
+    split-K reduce), and chip_smoke's _typed_launches tags only the one
+    whose first template argument is the dtype's."""
+    from test_torch_common import chip_smoke
+
+    other = "float16" if dtype == "bfloat16" else "bfloat16"
+    names = [K3_16[dtype], K3_16[dtype], K3_REDUCE, K3_16[other], K3_32]
+    assert tk.launches_in(names)["conv_gemm"] == 4
+    launched, typed = chip_smoke._typed_launches(
+        torch, tk, names, getattr(torch, dtype))
+    assert launched["conv_gemm"] == 4
+    assert typed == {"conv_gemm": 2, "norm_act_fwd": 0, "norm_act_bwd": 0}

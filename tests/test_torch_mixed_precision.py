@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import mxnet_tpu as jmx
@@ -35,6 +36,8 @@ from test_torch_common import fresh_names
 OUT_TOL = {"bfloat16": 2e-2, "float16": 4e-3}
 GRAD_TOL = {"bfloat16": 0.1, "float16": 0.1}
 TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+NP_BF16 = jnp.dtype("bfloat16").type
+TORCH_NP = {"bfloat16": NP_BF16, "float16": np.float16}
 
 
 def _net(pkg, layout=None):
@@ -296,6 +299,64 @@ def test_k3_plain_on_16bit_operands_matches_pallas_interpret(transpose_a,
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-4)
+
+
+# (x NHWC, w OIHW, stride, pad): the stem (a 7x7/2 window over 3 channels,
+# M = 147) and a 3x3 window over 3 channels (Fast R-CNN's first
+# convolution, M = 27): 16-bit patches whose row is not a multiple of 8
+# elements, written at a padded pitch
+ODD_ROWS = {"stem_7x7_s2_c3": ((2, 20, 20, 3), (8, 3, 7, 7), (2, 2), (3, 3)),
+            "3x3_c3": ((2, 9, 9, 3), (8, 3, 3, 3), (1, 1), (1, 1))}
+
+
+@pytest.mark.parametrize("name", sorted(ODD_ROWS))
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+def test_conv_grads_through_padded_pitch_patches_match_jax_vjp(name, dt,
+                                                               monkeypatch):
+    """The port's 16-bit conv2d gradients, whose weight gradient reads
+    the patches at a pitch of the next multiple of 8 (152 or 32), against
+    jax.vjp of lax.conv_general_dilated at HIGHEST precision on the same
+    16-bit values in float32 (16-bit products are exact in float32). Each
+    element within one unit in the last place of the 16-bit result (dx
+    and dw come back rounded to the dtype) plus 1e-5 of the sum of its
+    terms' magnitudes (another float32 summation order)."""
+    xshape, wshape, stride, pad = ODD_ROWS[name]
+    tdt = TORCH_DTYPE[dt]
+    rng = np.random.RandomState(8)
+    rnd = lambda a: torch.from_numpy(a.astype(np.float32)).to(tdt)
+    xt, wt = rnd(rng.randn(*xshape)), rnd(rng.randn(*wshape) * 0.2)
+    pitches = []
+    real = tk.matmul_f32acc
+    monkeypatch.setattr(tk, "matmul_f32acc", lambda a, b, transpose_a=False:
+                        pitches.append((transpose_a, a.stride(0)))
+                        or real(a, b, transpose_a))
+    x = xt.clone().requires_grad_()
+    w = wt.clone().requires_grad_()
+    y = tk.conv2d(x.movedim(-1, 1), w, stride, pad)
+    gt = rnd(rng.randn(*y.shape))
+    (y.float() * gt.float()).sum().backward()
+    kh, kw, c = wshape[2], wshape[3], wshape[1]
+    assert (True, -(-kh * kw * c // 8) * 8) in pitches
+    assert x.grad.dtype == w.grad.dtype == tdt
+
+    dn = ("NHWC", "OIHW", "NCHW")
+
+    def conv(a, b):
+        return jax.lax.conv_general_dilated(
+            a, b, window_strides=stride, padding=[(p, p) for p in pad],
+            dimension_numbers=dn, precision=jax.lax.Precision.HIGHEST)
+
+    x32, w32, g32 = (jnp.asarray(t.float().numpy()) for t in (xt, wt, gt))
+    _, vjp = jax.vjp(conv, x32, w32)
+    _, vjp_abs = jax.vjp(conv, jnp.abs(x32), jnp.abs(w32))
+    for got, want, mag in zip((x.grad, w.grad), vjp(g32),
+                              vjp_abs(jnp.abs(g32))):
+        want = np.asarray(want, np.float64)
+        ulp = np.spacing(np.abs(want).astype(TORCH_NP[dt])).astype(
+            np.float64)
+        err = np.abs(got.double().numpy() - want)
+        assert np.all(err <= ulp + 1e-5 * np.asarray(mag, np.float64)), \
+            float((err - ulp).max())
 
 
 @pytest.mark.parametrize("act", ["none", "relu"])

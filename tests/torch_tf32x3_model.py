@@ -28,6 +28,8 @@ CONV_MIN_SPLIT, LINEAR_MIN_SPLIT = 256, 64
 # linear.cu's narrow tile (kNarrowM x kNarrowN) and its most splits
 # (kMaxClusterSplits: the splits of a tile are one cluster)
 LINEAR_NARROW_M, LINEAR_NARROW_N, LINEAR_MAX_SPLITS = 32, 64, 8
+# gemm_wgmma16.cuh's BK: the K block of K3's 16-bit mainloop
+BK16 = 64
 LOG2E = 1.4426950408889634
 
 
@@ -115,6 +117,38 @@ def k_chunk(m, n, k, min_split=CONV_MIN_SPLIT, sms=SMS):
                     best_used, best_waves, splits = blocks, waves, s
     per = -(-k // splits)
     return -(-per // BK) * BK
+
+
+def k_chunk16(m, n, k, sms=SMS):
+    """gemm_wgmma16.cuh's split-K rule (``conv_gemm16_k_chunk``, K3 with
+    16-bit operands): of 1 to k // 256 splits, the fewest whose modelled
+    time is least, as whole 64-deep K blocks; the same float operations in
+    the same order as the C++."""
+    if m <= 0 or n <= 0 or k <= 0:
+        return BK16
+    bn = 64 if n <= 64 else 128
+    tiles = -(-m // BM) * -(-n // bn)
+    kb_ns = float(BM * bn * BK16 * 2) / 4900.0
+    kb_load_ns = float((BM + bn) * BK16 * 2) / 100.0
+    kb_unit_ns = kb_ns if kb_ns > kb_load_ns else kb_load_ns
+    most = max(min(k // CONV_MIN_SPLIT, MAX_SPLITS), 1)
+    best, best_chunk = -1.0, -(-k // BK16) * BK16
+    for s in range(1, most + 1):
+        chunk = -(-(-(-k // s)) // BK16) * BK16
+        splits = -(-k // chunk)
+        if splits != s:
+            continue
+        waves = -(-(tiles * splits) // sms)
+        unit_ns = float(chunk // BK16) * kb_unit_ns + 1000.0
+        nbytes = 2.0 * float(m * k + k * n) + 4.0 * float(m * n)
+        if splits > 1:
+            nbytes += 8.0 * float(splits) * float(m * n)
+        mem_ns, run_ns = nbytes / 3000.0, float(waves) * unit_ns
+        t = (mem_ns if mem_ns > run_ns else run_ns) + (
+            3000.0 if splits > 1 else 0.0)
+        if best < 0.0 or t < best:
+            best, best_chunk = t, chunk
+    return best_chunk
 
 
 def linear_k_chunk(m, n, k, sms=SMS):
