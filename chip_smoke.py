@@ -296,7 +296,31 @@ Phases, in order; any failure exits non-zero before the last line:
    run's next batch (frames and aug values) bit for bit, and a fresh
    module and iterator resumed from it train the rest of the epoch to
    (b)'s losses and params bit for bit, one capture.
-16. report: one JSON line of kernel records, the card line, then
+16. the mirrored backward and device observability at full width.
+   (a) ResNet-50 NHWC at batch 32, f32, through fit(fused_step=True)
+   unmirrored and with MXNET_BACKWARD_DO_MIRROR=1 from phase 6's weights
+   and data: one capture each; launches (the eager step and the capture)
+   K3 210, K5 106, and K4 106 unmirrored, 106 plus twice the BatchNorms
+   the plan recomputes mirrored, and two profiled replays the same; the
+   mirrored params, moving statistics and losses bit-equal to the
+   unmirrored ones; peak allocated memory above the start (the mirrored
+   one must be lower) and device ms a replay of both, and the kernel
+   events a replay the mirror adds (K4, cuDNN forwards); a mirrored
+   classic-loop fit bit-equal to phase 6's classic loop. (b) the compile
+   registry on (MXNET_TPU_XPROF) over a mirrored fused fit at batch 32
+   and one at batch 16: one fused_step record a fit with its signature
+   and the eager step's FLOPs, the second's cause naming the data's
+   shape change, StepTrace's compiles delta at each capturing step; one
+   replay's op breakdown by kernel category summing to its kernel time;
+   analyze's MFU against the H100 data-sheet peak; host step ms with the
+   registry on. (c) MXNET_TPU_SANITIZE=transfer,retrace,donation,locks,
+   deadlock over mirrored fused fits: no trip on the clean path; a
+   planted .item() in a batch-end callback raises and counts a transfer
+   trip; a state moved after warmup captures again and the retrace
+   sanitizer raises; host step ms armed. (d) profiler.start/stop around
+   two replays in an annotate range: the trace names K3, K4 and K5 and
+   the range.
+17. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -304,6 +328,7 @@ breakdowns to PATH as JSON. ``--ckpt-child DIR`` is phase 8's child
 process, which the phase starts itself.
 """
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -6505,6 +6530,412 @@ def feed_resume(torch, mx, kernels, card, prefix, fed, tmp):
             "launches": resumed["launches"]}
 
 
+MIRROR_STEPS = TRAIN_STEPS     # 16a: batches of 32 a fit, as phase 6
+SANITIZE_ALL = "transfer,retrace,donation,locks,deadlock"
+OBS_BATCH = 16                 # 16b's second fit: another batch size
+OBS_STEPS = 3
+OBS_PLANT_AT = 2               # 16c: the batch whose callback reads .item()
+OBS_REALLOC_AT = 3             # 16c: the batch after which a state moves
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """``os.environ`` with ``values`` set (None: unset) inside."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mirror_plan(mx):
+    """What the mirrored backward recomputes in one ResNet-50 NHWC step:
+    its runs (``executor.remat_plan``), and the BatchNorms (one K4 launch
+    each) and convolutions (one cuDNN forward each) inside recomputed
+    runs."""
+    from mxnet_tpu_torch.executor import remat_plan
+
+    runs = remat_plan(mx.models.get_resnet50(num_classes=1000,
+                                             layout="NHWC"))
+    ops = [n.op.op_name for run, _, _, recompute in runs if recompute
+           for n in run]
+    return {"runs": len(runs),
+            "recomputed_runs": sum(1 for r in runs if r[3]),
+            "bn": ops.count("BatchNorm"), "conv": ops.count("Convolution")}
+
+
+def mirror_module(mx, mirror, batch=BATCH):
+    """train_module's seed-0 ResNet-50, bound with MXNET_BACKWARD_DO_MIRROR
+    set to ``mirror``."""
+    with _environ(MXNET_BACKWARD_DO_MIRROR="1" if mirror else "0"):
+        mod = train_module(mx, mx.gpu(0), batch, seed=0)
+    check(mod._exec_group.executor.mirror == mirror,
+          "the executor's mirror flag is %s, want %s"
+          % (mod._exec_group.executor.mirror, mirror))
+    return mod
+
+
+def _mirror_launches(plan, steps, mirror):
+    want = dict(_resnet_launches(steps), rtc=0)
+    if mirror:
+        want["norm_act_fwd"] += plan["bn"] * steps
+    return want
+
+
+def _group_counts(torch, run_step, reps=2):
+    """Kernel events a call by _train_group over ``reps`` calls under
+    torch.profiler (counts, not times: the recomputed forwards)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run_step()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            g = _train_group(e.name)
+            counts[g] = counts.get(g, 0) + 1
+    return {g: n / reps for g, n in counts.items()}
+
+
+def mirror_fits(torch, mx, kernels, card, images, labels, classic_params):
+    """16a: ResNet-50 NHWC at batch 32, f32, through fit(fused_step=True)
+    unmirrored and mirrored from the same weights, then a mirrored
+    classic-loop fit; each checked for its launches (the mirrored K4
+    count rises by the recomputed BatchNorms) and one capture; the
+    mirrored fits' params, moving statistics and losses bit-equal to the
+    unmirrored ones'; peak allocated memory and device ms a replay of
+    both."""
+    plan = mirror_plan(mx)
+    print("16a mirrored backward: %d runs (%d recomputed), a step "
+          "recomputes %d BatchNorms (K4) and %d convolutions (cuDNN "
+          "forward)" % (plan["runs"], plan["recomputed_runs"], plan["bn"],
+                        plan["conv"]))
+    runs = {}
+    for name, mirror in (("plain", False), ("mirror", True)):
+        mod = mirror_module(mx, mirror)
+        run = fit_module(torch, mx, kernels, mod, images, labels, True)
+        step = mod._fused_step
+        counters = {"eager_steps": step.eager_steps,
+                    "captures": step.captures, "dispatches": step.dispatches}
+        want = _mirror_launches(plan, 2, mirror)
+        print("16a %s fused: counters %s, launches %s, losses %s"
+              % (name, counters, run["launches"],
+                 ["%.4f" % v for v in run["losses"]]))
+        check(counters == {"eager_steps": 1, "captures": 1,
+                           "dispatches": MIRROR_STEPS - 1},
+              "16a %s: fused step counters %s" % (name, counters))
+        check(run["launches"] == want, "16a %s: launches %s, want %s"
+              % (name, run["launches"], want))
+        check(all(np.isfinite(run["losses"])), "16a %s: losses %s"
+              % (name, run["losses"]))
+        run["breakdown"] = fused_breakdown(torch, mx, kernels, step,
+                                           run["metric"], images[:BATCH],
+                                           labels[:BATCH])
+        got = run["breakdown"]["launches"]
+        want2 = {k: v for k, v in _mirror_launches(plan, 2, mirror).items()
+                 if k in got}
+        check(got == want2, "16a %s: two profiled replays ran %s, want %s"
+              % (name, got, want2))
+        run["groups"] = _group_counts(
+            torch, lambda: step.step(mx.io.DataBatch(
+                [images[:BATCH]], [labels[:BATCH]]), run["metric"]))
+        run.update(counters=counters, step=step, mod=mod)
+        runs[name] = run
+    plain, mirror = runs["plain"], runs["mirror"]
+    for what in ("args", "aux"):
+        unequal = [k for k in plain[what]
+                   if not np.array_equal(plain[what][k], mirror[what][k])]
+        check(not unequal, "16a: mirrored and unmirrored fused %s differ "
+              "after %d steps at %s" % (what, MIRROR_STEPS, unequal[:5]))
+    check(plain["losses"] == mirror["losses"], "16a: mirrored losses %s, "
+          "unmirrored %s" % (mirror["losses"], plain["losses"]))
+    print("16a mirrored vs unmirrored fused fit after %d steps: params, "
+          "moving statistics and losses bit-equal" % MIRROR_STEPS)
+    for name in ("plain", "mirror"):
+        run = runs[name]
+        print("16a %s fused: peak allocated %.3f GB (%.3f above the "
+              "start), device %.3f ms a replay (profiler; %.3f by CUDA "
+              "events), host step %.3f ms, kernel events a replay %s  [%s]"
+              % (name, run["peak_bytes"] / 1e9,
+                 run["peak_above_start_bytes"] / 1e9,
+                 run["breakdown"]["device_ms_per_step"],
+                 run["breakdown"]["event_ms_per_step"], run["step_ms"],
+                 {g: run["groups"][g] for g in sorted(run["groups"])},
+                 card))
+    check(mirror["peak_above_start_bytes"] < plain["peak_above_start_bytes"],
+          "16a: the mirrored fit's peak above its start, %d bytes, is not "
+          "below the unmirrored one's, %d" % (
+              mirror["peak_above_start_bytes"],
+              plain["peak_above_start_bytes"]))
+    added = {g: mirror["groups"].get(g, 0) - plain["groups"].get(g, 0)
+             for g in set(mirror["groups"]) | set(plain["groups"])}
+    print("16a kernel events a replay added by the mirror: %s" % {
+        g: v for g, v in sorted(added.items()) if v})
+    check(added.get("norm_act_fwd (K4)") == plan["bn"],
+          "16a: the mirror added %s K4 launches a replay, want %d"
+          % (added.get("norm_act_fwd (K4)"), plan["bn"]))
+    mod = mirror_module(mx, True)
+    cl = fit_module(torch, mx, kernels, mod, images, labels, False)
+    want = _mirror_launches(plan, MIRROR_STEPS, True)
+    print("16a mirrored classic: launches %s, losses %s"
+          % (cl["launches"], ["%.4f" % v for v in cl["losses"]]))
+    check(cl["launches"] == want, "16a mirrored classic: launches %s, "
+          "want %s" % (cl["launches"], want))
+    for what, ref in zip(("args", "aux"), classic_params):
+        unequal = [k for k in ref if not np.array_equal(ref[k], cl[what][k])]
+        check(not unequal, "16a: mirrored classic %s differ from phase "
+              "6's classic loop at %s" % (what, unequal[:5]))
+    print("16a mirrored classic fit: params and moving statistics "
+          "bit-equal to phase 6's classic loop")
+    return {"plan": plan, "runs": runs, "classic": cl, "added": added}
+
+
+def xprof_checks(torch, mx, kernels, card, images, labels, mirror_step_ms):
+    """16b: the compile registry over two mirrored fused fits at batch 32
+    and OBS_BATCH, telemetry on: each capture recorded with its
+    signature and the eager step's FLOPs; the second names the data's
+    shape change; StepTrace's ``compiles`` delta at each capturing step;
+    one replay's op breakdown sums to its kernel time; analyze's MFU."""
+    xp, tel = mx.xprof, mx.telemetry
+    xp.reset()
+    xp.enable()
+    tel.reset()
+    tel.enable()
+    mx.tracing.step_trace().reset()
+    try:
+        mod = mirror_module(mx, True)
+        run = fit_module(torch, mx, kernels, mod, images, labels, True)
+        mod16 = mirror_module(mx, True, OBS_BATCH)
+        n16 = OBS_BATCH * OBS_STEPS
+        mod16.fit(mx.io.NDArrayIter(images[:n16], labels[:n16],
+                                    batch_size=OBS_BATCH),
+                  num_epoch=1, optimizer="sgd",
+                  optimizer_params=TRAIN_OPT,
+                  eval_metric=mx.metric.Accuracy(), fused_step=True)
+        recs = [r for r in xp.records() if r.site == "fused_step"]
+        cause = xp.last_retrace_cause()
+        trace = mx.tracing.step_trace().records()
+        compiles = [(r["step"], r["deltas"].get("compiles"), r["dominant"])
+                    for r in trace if r["deltas"].get("compiles")]
+        summary = xp.summary()
+    finally:
+        xp.disable()
+        tel.disable()
+    print("16b registry: %d fused_step records, times %s s, flops %s; "
+          "cause %r; StepTrace steps with compiles %s; totals %s"
+          % (len(recs), [r.compile_time_s for r in recs],
+             [r.flops for r in recs], cause, compiles, summary["totals"]))
+    check(len(recs) == 2, "16b: %d fused_step records, want one a fit"
+          % len(recs))
+    sig = dict(recs[0].signature)
+    check(sig.get("data", ((),))[0] == (BATCH,) + IMAGE,
+          "16b: the capture's signature holds data %s" % (sig.get("data"),))
+    check(all(r.flops and r.compile_time_s > 0 for r in recs),
+          "16b: a record without FLOPs or time: %s"
+          % [r.to_dict() for r in recs])
+    want = "(%s)float32 -> (%s)float32 on data" % (
+        ",".join(map(str, (BATCH,) + IMAGE)),
+        ",".join(map(str, (OBS_BATCH,) + IMAGE)))
+    check(cause is not None and want in cause,
+          "16b: the recapture's cause %r does not name %r" % (cause, want))
+    check(len(compiles) == 2 and all(d == "compile" for _, _, d in compiles),
+          "16b: StepTrace's compiles deltas %s, want one capturing step a "
+          "fit labelled compile" % compiles)
+    # one replay of the batch-32 fit's step (the registry off), with the
+    # FLOPs its eager step counted
+    step, metric = mod._fused_step, run["metric"]
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    step.step(batch, metric)
+    torch.cuda.synchronize()
+    bd = xp.profile_breakdown(lambda: step.step(batch, metric), reps=1,
+                              flops=step.step_flops)
+    cats = {c: v for c, v in bd.items() if c != "total"}
+    total = bd["total"]
+    check(total["count"] > 0 and abs(sum(v["ms"] for v in cats.values())
+                                      - total["ms"]) <= 1e-9 * total["ms"],
+          "16b: the op breakdown's categories %s do not sum to %s"
+          % (cats, total))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        step.step(batch, metric)
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / 10
+    mfu = xp.analyze(total["flops"], None, step_time_s=replay_ms / 1e3)
+    print("16b op breakdown of one mirrored replay, ms / kernels / FLOPs: "
+          "%s; total %.3f ms in %d kernels, %.3f TFLOP (eager step, "
+          "FlopCounterMode + K3)  [%s]"
+          % ({c: (round(v["ms"], 4), v["count"], v.get("flops"))
+              for c, v in cats.items()}, total["ms"], total["count"],
+             total["flops"] / 1e12, card))
+    print("16b analyze: %.3f ms a replay (CUDA events), %s TFLOP/s "
+          "achieved, MFU %s%% of the %s TFLOP/s bf16 data-sheet peak of "
+          "%s  [%s]" % (replay_ms, mfu.get("achieved_tflops"),
+                        mfu.get("analytic_mfu_pct"), mfu["peak_tflops"],
+                        mfu["device_kind"], card))
+    check(mfu["peak_tflops"] is not None and total["flops"] > 0,
+          "16b: analyze knows no peak for %r, or the step counted %s FLOPs"
+          % (mfu["device_kind"], total["flops"]))
+    print("16b host step with xprof and telemetry on: %.3f ms (16a "
+          "mirrored %.3f ms)  [%s]" % (run["step_ms"], mirror_step_ms, card))
+    return {"records": [r.to_dict() for r in recs], "cause": cause,
+            "compiles": compiles, "breakdown": bd, "replay_ms": replay_ms,
+            "analyze": mfu, "step_ms": run["step_ms"]}
+
+
+def _sanitized_fit(torch, mx, images, labels, after_batch=None):
+    """A mirrored fused fit at batch 32 under MXNET_TPU_SANITIZE=all with
+    telemetry on; the host clock at each batch-end callback (the card
+    synchronised inside an intentional_transfer window), then
+    ``after_batch(param, mod)``. Returns (mod, step marks, the raised
+    exception or None)."""
+    san = mx.analysis.sanitizers
+    marks = []
+
+    def on_batch(param):
+        with san.intentional_transfer():
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if after_batch is not None:
+            after_batch(param, mod)
+
+    mod = mirror_module(mx, True)
+    err = None
+    mx.random.seed(0)
+    with _environ(MXNET_TPU_SANITIZE=SANITIZE_ALL):
+        try:
+            mod.fit(mx.io.NDArrayIter(images, labels, batch_size=BATCH),
+                    num_epoch=1, optimizer="sgd",
+                    optimizer_params=TRAIN_OPT,
+                    eval_metric=mx.metric.Accuracy(),
+                    batch_end_callback=on_batch, fused_step=True)
+        except Exception as e:    # the planted faults' raises, checked after
+            err = e
+        finally:
+            mx.tracing.shutdown()     # the deadlock watchdog
+    return mod, marks, err
+
+
+def sanitizer_checks(torch, mx, card, images, labels, mirror_step_ms):
+    """16c: every sanitizer armed on mirrored fused fits at batch 32: no
+    trip on the clean path; a planted ``.item()`` in a batch-end callback
+    raises and counts a transfer trip; a state moved after warmup makes
+    the step capture again, which the retrace sanitizer refuses."""
+    tel, san = mx.telemetry, mx.analysis.sanitizers
+    tel.reset()
+    tel.enable()
+    try:
+        mod, marks, err = _sanitized_fit(torch, mx, images, labels)
+        check(err is None, "16c: the clean sanitized fit raised %r" % err)
+        trips = tel.peek("sanitizer.trips") or 0
+        step = mod._fused_step
+        check(trips == 0 and step.captures == 1,
+              "16c: clean path: %d sanitizer trips, %d captures"
+              % (trips, step.captures))
+        step_ms = float(np.median([1e3 * (b - a)
+                                   for a, b in zip(marks, marks[1:])]))
+
+        def plant_item(param, _mod):
+            if param.nbatch == OBS_PLANT_AT:
+                param.locals["self"].get_outputs()[0].handle.sum().item()
+
+        _, _, item_err = _sanitized_fit(torch, mx, images, labels,
+                                        plant_item)
+        transfer = tel.peek("sanitizer.trips.transfer") or 0
+        mode = torch.cuda.get_sync_debug_mode()
+        check(item_err is not None and san.is_transfer_guard_error(item_err)
+              and transfer == 1 and mode == 0,
+              "16c: a planted .item() gave %r, %d transfer trips, sync "
+              "debug mode %d after the fit" % (item_err, transfer, mode))
+
+        def move_state(param, m):
+            if param.nbatch == OBS_REALLOC_AT:
+                st = m._updater.states[0]
+                st._data = st._data.clone()
+
+        _, _, retrace_err = _sanitized_fit(torch, mx, images, labels,
+                                           move_state)
+        retrace = tel.peek("sanitizer.trips.retrace") or 0
+        check(isinstance(retrace_err, san.SanitizerError) and retrace == 1,
+              "16c: a recapture after warmup gave %r, %d retrace trips"
+              % (retrace_err, retrace))
+    finally:
+        tel.disable()
+        tel.reset()
+    print("16c sanitizers (%s) on mirrored fused fits: clean path 0 trips, "
+          "1 capture; a planted .item() at batch %d: %r, 1 transfer trip; "
+          "a state moved after batch %d: %r, 1 retrace trip"
+          % (SANITIZE_ALL, OBS_PLANT_AT, str(item_err)[:80], OBS_REALLOC_AT,
+             str(retrace_err)[:80]))
+    print("16c host step with every sanitizer armed: %.3f ms (16a "
+          "mirrored %.3f ms)  [%s]" % (step_ms, mirror_step_ms, card))
+    return {"step_ms": step_ms}
+
+
+def profiler_checks(torch, mx, images, labels, step, metric):
+    """16d: profiler.start/stop around two replays of the mirrored step,
+    each in an annotate range: the trace holds K3's, K4's and K5's
+    kernels and the range."""
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        mx.profiler.start(logdir)
+        for _ in range(2):
+            with mx.profiler.annotate("chip_smoke.replay"):
+                step.step(batch, metric)
+        torch.cuda.synchronize()
+        path = mx.profiler.stop()
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    seen = {k: any(k in n for n in names) for k in (
+        "conv_gemm_kernel", "norm_act_vec_kernel",
+        "norm_act_bwd_partial_kernel", "chip_smoke.replay")}
+    print("16d profiler trace: %d bytes, %d distinct event names, holds %s"
+          % (size, len(names), seen))
+    check(all(seen.values()), "16d: the trace lacks %s"
+          % [k for k, v in seen.items() if not v])
+    return {"trace_bytes": size, "seen": seen}
+
+
+def mirror_obs_main_path(torch, mx, kernels, card, images, labels,
+                         classic_params):
+    """Phase 16: the mirrored backward and device observability on
+    ResNet-50 NHWC at batch 32."""
+    t0 = time.perf_counter()
+    mir = mirror_fits(torch, mx, kernels, card, images, labels,
+                      classic_params)
+    m = mir["runs"]["mirror"]
+    xprof = xprof_checks(torch, mx, kernels, card, images, labels,
+                         m["step_ms"])
+    san = sanitizer_checks(torch, mx, card, images, labels, m["step_ms"])
+    prof = profiler_checks(torch, mx, images, labels, m["step"], m["metric"])
+    for run in mir["runs"].values():
+        for k in ("step", "mod", "metric", "args", "aux"):
+            run.pop(k, None)
+    for k in ("mod", "metric", "args", "aux"):
+        mir["classic"].pop(k, None)
+    print("phase 16: %.1f s" % (time.perf_counter() - t0))
+    return {"mirror": mir, "xprof": xprof, "sanitizers": san,
+            "profiler": prof}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -6640,6 +7071,7 @@ def main():
     images, labels = train_data()
     train = train_main_path(torch, mx, kernels, card, images, labels)
     fused = fused_train_path(torch, mx, kernels, card, images, labels, train)
+    classic_params = (train["args"], train["aux"])     # phase 16's
     for run in (train, fused):
         del run["args"], run["aux"]
     print("classic vs fused, ResNet-50 NHWC batch 32 f32: host step %.3f / "
@@ -6758,7 +7190,24 @@ def main():
             "feed_classic": feed["classic"]["launches"][kernel]})
     roi16 = det["ops"]["bf16"]
 
-    # 16. report
+    # 16. the mirrored backward and device observability: ResNet-50 NHWC
+    # trained mirrored; the compile registry, sanitizers and profiler
+    obs = mirror_obs_main_path(torch, mx, kernels, card, images, labels,
+                               classic_params)
+    del classic_params
+    mirror = obs["mirror"]
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update({
+            "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
+            "mirror_fused_2_replays_profiled":
+                mirror["runs"]["mirror"]["breakdown"]["launches"][kernel],
+            "mirror_classic": mirror["classic"]["launches"][kernel]})
+    for kernel in ("linear", "flash_attn", "rtc"):
+        lm_paths[kernel].update({
+            "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
+            "mirror_classic": mirror["classic"]["launches"][kernel]})
+
+    # 17. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -6801,7 +7250,12 @@ def main():
                   "the eager step and the capture; replays: two; classic: "
                   "4 steps; augment/host: 8 steps in device_augment and "
                   "host-crop mode, crop_norm launched by the iterator; "
-                  "resume: 15d's resumed fit)")
+                  "resume: 15d's resumed fit); mirror_*: phase 16's "
+                  "ResNet-50 NHWC fits at batch 32 with "
+                  "MXNET_BACKWARD_DO_MIRROR=1 (fused: the eager step and "
+                  "the capture; replays: two; classic: 5 steps), where a "
+                  "step launches K4 once more for each BatchNorm its "
+                  "backward recomputes")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7057,7 +7511,8 @@ def main():
                        "optim_path": optim, "lm_path": lm,
                        "detection_ocr_path": det,
                        "mixed_precision_path": mp,
-                       "feed_path": feed}, f, indent=1)
+                       "feed_path": feed, "mirror_obs_path": obs}, f,
+                      indent=1)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,11 @@
 * ``mx.serving`` — the batching InferenceServer
 * ``mx.Predictor`` — the deployment predict API
 * ``mx.interop`` — weights carried across from ``mxnet_tpu``
+* ``mx.xprof``, ``mx.profiler``, ``mx.analysis`` — device observability:
+  the compile registry (captures, NVRTC compiles, kernel builds), the op
+  breakdown of a profiled step, memory accounting and pre-flight checks;
+  ``torch.profiler`` traces and step timers; the runtime sanitizers
+  (``MXNET_TPU_SANITIZE``)
 
 The default context is ``mx.gpu(0)``. Ask for the CPU with ``with
 mx.cpu():`` or ``ctx=mx.cpu()``; there is no silent fallback. The
@@ -96,5 +101,8 @@ from .predictor import Predictor
 from . import models
 from . import interop
 from . import test_utils
+from . import xprof
+from . import profiler
+from . import analysis
 
 __version__ = "0.1.0"

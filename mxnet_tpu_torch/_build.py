@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from . import xprof as _xprof
 from .base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "library_path",
@@ -141,6 +142,11 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, dict]:
             failed.append("%s (rc %d):\n%s" % (n, proc.returncode, log))
             continue
         os.replace(tmp, out)
+        # the library's name carries the hash of its sources
+        _xprof.maybe_record(
+            "kernel_build." + n, build_log[n]["seconds"],
+            signature=((SOURCES[n], ((), os.path.basename(out), False,
+                                     None)),))
     if failed:
         raise MXNetError("nvcc failed for " + "\n".join(failed))
     return build_log

@@ -548,7 +548,10 @@ class CheckpointManager:
         alone. Under a captured fused step the next replay reads the
         restored values. Returns the restored position, or None when the
         store holds no valid snapshot."""
-        info, entry = self._restore_latest(None)
+        from .analysis import sanitizers as _san
+
+        with _san.intentional_transfer():    # the snapshot's upload
+            info, entry = self._restore_latest(None)
         if info is None:
             return None
         _tel.inc("ckpt.rollbacks")
@@ -561,9 +564,12 @@ class CheckpointManager:
               deadline: Optional[float] = None) -> Optional[str]:
         try:
             t0 = time.perf_counter()
-            payload = snapshot(self._module, self._metric, self._data,
-                               step=self.global_step, epoch=self._epoch,
-                               nbatch=self._nbatch)
+            from .analysis import sanitizers as _san
+
+            with _san.intentional_transfer():    # the snapshot's fetch
+                payload = snapshot(self._module, self._metric, self._data,
+                                   step=self.global_step,
+                                   epoch=self._epoch, nbatch=self._nbatch)
             _tel.observe("ckpt.snapshot_ms", (time.perf_counter() - t0) * 1e3)
             if deadline is not None and time.monotonic() > deadline:
                 _tel.inc("ckpt.preempt_abandoned")

@@ -213,11 +213,16 @@ class ThreadedEngine(Engine):
     reaches zero; workers pop a priority queue."""
 
     def __init__(self, num_workers: Optional[int] = None):
+        from .analysis import sanitizers as _san
+
         self._num_workers = num_workers or 4
         self._heap: List = []
-        self._heap_lock = threading.Condition()
+        # MXNET_TPU_SANITIZE=locks: lock-order checks and wait histograms
+        self._heap_lock = _san.maybe_instrument(threading.Condition(),
+                                                "engine-heap")
         self._pending = 0
-        self._pending_lock = threading.Condition()
+        self._pending_lock = _san.maybe_instrument(threading.Condition(),
+                                                   "engine-pending")
         self._seq = itertools.count()
         self._shutdown = False
         self._workers = []

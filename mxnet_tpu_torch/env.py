@@ -142,6 +142,17 @@ declare("MXNET_COMPUTE_DTYPE", str, None,
         "aux states stay float32 (the classic loop, the fused step and "
         "`FusedInfer` alike). `compute_dtype=None` at bind forces "
         "float32; any other name raises.", section="Executor")
+declare("MXNET_BACKWARD_DO_MIRROR", bool, False,
+        "Mirrored backward (segmented rematerialisation), read at bind: "
+        "the graph's op nodes are cut into about sqrt(N) segments in "
+        "topological order and each runs under "
+        "`torch.utils.checkpoint`, so a train forward keeps only the "
+        "values that cross a segment boundary and the backward "
+        "recomputes the rest, segment by segment. Outputs, moving "
+        "statistics and gradients are those of the plain walk; peak "
+        "memory is lower and the backward does one more forward. A "
+        "random op (Dropout, a sample op) runs outside the recomputed "
+        "runs, so its draw is made once.", section="Executor")
 
 _IN = "Input pipeline"
 declare("MXNET_TPU_DEVICE_STAGING", bool, False,
@@ -208,6 +219,12 @@ declare("MXNET_TPU_TELEMETRY", bool, False,
 declare("MXNET_TPU_TELEMETRY_SPAN_CAP", int, 8192,
         "Bound on the buffered host-span ring; the oldest spans are "
         "dropped first.", section=_TEL)
+declare("MXNET_TPU_TELEMETRY_FSYNC", bool, False,
+        "fsync after every `telemetry.dump_jsonl` record. The append "
+        "itself is already crash-safe (one `os.write` on an `O_APPEND` "
+        "fd); the fsync is for machines where losing the last "
+        "OS-buffered lines to a power cut matters more than a syscall "
+        "per step.", section=_TEL)
 
 _TR = "Flight recorder"
 declare("MXNET_TPU_CRASH_DIR", str, "",
@@ -327,6 +344,63 @@ declare("MXNET_TPU_CKPT_GRACE_S", float, 25.0,
         "snapshot whose device fetch and serialisation exceed it is "
         "abandoned before its write starts (`ckpt.preempt_abandoned`); "
         "the previous snapshot stays valid either way.", section=_C)
+
+
+_SAN = "Runtime sanitizers"
+declare("MXNET_TPU_SANITIZE", str, "",
+        "Comma-separated list of runtime sanitizers to arm (`transfer`, "
+        "`retrace`, `donation`, `locks`, `deadlock`, or `all`). "
+        "`transfer` runs `fit`'s fused loop on a card under "
+        "`torch.cuda.set_sync_debug_mode(\"error\")`, so a host read "
+        "of a device value (`.item()`, `.cpu()`, a pageable copy) "
+        "raises at the batch that made it, outside the reviewed reads "
+        "(`sanitizers.intentional_transfer`); `retrace` raises when the "
+        "fused step captures again after warmup; `donation` checks after "
+        "every fused step that each weight, gradient and optimizer state "
+        "is still the tensor the graph holds (the one-copy promise); "
+        "`locks` wraps the engine's locks to raise on an observed "
+        "lock-order inversion and feed `lock.wait_ms` histograms; "
+        "`deadlock` runs a watchdog thread that dumps all-thread stacks "
+        "through the flight recorder when step progress stalls. Trips "
+        "are counted under `sanitizer.trips`.", section=_SAN)
+declare("MXNET_TPU_SANITIZE_WARMUP", int, 3,
+        "Steps the retrace sanitizer treats as warmup before a fresh "
+        "fused-step capture becomes an error.", section=_SAN)
+declare("MXNET_TPU_WATCHDOG_S", float, 120.0,
+        "Deadlock-watchdog stall threshold in seconds: when the "
+        "`deadlock` sanitizer is armed and the step counter makes no "
+        "progress for this long, the watchdog counts "
+        "`sanitizer.trips.deadlock` and dumps all-thread stacks "
+        "through the flight recorder (one dump per stall, re-armed "
+        "when progress resumes).", section=_SAN)
+declare("MXNET_TPU_WATCHDOG_INTERVAL", float, 5.0,
+        "Seconds between deadlock-watchdog polls of the progress "
+        "signal.", section=_SAN)
+
+_X = "Device observability (xprof)"
+declare("MXNET_TPU_XPROF", bool, False,
+        "Record every build of the port in the compile registry "
+        "(`mxnet_tpu_torch.xprof`): each CUDA-graph capture of the "
+        "fused step, each NVRTC compile and each kernel-library build, "
+        "with its wall time and argument signature; a rebuild at a site "
+        "carries a retrace-cause diff naming the changed arguments. "
+        "Counts land in `compile.count` / `compile.time_ms`. "
+        "`xprof.enable()` does the same at run time.", section=_X)
+declare("MXNET_TPU_XPROF_OPS", bool, True,
+        "Count the fused step's eager step's FLOPs by category "
+        "(`FlopCounterMode` over its aten ops, plus K3's products) into "
+        "the capture's record. Set to 0 to skip the count; wall time "
+        "and signatures still record.", section=_X)
+declare("MXNET_TPU_XPROF_PREFLIGHT", bool, True,
+        "Pre-flight check before a fused-step capture: the eager step's "
+        "peak plus the transient bytes the capture's private pool takes "
+        "again must fit the card's memory, else the capture is refused "
+        "with the shortfall named. No-op where no limit is known (CPU).",
+        section=_X)
+declare("MXNET_TPU_XPROF_RECORDS", int, 256,
+        "Bound on the compile registry ring; the oldest records are "
+        "dropped first (per-site summaries keep their totals).",
+        section=_X)
 
 
 # ---------------------------------------------------------------------------

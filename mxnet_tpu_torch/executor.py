@@ -33,9 +33,11 @@ cast hands float32 gradients to the float32 leaves.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import env as _env
 from .base import MXNetError
@@ -43,20 +45,32 @@ from .context import Context
 from .ndarray import NDArray
 from .ops.registry import OpContext
 
-__all__ = ["Executor", "make_graph_eval", "resolve_compute_dtype"]
+__all__ = ["Executor", "make_graph_eval", "remat_plan",
+           "resolve_compute_dtype"]
 
 #: the compute dtypes mixed precision takes, by the JAX package's names
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def make_graph_eval(symbol, node_device=None):
+def make_graph_eval(symbol, node_device=None, remat=False):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
     aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
     tensors; a dict passed as ``internals`` receives every op output as
     ``"<node>_<output>"`` (the monitor's names). ``node_device(node)``,
     where given, names the device a node runs on (None: where its inputs
     are); its inputs and aux states are copied there. Returns
-    ``(eval_graph, n_aux)``."""
+    ``(eval_graph, n_aux)``.
+
+    ``remat=True`` is the mirrored backward (``MXNET_BACKWARD_DO_MIRROR``,
+    the JAX package's segmented remat): the op nodes, in topological
+    order, are cut into about sqrt(N) segments (:func:`remat_plan`) and
+    each runs under ``torch.utils.checkpoint``, so a train forward keeps
+    only the values that cross a segment boundary and the backward
+    recomputes each segment's inside. A segment's recomputed moving
+    statistics are discarded: the aux states come from the one forward.
+    A random op runs outside the recomputed runs, its output kept, so
+    its draw is made once. A call with ``internals``, or with gradients
+    off, takes the plain walk."""
     nodes = symbol._topo()
     var_nodes = [n for n in nodes if n.is_variable]
     op_nodes = [n for n in nodes if not n.is_variable]
@@ -70,11 +84,10 @@ def make_graph_eval(symbol, node_device=None):
     n_aux = slot
     out_index = [(n.uid, i) for n, i in symbol._outputs]
 
-    def eval_graph(arg_list, aux_list, rng, is_train, internals=None):
-        env = {n.uid: [a] for n, a in zip(var_nodes, arg_list)}
-        aux_out = list(aux_list)
-        octx = OpContext(is_train, rng)
-        for n in op_nodes:
+    def run_nodes(node_list, env, aux_out, octx, internals=None):
+        """Evaluate ``node_list`` into ``env`` (uid -> outputs, indexed
+        by output number) and ``aux_out``, in place."""
+        for n in node_list:
             ins = [env[src.uid][i] for src, i in n.inputs]
             slots = aux_slots.get(n.uid, ())
             aux_in = [aux_out[s] for s in slots]
@@ -89,9 +102,94 @@ def make_graph_eval(symbol, node_device=None):
             if internals is not None:
                 for name, o in zip(n.op.list_outputs(), outs):
                     internals["%s_%s" % (n.name, name)] = o
+
+    def eval_graph(arg_list, aux_list, rng, is_train, internals=None):
+        env = {n.uid: [a] for n, a in zip(var_nodes, arg_list)}
+        aux_out = list(aux_list)
+        run_nodes(op_nodes, env, aux_out, OpContext(is_train, rng),
+                  internals)
         return [env[uid][i] for uid, i in out_index], aux_out
 
-    return eval_graph, n_aux
+    if not remat:
+        return eval_graph, n_aux
+
+    plans = remat_plan(symbol)
+
+    def eval_graph_remat(arg_list, aux_list, rng, is_train, internals=None):
+        if internals is not None or not torch.is_grad_enabled():
+            return eval_graph(arg_list, aux_list, rng, is_train, internals)
+        octx = OpContext(is_train, rng)
+        store = {(n.uid, 0): a for n, a in zip(var_nodes, arg_list)}
+        aux_state = list(aux_list)
+        for seg, in_keys, out_keys, recompute in plans:
+            def seg_fn(in_vals, aux_vals, _seg=seg, _in=in_keys,
+                       _out=out_keys):
+                env = {}
+                for (uid, i), v in zip(_in, in_vals):
+                    env.setdefault(uid, {})[i] = v
+                aux_out = list(aux_vals)
+                run_nodes(_seg, env, aux_out, octx)
+                return [env[uid][i] for uid, i in _out], aux_out
+
+            in_vals = [store[k] for k in in_keys]
+            if recompute:
+                # a recomputed run draws from no generator (its random
+                # ops run outside it), so there is no RNG state to save,
+                # which a CUDA-graph capture could not read
+                out_vals, aux_state = checkpoint(
+                    seg_fn, in_vals, aux_state, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                out_vals, aux_state = seg_fn(in_vals, aux_state)
+            store.update(zip(out_keys, out_vals))
+        return [store[k] for k in out_index], aux_state
+
+    return eval_graph_remat, n_aux
+
+
+def remat_plan(symbol):
+    """The mirrored backward's runs: ``[(nodes, in_keys, out_keys,
+    recompute), ...]`` in order. The op nodes are cut as the JAX package
+    cuts them (``max(2, isqrt(N))`` segments of ``ceil(N / segments)``
+    nodes), then each random op (``Operator.draws_random``) becomes a run
+    of its own that is not recomputed. ``in_keys`` are the ``(uid,
+    output)`` values a run reads from outside it, ``out_keys`` those it
+    makes that a later run or the graph's outputs consume, both
+    sorted."""
+    op_nodes = [n for n in symbol._topo() if not n.is_variable]
+    out_index = [(n.uid, i) for n, i in symbol._outputs]
+    n_seg = max(2, int(math.isqrt(len(op_nodes))))
+    seg_size = max(1, (len(op_nodes) + n_seg - 1) // n_seg)
+    runs = []
+    for i in range(0, len(op_nodes), seg_size):
+        cur = []
+        for n in op_nodes[i:i + seg_size]:
+            if n.op.draws_random:
+                if cur:
+                    runs.append((cur, True))
+                runs.append(([n], False))
+                cur = []
+            else:
+                cur.append(n)
+        if cur:
+            runs.append((cur, True))
+    run_of = {n.uid: ri for ri, (run, _) in enumerate(runs) for n in run}
+    consumed_later = [set() for _ in runs]
+    for ri, (run, _) in enumerate(runs):
+        for n in run:
+            for src, i in n.inputs:
+                src_run = run_of.get(src.uid, -1)   # -1: a variable
+                if 0 <= src_run < ri:
+                    consumed_later[src_run].add((src.uid, i))
+    for uid, i in out_index:
+        if run_of.get(uid, -1) >= 0:
+            consumed_later[run_of[uid]].add((uid, i))
+    plans = []
+    for ri, (run, recompute) in enumerate(runs):
+        in_keys = sorted({(src.uid, i) for n in run for src, i in n.inputs
+                          if run_of.get(src.uid, -1) != ri})
+        plans.append((run, in_keys, sorted(consumed_later[ri]), recompute))
+    return plans
 
 
 def grad_req_dict(grad_req, names) -> Dict[str, str]:
@@ -162,7 +260,8 @@ class Executor:
     None forces float32) runs the graph in bfloat16 or float16 with
     float32 params, gradients, aux states and outputs; ``label_names``
     (default: the arguments whose names end in ``label``) are never
-    cast."""
+    cast. ``MXNET_BACKWARD_DO_MIRROR``, read at bind (``mirror``),
+    evaluates the graph as :func:`make_graph_eval`'s ``remat`` does."""
 
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
                  grad_req="write", aux_states=None,
@@ -208,7 +307,10 @@ class Executor:
 
             def node_device(n):
                 return group2dev.get(n.attrs.get("ctx_group"))
-        self._eval_graph, _ = make_graph_eval(symbol, node_device)
+        #: MXNET_BACKWARD_DO_MIRROR at bind: the mirrored backward
+        self.mirror = _env.get("MXNET_BACKWARD_DO_MIRROR")
+        self._eval_graph, _ = make_graph_eval(symbol, node_device,
+                                              remat=self.mirror)
         if self._compute_dtype is not None:
             self._eval_graph = _cast_graph(self._eval_graph, self.arg_names,
                                            set(self._label_names),

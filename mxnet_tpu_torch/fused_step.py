@@ -56,12 +56,16 @@ params whose digest changed into the packed tensors, in place.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from . import env as _env
 from . import numwatch as _numwatch
 from . import telemetry as _tel
+from . import xprof as _xprof
+from .analysis import sanitizers as _san
 from .base import MXNetError
 from .kvstore import _LOCAL
 from .metric import CompositeEvalMetric
@@ -146,7 +150,21 @@ class FusedTrainStep:
     the outputs after each batch, as the JAX package does.
 
     Telemetry: ``step.dispatches`` each replay, ``step.fused_recompiles``
-    each capture (StepTrace labels the capturing step ``recompile``)."""
+    each capture (StepTrace labels the capturing step ``recompile``).
+
+    With the compile registry on (``MXNET_TPU_XPROF``) each capture is a
+    ``fused_step`` record: its wall time, the signature of the bound
+    arguments and aux states by name, and the FLOPs of the eager step
+    (``step_flops``, by category); a capture whose eager step's memory
+    would not fit twice over is refused first (``xprof.preflight_check``).
+    ``MXNET_TPU_SANITIZE``'s ``retrace`` raises on a capture after the
+    warmup steps, and ``donation`` checks after every step that each
+    weight, gradient and optimizer state the module holds is the tensor
+    the step writes.
+
+    A mirrored executor (``MXNET_BACKWARD_DO_MIRROR``) runs through the
+    same step: its checkpointed segments recompute inside the backward,
+    in the eager step and in the one captured graph alike."""
 
     def __init__(self, module, eval_metric, monitor=None):
         self._module = module
@@ -179,6 +197,13 @@ class FusedTrainStep:
         self.eager_steps = 0
         self.captures = 0
         self.dispatches = 0
+        #: FLOPs by category of the eager step (xprof), or None
+        self.step_flops = None
+        self._eager_mem = None      # (live before, peak) of the eager step
+        self._retrace_san = (_san.RetraceSanitizer()
+                             if _san.enabled("retrace") else None)
+        self._donation = _san.enabled("donation")
+        self._held = None           # (tensor, data_ptr) the graph writes
 
     def _params(self):
         """(updater index, weight, grad, state tensors) of every
@@ -294,17 +319,24 @@ class FusedTrainStep:
         rows = opt.plan(arrays, structure)
         hyper = opt.scalars(ex._device, rows.shape).copy(rows)
         if ex._device.type != "cuda":
-            self._body(items, structure, hyper, feed)
-            self.eager_steps += 1
+            self._eager(items, structure, hyper, feed)
         elif self.eager_steps == 0:
             self._warm_up(items, structure, hyper, feed)
         else:
             self._replay(items, structure, hyper, feed)
+        if self._held is None:
+            self._held = [(t, t.data_ptr()) for t in _written(items)]
+        if self._donation:
+            _san.DonationSanitizer.check("the fused step", self._held,
+                                         _written(self._params()[0]))
+        if self._retrace_san is not None:
+            self._retrace_san.check(self.captures)
         ex._outputs = [NDArray(t, ex._ctx) for t in self._outs]
         if self._numwatch is not None:
             self._numwatch.stepped()
         if self._fold is None:
-            eval_metric.update(data_batch.label, ex._outputs)
+            with _san.intentional_transfer():    # a host-side metric
+                eval_metric.update(data_batch.label, ex._outputs)
 
     def _load_feed(self, data_batch, aug):
         """Copy a device-feed batch's frames and augmentation into the
@@ -335,6 +367,27 @@ class FusedTrainStep:
             loader.copy(host[k])
         return feed
 
+    def _eager(self, *args):
+        """The step function run eagerly; the first such step is
+        measured for the registry where it is on: FLOPs by category
+        (``MXNET_TPU_XPROF_OPS``) and, on a card, its peak allocation
+        above what was live before it."""
+        if self.eager_steps or not _xprof.enabled():
+            self._body(*args)
+        else:
+            dev = self._ex._device
+            if dev.type == "cuda":
+                live = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            if _env.get("MXNET_TPU_XPROF_OPS"):
+                _, self.step_flops = _xprof.count_flops(
+                    lambda: self._body(*args))
+            else:
+                self._body(*args)
+            if dev.type == "cuda":
+                self._eager_mem = (live, torch.cuda.max_memory_allocated(dev))
+        self.eager_steps += 1
+
     # -- the card ----------------------------------------------------------
     def _side_stream(self):
         if self._stream is None:
@@ -347,12 +400,11 @@ class FusedTrainStep:
         main = torch.cuda.current_stream(self._ex._device)
         s.wait_stream(main)
         with torch.cuda.stream(s):
-            self._body(*args)
+            self._eager(*args)
         main.wait_stream(s)
-        self.eager_steps += 1
 
     def _replay(self, items, structure, hyper, feed):
-        tensors = [t for _, w, g, s in items for t in (w, g) + s]
+        tensors = _written(items)
         if structure != self._structure or feed is not self._captured_feed \
                 or len(tensors) != len(self._captured) or any(
                     a is not b for a, b in zip(tensors, self._captured)):
@@ -360,6 +412,7 @@ class FusedTrainStep:
             self._structure = structure
             self._captured = tensors
             self._captured_feed = feed
+            self._held = [(t, t.data_ptr()) for t in tensors]
         try:
             self._graph.replay()
         except RuntimeError as e:
@@ -371,6 +424,14 @@ class FusedTrainStep:
     def _capture(self, *args):
         """Record the step function as a CUDA graph (it does not run:
         the caller replays it for this batch)."""
+        if self._eager_mem is not None \
+                and _env.get("MXNET_TPU_XPROF_PREFLIGHT"):
+            # the capture's private pool takes the step's transient bytes
+            # again, beside what stays allocated
+            live, peak = self._eager_mem
+            _xprof.preflight_check(2 * peak - live, device=self._ex._device,
+                                   what="the fused step's capture")
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         if self._ex.draws_random():
             register = getattr(graph, "register_generator_state", None)
@@ -385,15 +446,42 @@ class FusedTrainStep:
         # own stream (io_pipeline.FeedScheduler) may run during the
         # capture; they touch no tensor the graph reads
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream(),
-                                  capture_error_mode="thread_local"):
+            # entering a capture synchronises the card once, a reviewed
+            # sync under the transfer sanitizer; inside, CUDA itself
+            # refuses any
+            with _san.intentional_transfer(), \
+                    torch.cuda.graph(graph, stream=self._side_stream(),
+                                     capture_error_mode="thread_local"):
                 self._body(*args)
         except RuntimeError as e:
             raise MXNetError("fused train step: CUDA graph capture failed: "
                              "%s" % e) from e
         self.captures += 1
         _tel.inc("step.fused_recompiles")
+        self._record_capture(time.perf_counter() - t0)
         return graph
+
+    def _record_capture(self, seconds):
+        """A capture into the compile registry, where it is on: its wall
+        time, the bound arguments' and aux states' signature by name, the
+        eager step's FLOPs and peak allocation."""
+        if not _xprof.enabled():
+            return
+        ex = self._ex
+        _xprof.record_compile(
+            "fused_step", seconds,
+            signature=_xprof.leaf_signature(
+                [[a.handle for a in ex.arg_arrays],
+                 [a.handle for a in ex.aux_arrays]],
+                [ex.arg_names, ex.aux_names]),
+            flops=sum((self.step_flops or {}).values()) or None,
+            peak_bytes=self._eager_mem[1] if self._eager_mem else None)
+
+
+def _written(items):
+    """Every weight, gradient and optimizer-state tensor of ``items``
+    (``FusedTrainStep._params``), in order."""
+    return [t for _, w, g, s in items for t in (w, g) + s]
 
 
 def _flat_copy(buf, tensors):

@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .analysis import sanitizers as _san
 from .base import MXNetError, Registry
 from .ndarray import NDArray
 
@@ -54,19 +55,27 @@ def check_label_shapes(labels, preds):
 class EvalMetric:
     """Base: a running ``sum_metric`` over ``num_inst`` instances on the
     host, plus, for a metric with a device fold, the device accumulator
-    ``(sum, count)`` that :meth:`get` adds in."""
+    ``(sum, count)`` that :meth:`get` adds in. With ``num`` (a metric of
+    several outputs) ``sum_metric`` and ``num_inst`` are lists of that
+    length that a subclass's ``update`` fills, and :meth:`get` returns
+    ``["<name>_0", ...]`` with one value each."""
 
     #: True where :meth:`_batch` is torch code that needs no host sync
     has_device_fold = False
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, num: Optional[int] = None):
         self.name = name
+        self.num = num
         self._acc: Optional[torch.Tensor] = None
         self.reset()
 
     def reset(self):
-        self.num_inst = 0
-        self.sum_metric = 0.0
+        if self.num is None:
+            self.num_inst = 0
+            self.sum_metric = 0.0
+        else:
+            self.num_inst = [0] * self.num
+            self.sum_metric = [0.0] * self.num
         if self._acc is not None:
             self._acc.zero_()
 
@@ -80,7 +89,8 @@ class EvalMetric:
         moves only when the device does: what it held is added to the
         host totals first."""
         if self._acc is not None and self._acc.device != device:
-            s, n = self._acc.tolist()
+            with _san.intentional_transfer():
+                s, n = self._acc.tolist()
             self.sum_metric += s
             self.num_inst += int(n)
             self._acc = None
@@ -115,11 +125,18 @@ class EvalMetric:
     def _totals(self):
         s, n = self.sum_metric, self.num_inst
         if self._acc is not None:
-            acc_s, acc_n = self._acc.tolist()
+            # the accumulator's one host read
+            with _san.intentional_transfer():
+                acc_s, acc_n = self._acc.tolist()
             s, n = s + acc_s, n + int(acc_n)
         return s, n
 
     def get(self):
+        if self.num is not None:
+            names = ["%s_%d" % (self.name, i) for i in range(self.num)]
+            values = [s / n if n else float("nan")
+                      for s, n in zip(self.sum_metric, self.num_inst)]
+            return names, values
         s, n = self._totals()
         return self.name, s / n if n else float("nan")
 

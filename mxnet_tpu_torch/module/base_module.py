@@ -18,12 +18,14 @@ trace with the plane's extras.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from collections import namedtuple
 
 import numpy as np
 
+from ..analysis import sanitizers as _san
 from ..base import MXNetError
 from .. import env as _env
 from .. import metric as _metric
@@ -346,37 +348,51 @@ class BaseModule:
             # a step is timed boundary to boundary, so the wait for its
             # batch counts in the step that waited
             t_last = time.perf_counter() if _tel.enabled() else 0.0
-            for data_batch in train_data:
-                nbatch += 1
-                if monitor is not None:
-                    monitor.tic()
-                if ckpt is not None:
-                    # a SIGTERM from here to step_end waits for step_end
-                    ckpt.step_begin()
-                if fused is not None:
-                    fused.step(data_batch, eval_metric)
-                else:
-                    self.forward_backward(data_batch)
-                    self.update()
-                    self.update_metric(eval_metric, data_batch.label)
-                if ckpt is not None:
-                    ckpt.step_end(epoch, nbatch)
-                nw_extra = _numwatch.after_step(numwatch)
-                if monitor is not None:
-                    monitor.toc_print()
-                if _tel.enabled():
-                    now = time.perf_counter()
-                    extra = {"epoch": epoch, "nbatch": nbatch}
-                    if nw_extra:
-                        extra.update(nw_extra)
-                    _tracing.record_step((now - t_last) * 1e3, extra=extra)
-                    t_last = now
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    for cb in _as_list(batch_end_callback):
-                        cb(params)
+            # MXNET_TPU_SANITIZE=transfer (the fused loop on a card): a
+            # synchronising CUDA call in the loop raises at the batch that
+            # made it; the reviewed host reads open intentional_transfer
+            guard = (_san.step_guard(fused._ex._device)
+                     if fused is not None else contextlib.nullcontext())
+            try:
+                with guard:
+                    for data_batch in train_data:
+                        nbatch += 1
+                        if monitor is not None:
+                            monitor.tic()
+                        if ckpt is not None:
+                            # a SIGTERM from here to step_end waits for
+                            # step_end
+                            ckpt.step_begin()
+                        if fused is not None:
+                            fused.step(data_batch, eval_metric)
+                        else:
+                            self.forward_backward(data_batch)
+                            self.update()
+                            self.update_metric(eval_metric,
+                                               data_batch.label)
+                        if ckpt is not None:
+                            ckpt.step_end(epoch, nbatch)
+                        nw_extra = _numwatch.after_step(numwatch)
+                        if monitor is not None:
+                            monitor.toc_print()
+                        if _tel.enabled():
+                            now = time.perf_counter()
+                            extra = {"epoch": epoch, "nbatch": nbatch}
+                            if nw_extra:
+                                extra.update(nw_extra)
+                            _tracing.record_step((now - t_last) * 1e3,
+                                                 extra=extra)
+                            t_last = now
+                        if batch_end_callback is not None:
+                            params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                   eval_metric=eval_metric,
+                                                   locals=locals())
+                            for cb in _as_list(batch_end_callback):
+                                cb(params)
+            except RuntimeError as e:
+                if _san.is_transfer_guard_error(e):
+                    _san.record_trip("transfer")
+                raise
             if batch_end_callback is not None and nbatch >= 0:
                 params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                        eval_metric=eval_metric,

@@ -27,13 +27,14 @@ class BucketingModule(BaseModule):
     whose module owns the parameters (bind it at the largest shapes)."""
 
     def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
-                 context=None):
+                 context=None, work_load_list=None):
         super().__init__(logger=logger)
         if default_bucket_key is None:
             raise MXNetError("default_bucket_key required")
         self._sym_gen = sym_gen
         self._default_bucket_key = default_bucket_key
         self._context = context
+        self._work_load_list = work_load_list
         self._buckets = {}
         self._curr_module = None
 
@@ -79,7 +80,8 @@ class BucketingModule(BaseModule):
     def _gen_module(self, bucket_key):
         sym, data_names, label_names = self._call_sym_gen(bucket_key)
         return Module(sym, data_names, label_names, logger=self.logger,
-                      context=self._context)
+                      context=self._context,
+                      work_load_list=self._work_load_list)
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,

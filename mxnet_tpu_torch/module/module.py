@@ -27,14 +27,18 @@ class Module(BaseModule):
     ``compute_dtype`` (default ``MXNET_COMPUTE_DTYPE``, None for
     float32) is the executor's mixed precision: the graph computes in
     bfloat16 or float16, the labels stay as they are, and params,
-    gradients and aux states stay float32."""
+    gradients and aux states stay float32. ``work_load_list`` is
+    accepted and kept, as the reference's group keeps it."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None,
+                 context=None, work_load_list=None, fixed_param_names=None,
                  compute_dtype=_UNSET):
         super().__init__(logger=logger)
         self._compute_dtype = compute_dtype
+        # one share of the batch a context; with the one context the
+        # port binds it splits nothing (the reference's group keeps it)
+        self._work_load_list = work_load_list
         if context is None:
             context = current_context()
         if isinstance(context, Context):

@@ -81,12 +81,15 @@ class Monitor:
                                        self.stat_func(arr)))
         if self.sort:
             self.queue.sort(key=lambda x: x[1])
+        from .analysis import sanitizers as _san
+
         res = []
-        for n, k, v_list in self.queue:
-            if isinstance(v_list, NDArray):
-                v_list = [v_list]
-            res.append((n, k, ",".join("%f" % v.asnumpy().ravel()[0]
-                                       for v in v_list)))
+        with _san.intentional_transfer():    # the stats' one host read
+            for n, k, v_list in self.queue:
+                if isinstance(v_list, NDArray):
+                    v_list = [v_list]
+                res.append((n, k, ",".join("%f" % v.asnumpy().ravel()[0]
+                                           for v in v_list)))
         self.queue = []
         return res
 

@@ -261,7 +261,11 @@ class NumWatch:
         and the guards update from it."""
         if not self._folded:
             return None
-        return self._ingest(self._pack.cpu().numpy())
+        from .analysis import sanitizers as _san
+
+        with _san.intentional_transfer():
+            pack = self._pack.cpu().numpy()
+        return self._ingest(pack)
 
     def _ingest(self, pack):
         n = self.n

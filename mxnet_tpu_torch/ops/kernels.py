@@ -76,6 +76,10 @@ crop_norm_launches = 0
 #: padded copies ``matmul_f32acc`` made of 16-bit operands whose rows the
 #: 16-bit mainloop cannot read in place (:func:`pitched16`)
 conv_gemm_pad_copies = 0
+#: the FLOPs (2 M N K a product) of K3's launches since the last reset,
+#: which run outside aten, so ``FlopCounterMode`` cannot see them
+#: (``xprof.count_flops``)
+conv_gemm_flops = 0
 #: (wrapper, dtype name) -> launches since the last reset: which of a
 #: kernel's typed paths ran (``launch_records``)
 _by_dtype: dict = {}
@@ -117,10 +121,11 @@ def reset_launch_counts() -> None:
     global norm_act_fwd_launches, norm_act_bwd_launches, conv_gemm_launches
     global linear_launches, flash_attn_launches, rtc_launches
     global roi_pool_launches, crop_norm_launches
-    global conv_gemm_pad_copies
+    global conv_gemm_pad_copies, conv_gemm_flops
     with _count_lock:
         _by_dtype.clear()
         conv_gemm_pad_copies = 0
+        conv_gemm_flops = 0
         norm_act_fwd_launches = 0
         norm_act_bwd_launches = 0
         conv_gemm_launches = 0
@@ -414,6 +419,9 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise MXNetError("conv_gemm launch failed: CUDA error %d" % rc)
     _count("conv_gemm_launches", a.dtype)
+    global conv_gemm_flops
+    with _count_lock:
+        conv_gemm_flops += 2 * m * n * k
     return c
 
 

@@ -30,11 +30,13 @@ also be an input, as in an in-place push.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Sequence, Tuple
 
 import torch
 
 from . import _nvrtc
+from . import xprof as _xprof
 from .base import MXNetError
 from .ndarray import NDArray
 from .ops import kernels
@@ -104,7 +106,14 @@ class Rtc:
         # compiled for the current device's architecture; push loads it
         # onto any device of that architecture
         self._arch = _nvrtc.device_arch(torch.cuda.current_device())
+        t0 = time.perf_counter()
         self._cubin = _nvrtc.compile_cubin(self.source, name, self._arch)
+        _xprof.maybe_record("rtc." + name, time.perf_counter() - t0,
+                            signature=_xprof.leaf_signature(
+                                [[a.handle for _, a in inputs],
+                                 [a.handle for _, a in outputs]],
+                                [[n for n, _ in inputs],
+                                 [n for n, _ in outputs]]))
         self._functions = {}
 
     def push(self, inputs: List[NDArray], outputs: List[NDArray],

@@ -949,6 +949,11 @@ class InferenceServer:
     def closed(self) -> bool:
         return self._closed
 
+    def start(self):
+        """The server starts serving at construction, so an explicit
+        start is a second start: the scheduler's guard raises."""
+        self.scheduler.start()
+
     def submit(self, arrays, request_id: Optional[str] = None,
                deadline_ms: Optional[float] = None,
                priority: Optional[str] = None) -> Request:

@@ -702,3 +702,40 @@ def _init_symbol_module():
 
 
 _init_symbol_module()
+
+
+def _make_minmax(fname, op, scalar_op, number_fn):
+    """``maximum`` / ``minimum``: symbol x symbol, symbol x scalar in
+    either order, or two plain numbers (which give the number)."""
+
+    def fn(lhs, rhs):
+        if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+            return _binary_create(op, scalar_op, lhs, rhs)
+        if isinstance(lhs, Symbol):
+            return _scalar_create(scalar_op, lhs, rhs)
+        if isinstance(rhs, Symbol):
+            return _scalar_create(scalar_op, rhs, lhs)
+        return number_fn(lhs, rhs)
+
+    fn.__name__ = fname
+    fn.__doc__ = _make_minmax.__doc__
+    return fn
+
+
+maximum = _make_minmax("maximum", "_Maximum", "_MaximumScalar",
+                       lambda a, b: a if a > b else b)
+minimum = _make_minmax("minimum", "_Minimum", "_MinimumScalar",
+                       lambda a, b: a if a < b else b)
+
+
+def pow(lhs, rhs):
+    """``lhs ** rhs`` for any mix of symbols and scalars; two numbers
+    give the plain power."""
+    if isinstance(lhs, Symbol):
+        return lhs ** rhs
+    if isinstance(rhs, Symbol):
+        return rhs.__rpow__(lhs)
+    return lhs ** rhs
+
+
+__all__ += ["maximum", "minimum", "pow"]

@@ -1,8 +1,12 @@
 """Process-wide counters, gauges, histograms and host spans, counterpart
-of ``mxnet_tpu/telemetry.py`` (the registry, the recording helpers and
-the snapshot, and the sorted metric items that ``tracing.prometheus_text``
-exposes; merging snapshots, JSONL records and Chrome traces are not
-ported yet: ROADMAP.md Queue A item 11).
+of ``mxnet_tpu/telemetry.py``: the registry, the recording helpers, the
+snapshot, the sorted metric items that ``tracing.prometheus_text``
+exposes, and the exporters, whose files read as the JAX package's do::
+
+    telemetry.snapshot()              # nested dict, one leaf a metric
+    telemetry.dump_jsonl(path)        # append ONE step record
+    telemetry.write_chrome_trace(p)   # host spans as Chrome trace events
+    telemetry.merge_snapshots(snaps)  # fleet roll-up of snapshots
 
 * **Counters**: monotonically increasing ints (``ckpt.saves``).
 * **Gauges**: last-write-wins floats.
@@ -21,6 +25,9 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import copy
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -32,13 +39,21 @@ from .base import MXNetError
 __all__ = ["enabled", "enable", "disable", "counter", "gauge", "histogram",
            "inc", "set_gauge", "observe", "span", "spans", "snapshot",
            "reset", "peek", "metrics_items", "Counter", "Gauge",
-           "Histogram", "DEFAULT_BUCKET_BOUNDS"]
+           "Histogram", "DEFAULT_BUCKET_BOUNDS", "dump_jsonl",
+           "write_chrome_trace", "merge_snapshots", "bucket_quantile",
+           "sample_quantile"]
 
 _ENABLED = _env.get("MXNET_TPU_TELEMETRY")
 
 _reg_lock = threading.Lock()
 _metrics: Dict[str, object] = {}
 _spans: deque = deque(maxlen=_env.get("MXNET_TPU_TELEMETRY_SPAN_CAP"))
+# perf_counter -> wall clock, fixed at import: every thread's spans share
+# one epoch, the wall clock a torch.profiler trace stamps
+_EPOCH = time.time() - time.perf_counter()
+
+_step_lock = threading.Lock()
+_step = 0
 
 
 def enabled() -> bool:
@@ -330,8 +345,152 @@ def snapshot() -> dict:
     return out
 
 
+def write_chrome_trace(path: str, extra_events: Optional[list] = None):
+    """Write the buffered host spans as Chrome trace events (wall-clock
+    microseconds), led by ``process_name`` / ``thread_name`` metadata
+    events that name this process's lanes; ``extra_events`` are
+    appended as they are. Returns the number of events written."""
+    import sys
+
+    spans_ = list(_spans)
+    pid = os.getpid()
+    thread_names = {t.ident: t.name for t in threading.enumerate()}
+    meta = [{"name": "process_name", "ph": "M", "pid": pid,
+             "args": {"name": "%s (pid %d)"
+                      % (os.path.basename(sys.argv[0] or "python"),
+                         pid)}}]
+    for tid in sorted({tid for _, tid, _, _ in spans_}):
+        meta.append({"name": "thread_name", "ph": "M", "pid": pid,
+                     "tid": tid,
+                     "args": {"name": thread_names.get(
+                         tid, "tid-%d" % tid)}})
+    events = meta + [
+        {"name": name, "ph": "X", "cat": "host",
+         "pid": pid, "tid": tid,
+         "ts": (t0 + _EPOCH) * 1e6, "dur": dur * 1e6}
+        for name, tid, t0, dur in spans_]
+    if extra_events:
+        events.extend(extra_events)
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
+    return len(events)
+
+
+def _is_hist_export(d) -> bool:
+    return isinstance(d, dict) and "count" in d and "buckets" in d
+
+
+_MERGE_SAMPLE_CAP = 4096
+
+
+def _merge_hist(a: dict, b: dict) -> dict:
+    ba, bb = a.get("buckets") or {}, b.get("buckets") or {}
+    bounds_a = list(ba.get("bounds") or [])
+    bounds_b = list(bb.get("bounds") or [])
+    if bounds_a and bounds_b and bounds_a != bounds_b:
+        raise MXNetError(
+            "merge_snapshots: conflicting histogram bucket bounds "
+            "%r vs %r — federation requires one ladder per metric"
+            % (bounds_a, bounds_b))
+    n = int(a.get("count", 0)) + int(b.get("count", 0))
+    bounds = bounds_a or bounds_b
+    counts_a = list(ba.get("counts") or [0] * len(bounds))
+    counts_b = list(bb.get("counts") or [0] * len(bounds))
+    counts = [x + y for x, y in zip(counts_a, counts_b)]
+    out = {"count": n, "buckets": {"bounds": bounds, "counts": counts}}
+    if n == 0:
+        return out
+    out["sum"] = float(a.get("sum", 0.0)) + float(b.get("sum", 0.0))
+    out["mean"] = out["sum"] / n
+    mins = [v for v in (a.get("min"), b.get("min")) if v is not None]
+    maxs = [v for v in (a.get("max"), b.get("max")) if v is not None]
+    if mins:
+        out["min"] = min(mins)
+    if maxs:
+        out["max"] = max(maxs)
+    sample = sorted((a.get("sample") or []) + (b.get("sample") or []))
+    if len(sample) > _MERGE_SAMPLE_CAP:
+        # decimate evenly rather than truncate: keeps the distribution
+        step = len(sample) / float(_MERGE_SAMPLE_CAP)
+        sample = [sample[int(i * step)] for i in range(_MERGE_SAMPLE_CAP)]
+    if sample:
+        out["sample"] = sample
+        for q, key in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
+            out[key] = sample_quantile(sample, q)
+    else:
+        for q, key in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
+            v = bucket_quantile(out["buckets"], n, q, hi=out.get("max"))
+            if v is not None:
+                out[key] = v
+    return out
+
+
+def _merge_into(dst: dict, src: dict, path: str):
+    for k, v in src.items():
+        here = "%s.%s" % (path, k) if path else k
+        if k not in dst:
+            dst[k] = copy.deepcopy(v)
+            continue
+        cur = dst[k]
+        if _is_hist_export(cur) and _is_hist_export(v):
+            dst[k] = _merge_hist(cur, v)
+        elif _is_hist_export(cur) or _is_hist_export(v):
+            raise MXNetError("merge_snapshots: %r is a histogram in one "
+                             "snapshot and not in another" % here)
+        elif isinstance(cur, dict) and isinstance(v, dict):
+            _merge_into(cur, v, here)
+        elif isinstance(cur, (int, float)) and isinstance(v, (int, float)):
+            # counters and gauges both merge by sum
+            dst[k] = cur + v
+        else:
+            raise MXNetError("merge_snapshots: %r has mismatched kinds "
+                             "(%s vs %s)" % (here, type(cur).__name__,
+                                             type(v).__name__))
+
+
+def merge_snapshots(snaps: Sequence[dict]) -> dict:
+    """Merge :func:`snapshot`-shaped dicts into one roll-up: counters and
+    gauges sum, histograms merge bucket-wise (percentiles exact from the
+    merged samples where every input carried one, else interpolated from
+    the buckets); conflicting bucket ladders raise. Inputs are never
+    mutated."""
+    out: dict = {}
+    for s in snaps:
+        if s:
+            _merge_into(out, s, "")
+    return out
+
+
+def dump_jsonl(path: str, extra: Optional[dict] = None) -> dict:
+    """Append ONE step record (timestamp, step index, the snapshot, and
+    ``extra``) to ``path`` in a single ``os.write`` on an ``O_APPEND``
+    descriptor, so a crash or a concurrent writer can cut at most the
+    last line. ``MXNET_TPU_TELEMETRY_FSYNC`` adds an fsync a record."""
+    global _step
+    with _step_lock:
+        _step += 1
+        step = _step
+    rec = {"ts": round(time.time(), 6), "step": step,
+           "telemetry": snapshot()}
+    if extra:
+        rec.update(extra)
+    line = (json.dumps(rec) + "\n").encode("utf-8")
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    try:
+        os.write(fd, line)
+        if _env.get("MXNET_TPU_TELEMETRY_FSYNC"):
+            os.fsync(fd)
+    finally:
+        os.close(fd)
+    return rec
+
+
 def reset():
-    """Clear every metric and span; the enabled flag stays as it is."""
+    """Clear every metric, span and the record counter; the enabled flag
+    stays as it is."""
+    global _step
     with _reg_lock:
         _metrics.clear()
     _spans.clear()
+    with _step_lock:
+        _step = 0

@@ -66,9 +66,11 @@ _log = logging.getLogger(__name__)
 # Per-step delta sources: (record field, telemetry metric, kind).
 # "counter" reads the running int; "hist_sum" reads a histogram's running
 # sum (the stall histograms observe milliseconds, so their sum delta is
-# the ms this step spent stalled). The port has no executor compiles and
-# no compile registry, so recompiles and compiles stay 0 unless a caller
-# records them; a fused-step recapture counts step.fused_recompiles.
+# the ms this step spent stalled). The port's executor compiles nothing,
+# so recompiles stays 0; compiles and compile_ms come from the compile
+# registry (xprof: a fused-step capture, an NVRTC compile, a kernel
+# library build) while MXNET_TPU_XPROF is on, and a fused-step capture
+# counts step.fused_recompiles either way.
 DELTA_SOURCES = (
     ("io_stall_ms", "io.pipeline.stall_ms", "hist_sum"),
     ("prefetch_stall_ms", "io.prefetch_stall_ms", "hist_sum"),
@@ -144,6 +146,13 @@ class RecompileDetector:
             if nc:
                 ev["compiles"] = nc
                 ev["compile_ms"] = rec["deltas"].get("compile_ms", 0.0)
+            # with the compile registry on, name what changed ("(64,224,
+            # 224,3)float32 -> (32,224,224,3)float32 on data")
+            from . import xprof as _xprof
+
+            cause = _xprof.last_retrace_cause()
+            if cause:
+                ev["cause"] = cause
             return ev
         return None
 
@@ -897,6 +906,7 @@ _init_lock = threading.Lock()
 _recorder: Optional[StepTrace] = None
 _metrics_server: Optional[MetricsServer] = None
 _flight_recorder: Optional[FlightRecorder] = None
+_watchdog = None    # the deadlock sanitizer's DeadlockWatchdog, when armed
 _atexit_registered = False
 _worker_rank = int(os.environ.get("MXTPU_WORKER_RANK", "0") or 0)
 
@@ -941,11 +951,12 @@ def _register_atexit():
 def maybe_init():
     """Set-up from the environment at fit() entry: the metrics server on
     ``MXNET_TPU_METRICS_PORT``, the flight recorder with
-    ``MXNET_TPU_FLIGHT_RECORDER``; :func:`shutdown` at exit. Idempotent;
-    one flag check while telemetry is off."""
+    ``MXNET_TPU_FLIGHT_RECORDER``, the deadlock watchdog when
+    ``MXNET_TPU_SANITIZE`` names ``deadlock``; :func:`shutdown` at exit.
+    Idempotent; one flag check while telemetry is off."""
     if not _tel._ENABLED:
         return None
-    global _metrics_server, _flight_recorder
+    global _metrics_server, _flight_recorder, _watchdog
     with _init_lock:
         port = _env.get("MXNET_TPU_METRICS_PORT")
         if _metrics_server is None and port:
@@ -959,6 +970,13 @@ def maybe_init():
         if _flight_recorder is None \
                 and _env.get("MXNET_TPU_FLIGHT_RECORDER"):
             _flight_recorder = FlightRecorder().install()
+        if _watchdog is None:
+            from .analysis import sanitizers as _san
+
+            if _san.enabled("deadlock"):
+                _watchdog = _san.DeadlockWatchdog().start()
+                _log.info("deadlock watchdog armed (threshold %.0fs)",
+                          _watchdog._threshold)
         _register_atexit()
     return _metrics_server
 
@@ -985,14 +1003,20 @@ def ensure_flight_recorder() -> FlightRecorder:
 
 
 def shutdown():
-    """Stop the metrics server (joining its thread), uninstall the
-    flight recorder and drop the step recorder. Idempotent."""
-    global _recorder, _metrics_server, _flight_recorder
+    """Stop the metrics server and the watchdog (joining their threads),
+    uninstall the flight recorder and drop the step recorder.
+    Idempotent."""
+    global _recorder, _metrics_server, _flight_recorder, _watchdog
     with _init_lock:
         server, _metrics_server = _metrics_server, None
+        watchdog, _watchdog = _watchdog, None
         if _flight_recorder is not None:
             _flight_recorder.uninstall()
             _flight_recorder = None
         _recorder = None
+    # join outside _init_lock: the watchdog's progress probe takes it
+    # through step_trace()
     if server is not None:
         server.stop()
+    if watchdog is not None:
+        watchdog.stop()

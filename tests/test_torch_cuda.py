@@ -682,6 +682,114 @@ def test_fused_step_dropout_draws_a_fresh_mask_each_replay(card):
     assert not np.array_equal(outs[1], outs[2])
 
 
+def _mirrored_bn(net):
+    """BatchNorms the mirrored backward recomputes in one step."""
+    from mxnet_tpu_torch.executor import remat_plan
+
+    return sum(1 for run, _, _, recompute in remat_plan(net) if recompute
+               for n in run if n.op.op_name == "BatchNorm")
+
+
+def test_mirrored_fused_step_equals_the_unmirrored_one(card, monkeypatch):
+    """MXNET_BACKWARD_DO_MIRROR=1 through the fused step on the card: one
+    capture; each step launches K4 once more for every recomputed
+    BatchNorm (the wrappers over the eager step and the capture, the
+    card's kernel events over all four steps), K3 and K5 as unmirrored;
+    params and moving statistics bit-equal to the unmirrored fit's."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(16, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    runs = {}
+    for mirror in ("0", "1"):
+        monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", mirror)
+        runs[mirror] = _small_resnet_fit(x, y, True)
+    mod = runs["1"][0]
+    extra = _mirrored_bn(mod.symbol)
+    assert extra == _SMALL_RESNET_STEP["norm_act_fwd"]
+    step = mod._fused_step
+    assert mod._exec_group.executor.mirror
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 3)
+    for n, counted in ((2, runs["1"][1]), (4, runs["1"][2])):
+        want = _steps(n, rtc=counted.get("rtc"))
+        want["norm_act_fwd"] += n * extra
+        assert counted == want
+    for part in (3, 4):
+        for k, v in runs["0"][part].items():
+            np.testing.assert_array_equal(runs["1"][part][k], v, err_msg=k)
+
+
+def test_sanitizers_on_the_card(card, monkeypatch):
+    """Every sanitizer armed on a fused fit: no trip on the clean path; a
+    planted ``.item()`` in a batch-end callback raises torch's sync error
+    and counts a transfer trip, and the sync-debug mode is back to
+    default after."""
+    from mxnet_tpu_torch.analysis import sanitizers as san
+
+    rng = np.random.RandomState(8)
+    x = rng.randn(16, 64, 64, 3).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.float32)
+    monkeypatch.setenv("MXNET_TPU_SANITIZE", "all")
+    tmx.telemetry.reset()
+    tmx.telemetry.enable()
+    try:
+        _small_resnet_fit(x, y, True)
+        assert tmx.telemetry.peek("sanitizer.trips") is None
+        net = tmx.models.get_resnet([1, 1, 1, 1], [16, 32, 64, 128, 256],
+                                    num_classes=10, small_input=False,
+                                    layout="NHWC")
+        mod = tmx.mod.Module(net, context=tmx.gpu(0))
+
+        def plant(param):
+            if param.nbatch == 2:
+                param.locals["self"].get_outputs()[0].handle.sum().item()
+
+        with pytest.raises(RuntimeError) as err:
+            mod.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                    initializer=tmx.init.Xavier(magnitude=2.0, seed=7),
+                    batch_end_callback=plant, fused_step=True)
+        assert san.is_transfer_guard_error(err.value)
+        assert tmx.telemetry.peek("sanitizer.trips.transfer") == 1
+        assert torch.cuda.get_sync_debug_mode() == 0
+    finally:
+        tmx.telemetry.disable()
+        tmx.telemetry.reset()
+        tmx.tracing.shutdown()
+
+
+def test_the_registry_records_a_capture_and_its_cause(card):
+    """The compile registry on: a fused fit's capture is a fused_step
+    record with the data's signature and the eager step's FLOPs; a fit
+    at another batch size names the change; the card's memory is read."""
+    xp = tmx.xprof
+    xp.reset()
+    xp.enable()
+    try:
+        rng = np.random.RandomState(8)
+        for batch in (4, 2):
+            x = rng.randn(3 * batch, 64, 64, 3).astype(np.float32)
+            y = rng.randint(0, 10, 3 * batch).astype(np.float32)
+            net = tmx.models.get_resnet([1, 1, 1, 1],
+                                        [16, 32, 64, 128, 256],
+                                        num_classes=10, small_input=False,
+                                        layout="NHWC")
+            mod = tmx.mod.Module(net, context=tmx.gpu(0))
+            mod.fit(tmx.io.NDArrayIter(x, y, batch_size=batch),
+                    num_epoch=1,
+                    initializer=tmx.init.Xavier(magnitude=2.0, seed=7),
+                    fused_step=True)
+        recs = [r for r in xp.records() if r.site == "fused_step"]
+        assert len(recs) == 2 and all(r.flops > 0 for r in recs)
+        assert dict(recs[0].signature)["data"][0] == (4, 64, 64, 3)
+        assert "(4,64,64,3)float32 -> (2,64,64,3)float32 on data" in \
+            xp.last_retrace_cause()
+        hbm = xp.hbm_stats()
+        assert 0 < hbm["live_bytes"] <= hbm["peak_bytes"] < \
+            hbm["limit_bytes"]
+    finally:
+        xp.disable()
+        xp.reset()
+
+
 # ---------------------------------------------------------------------------
 # checkpoints through the captured graph
 # ---------------------------------------------------------------------------

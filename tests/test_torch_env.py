@@ -37,12 +37,19 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_SERVE_MAX_WAIT_MS", "MXNET_TPU_SERVE_BUCKETS",
              "MXNET_TPU_SERVE_SLO_MS", "MXNET_TPU_SERVE_ADAPTIVE",
              "MXNET_TPU_SERVE_DEADLINE_MS",
-             "MXNET_TPU_SERVE_BATCH_DEADLINE_MS"]
+             "MXNET_TPU_SERVE_BATCH_DEADLINE_MS",
+             # device observability: the sanitizers and the registry
+             "MXNET_TPU_SANITIZE", "MXNET_TPU_SANITIZE_WARMUP",
+             "MXNET_TPU_WATCHDOG_S", "MXNET_TPU_WATCHDOG_INTERVAL",
+             "MXNET_TPU_XPROF", "MXNET_TPU_XPROF_OPS",
+             "MXNET_TPU_XPROF_PREFLIGHT", "MXNET_TPU_XPROF_RECORDS",
+             "MXNET_TPU_TELEMETRY_FSYNC"]
 # read by the JAX package through base.getenv(name, default), outside its
 # registry: (name, the default it passes)
 PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),
               ("MXNET_ENGINE_INFO", False),
-              ("MXNET_COMPUTE_DTYPE", None)]
+              ("MXNET_COMPUTE_DTYPE", None),
+              ("MXNET_BACKWARD_DO_MIRROR", False)]
 
 
 # read by the JAX package straight from os.environ: (name, its default)
@@ -105,6 +112,6 @@ def test_undeclared_name_raises():
     with pytest.raises(KeyError, match="not declared"):
         tenv.get("MXNET_TPU_NOT_A_VARIABLE")
     with pytest.raises(KeyError):
-        tenv.is_set("MXNET_TPU_XPROF")
+        tenv.is_set("MXNET_TPU_PALLAS_CONV")
     with pytest.raises(ValueError, match="declared twice"):
         tenv.declare("MXNET_TPU_CKPT_DIR", str, "", "again")

@@ -12,19 +12,26 @@ against the JAX package on the CPU:
 9. ROIPooling's bins in the data's dtype: in bfloat16 and float16 the
    reference computes each bin's edges in that dtype, and the port
    computed them in float32 (77 of 3136 values differed in bfloat16 at
-   the seeded case below).
+   the seeded case below);
+10. ``mx.sym.maximum``, ``minimum`` and ``pow`` (symbol x symbol, symbol
+   x scalar in either order, two numbers);
+11. ``EvalMetric(name, num=)``: per-output sums and names;
+12. ``Module`` and ``BucketingModule`` taking ``work_load_list``;
+13. ``InferenceServer.start``, whose second start raises.
 
 Forward values within rtol 1e-5 / atol 1e-6, gradients rtol 1e-4; item
 9's forward exactly, its gradient as stated there."""
 import io
+import logging
 
 import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu.predictor  # noqa: F401  (jmx.predictor)
+import mxnet_tpu.serving  # noqa: F401  (jmx.serving)
 import mxnet_tpu_torch as tmx
-from test_torch_common import fresh_names
+from test_torch_common import fresh_names, run_jax, run_torch
 
 
 def _mlp(pkg):
@@ -437,3 +444,127 @@ def test_roipooling_in_the_data_dtype_matches_jax(dtype):
     eps = float(torch.finfo(td).eps)
     assert (err <= 8 * eps * abs_sum).all(), float(
         (err / np.maximum(abs_sum, 1e-30)).max() / eps)
+
+
+# ---------------------------------------------------------------------------
+# items 10-13
+# ---------------------------------------------------------------------------
+def _minmax_pow(pkg):
+    with fresh_names(pkg):
+        a, b = pkg.sym.Variable("a"), pkg.sym.Variable("b")
+        return pkg.sym.Group([
+            pkg.sym.maximum(a, b), pkg.sym.minimum(a, b),
+            pkg.sym.maximum(a, 0.25), pkg.sym.maximum(0.25, b),
+            pkg.sym.minimum(a, 1.0), pkg.sym.minimum(-0.5, b),
+            pkg.sym.pow(a, 2.0), pkg.sym.pow(2.0, b), pkg.sym.pow(a, b),
+            pkg.sym.maximum(a, b) + pkg.sym.minimum(a, 1.0)
+            + pkg.sym.pow(2.0, a)])
+
+
+def test_symbol_maximum_minimum_pow_match_jax():
+    """Item 10: every mix of symbols and scalars gives the reference's
+    values (``a`` positive, for ``pow(a, b)``), its JSON loads in the
+    port, and two numbers give the plain number."""
+    rng = np.random.RandomState(10)
+    args = {"a": rng.uniform(0.1, 2.0, (3, 4)).astype(np.float32),
+            "b": rng.randn(3, 4).astype(np.float32)}
+    want = run_jax(_minmax_pow(jmx), args)
+    got = run_torch(_minmax_pow(tmx), args)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    loaded = run_torch(tmx.sym.load_json(_minmax_pow(jmx).tojson()), args)
+    for g, w in zip(loaded, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    for lhs, rhs in ((2, 3), (3.5, -1.0), (2.0, 3)):
+        for fn in ("maximum", "minimum", "pow"):
+            assert getattr(tmx.sym, fn)(lhs, rhs) == \
+                getattr(jmx.sym, fn)(lhs, rhs)
+
+
+def _per_output_metric(pkg):
+    class TwoOutputs(pkg.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("two", num=2)
+
+        def update(self, labels, preds):
+            for i, (label, pred) in enumerate(zip(labels, preds)):
+                lab = label.asnumpy().ravel()
+                hit = pred.asnumpy().argmax(axis=1) == lab
+                self.sum_metric[i] += float(hit.sum())
+                self.num_inst[i] += lab.size
+
+    return TwoOutputs()
+
+
+def test_eval_metric_num_matches_jax():
+    """Item 11: ``num`` keeps one sum and count an output; ``get`` names
+    them ``<name>_<i>``, ``reset`` zeroes the lists, and an output with
+    no instance reads nan in both."""
+    rng = np.random.RandomState(11)
+    labels = [rng.randint(0, 3, 6).astype(np.float32) for _ in range(2)]
+    preds = [rng.rand(6, 3).astype(np.float32) for _ in range(2)]
+    got, want = _per_output_metric(tmx), _per_output_metric(jmx)
+    assert got.get()[0] == want.get()[0] == ["two_0", "two_1"]
+    assert all(np.isnan(v) for v in got.get()[1] + want.get()[1])
+    for m, pkg in ((got, tmx), (want, jmx)):
+        m.update([pkg.nd.array(v, ctx=pkg.cpu()) for v in labels],
+                 [pkg.nd.array(v, ctx=pkg.cpu()) for v in preds])
+    assert got.get() == want.get()
+    assert got.get_name_value() == want.get_name_value()
+    got.reset()
+    want.reset()
+    assert (got.sum_metric, got.num_inst) == (want.sum_metric,
+                                              want.num_inst) == \
+        ([0.0, 0.0], [0, 0])
+
+
+def test_modules_take_work_load_list_as_the_reference_does():
+    """Item 12: ``work_load_list`` is accepted by Module (positionally
+    after ``context``, as in the reference) and BucketingModule, kept,
+    and changes nothing with one context: a forward equals the one
+    without it."""
+    x = np.random.RandomState(12).randn(2, 5).astype(np.float32)
+    outs = []
+    for wl in (None, [1]):
+        mod = tmx.mod.Module(_mlp(tmx), ("data",), ("softmax_label",),
+                             logging, tmx.cpu(), wl)
+        ref = jmx.mod.Module(_mlp(jmx), ("data",), ("softmax_label",),
+                             logging, jmx.cpu(), wl)
+        assert mod._work_load_list == ref._work_load_list == wl
+        mod.bind([("data", x.shape)], for_training=False)
+        mod.init_params(tmx.init.Constant(0.1))
+        mod.forward(tmx.io.DataBatch([tmx.nd.array(x, ctx=tmx.cpu())], []),
+                    is_train=False)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+    bm = tmx.mod.BucketingModule(lambda key: _mlp(tmx),
+                                 default_bucket_key=5,
+                                 context=tmx.cpu(), work_load_list=[1])
+    bm.bind([("data", x.shape)], for_training=False)
+    assert bm._curr_module._work_load_list == [1]
+    jbm = jmx.mod.BucketingModule(lambda key: _mlp(jmx),
+                                  default_bucket_key=5,
+                                  context=jmx.cpu(), work_load_list=[1])
+    assert jbm._work_load_list == bm._work_load_list
+
+
+def test_inference_server_start_is_the_double_start_guard():
+    """Item 13: the server serves from construction; ``start`` delegates
+    to the scheduler, whose guard raises on the second start in both
+    packages, and the server still serves afterwards."""
+    def server(pkg):
+        s = pkg.sym.FullyConnected(pkg.sym.Variable("data"), num_hidden=4,
+                                   name="fc")
+        mod = pkg.mod.Module(s, label_names=(), context=pkg.cpu())
+        mod.bind([("data", (4, 3))], for_training=False)
+        mod.set_params({"fc_weight": pkg.nd.zeros((4, 3), ctx=pkg.cpu()),
+                        "fc_bias": pkg.nd.array([0, 2, 2, 1],
+                                                ctx=pkg.cpu())}, {})
+        return pkg.serving.InferenceServer(mod, top_k=1, max_batch=4)
+
+    for pkg in (jmx, tmx):
+        with server(pkg) as srv:
+            with pytest.raises(pkg.MXNetError, match="already started"):
+                srv.start()
+            (idx,) = srv.infer([np.ones((2, 3), np.float32)])
+            assert list(idx) == [1, 1]
