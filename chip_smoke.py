@@ -320,7 +320,20 @@ Phases, in order; any failure exits non-zero before the last line:
    sanitizer raises; host step ms armed. (d) profiler.start/stop around
    two replays in an annotate range: the trace names K3, K4 and K5 and
    the range.
-17. report: one JSON line of kernel records, the card line, then
+17. one process over several cards (ROADMAP.md Queue A item 10a).
+   (a) one card: ResNet-50 NHWC at batch 32 from phase 6's weights and
+   data through fit over [gpu(0)] with kvstore "device_sync" (which takes
+   the fused step by default) and with "device" and fused_step=True:
+   each one capture, launches (the eager step and the capture) K3 210,
+   K4 106, K5 106, two profiled replays the same, params bit-equal to
+   phase 6's. (b) with two or more cards visible, tools/torch_dp_check.py's
+   run() in this process over every visible card at 32 a card (the
+   fit over the cards against one card at the same global batch, the
+   replicas bit-identical, one capture, K3, K4 and K5 on every card, the
+   exchange's cross-card sum against a float64 sum, the planted
+   per-card-statistics control outside the bound); with one card it
+   prints "17b: not run, 1 card visible" and claims nothing.
+18. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -329,6 +342,7 @@ process, which the phase starts itself.
 """
 import argparse
 import contextlib
+import faulthandler
 import gc
 import hashlib
 import json
@@ -1424,7 +1438,7 @@ def _resnet_launches(steps):
 
 def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None,
                optimizer="sgd", optimizer_params=TRAIN_OPT,
-               after_batch=None):
+               after_batch=None, kvstore="local"):
     """Module.fit of the bound ``mod`` over one epoch of ``images`` in
     batches of 32 on the card, the classic loop or the fused step; launch
     counts and the peak of allocated memory zeroed just before and read
@@ -1456,7 +1470,7 @@ def fit_module(torch, mx, kernels, mod, images, labels, fused, wrap=None,
     kernels.reset_launch_counts()
     mod.fit(it, num_epoch=1, optimizer=optimizer,
             optimizer_params=optimizer_params, eval_metric=metric,
-            batch_end_callback=on_batch, fused_step=fused)
+            batch_end_callback=on_batch, fused_step=fused, kvstore=kvstore)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if wrap is not None:
@@ -1688,8 +1702,10 @@ def fused_breakdown(torch, mx, kernels, step, metric, images, labels,
     batch = mx.io.DataBatch([images], [labels])
     step.step(batch, metric)
     torch.cuda.synchronize()
+    # warm: late in the run the profiler can miss the first kernels of a
+    # session's first replay (_profile_steps)
     res = _profile_steps(torch, kernels, lambda: step.step(batch, metric),
-                         reps, group)
+                         reps, group, warm=True)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(10):
@@ -6599,12 +6615,20 @@ def _group_counts(torch, run_step, reps=2):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # one uncounted call first, then a marker kernel: late in the run
+        # the profiler can miss the first kernels of a session's first
+        # replay (_profile_steps' warm)
+        run_step()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
         for _ in range(reps):
             run_step()
         torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    (mark,) = [e for e in events if "spin_kernel" in e.name]
     counts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        if e is not mark and e.time_range.start >= mark.time_range.start:
             g = _train_group(e.name)
             counts[g] = counts.get(g, 0) + 1
     return {g: n / reps for g, n in counts.items()}
@@ -6936,6 +6960,83 @@ def mirror_obs_main_path(torch, mx, kernels, card, images, labels,
             "profiler": prof}
 
 
+# ---------------------------------------------------------------------------
+# 17. one process over several cards
+# ---------------------------------------------------------------------------
+def dp_one_card_fit(torch, mx, kernels, card, images, labels, classic_args,
+                    kvstore, fused):
+    """17a: phase 6's fused fit over [gpu(0)] under ``kvstore``: one
+    capture, the eager step's and the capture's launches, two profiled
+    replays' launches, params bit-equal to phase 6's."""
+    mod = train_module(mx, [mx.gpu(0)], BATCH, seed=0)
+    run = fit_module(torch, mx, kernels, mod, images, labels, fused,
+                     kvstore=kvstore)
+    step = mod._fused_step
+    check(mod._fused_step_active and step is not None,
+          "17a %s: the fit did not take the fused step" % kvstore)
+    counters = {"eager_steps": step.eager_steps, "captures": step.captures,
+                "dispatches": step.dispatches}
+    check(counters == {"eager_steps": 1, "captures": 1,
+                       "dispatches": TRAIN_STEPS - 1},
+          "17a %s: fused step counters %s" % (kvstore, counters))
+    want = dict(_resnet_launches(2), rtc=0)
+    check(run["launches"] == want, "17a %s: launches %s, want %s"
+          % (kvstore, run["launches"], want))
+    unequal = [k for k in classic_args
+               if not np.array_equal(run["args"][k], classic_args[k])]
+    check(not unequal, "17a %s: params differ from phase 6's at %s"
+          % (kvstore, unequal[:5]))
+    breakdown = fused_breakdown(torch, mx, kernels, step, run["metric"],
+                                images[:BATCH], labels[:BATCH])
+    check_profiled_launches("17a %s" % kvstore, breakdown)
+    print("17a %s over [gpu(0)]: captures %d, launches %s, params bit-equal "
+          "to phase 6's, host step %.3f ms, device %.3f ms a replay  [%s]"
+          % (kvstore, step.captures, run["launches"], run["step_ms"],
+             breakdown["event_ms_per_step"], card))
+    return {"counters": counters, "launches": run["launches"],
+            "replays_profiled": breakdown["launches"],
+            "step_ms": run["step_ms"],
+            "event_ms_per_step": breakdown["event_ms_per_step"]}
+
+
+def dp_main_path(torch, mx, kernels, card, images, labels, classic_args):
+    """Phase 17: 17a on one card; 17b over every visible card through
+    tools/torch_dp_check.py, or a line saying it did not run."""
+    t0 = time.perf_counter()
+    out = {"device_sync": dp_one_card_fit(torch, mx, kernels, card, images,
+                                          labels, classic_args,
+                                          "device_sync", None),
+           "device": dp_one_card_fit(torch, mx, kernels, card, images,
+                                     labels, classic_args, "device", True)}
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("17b: not run, 1 card visible")
+        out["multi"] = None
+    else:
+        # in this process, after every earlier phase: a user's fit over
+        # several cards in a process that has done other card work
+        sys.path.insert(0, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools"))
+        import torch_dp_check
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rec = torch_dp_check.run(torch, mx, kernels, n)
+        check(not rec["failed"], "17b over %d cards: %s" % (n, rec["failed"]))
+        print("17b over %d cards: the fit within %.3g of one card's (bound "
+              "%.3g), replicas bit-identical, one capture, exchange %.3f ms, "
+              "statistics %.3f ms, %.1f img/s against %.1f on one card; "
+              "control (per-card statistics) %.3g, caught  [%s]"
+              % (n, rec["params_vs_one_card_normwise"], rec["params_bound"],
+                 rec["exchange_graph_ms"], rec["statistics_graph_ms"],
+                 rec["img_per_s"], rec["img_per_s_one_card"],
+                 rec["control"]["params_vs_one_card_normwise"], card))
+        out["multi"] = rec
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 17: %.1f s" % out["seconds"])
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -6943,6 +7044,8 @@ def main():
                         help="run phase 8's SIGTERM child over DIR (the "
                         "phase starts it)")
     opts = parser.parse_args()
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable()
     try:
         import torch
     except ImportError:
@@ -6964,6 +7067,8 @@ def main():
         return 2
     if opts.ckpt_child:
         return ckpt_child(opts.ckpt_child)
+    # every phase profiles replays of CUDA graphs: CUPTI stays set up
+    mx.profiler.keep_cupti()
 
     # 1. environment
     card = card_line()
@@ -7194,7 +7299,18 @@ def main():
     # trained mirrored; the compile registry, sanitizers and profiler
     obs = mirror_obs_main_path(torch, mx, kernels, card, images, labels,
                                classic_params)
+
+    # 17. one process over several cards: device_sync and device on one
+    # card; over every visible card when there are two or more
+    dp = dp_main_path(torch, mx, kernels, card, images, labels,
+                      classic_params[0])
     del classic_params
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        for kv in ("device_sync", "device"):
+            model_paths[kernel].update({
+                "dp_%s_fused" % kv: dp[kv]["launches"][kernel],
+                "dp_%s_fused_2_replays_profiled" % kv:
+                    dp[kv]["replays_profiled"][kernel]})
     mirror = obs["mirror"]
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         model_paths[kernel].update({
@@ -7207,7 +7323,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 17. report
+    # 18. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -7255,7 +7371,10 @@ def main():
                   "MXNET_BACKWARD_DO_MIRROR=1 (fused: the eager step and "
                   "the capture; replays: two; classic: 5 steps), where a "
                   "step launches K4 once more for each BatchNorm its "
-                  "backward recomputes")
+                  "backward recomputes; dp_*: phase 17a's ResNet-50 NHWC "
+                  "fused fits at batch 32 over [gpu(0)] under the "
+                  "device_sync and device stores (the eager step and the "
+                  "capture; replays: two)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7511,8 +7630,8 @@ def main():
                        "optim_path": optim, "lm_path": lm,
                        "detection_ocr_path": det,
                        "mixed_precision_path": mp,
-                       "feed_path": feed, "mirror_obs_path": obs}, f,
-                      indent=1)
+                       "feed_path": feed, "mirror_obs_path": obs,
+                       "dp_path": dp}, f, indent=1, default=str)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

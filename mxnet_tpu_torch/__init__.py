@@ -17,7 +17,8 @@
 * ``mx.viz`` — ``print_summary`` and ``plot_network``;
   ``mx.filesystem`` — the URI schemes (``mem://``, registered ones)
   that every save and load takes
-* ``mx.mod`` — Module (single device): bind, predict, ``fit`` (the
+* ``mx.mod`` — Module on one context or over several (one replica a
+  card, statistics over the global batch): bind, predict, ``fit`` (the
   classic loop, or ``fused_step=True``: one CUDA graph a batch); the
   bucketing, sequential and Python modules
 * ``mx.test_utils`` — numeric gradient, symbolic and consistency checks

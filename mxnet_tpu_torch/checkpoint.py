@@ -180,13 +180,17 @@ def snapshot(module, eval_metric=None, train_data=None, *, step: int = 0,
     """The full training state of a bound module as one picklable payload
     of numpy and Python values. On a card it first waits for the device,
     so no stream (the fused step's side stream included) is still writing
-    what it reads."""
+    what it reads. Over several contexts ``dp`` is their number and the
+    values are the first replica's (the replicas are equal), the metric's
+    device sums those of every replica."""
     group, ex = _bound(module)
-    if ex._device.type == "cuda":
-        torch.cuda.synchronize(ex._device)
+    for other in group.execs:
+        if other._device.type == "cuda":
+            torch.cuda.synchronize(other._device)
     payload: Dict[str, Any] = {
         "format": FORMAT, "step": int(step), "epoch": int(epoch),
-        "nbatch": int(nbatch), "dp": 1, "time": round(time.time(), 3)}
+        "nbatch": int(nbatch), "dp": len(group.execs),
+        "time": round(time.time(), 3)}
     payload["params"] = {n: _fetch(ex.arg_dict[n].handle)
                          for n in module._param_names if n in ex.arg_dict}
     payload["param_digests"] = {n: param_digest(v)
@@ -203,9 +207,9 @@ def snapshot(module, eval_metric=None, train_data=None, *, step: int = 0,
     if eval_metric is not None:
         metrics = []
         for leaf in _metric_leaves(eval_metric):
-            acc = None
-            if leaf._acc is not None:
-                acc = tuple(np.float64(v) for v in _fetch(leaf._acc))
+            acc = leaf.device_totals()
+            if acc is not None:
+                acc = tuple(np.float64(v) for v in acc)
             metrics.append({"name": leaf.name,
                             "sum_metric": leaf.sum_metric,
                             "num_inst": leaf.num_inst, "device_acc": acc})
@@ -245,8 +249,10 @@ def _copy_in(arr, val) -> None:
 def restore(payload: Dict[str, Any], module, eval_metric=None,
             train_data=None) -> Dict[str, Any]:
     """Write a :func:`snapshot` payload (the port's or the JAX
-    package's) into a bound module in place. Every name and shape is
-    checked before anything is written, and a mismatch raises
+    package's) into a bound module in place, into every replica of a
+    module bound over several contexts (a snapshot saved on any number of
+    contexts restores onto any other). Every name and shape is checked
+    before anything is written, and a mismatch raises
     :class:`CheckpointError` naming it. The data iterator, where given,
     seeks past the batches the snapshot had consumed. Returns the resume
     position ``{"epoch", "nbatch", "step", "dp"}``."""
@@ -255,10 +261,11 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         raise CheckpointError("unsupported snapshot format %r"
                               % (payload.get("format"),))
     saved_dp = int(payload.get("dp") or 0)
-    if saved_dp > 1 or payload.get("mesh"):
-        _log.info("snapshot saved on %s restores onto one device (params "
+    if saved_dp != len(group.execs) or payload.get("mesh"):
+        _log.info("snapshot saved on %s restores onto %d device(s) (params "
                   "and optimizer states are replicated there)",
-                  payload.get("mesh") or "dp=%d" % saved_dp)
+                  payload.get("mesh") or "dp=%d" % saved_dp,
+                  len(group.execs))
     params = {n: ex.arg_dict[n] for n in module._param_names
               if n in ex.arg_dict}
     aux = dict(zip(group.aux_names, ex.aux_arrays))
@@ -295,18 +302,22 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
                      rng_torch.size, ex._device.type)
         rng_torch = None
 
-    for name, val in payload["params"].items():
-        _copy_in(params[name], val)
-    for name, val in (payload.get("aux") or {}).items():
-        _copy_in(aux[name], val)
+    for replica in group.execs:
+        for name, val in payload["params"].items():
+            _copy_in(replica.arg_dict[name], val)
+        for name, val in (payload.get("aux") or {}).items():
+            _copy_in(replica.aux_dict[name], val)
     if states is not None and updater is not None:
-        updater.set_numpy_states(states)
+        for each in getattr(module, "_updaters", None) or [updater]:
+            each.set_numpy_states(states)
     optimizer = getattr(module, "_optimizer", None)
     if payload.get("optimizer") is not None and optimizer is not None:
         optimizer.set_checkpoint_state(payload["optimizer"])
     for leaf, st in zip(leaves or (), payload.get("metrics") or ()):
         leaf.sum_metric = st["sum_metric"]
         leaf.num_inst = st["num_inst"]
+        for other in leaf._replica_accs.values():
+            other.zero_()
         acc = st["device_acc"]
         if acc is None:
             if leaf._acc is not None:

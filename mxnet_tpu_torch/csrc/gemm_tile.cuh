@@ -11,8 +11,9 @@
 //    float32 tile in shared memory, split into TF32 hi and lo parts in registers and
 //    multiplied as hi*lo + lo*hi + hi*hi (tf32x3.cuh). A step's products chain into a
 //    fragment from zero, which is then added to the accumulator with rounding to nearest.
-//    16-bit operands (K3's bfloat16 and float16) take gemm_tile16.cuh's mainloop instead,
-//    on the same tiles, warps, split-K rule and reduce.
+//    16-bit operands (K3's bfloat16 and float16) take gemm_wgmma16.cuh's mainloop instead
+//    (TMA and wgmma, warp-specialised, persistent), with its own split rule
+//    (conv_gemm16_k_chunk in conv_gemm.cu); they share only the split-K reduce.
 //  * A ring of STAGES shared-memory stages of BK = 32 along K, fed by cp.async: the loads of
 //    the next STAGES - 1 steps are in flight while one step is multiplied; one __syncthreads
 //    a step. An operand whose rows are 16-byte aligned is copied in 16-byte pieces, any other

@@ -103,11 +103,25 @@ declare("MXNET_TPU_FUSED_STEP", bool, False,
         "later one, on a card; the same step function run eagerly on the "
         "CPU. An explicit `fit(fused_step=True)` or `False` wins over the "
         "variable. There is no fallback: a configuration the step cannot "
-        "run (a kvstore other than `local`, `inputs_need_grad=True`, a "
+        "run (a `dist` kvstore, `inputs_need_grad=True`, a "
         "monitor with a custom `stat_func`, `grad_req=\"add\"`, an "
         "optimizer without a fusable update or `MXNET_TPU_FUSED_UPDATE=0`) "
         "raises naming the reason, under the variable as under the "
         "argument.",
+        section="Training")
+declare("MXNET_TPU_DEVICE_SYNC_FUSED", bool, True,
+        "Under a `device_sync` kvstore `Module.fit` takes the fused step "
+        "by default (`fit(fused_step=None)` with `MXNET_TPU_FUSED_STEP` "
+        "unset): the gradient exchange, an all-reduce over one flat "
+        "buffer a card, runs inside the replayed CUDA graph that spans "
+        "the cards. Set to 0 to require the explicit "
+        "`MXNET_TPU_FUSED_STEP=1` (or `fit(fused_step=True)`) opt-in "
+        "instead.", section="Training")
+declare("MXNET_TPU_MESH_FSDP", int, 0,
+        "Size of the `fsdp` mesh axis. 0 or 1 keeps plain data "
+        "parallelism over the contexts (every card a replica, params and "
+        "optimizer state replicated). Above 1 over several contexts the "
+        "bind raises: sharded params are ROADMAP.md Queue A item 10c.",
         section="Training")
 declare("MXNET_TPU_FUSED_UPDATE", bool, True,
         "Set to 0 to make `Optimizer.update_multi` update the parameters "

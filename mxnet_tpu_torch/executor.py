@@ -30,9 +30,16 @@ that ``forward``, ``backward``, :meth:`Executor.run` (so ``FusedInfer``)
 and the fused train step all evaluate, so they share the numerics.
 Params, gradients and aux states stay float32: autograd through the
 cast hands float32 gradients to the float32 leaves.
+
+Several contexts (:class:`ReplicatedExecutor`, the executor group's):
+one executor a context, walked in lock-step by one thread, the
+BatchNorm statistics and the normalized losses over the global batch,
+and the parameters' gradients summed across the replicas after the
+backward.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Optional
 
@@ -45,14 +52,14 @@ from .context import Context
 from .ndarray import NDArray
 from .ops.registry import OpContext
 
-__all__ = ["Executor", "make_graph_eval", "remat_plan",
-           "resolve_compute_dtype"]
+__all__ = ["Executor", "ReplicatedExecutor", "make_graph_eval",
+           "remat_plan", "resolve_compute_dtype"]
 
 #: the compute dtypes mixed precision takes, by the JAX package's names
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def make_graph_eval(symbol, node_device=None, remat=False):
+def make_graph_eval(symbol, node_device=None, remat=False, replicas=None):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
     aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
     tensors; a dict passed as ``internals`` receives every op output as
@@ -60,6 +67,14 @@ def make_graph_eval(symbol, node_device=None, remat=False):
     where given, names the device a node runs on (None: where its inputs
     are); its inputs and aux states are copied there. Returns
     ``(eval_graph, n_aux)``.
+
+    ``replicas`` (:class:`~mxnet_tpu_torch.replicas.Replicas`) makes it
+    the lock-step walk of a group bound over several contexts:
+    ``arg_list``, ``aux_list`` and ``rng`` hold one entry a replica, each
+    node runs once for all the replicas (its op's ``apply_replicas``, or
+    ``apply`` replica by replica on its device), and the outputs and new
+    aux states come back one list a replica (``internals`` get a list over
+    the replicas a name).
 
     ``remat=True`` is the mirrored backward (``MXNET_BACKWARD_DO_MIRROR``,
     the JAX package's segmented remat): the op nodes, in topological
@@ -70,7 +85,11 @@ def make_graph_eval(symbol, node_device=None, remat=False):
     statistics are discarded: the aux states come from the one forward.
     A random op runs outside the recomputed runs, its output kept, so
     its draw is made once. A call with ``internals``, or with gradients
-    off, takes the plain walk."""
+    off, takes the plain walk. Over replicas a segment's recompute redoes
+    its BatchNorms' cross-card sums (the values are those of the forward:
+    the sums run in the same order on the same inputs), one recompute at
+    a time (``Replicas.remat_lock``: autograd's device threads may ask for
+    a segment together)."""
     nodes = symbol._topo()
     var_nodes = [n for n in nodes if n.is_variable]
     op_nodes = [n for n in nodes if not n.is_variable]
@@ -91,11 +110,14 @@ def make_graph_eval(symbol, node_device=None, remat=False):
             ins = [env[src.uid][i] for src, i in n.inputs]
             slots = aux_slots.get(n.uid, ())
             aux_in = [aux_out[s] for s in slots]
-            dev = node_device(n) if node_device is not None else None
-            if dev is not None:
-                ins = [x.to(dev) for x in ins]
-                aux_in = [a.to(dev) for a in aux_in]
-            outs, new_aux = n.op.apply(octx, ins, aux_in)
+            if replicas is not None:
+                outs, new_aux = _apply_replicas(n.op, octx, ins, aux_in)
+            else:
+                dev = node_device(n) if node_device is not None else None
+                if dev is not None:
+                    ins = [x.to(dev) for x in ins]
+                    aux_in = [a.to(dev) for a in aux_in]
+                outs, new_aux = n.op.apply(octx, ins, aux_in)
             for s, a in zip(slots, new_aux):
                 aux_out[s] = a
             env[n.uid] = list(outs)
@@ -103,24 +125,52 @@ def make_graph_eval(symbol, node_device=None, remat=False):
                 for name, o in zip(n.op.list_outputs(), outs):
                     internals["%s_%s" % (n.name, name)] = o
 
+    if replicas is None:
+        def octx_of(is_train, rng):
+            return OpContext(is_train, rng)
+
+        def by_slot(arg_list, aux_list):
+            return list(arg_list), list(aux_list)
+
+        def by_replica(outs, aux_out):
+            return outs, aux_out
+    else:
+        def octx_of(is_train, rngs):
+            replicas.begin()
+            return [OpContext(is_train, r, replicas) for r in rngs]
+
+        def by_slot(arg_list, aux_list):
+            """Per replica lists -> per argument / aux slot lists over
+            the replicas."""
+            return ([list(v) for v in zip(*arg_list)],
+                    [list(v) for v in zip(*aux_list)] if n_aux
+                    else [])
+
+        def by_replica(outs, aux_out):
+            return ([list(v) for v in zip(*outs)],
+                    [list(v) for v in zip(*aux_out)] if n_aux
+                    else [[] for _ in range(replicas.n)])
+
     def eval_graph(arg_list, aux_list, rng, is_train, internals=None):
-        env = {n.uid: [a] for n, a in zip(var_nodes, arg_list)}
-        aux_out = list(aux_list)
-        run_nodes(op_nodes, env, aux_out, OpContext(is_train, rng),
+        args, aux_out = by_slot(arg_list, aux_list)
+        env = {n.uid: [a] for n, a in zip(var_nodes, args)}
+        run_nodes(op_nodes, env, aux_out, octx_of(is_train, rng),
                   internals)
-        return [env[uid][i] for uid, i in out_index], aux_out
+        return by_replica([env[uid][i] for uid, i in out_index], aux_out)
 
     if not remat:
         return eval_graph, n_aux
 
     plans = remat_plan(symbol)
+    lock = (replicas.remat_lock if replicas is not None
+            else contextlib.nullcontext())
 
     def eval_graph_remat(arg_list, aux_list, rng, is_train, internals=None):
         if internals is not None or not torch.is_grad_enabled():
             return eval_graph(arg_list, aux_list, rng, is_train, internals)
-        octx = OpContext(is_train, rng)
-        store = {(n.uid, 0): a for n, a in zip(var_nodes, arg_list)}
-        aux_state = list(aux_list)
+        octx = octx_of(is_train, rng)
+        args, aux_state = by_slot(arg_list, aux_list)
+        store = {(n.uid, 0): a for n, a in zip(var_nodes, args)}
         for seg, in_keys, out_keys, recompute in plans:
             def seg_fn(in_vals, aux_vals, _seg=seg, _in=in_keys,
                        _out=out_keys):
@@ -128,7 +178,8 @@ def make_graph_eval(symbol, node_device=None, remat=False):
                 for (uid, i), v in zip(_in, in_vals):
                     env.setdefault(uid, {})[i] = v
                 aux_out = list(aux_vals)
-                run_nodes(_seg, env, aux_out, octx)
+                with lock:
+                    run_nodes(_seg, env, aux_out, octx)
                 return [env[uid][i] for uid, i in _out], aux_out
 
             in_vals = [store[k] for k in in_keys]
@@ -142,9 +193,25 @@ def make_graph_eval(symbol, node_device=None, remat=False):
             else:
                 out_vals, aux_state = seg_fn(in_vals, aux_state)
             store.update(zip(out_keys, out_vals))
-        return [store[k] for k in out_index], aux_state
+        return by_replica([store[k] for k in out_index], aux_state)
 
     return eval_graph_remat, n_aux
+
+
+def _apply_replicas(op, ctxs, ins, aux_in):
+    """One node over every replica: ``ins`` and ``aux_in`` hold a list
+    over the replicas a slot, and so do the outputs and new aux states
+    returned."""
+    reps = ctxs[0].replicas
+    ins_r = [[x[k] for x in ins] for k in range(reps.n)]
+    aux_r = [[a[k] for a in aux_in] for k in range(reps.n)]
+    fn = getattr(op, "apply_replicas", None)
+    if fn is None:
+        outs_r, aux_new_r = reps.each(op.apply, ctxs, ins_r, aux_r)
+    else:
+        outs_r, aux_new_r = fn(ctxs, ins_r, aux_r)
+    return ([list(o) for o in zip(*outs_r)],
+            [list(a) for a in zip(*aux_new_r)])
 
 
 def remat_plan(symbol):
@@ -232,18 +299,35 @@ def resolve_compute_dtype(compute_dtype=_UNSET) -> Optional[torch.dtype]:
     return dtype
 
 
-def _cast_graph(eval_graph, arg_names, label_names, dtype):
+def _cast_graph(eval_graph, arg_names, label_names, dtype, replicas=None):
     """``eval_graph`` with its floating arguments, labels excepted, cast
     to ``dtype`` on the way in and its floating outputs cast to float32
-    on the way out (the JAX package's ``_run_graph``)."""
+    on the way out (the JAX package's ``_run_graph``); with ``replicas``,
+    every replica's."""
     cast = [n not in label_names for n in arg_names]
 
-    def run_graph(arg_list, aux_list, rng, is_train, internals=None):
-        args = [a.to(dtype) if c and a.is_floating_point() else a
+    def cast_in(arg_list):
+        return [a.to(dtype) if c and a.is_floating_point() else a
                 for a, c in zip(arg_list, cast)]
+
+    def cast_out(outs):
+        return [o.float() if o.is_floating_point() else o for o in outs]
+
+    def run_graph(arg_list, aux_list, rng, is_train, internals=None):
+        if replicas is None:
+            outs, aux = eval_graph(cast_in(arg_list), aux_list, rng,
+                                   is_train, internals)
+            return cast_out(outs), aux
+        args = []
+        for k, a in enumerate(arg_list):
+            with replicas.on(k):
+                args.append(cast_in(a))
         outs, aux = eval_graph(args, aux_list, rng, is_train, internals)
-        return [o.float() if o.is_floating_point() else o
-                for o in outs], aux
+        cast = []
+        for k, o in enumerate(outs):
+            with replicas.on(k):
+                cast.append(cast_out(o))
+        return cast, aux
 
     return run_graph
 
@@ -437,8 +521,7 @@ class Executor:
                                  % (len(out_grads), len(outs)))
             heads = [g.handle.to(o.device, o.dtype)
                      for g, o in zip(out_grads, outs)]
-        want = [i for i, n in enumerate(self.arg_names)
-                if self._grad_req[n] != "null"]
+        want = self._wanted()
         pairs = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
         grads = [None] * len(want)
         if want and pairs:
@@ -447,14 +530,33 @@ class Executor:
                                         [h for _, h in pairs],
                                         allow_unused=True)
         for i, g in zip(want, grads):
-            dst = self.grad_arrays[i].handle
-            if self._grad_req[self.arg_names[i]] == "add":
-                if g is not None:
-                    dst.add_(g)
-            elif g is None:
-                dst.zero_()
-            else:
-                dst.copy_(g)
+            self._write_grad(i, g)
+        self._commit_aux(new_aux)
+
+    def _wanted(self):
+        """The argument indices with a gradient."""
+        return [i for i, n in enumerate(self.arg_names)
+                if self._grad_req[n] != "null"]
+
+    def _write_grad(self, i, g):
+        """Argument ``i``'s gradient ``g`` (None: unused) into its
+        gradient array by its ``grad_req``."""
+        dst = self.grad_arrays[i].handle
+        if self._grad_req[self.arg_names[i]] == "add":
+            if g is not None:
+                dst.add_(g)
+        else:
+            self._grad_req_write(i, g, dst)
+
+    @staticmethod
+    def _grad_req_write(i, g, dst):
+        """``dst`` becomes ``g``, or zeros where it is None."""
+        if g is None:
+            dst.zero_()
+        else:
+            dst.copy_(g)
+
+    def _commit_aux(self, new_aux):
         for arr, new in zip(self.aux_arrays, new_aux):
             if new is not arr.handle:
                 arr.handle.copy_(new)
@@ -531,3 +633,256 @@ class Executor:
             lines.append("  %-30s %s <- %s" % (
                 n.name, kind, [src.name for src, _ in n.inputs]))
         return "\n".join(lines)
+
+
+class ReplicatedExecutor:
+    """The executors of a group bound over several contexts, run as one
+    (ROADMAP.md Queue A item 10a): one :class:`Executor` a replica, each
+    bound on its own device to an equal slice of the batch and to its own
+    copy of every parameter, gradient and aux state. :meth:`forward`
+    walks them in lock-step (``make_graph_eval``'s ``replicas``), under
+    the executors' compute dtype and, on the CPU, the mirrored backward.
+    :meth:`backward` runs one autograd pass over every replica's outputs,
+    sums the gradients of ``exchange`` (the parameters) across the
+    replicas into each replica's copy and commits each replica's moving
+    statistics.
+
+    ``flats`` hold, a replica, the flat buffers (one a dtype, in
+    ``exchange`` order) of which those parameters' gradient arrays are
+    views, so the exchange is one in-place cross-card sum a buffer; where
+    a parameter's ``grad_req`` is "add", each pass's gradients are
+    exchanged through a copy of that layout and then written or added.
+    Input gradients are each replica's own slice's.
+
+    ``inputs`` maps each data and label argument to its batch axis. An
+    output's batch axis is the one axis that is as long as the global
+    batch over the global batch and ``n`` times shorter over a replica's
+    slice (:meth:`merge` joins the replicas' slices along it, and
+    :meth:`backward` slices head gradients along it); an output with no
+    such axis (a time-major output flattened over time and batch, a
+    shape that does not follow the batch) cannot be joined or given a
+    head gradient, and either raises."""
+
+    def __init__(self, execs, replicas, exchange, flats, inputs):
+        ex0 = execs[0]
+        if any(ex._group2ctx for ex in execs):
+            raise MXNetError("group2ctx placement over several contexts: "
+                             "the lock-step walk runs each replica's graph "
+                             "on its own context; bind placed graphs on "
+                             "one context")
+        if ex0.mirror and replicas.cuda:
+            raise MXNetError(
+                "MXNET_BACKWARD_DO_MIRROR over %d cards: the mirrored "
+                "backward over several cards (segments recomputed from "
+                "autograd's device threads) has not run on the card yet "
+                "(ROADMAP.md Queue A, the mirror over several cards); it "
+                "runs over several CPU contexts and on one card"
+                % replicas.n)
+        self.execs = list(execs)
+        self.replicas = replicas
+        self.arg_names = ex0.arg_names
+        self.output_names = ex0.output_names
+        self._exchange = [self.arg_names.index(n) for n in exchange]
+        self._flats = flats
+        self._scratch = None
+        self._local = {name: tuple(ex0.arg_dict[name].shape)
+                       for name in inputs}
+        self._global = {}
+        for name, axis in inputs.items():
+            shape = list(self._local[name])
+            shape[axis] *= replicas.n
+            self._global[name] = tuple(shape)
+        first = next(iter(inputs))
+        self._batch = self._global[first][inputs[first]]
+        self._out_axes = self._batch_axes(ex0._symbol)
+        self._internal_axes = None
+        eval_graph, _ = make_graph_eval(ex0._symbol, remat=ex0.mirror,
+                                        replicas=replicas)
+        if ex0.compute_dtype is not None:
+            eval_graph = _cast_graph(eval_graph, ex0.arg_names,
+                                     set(ex0._label_names),
+                                     ex0.compute_dtype, replicas)
+        self._eval_graph = eval_graph
+        self._train = None
+        self._monitor_callback: Optional[Callable] = None
+
+    def _batch_axes(self, symbol):
+        """``{output name: its batch axis}`` for ``symbol``'s outputs:
+        -1 for an output whose shape does not depend on the batch, None
+        where no axis follows the batch alone."""
+        _, local, _ = symbol.infer_shape(**self._local)
+        _, whole, _ = symbol.infer_shape(**self._global)
+        axes = {}
+        for name, mine, glob in zip(symbol.list_outputs(), local, whole):
+            diff = [a for a, (x, y) in enumerate(zip(mine, glob)) if x != y]
+            if len(mine) == len(glob) and not diff:
+                axes[name] = -1
+            elif len(mine) == len(glob) and len(diff) == 1 \
+                    and glob[diff[0]] == self._batch \
+                    and glob[diff[0]] == self.replicas.n * mine[diff[0]]:
+                axes[name] = diff[0]
+            else:
+                axes[name] = None
+        return axes
+
+    def output_axis(self, i) -> int:
+        """Output ``i``'s batch axis; raises where it has none."""
+        name = self.output_names[i]
+        axis = self._out_axes.get(name)
+        if axis is None or axis < 0:
+            raise MXNetError(
+                "output %s has no batch axis over %d contexts (its shape "
+                "follows the batch along no single axis as long as the "
+                "batch): its replicas' slices cannot be joined or given "
+                "head gradients; read them with merge_multi_context=False, "
+                "or bind it on one context" % (name, self.replicas.n))
+        return axis
+
+    @property
+    def arg_arrays(self):
+        return self.execs[0].arg_arrays
+
+    @property
+    def grad_arrays(self):
+        return self.execs[0].grad_arrays
+
+    def set_monitor_callback(self, callback: Callable[[str, NDArray], None]):
+        """``callback(name, array)`` on every op output of each forward,
+        the replicas' slices joined along its batch axis on the first
+        replica's device (the first replica's, for an output that does
+        not depend on the batch)."""
+        self._monitor_callback = callback
+
+    def forward(self, is_train: bool = False):
+        execs = self.execs
+        aux = [[a.handle for a in ex.aux_arrays] for ex in execs]
+        internals = {} if self._monitor_callback is not None else None
+        self._train = None
+        if not is_train:
+            rngs = [ex._generator() if ex._draws else None for ex in execs]
+            with torch.inference_mode():
+                outs, _ = self._eval_graph(
+                    [[a.handle for a in ex.arg_arrays] for ex in execs],
+                    aux, rngs, False, internals)
+        else:
+            leaves = [[a.handle.detach().requires_grad_(
+                ex._grad_req[n] != "null")
+                for n, a in zip(ex.arg_names, ex.arg_arrays)]
+                for ex in execs]
+            with torch.enable_grad():
+                outs, new_aux = self._eval_graph(
+                    leaves, aux, [ex._generator() for ex in execs], True,
+                    internals)
+            self._train = (outs, leaves, new_aux)
+        for ex, o in zip(execs, outs):
+            ex._train = None
+            ex._outputs = [NDArray(t.detach(), ex._ctx) for t in o]
+        if internals:
+            if self._internal_axes is None:
+                self._internal_axes = self._batch_axes(
+                    execs[0]._symbol.get_internals())
+        for name, values in (internals or {}).items():
+            values = [v.detach() for v in values]
+            axis = self._internal_axes.get(name)
+            if axis == -1:
+                self._monitor_callback(name, NDArray(values[0],
+                                                     execs[0]._ctx))
+            elif axis is None:
+                raise MXNetError("monitor: op output %s has no batch axis "
+                                 "over %d contexts" % (name, len(execs)))
+            else:
+                self._monitor_callback(name, self.merge(values, axis))
+
+    def merge(self, tensors, axis: int) -> NDArray:
+        """The replicas' slices of one array, joined along ``axis`` on the
+        first replica's device."""
+        ex0 = self.execs[0]
+        return NDArray(torch.cat([t.to(ex0._device) for t in tensors],
+                                 dim=axis), ex0._ctx)
+
+    @property
+    def outputs(self) -> List[NDArray]:
+        """Every output over the whole batch, on the first replica's
+        device (raises for an output with no batch axis)."""
+        per = [ex.outputs for ex in self.execs]
+        return [self.merge([o[i].handle for o in per], self.output_axis(i))
+                for i in range(len(per[0]))]
+
+    def backward(self, out_grads=None):
+        """Every replica's gradients by ``grad_req``, the parameters'
+        summed across the replicas, then the moving statistics. Head
+        gradients (over the global batch) are sliced along each output's
+        batch axis."""
+        if self._train is None:
+            raise MXNetError("backward called without forward(is_train=True)")
+        outs, leaves, new_aux = self._train
+        self._train = None
+        reps, execs = self.replicas, self.execs
+        if out_grads is not None:
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            if len(out_grads) != len(outs[0]):
+                raise MXNetError("backward: %d head gradients for %d outputs"
+                                 % (len(out_grads), len(outs[0])))
+            axes = [self.output_axis(i) for i in range(len(outs[0]))]
+        want = execs[0]._wanted()
+        ys, heads, xs = [], [], []
+        for k in range(reps.n):
+            with reps.on(k):
+                for i, o in enumerate(outs[k]):
+                    if not o.requires_grad:
+                        continue
+                    if out_grads is None:
+                        h = torch.ones_like(o)
+                    else:
+                        rows = o.shape[axes[i]]
+                        h = out_grads[i].handle.narrow(
+                            axes[i], k * rows, rows).to(o.device, o.dtype)
+                    ys.append(o)
+                    heads.append(h)
+            xs.extend(leaves[k][i] for i in want)
+        grads = [None] * len(xs)
+        if want and ys:
+            grads = torch.autograd.grad(ys, xs, heads, allow_unused=True)
+        # a grad_req="add" parameter accumulates: then this pass's
+        # gradients are exchanged through a copy of the flat layout
+        staged = any(execs[0]._grad_req[self.arg_names[i]] == "add"
+                     for i in self._exchange)
+        if staged and self._scratch is None:
+            self._scratch = [[torch.empty_like(f) for f in flats]
+                             for flats in self._flats]
+        exchanged = set(self._exchange) if staged else ()
+        for k, ex in enumerate(execs):
+            g_k = grads[k * len(want):(k + 1) * len(want)]
+            with reps.on(k):
+                for i, g in zip(want, g_k):
+                    if i in exchanged:
+                        ex._grad_req_write(i, g, self._scratch_view(k, i))
+                    else:
+                        ex._write_grad(i, g)
+        # one in-place cross-card sum a flat buffer (or its copy)
+        bufs = self._scratch if staged else self._flats
+        for j in range(len(bufs[0])):
+            reps.sum_([b[j] for b in bufs])
+        for k, ex in enumerate(execs):
+            with reps.on(k):
+                for i in exchanged:
+                    ex._write_grad(i, self._scratch_view(k, i))
+                ex._commit_aux(new_aux[k])
+
+    @property
+    def flats(self):
+        """A replica, its flat gradient buffers (one a dtype)."""
+        return self._flats
+
+    def _scratch_view(self, k, i):
+        """Argument ``i``'s place in replica ``k``'s exchange copy: its
+        gradient array's offset in its flat buffer."""
+        g = self.execs[k].grad_arrays[i].handle
+        for flat, scratch in zip(self._flats[k], self._scratch[k]):
+            if g.untyped_storage().data_ptr() == \
+                    flat.untyped_storage().data_ptr():
+                off = g.storage_offset() - flat.storage_offset()
+                return scratch[off:off + g.numel()].view_as(g)
+        raise MXNetError("argument %s has no place in the exchange"
+                         % self.arg_names[i])

@@ -1,12 +1,11 @@
 """The legacy data-parallel executor manager, counterpart of
 ``mxnet_tpu/executor_manager.py``, kept for old training scripts. It
 drives one :class:`~mxnet_tpu_torch.module.executor_group.
-DataParallelExecutorGroup` over the whole batch.
-
-It takes one context, or several CPU contexts: every ``cpu(i)`` is
-torch's one CPU device, so they bind one executor over the full batch,
-whose summed gradients equal the per-device ones added. Several GPUs
-raise: one process over several cards is ROADMAP Queue A item 10.
+DataParallelExecutorGroup` over every context it is given: one replica
+a context on an equal slice of the batch (several contexts are
+ROADMAP.md Queue A item 10a), whose ``backward`` leaves every replica
+the gradients of the whole batch. The arrays come as lists of per-
+context lists; the outputs merged over the batch.
 """
 from __future__ import annotations
 
@@ -36,23 +35,11 @@ def _split_input_slice(batch_size: int, work_load_list: List[float]):
     return slices
 
 
-def _one_device(ctx) -> list:
-    """The contexts a group binds: ``ctx`` itself, or the first of
-    several CPU contexts (one torch device)."""
-    ctx = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
-    if len(ctx) > 1:
-        if any(c.device_type != "cpu" for c in ctx):
-            raise MXNetError("DataParallelExecutorManager over %s: several "
-                             "GPUs in one process wait for ROADMAP Queue A "
-                             "item 10; pass one context" % ctx)
-        return ctx[:1]
-    return ctx
-
-
 class DataParallelExecutorManager:
-    """Binds ``symbol`` for training over ``train_data``'s shapes and
-    exposes the arrays as lists of one-device lists, as the JAX package's
-    manager does."""
+    """Binds ``symbol`` for training over ``train_data``'s shapes on
+    every context and exposes the arrays as lists of per-context lists
+    (one entry a context). ``work_load_list`` is accepted and, as in the
+    JAX package, the slices are equal."""
 
     def __init__(self, symbol, ctx, train_data, arg_names=None,
                  param_names=None, aux_names=None, work_load_list=None,
@@ -68,25 +55,27 @@ class DataParallelExecutorManager:
         self.param_names = param_names or [
             n for n in self.arg_names if n not in data_names + label_names]
         self.execgrp = DataParallelExecutorGroup(
-            symbol, _one_device(self.ctx), train_data.provide_data,
+            symbol, self.ctx, train_data.provide_data,
             train_data.provide_label, self.param_names, for_training=True,
-            inputs_need_grad=False)
+            inputs_need_grad=False, workload=work_load_list)
 
     @property
     def param_arrays(self):
-        ex = self.execgrp.executor
-        return [[ex.arg_dict[n]] for n in self.param_names
-                if n in ex.arg_dict]
+        execs = self.execgrp.execs
+        return [[ex.arg_dict[n] for ex in execs] for n in self.param_names
+                if n in execs[0].arg_dict]
 
     @property
     def grad_arrays(self):
-        ex = self.execgrp.executor
-        return [[ex.grad_dict[n]] for n in self.param_names
-                if n in ex.grad_dict]
+        execs = self.execgrp.execs
+        return [[ex.grad_dict[n] for ex in execs] for n in self.param_names
+                if n in execs[0].grad_dict]
 
     @property
     def aux_arrays(self):
-        return [[a] for a in self.execgrp.executor.aux_arrays]
+        execs = self.execgrp.execs
+        return [[ex.aux_arrays[i] for ex in execs]
+                for i in range(len(execs[0].aux_arrays))]
 
     def install_monitor(self, monitor):
         self.execgrp.install_monitor(monitor)
@@ -101,10 +90,11 @@ class DataParallelExecutorManager:
         self.execgrp.load_data_batch(data_batch)
 
     def forward(self, is_train=False):
-        self.execgrp.executor.forward(is_train=is_train)
+        group = self.execgrp
+        (group.replicated or group.executor).forward(is_train=is_train)
 
     def backward(self):
-        self.execgrp.executor.backward()
+        self.execgrp.backward()
 
     def update_metric(self, metric, labels):
         self.execgrp.update_metric(metric, labels)

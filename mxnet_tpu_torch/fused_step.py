@@ -1,6 +1,7 @@
 """Fused steps, counterparts of ``mxnet_tpu/fused_step.py``: the train
-step (single device) and the inference step (the mesh and
-tensor-parallel parts wait for the distribution slice).
+step (on one device, or over the cards of a group bound over several
+contexts) and the inference step (tensor-parallel serving is ROADMAP.md
+Queue A item 10e).
 
 :class:`FusedTrainStep` runs a training batch as one unit: the train
 forward, the backward, the optimizer's update (every kind whose plan
@@ -47,6 +48,18 @@ The step captures again when the update's structure changes or when a
 weight, gradient or state tensor it captured is no longer the one the
 module holds, never replaying a graph over storage the module let go.
 
+Over several contexts (ROADMAP.md Queue A item 10a) the step runs the
+group's replicas together: the lock-step forward, one backward with the
+gradient exchange (an all-reduce over a flat buffer a card) at its end,
+the host half of the update once and its device half on every card,
+and each card's metric fold into that card's accumulator. On cards the
+whole of it is one CUDA graph over every card
+(:class:`~mxnet_tpu_torch.replicas.CardGraph`): one capture and one
+replay a step, with the exchange inside the replayed work. The numerics
+plane folds the first card's exchanged gradients and weights; its skip
+guard, the device feed and a graph that draws random numbers raise over
+several cards.
+
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
 call: place the batch on the device, run the forward and the argmax or
@@ -56,6 +69,8 @@ params whose digest changed into the packed tensors, in place.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import numpy as np
@@ -67,10 +82,10 @@ from . import telemetry as _tel
 from . import xprof as _xprof
 from .analysis import sanitizers as _san
 from .base import MXNetError
-from .kvstore import _LOCAL
 from .metric import CompositeEvalMetric
 from .ndarray import HostToDevice, NDArray
 from .optimizer import _state_tensors
+from .replicas import CardGraph
 
 __all__ = ["make_fused_step", "FusedTrainStep", "make_fused_infer",
            "FusedInfer"]
@@ -81,7 +96,8 @@ def make_fused_step(module, eval_metric, monitor=None):
     its params and optimizer initialised. A configuration the step cannot
     run raises :class:`MXNetError` naming the reason (the JAX package
     warns and falls back to the classic loop; the port has no fallback):
-    a kvstore other than ``local``, ``inputs_need_grad``, a monitor with
+    a kvstore whose ``fused_step_compatible`` is false (a ``dist`` one),
+    ``inputs_need_grad``, a monitor with
     a custom ``stat_func`` (``monitor``, or one installed on the
     executor), a grad_req other than ``"write"``, or an optimizer without
     a fusable update (``Optimizer._fusable``: SGLD, Test, a subclass that
@@ -95,15 +111,18 @@ def make_fused_step(module, eval_metric, monitor=None):
                          "training with its params and optimizer "
                          "initialised")
     kv = module._kvstore
-    if kv is not None and kv.type not in _LOCAL:
+    if kv is not None and not getattr(kv, "fused_step_compatible", False):
         raise MXNetError("fused train step: kvstore %r moves gradients "
-                         "between dispatches; use 'local' or None" % kv.type)
+                         "between dispatches; use 'local', 'device', "
+                         "'device_sync' or None" % kv.type)
     if module.inputs_need_grad:
         raise MXNetError("fused train step: inputs_need_grad=True needs "
                          "input gradients that the step does not keep")
-    ex = module._exec_group.executor
-    if monitor is None and ex._monitor_callback is not None:
-        cb = ex._monitor_callback
+    group = module._exec_group
+    ex = group.executor
+    holder = group.replicated or ex
+    if monitor is None and holder._monitor_callback is not None:
+        cb = holder._monitor_callback
         monitor = getattr(cb, "__self__", cb)
     if monitor is not None and not _numwatch.monitor_routable(monitor):
         raise MXNetError("fused train step: a monitor with a custom "
@@ -172,6 +191,8 @@ class FusedTrainStep:
         self._updater = module._updater
         group = module._exec_group
         self._ex = group.executor
+        #: the replica set of a group over several contexts, else None
+        self._reps = group.replicas
         n_labels = len(group.label_names)
         foldable = (eval_metric.has_device_fold and n_labels > 0
                     and n_labels == len(self._ex.output_names))
@@ -204,6 +225,24 @@ class FusedTrainStep:
                              if _san.enabled("retrace") else None)
         self._donation = _san.enabled("donation")
         self._held = None           # (tensor, data_ptr) the graph writes
+        self._streams = None        # a side stream a card (several)
+        if self._reps is not None:
+            self._refuse_over_cards()
+
+    def _refuse_over_cards(self):
+        """What the step does not run over several contexts."""
+        what = None
+        if self._numwatch is not None and self._numwatch.skip_guard:
+            what = ("the numerics plane's skip guard (it restores the "
+                    "first card's pre-step state only)")
+        elif self._reps.cuda and self._ex.draws_random():
+            what = ("a graph that draws random numbers (each card's "
+                    "generator would have to be registered with the one "
+                    "graph over every card)")
+        if what is not None:
+            raise MXNetError("fused train step over %d contexts: %s is not "
+                             "in this slice (ROADMAP.md Queue A item 10a)"
+                             % (self._reps.n, what))
 
     def _params(self):
         """(updater index, weight, grad, state tensors) of every
@@ -262,6 +301,64 @@ class FusedTrainStep:
                 for new, old in zip(live, kept):
                     torch.where(grads_ok, new, old, out=new)
 
+    def _step_fn(self, *args):
+        """The step function of this bind: :meth:`_body`, or
+        :meth:`_body_replicas` over several contexts. (Chosen per call:
+        a bound method kept on the step would make a reference cycle, and
+        the cycle collector could then free a dead step's CUDA graph in
+        the middle of another capture.)"""
+        if self._reps is None:
+            return self._body(*args)
+        return self._body_replicas(*args)
+
+    def _replica_items(self):
+        """Every replica's ``(updater index, weight, grad, state
+        tensors)``, a list a replica in the updater's order; the states
+        are each replica's own updater's."""
+        module = self._module
+        out = []
+        for updater, ex in zip(module._updaters, module._exec_group.execs):
+            out.append([(i, ex.arg_dict[n].handle, ex.grad_dict[n].handle,
+                         _state_tensors(updater._state(i, ex.arg_dict[n])))
+                        for i, n in enumerate(module._param_names)
+                        if n in ex.grad_dict])
+        return out
+
+    def _body_replicas(self, all_items, structure, hypers, feed):
+        """The step function over every replica: the lock-step forward,
+        the backward with the gradient exchange, and per card the
+        update from its own copy of the rows and the metric fold into
+        its own accumulator; the numerics plane folds the first card.
+        ``feed`` is None (the device feed is refused over cards)."""
+        group, reps = self._module._exec_group, self._reps
+        rex = group.replicated
+        callback, rex._monitor_callback = rex._monitor_callback, None
+        try:
+            rex.forward(is_train=True)
+        finally:
+            rex._monitor_callback = callback
+        rex.backward()
+        if self._outs is None:
+            self._outs = [[torch.empty_like(o.handle) for o in ex._outputs]
+                          for ex in group.execs]
+        nw = self._numwatch
+        for k, (ex, items, hyper) in enumerate(zip(group.execs, all_items,
+                                                   hypers)):
+            with reps.on(k):
+                for dst, o in zip(self._outs[k], ex._outputs):
+                    dst.copy_(o.handle)
+                ws = [w for _, w, _, _ in items]
+                gs = [g for _, _, g, _ in items]
+                ss = [s for _, _, _, s in items]
+                if k == 0 and nw is not None:
+                    self._keep_pre_step(ws, ss)
+                self._optimizer.apply(structure, hyper, ws, gs, ss)
+                labels = [ex.arg_dict[n].handle for n in group.label_names]
+                if self._fold is not None:
+                    self._fold.device_fold(labels, self._outs[k], k)
+                if k == 0 and nw is not None:
+                    nw.fold(self._w_old, gs, ws, self._outs[0], labels)
+
     def _keep_pre_step(self, ws, ss):
         """Copy the weights (and, under the skip guard, every optimizer
         state tensor and the metric's device sums) into step-owned
@@ -298,6 +395,45 @@ class FusedTrainStep:
         if group.executor is not ex:
             raise MXNetError("fused train step: the module was bound again "
                              "after the step was built; build a new step")
+        if self._reps is None:
+            args = self._load_one(data_batch)
+        else:
+            args = self._load_replicas(data_batch)
+        if ex._device.type != "cuda":
+            self._eager(*args)
+        elif self.eager_steps == 0:
+            self._warm_up(*args)
+        else:
+            self._replay(*args)
+        if self._held is None:
+            self._held = [(t, t.data_ptr()) for t in _written_all(
+                self._item_lists(args[0]))]
+        if self._donation:
+            live = self._item_lists(self._params()[0] if self._reps is None
+                                    else self._replica_items())
+            _san.DonationSanitizer.check("the fused step", self._held,
+                                         _written_all(live))
+        if self._retrace_san is not None:
+            self._retrace_san.check(self.captures)
+        outs = [self._outs] if self._reps is None else self._outs
+        for e, o in zip(group.execs, outs):
+            e._outputs = [NDArray(t, e._ctx) for t in o]
+        if self._numwatch is not None:
+            self._numwatch.stepped()
+        if self._fold is None:
+            with _san.intentional_transfer():    # a host-side metric
+                group.update_metric(eval_metric, data_batch.label)
+
+    def _item_lists(self, items):
+        """``items`` (the step function's first argument) as a list of
+        one replica's items a replica."""
+        return [items] if self._reps is None else items
+
+    def _load_one(self, data_batch):
+        """The batch (or the device feed's frames) into the bound arrays
+        and the step's rows on the device: the step function's
+        arguments."""
+        group = self._module._exec_group
         aug = getattr(data_batch, "aug", None)
         if aug is not None and len(group.data_names) != 1:
             # the in-graph crop is for the one image input of the cached
@@ -317,26 +453,32 @@ class FusedTrainStep:
         opt = self._optimizer
         structure = opt.structure([i for i, _, _, _ in items])
         rows = opt.plan(arrays, structure)
-        hyper = opt.scalars(ex._device, rows.shape).copy(rows)
-        if ex._device.type != "cuda":
-            self._eager(items, structure, hyper, feed)
-        elif self.eager_steps == 0:
-            self._warm_up(items, structure, hyper, feed)
-        else:
-            self._replay(items, structure, hyper, feed)
-        if self._held is None:
-            self._held = [(t, t.data_ptr()) for t in _written(items)]
-        if self._donation:
-            _san.DonationSanitizer.check("the fused step", self._held,
-                                         _written(self._params()[0]))
-        if self._retrace_san is not None:
-            self._retrace_san.check(self.captures)
-        ex._outputs = [NDArray(t, ex._ctx) for t in self._outs]
-        if self._numwatch is not None:
-            self._numwatch.stepped()
-        if self._fold is None:
-            with _san.intentional_transfer():    # a host-side metric
-                eval_metric.update(data_batch.label, ex._outputs)
+        hyper = opt.scalars(self._ex._device, rows.shape).copy(rows)
+        return items, structure, hyper, feed
+
+    def _load_replicas(self, data_batch):
+        """:meth:`_load_one` over the replicas of a group bound over
+        several contexts: the batch copied in slice by slice, the host
+        half of the update once and its rows copied to every card. The
+        device feed is refused."""
+        group, reps = self._module._exec_group, self._reps
+        if getattr(data_batch, "aug", None) is not None:
+            raise MXNetError(
+                "fused train step over %d contexts: the uint8 device feed "
+                "(io_cache device_feed) is not split across cards yet "
+                "(ROADMAP.md Queue A, the device feed over several cards)"
+                % reps.n)
+        group.load_data_batch(data_batch)
+        all_items = self._replica_items()
+        _, arrays = self._params()
+        opt = self._optimizer
+        structure = opt.structure([i for i, _, _, _ in all_items[0]])
+        rows = opt.plan(arrays, structure)
+        hypers = []
+        for k, ex in enumerate(group.execs):
+            with reps.device(k):
+                hypers.append(opt.scalars(ex._device, rows.shape).copy(rows))
+        return all_items, structure, hypers, None
 
     def _load_feed(self, data_batch, aug):
         """Copy a device-feed batch's frames and augmentation into the
@@ -373,7 +515,7 @@ class FusedTrainStep:
         (``MXNET_TPU_XPROF_OPS``) and, on a card, its peak allocation
         above what was live before it."""
         if self.eager_steps or not _xprof.enabled():
-            self._body(*args)
+            self._step_fn(*args)
         else:
             dev = self._ex._device
             if dev.type == "cuda":
@@ -381,9 +523,9 @@ class FusedTrainStep:
                 torch.cuda.reset_peak_memory_stats(dev)
             if _env.get("MXNET_TPU_XPROF_OPS"):
                 _, self.step_flops = _xprof.count_flops(
-                    lambda: self._body(*args))
+                    lambda: self._step_fn(*args))
             else:
-                self._body(*args)
+                self._step_fn(*args)
             if dev.type == "cuda":
                 self._eager_mem = (live, torch.cuda.max_memory_allocated(dev))
         self.eager_steps += 1
@@ -394,8 +536,27 @@ class FusedTrainStep:
             self._stream = torch.cuda.Stream(self._ex._device)
         return self._stream
 
+    def _side_streams(self):
+        """A side stream a card (the first is :meth:`_side_stream`)."""
+        if self._streams is None:
+            self._streams = [self._side_stream()] + [
+                torch.cuda.Stream(d) for d in self._reps.devices[1:]]
+        return self._streams
+
     def _warm_up(self, *args):
-        """The first batch, eagerly on the stream that will capture."""
+        """The first batch, eagerly on the stream(s) that will capture."""
+        if self._reps is not None:
+            streams = self._side_streams()
+            mains = [torch.cuda.current_stream(d) for d in self._reps.devices]
+            for s, main in zip(streams, mains):
+                s.wait_stream(main)
+            with contextlib.ExitStack() as stack:
+                for s in streams:
+                    stack.enter_context(torch.cuda.stream(s))
+                self._eager(*args)
+            for s, main in zip(streams, mains):
+                main.wait_stream(s)
+            return
         s = self._side_stream()
         main = torch.cuda.current_stream(self._ex._device)
         s.wait_stream(main)
@@ -404,7 +565,7 @@ class FusedTrainStep:
         main.wait_stream(s)
 
     def _replay(self, items, structure, hyper, feed):
-        tensors = _written(items)
+        tensors = _written_all(self._item_lists(items))
         if structure != self._structure or feed is not self._captured_feed \
                 or len(tensors) != len(self._captured) or any(
                     a is not b for a, b in zip(tensors, self._captured)):
@@ -432,6 +593,16 @@ class FusedTrainStep:
             _xprof.preflight_check(2 * peak - live, device=self._ex._device,
                                    what="the fused step's capture")
         t0 = time.perf_counter()
+        if self._reps is not None:
+            graph = CardGraph(self._reps, self._side_streams())
+            try:
+                with _san.intentional_transfer():
+                    graph.capture(lambda: self._step_fn(*args))
+            except RuntimeError as e:
+                raise MXNetError("fused train step: CUDA graph capture over "
+                                 "%d cards failed: %s" % (self._reps.n, e)) \
+                    from e
+            return self._captured_graph(graph, t0)
         graph = torch.cuda.CUDAGraph()
         if self._ex.draws_random():
             register = getattr(graph, "register_generator_state", None)
@@ -445,6 +616,11 @@ class FusedTrainStep:
         # thread_local: a staging thread's copies and event queries on its
         # own stream (io_pipeline.FeedScheduler) may run during the
         # capture; they touch no tensor the graph reads
+        # a dead fit's CUDA graph that the cycle collector freed during
+        # the capture would end it (cudaGraphExecDestroy is refused while
+        # a stream captures), and torch.cuda.graph collects on entry no
+        # longer: collect now
+        gc.collect()
         try:
             # entering a capture synchronises the card once, a reviewed
             # sync under the transfer sanitizer; inside, CUDA itself
@@ -456,6 +632,9 @@ class FusedTrainStep:
         except RuntimeError as e:
             raise MXNetError("fused train step: CUDA graph capture failed: "
                              "%s" % e) from e
+        return self._captured_graph(graph, t0)
+
+    def _captured_graph(self, graph, t0):
         self.captures += 1
         _tel.inc("step.fused_recompiles")
         self._record_capture(time.perf_counter() - t0)
@@ -482,6 +661,11 @@ def _written(items):
     """Every weight, gradient and optimizer-state tensor of ``items``
     (``FusedTrainStep._params``), in order."""
     return [t for _, w, g, s in items for t in (w, g) + s]
+
+
+def _written_all(item_lists):
+    """:func:`_written` of every replica's items, in order."""
+    return [t for items in item_lists for t in _written(items)]
 
 
 def _flat_copy(buf, tensors):

@@ -1,16 +1,33 @@
-"""KVStore, counterpart of the ``local`` store of ``mxnet_tpu/kvstore.py``:
-one process, one device. ``push`` sums a key's list of values (one per
-device) and hands the sum to the updater, or stores it; ``pull`` copies
-the stored value out. The ``dist_*`` and device stores are not ported
-yet (ROADMAP.md Queue A item 10)."""
+"""KVStore, counterpart of the single-process stores of
+``mxnet_tpu/kvstore.py``.
+
+* ``local`` (also ``local_update_cpu`` and ``local_allreduce_cpu``): one
+  process; ``push`` sums a key's list of values (one per device) and
+  hands the sum to the updater, or stores it; ``pull`` copies the stored
+  value out.
+* ``device`` / ``tpu_sync`` (:class:`TPUSyncKVStore`, any name with
+  ``device`` or ``tpu``): the same API; the sum of a list of per-card
+  values lands on the first value's card, and ``pull`` copies the stored
+  value to every card of the ``out`` list.
+* ``device_sync`` (:class:`DeviceSyncKVStore`): one process over several
+  cards with the gradient exchange inside the training step. The
+  executor group sums every card's gradients into each card's copy after
+  the backward (an all-reduce over one flat buffer a card), so the
+  training path never pushes; ``fit`` takes the fused step by default
+  under this store (``MXNET_TPU_DEVICE_SYNC_FUSED``).
+
+Every store but the ``dist_*`` ones may be subsumed by the fused step
+(``fused_step_compatible``). The ``dist_*`` stores (a server, several
+processes) are ROADMAP.md Queue A item 10b and raise here.
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["KVStore", "create"]
+__all__ = ["KVStore", "TPUSyncKVStore", "DeviceSyncKVStore", "create"]
 
 _LOCAL = ("local", "local_update_cpu", "local_allreduce_cpu")
 
@@ -34,6 +51,20 @@ def _val_list(value, nkeys):
     return [list(v) if isinstance(v, (list, tuple)) else [v] for v in value]
 
 
+def _tree_sum(tensors):
+    """The balanced pairwise tree sum of the JAX package's ``_tree_sum``
+    (pairs in order, an odd last one carried up), so that both packages
+    add in the same order."""
+    xs = list(tensors)
+    while len(xs) > 1:
+        half, odd = divmod(len(xs), 2)
+        paired = [xs[2 * i] + xs[2 * i + 1] for i in range(half)]
+        if odd:
+            paired.append(xs[-1])
+        xs = paired
+    return xs[0]
+
+
 class KVStore:
     """The single-process store."""
 
@@ -54,6 +85,19 @@ class KVStore:
     def num_workers(self) -> int:
         return 1
 
+    @property
+    def fused_step_compatible(self) -> bool:
+        """True where the fused train step may subsume this store's
+        gradient aggregation: every single-process store, whose exchange
+        the executor group runs inside the step."""
+        return "dist" not in self._type
+
+    @property
+    def in_jit_gradient_exchange(self) -> bool:
+        """True for a store that asks for the fused step by default
+        (``device_sync``)."""
+        return False
+
     def init(self, key, value):
         keys = _key_list(key)
         for k, vlist in zip(keys, _val_list(value, len(keys))):
@@ -61,15 +105,21 @@ class KVStore:
                 raise MXNetError("key %s already initialized" % k)
             self._store[k] = vlist[0].copyto(vlist[0].context)
 
+    def _reduce(self, vlist: List[NDArray]) -> NDArray:
+        """The sum of a key's per-device values, on the first value's
+        device, added in the JAX package's tree order."""
+        if len(vlist) == 1:
+            return vlist[0]
+        dev = vlist[0].handle.device
+        return NDArray(_tree_sum([v.handle.to(dev) for v in vlist]),
+                       vlist[0].context)
+
     def push(self, key, value, priority: int = 0):
         keys = _key_list(key)
         for k, vlist in zip(keys, _val_list(value, len(keys))):
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % k)
-            merged = vlist[0].handle
-            for v in vlist[1:]:
-                merged = merged + v.handle.to(merged.device)
-            merged = NDArray(merged, vlist[0].context)
+            merged = self._reduce(vlist)
             if self._updater is not None:
                 self._updater(k, merged, self._store[k])
             else:
@@ -120,16 +170,47 @@ class KVStore:
                              "(partial/torn write?)" % (fname, e)) from e
 
 
+class TPUSyncKVStore(KVStore):
+    """``tpu_sync`` / ``device``: the reduce of a list of per-card values
+    on the first value's card."""
+
+
+class DeviceSyncKVStore(TPUSyncKVStore):
+    """``device_sync``: one process over several cards with the gradient
+    exchange inside the training step (the executor group's all-reduce
+    after the backward). The store keeps the push/pull API for explicit
+    use; ``fit`` under it asks for the fused step by default."""
+
+    def __init__(self, kv_type: str = "device_sync"):
+        super().__init__(kv_type)
+
+    @property
+    def in_jit_gradient_exchange(self) -> bool:
+        return True
+
+    def grad_reduce_sharding(self, mesh, param_sharding):
+        """Where the exchanged gradient lands: on its param's placement.
+        Without fsdp (item 10c) every param is replicated, so this is the
+        identity, as in the JAX package."""
+        return param_sharding
+
+
 def create(name: str = "local") -> KVStore:
-    """A store by type name: ``local`` (also ``local_update_cpu`` and
-    ``local_allreduce_cpu``). ``dist_*`` and ``device`` stores raise."""
+    """A store by type name, routed as the JAX package routes it:
+    ``device_sync``; any name with ``tpu`` or ``device``; the ``local``
+    names. ``dist_*`` stores raise (ROADMAP.md Queue A item 10b)."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     lname = name.lower()
+    if lname == "device_sync":
+        return DeviceSyncKVStore(lname)
+    if "tpu" in lname or "device" in lname:
+        return TPUSyncKVStore(lname)
+    if "dist" in lname or "async" in lname:
+        raise MXNetError("kvstore type '%s' is not ported yet: the port has "
+                         "one process and its single-process stores "
+                         "(ROADMAP.md Queue A item 10b, the dist stores)"
+                         % name)
     if lname in _LOCAL:
         return KVStore(lname)
-    if "dist" in lname or "device" in lname or "tpu" in lname:
-        raise MXNetError("kvstore type '%s' is not ported yet: the port has "
-                         "one device and the local store (ROADMAP.md Queue A "
-                         "item 10, distribution)" % name)
     raise MXNetError("unknown kvstore type %s" % name)

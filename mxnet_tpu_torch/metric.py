@@ -14,7 +14,7 @@ one batch mean (in float32, as the JAX package's fold) a batch. F1 and
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -67,6 +67,9 @@ class EvalMetric:
         self.name = name
         self.num = num
         self._acc: Optional[torch.Tensor] = None
+        # the other replicas' accumulators (a fused step over several
+        # cards folds each card's slice on that card), by replica
+        self._replica_accs: Dict[int, torch.Tensor] = {}
         self.reset()
 
     def reset(self):
@@ -78,6 +81,8 @@ class EvalMetric:
             self.sum_metric = [0.0] * self.num
         if self._acc is not None:
             self._acc.zero_()
+        for acc in getattr(self, "_replica_accs", {}).values():
+            acc.zero_()
 
     def _batch(self, label: torch.Tensor, pred: torch.Tensor):
         """``(sum, count)`` of one (label, pred) pair: ``sum`` a 0-d
@@ -98,11 +103,25 @@ class EvalMetric:
             self._acc = torch.zeros(2, dtype=torch.float64, device=device)
         return self._acc
 
+    def replica_accumulator(self, replica: int,
+                            device: torch.device) -> torch.Tensor:
+        """Replica ``replica``'s (1 and up) float64 ``(sum, count)``
+        accumulator on ``device``, beside the first replica's
+        :meth:`accumulator`; :meth:`get` adds them all."""
+        acc = self._replica_accs.get(replica)
+        if acc is None or acc.device != device:
+            acc = self._replica_accs[replica] = torch.zeros(
+                2, dtype=torch.float64, device=device)
+        return acc
+
     def device_fold(self, labels: Sequence[torch.Tensor],
-                    preds: Sequence[torch.Tensor]) -> None:
+                    preds: Sequence[torch.Tensor], replica: int = 0) -> None:
         """Add a batch into the accumulator, in place, with no host
-        sync: the labels must lie on the predictions' device."""
-        acc = self.accumulator(preds[0].device)
+        sync: the labels must lie on the predictions' device. A replica
+        after the first (a fused step over several cards) folds into its
+        own :meth:`replica_accumulator`."""
+        acc = (self.accumulator(preds[0].device) if replica == 0 else
+               self.replica_accumulator(replica, preds[0].device))
         for label, pred in zip(labels, preds):
             s, n = self._batch(label, pred)
             acc[0].add_(s.double())
@@ -122,13 +141,25 @@ class EvalMetric:
             self.sum_metric += float(s)
             self.num_inst += n
 
+    def device_totals(self):
+        """The device accumulators' ``(sum, count)`` added up on the host
+        (one read each), or None where there is none."""
+        accs = ([self._acc] if self._acc is not None else []) \
+            + list(self._replica_accs.values())
+        if not accs:
+            return None
+        s = n = 0.0
+        with _san.intentional_transfer():
+            for acc in accs:
+                acc_s, acc_n = acc.tolist()
+                s, n = s + acc_s, n + acc_n
+        return s, n
+
     def _totals(self):
         s, n = self.sum_metric, self.num_inst
-        if self._acc is not None:
-            # the accumulator's one host read
-            with _san.intentional_transfer():
-                acc_s, acc_n = self._acc.tolist()
-            s, n = s + acc_s, n + int(acc_n)
+        dev = self.device_totals()
+        if dev is not None:
+            s, n = s + dev[0], n + int(dev[1])
         return s, n
 
     def get(self):
@@ -281,9 +312,9 @@ class CompositeEvalMetric(EvalMetric):
         for m in self.metrics:
             m.reset()
 
-    def device_fold(self, labels, preds):
+    def device_fold(self, labels, preds, replica=0):
         for m in self.metrics:
-            m.device_fold(labels, preds)
+            m.device_fold(labels, preds, replica)
 
     def update(self, labels, preds):
         for m in self.metrics:

@@ -1,5 +1,5 @@
-"""Module API (single device): bind, predict and fit; the bucketing,
-sequential and Python modules."""
+"""Module API (one context, or one replica a context over several):
+bind, predict and fit; the bucketing, sequential and Python modules."""
 from .base_module import BaseModule, BatchEndParam
 from .module import Module
 from .executor_group import DataParallelExecutorGroup

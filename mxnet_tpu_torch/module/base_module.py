@@ -45,6 +45,14 @@ BatchEndParam = namedtuple("BatchEndParam",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
+def _asks_for_fused(kvstore) -> bool:
+    """True for a store (or store name) whose gradient exchange is the
+    one inside the fused step (``device_sync``)."""
+    if isinstance(kvstore, str):
+        return kvstore.lower() == "device_sync"
+    return bool(getattr(kvstore, "in_jit_gradient_exchange", False))
+
+
 def _as_list(obj):
     if obj is None:
         return []
@@ -267,7 +275,9 @@ class BaseModule:
         where the configuration cannot fuse), call the batch-end
         callbacks, log the metric, call the epoch-end callbacks with the
         params and score ``eval_data``. ``fused_step=None`` reads
-        ``MXNET_TPU_FUSED_STEP``; ``True`` or ``False`` wins over it.
+        ``MXNET_TPU_FUSED_STEP``, and under a ``device_sync`` kvstore
+        takes the fused step unless ``MXNET_TPU_DEVICE_SYNC_FUSED=0``;
+        ``True`` or ``False`` wins over both.
         Under ``MXNET_TPU_CKPT_DIR`` the run resumes from the newest
         valid snapshot (mid-epoch: the metric and the iterator are not
         reset, and ``nbatch`` counts on from the snapshot's), saves
@@ -280,7 +290,11 @@ class BaseModule:
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
         if fused_step is None:
-            fused_step = _env.get("MXNET_TPU_FUSED_STEP")
+            # device_sync asks for the fused step: its gradient exchange
+            # is the one inside the step
+            fused_step = _env.get("MXNET_TPU_FUSED_STEP") or (
+                _asks_for_fused(kvstore)
+                and _env.get("MXNET_TPU_DEVICE_SYNC_FUSED"))
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)

@@ -159,6 +159,7 @@ class BucketingModule(BaseModule):
         if cur is not default:
             cur._optimizer = default._optimizer
             cur._updater = default._updater
+            cur._updaters = default._updaters
             cur._kvstore = default._kvstore
             cur.optimizer_initialized = True
         cur.update()

@@ -1,11 +1,13 @@
 """Module: the standard unit over one symbol, counterpart of
-``mxnet_tpu/module/module.py`` (single device): bind, params, the
-optimizer, and the forward/backward/update steps that ``fit`` runs."""
+``mxnet_tpu/module/module.py``: bind, params, the optimizer, and the
+forward/backward/update steps that ``fit`` runs, on one context or over
+several (one replica a context; ROADMAP.md Queue A item 10a)."""
 from __future__ import annotations
 
 import logging
 from typing import Dict, Optional
 
+from .. import env as _env
 from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..executor import _UNSET
@@ -15,7 +17,7 @@ from .. import kvstore as kvs
 from .. import ndarray as nd
 from .. import optimizer as opt
 from .base_module import BaseModule
-from .executor_group import DataParallelExecutorGroup
+from .executor_group import DataParallelExecutorGroup, check_contexts
 
 __all__ = ["Module"]
 
@@ -27,8 +29,11 @@ class Module(BaseModule):
     ``compute_dtype`` (default ``MXNET_COMPUTE_DTYPE``, None for
     float32) is the executor's mixed precision: the graph computes in
     bfloat16 or float16, the labels stay as they are, and params,
-    gradients and aux states stay float32. ``work_load_list`` is
-    accepted and kept, as the reference's group keeps it."""
+    gradients and aux states stay float32. Several contexts (all CPU or
+    all GPU, each once) bind a replica a context on an equal slice of the
+    batch; the optimizer then keeps a state a replica and applies the
+    same update on each. ``work_load_list`` is accepted and kept, and,
+    as in the JAX package, the slices are equal whatever it says."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
@@ -36,15 +41,14 @@ class Module(BaseModule):
                  compute_dtype=_UNSET):
         super().__init__(logger=logger)
         self._compute_dtype = compute_dtype
-        # one share of the batch a context; with the one context the
-        # port binds it splits nothing (the reference's group keeps it)
+        # one share of the batch a context; the group keeps it and, as
+        # the JAX package's, splits the batch equally
         self._work_load_list = work_load_list
         if context is None:
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        for ctx in context:
-            ctx.torch_device()
+        check_contexts(context)
         self._context = list(context)
         self._symbol = symbol
         self._data_names = list(data_names)
@@ -63,6 +67,8 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._updater = None
+        # one updater a replica (the first is _updater): a state a card
+        self._updaters = []
         self._fused_step = None
         self._fused_step_active = False
 
@@ -138,7 +144,8 @@ class Module(BaseModule):
             inputs_need_grad, grad_req, self._fixed_param_names,
             compute_dtype=self._compute_dtype,
             shared_group=(shared_module._exec_group
-                          if shared_module is not None else None))
+                          if shared_module is not None else None),
+            workload=self._work_load_list)
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
@@ -199,8 +206,10 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer (``rescale_grad`` defaults to one over the
-        batch size) and its updater, and ``init`` every parameter in the
-        kvstore."""
+        global batch size) and its updater, one a replica, and ``init``
+        every parameter in the kvstore: ``local``, ``device`` /
+        ``tpu_sync`` or ``device_sync`` (the executor group exchanges the
+        gradients; the store is not pushed to in training)."""
         if not self.binded or not self.params_initialized:
             raise MXNetError("bind and init_params before init_optimizer")
         if self.optimizer_initialized and not force_init:
@@ -217,7 +226,9 @@ class Module(BaseModule):
                 param_idx2name=dict(enumerate(self._param_names)),
                 **optimizer_params)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._updaters = [opt.get_updater(optimizer)
+                          for _ in self._exec_group.execs]
+        self._updater = self._updaters[0]
         if kvstore:
             for i, name in enumerate(self._param_names):
                 kvstore.init(i, self._arg_params[name])
@@ -234,27 +245,46 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to the gradients, every parameter in one
-        multi-tensor update (the local store needs no push/pull: the one
-        device's gradients are already the reduced ones)."""
+        multi-tensor update. The store needs no push/pull: the gradients
+        are already the reduced ones (the one device's, or, over several
+        contexts, every replica's copy of the global batch's after the
+        group's exchange). Over several contexts the host half of the step
+        (the update counts, the schedule) runs once and the same update is
+        applied on every replica; an optimizer without a fusable update
+        updates the first replica and its weights are copied to the
+        others."""
         if not self.optimizer_initialized:
             raise MXNetError("init_optimizer before update")
         self._params_dirty = True
-        ex = self._exec_group.executor
-        self._updater.update_multi(
-            [(i, ex.grad_dict[name], ex.arg_dict[name])
-             for i, name in enumerate(self._param_names)
-             if name in ex.grad_dict])
+        group = self._exec_group
+        items = [[(i, ex.grad_dict[name], ex.arg_dict[name])
+                  for i, name in enumerate(self._param_names)
+                  if name in ex.grad_dict] for ex in group.execs]
+        if len(items) == 1:
+            self._updater.update_multi(items[0])
+            return
+        optimizer = self._optimizer
+        if optimizer._fusable() and _env.get("MXNET_TPU_FUSED_UPDATE"):
+            optimizer.run_plan_replicas(
+                [[(i, w, g, u._state(i, w)) for i, g, w in its]
+                 for u, its in zip(self._updaters, items)], group.replicas)
+            return
+        self._updater.update_multi(items[0])
+        for its in items[1:]:
+            for (_, _, w), (_, _, w0) in zip(its, items[0]):
+                w[:] = w0
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
     def _bound_states(self):
         """Create the optimizer state of every bound parameter with a
-        gradient that has none yet (a restore writes into them)."""
-        ex = self._exec_group.executor
-        for i, name in enumerate(self._param_names):
-            if name in ex.grad_dict:
-                self._updater._state(i, ex.arg_dict[name])
+        gradient that has none yet, on every replica (a restore writes
+        into them)."""
+        for updater, ex in zip(self._updaters, self._exec_group.execs):
+            for i, name in enumerate(self._param_names):
+                if name in ex.grad_dict:
+                    updater._state(i, ex.arg_dict[name])
 
     # -- checkpoints -------------------------------------------------------
     def save_checkpoint(self, prefix: str, epoch: int,
@@ -281,7 +311,8 @@ class Module(BaseModule):
         with open(fname, "rb") as f:
             blob = f.read()
         try:
-            self._updater.set_states(blob)
+            for updater in self._updaters:
+                updater.set_states(blob)
             self._bound_states()
         except Exception as e:
             raise MXNetError("invalid optimizer-states file %s: %s "
@@ -323,7 +354,7 @@ class Module(BaseModule):
         return self._fused_step
 
     def get_outputs(self, merge_multi_context=True):
-        return self._exec_group.get_outputs()
+        return self._exec_group.get_outputs(merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
-        return self._exec_group.get_input_grads()
+        return self._exec_group.get_input_grads(merge_multi_context)

@@ -438,18 +438,58 @@ class BatchNorm(Operator):
         c = (data[self.axis],)
         return [data, c, c], [data], [c, c]
 
+    def _axes(self, x):
+        caxis = self.axis % x.dim()
+        return caxis, [i for i in range(x.dim()) if i != caxis]
+
     def apply(self, ctx, inputs, aux):
+        x = inputs[0]
+        if ctx.is_train and not self.use_global_stats:
+            _, axes = self._axes(x)
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+            return self._normalize(True, inputs, aux, x32.mean(dim=axes),
+                                   (x32 * x32).mean(dim=axes))
+        return self._normalize(False, inputs, aux)
+
+    def apply_replicas(self, ctxs, inputs, aux):
+        """The replicas of a group bound over several contexts. In train
+        mode each replica's float32 ``sum x`` and ``sum x^2`` by channel
+        (one (2C,) tensor) are summed across the replicas by one
+        autograd-aware cross-card sum before the mean and the variance, so
+        the statistics, the moving statistics and the gradients are those
+        of the global batch; otherwise each replica runs :meth:`apply`."""
+        reps = ctxs[0].replicas
+        if not (ctxs[0].is_train and not self.use_global_stats):
+            return reps.each(self.apply, ctxs, inputs, aux)
+        parts = []
+        for k, (x, _, _) in enumerate(inputs):
+            with reps.on(k):
+                _, axes = self._axes(x)
+                x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+                parts.append(torch.cat([x32.sum(dim=axes),
+                                        (x32 * x32).sum(dim=axes)]))
+        caxis, _ = self._axes(inputs[0][0])
+        count = sum(x.numel() // x.shape[caxis] for x, _, _ in inputs)
+        totals = reps.all_sum(parts)
+        outs, new_aux = [], []
+        for k in range(reps.n):
+            with reps.on(k):
+                mean, meansq = (totals[k] / count).chunk(2)
+                o, a = self._normalize(True, inputs[k], aux[k], mean, meansq)
+            outs.append(o)
+            new_aux.append(a)
+        return outs, new_aux
+
+    def _normalize(self, batch_stats, inputs, aux, mean=None, meansq=None):
+        """The output and the new moving statistics, from the batch's
+        ``mean`` and ``meansq`` (float32) or from the moving ones."""
         x, gamma, beta = inputs
         moving_mean, moving_var = aux
-        caxis = self.axis % x.dim()
-        axes = [i for i in range(x.dim()) if i != caxis]
+        caxis, _ = self._axes(x)
         bshape = [-1 if i == caxis else 1 for i in range(x.dim())]
         if self.fix_gamma:
             gamma = torch.ones_like(gamma)
-        if ctx.is_train and not self.use_global_stats:
-            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = x32.mean(dim=axes)
-            meansq = (x32 * x32).mean(dim=axes)
+        if batch_stats:
             var = torch.clamp_min(meansq - mean * mean, 0.0)
             m = self.momentum
             new_aux = [moving_mean * m
@@ -588,10 +628,11 @@ class _SoftmaxOutput(torch.autograd.Function):
     zero (``mxnet_tpu/ops/nn.py:588-619``)."""
 
     @staticmethod
-    def forward(ctx, data, label, op):
+    def forward(ctx, data, label, op, norm=None):
         axis = 1 if op.multi_output else -1
         out = torch.softmax(data, dim=axis)
         ctx.op = op
+        ctx.norm = norm
         ctx.save_for_backward(out, label)
         return out
 
@@ -608,20 +649,27 @@ class _SoftmaxOutput(torch.autograd.Function):
         # jax.nn.one_hot does
         onehot = (lab == classes.reshape(shape)).to(out.dtype)
         grad = out - onehot
-        valid = None
         if op.use_ignore:
             valid = label != op.ignore_label
             grad = grad * valid.unsqueeze(caxis).to(out.dtype)
-        if op.normalization == "batch":
+        if ctx.norm is not None:
+            # the global batch's divisor (a group over several contexts)
+            grad = grad / ctx.norm
+        elif op.normalization == "batch":
             grad = grad / out.shape[0]
         elif op.normalization == "valid":
-            if valid is None:
-                valid = torch.ones(label.shape, dtype=torch.bool,
-                                   device=label.device)
-            grad = grad / torch.clamp_min(valid.to(out.dtype).sum(), 1.0)
+            grad = grad / torch.clamp_min(_valid(op, label, out.dtype).sum(),
+                                          1.0)
         grad = grad * op.grad_scale
         dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
-        return grad.to(out.dtype), dlabel, None
+        return grad.to(out.dtype), dlabel, None, None
+
+
+def _valid(op, label, dtype):
+    """1 where a label counts toward the ``valid`` normalization."""
+    if op.use_ignore:
+        return (label != op.ignore_label).to(dtype)
+    return torch.ones(label.shape, dtype=dtype, device=label.device)
 
 
 @register_op("SoftmaxOutput", aliases=["Softmax"])
@@ -661,6 +709,30 @@ class SoftmaxOutput(Operator):
 
     def apply(self, ctx, inputs, aux):
         return [_SoftmaxOutput.apply(inputs[0], inputs[1], self)], []
+
+    def apply_replicas(self, ctxs, inputs, aux):
+        """The replicas of a group bound over several contexts: the
+        ``batch`` and ``valid`` normalizations divide by the global batch's
+        rows and valid labels (the latter summed across the replicas in
+        the forward); ``null`` is each replica's own."""
+        reps = ctxs[0].replicas
+        if self.normalization not in ("batch", "valid"):
+            return reps.each(self.apply, ctxs, inputs, aux)
+        if self.normalization == "batch":
+            norms = [sum(d.shape[0] for d, _ in inputs)] * reps.n
+        else:
+            counts = []
+            for k, (data, label) in enumerate(inputs):
+                with reps.on(k):
+                    counts.append(_valid(self, label, data.dtype).sum()
+                                  .reshape(1))
+            reps.sum_(counts)
+            norms = [torch.clamp_min(c[0], 1.0) for c in counts]
+        outs = []
+        for k, ((data, label), norm) in enumerate(zip(inputs, norms)):
+            with reps.on(k):
+                outs.append([_SoftmaxOutput.apply(data, label, self, norm)])
+        return outs, [[] for _ in inputs]
 
 
 @register_op("SoftmaxActivation")

@@ -55,15 +55,20 @@ class Param:
 
 
 class OpContext:
-    """Per-invocation context handed to ``apply``: the training-mode flag
-    and the ``torch.Generator`` of the random ops (None where the graph
-    draws nothing)."""
+    """Per-invocation context handed to ``apply``: the training-mode flag,
+    the ``torch.Generator`` of the random ops (None where the graph draws
+    nothing) and the replica set of an executor group bound over several
+    contexts (:class:`~mxnet_tpu_torch.replicas.Replicas`; None with one
+    context). An op whose result depends on the whole batch defines
+    ``apply_replicas(ctxs, inputs, aux)``: one context, inputs and aux
+    list a replica, called once for all of them in the lock-step walk."""
 
-    __slots__ = ("is_train", "rng")
+    __slots__ = ("is_train", "rng", "replicas")
 
-    def __init__(self, is_train: bool, rng=None):
+    def __init__(self, is_train: bool, rng=None, replicas=None):
         self.is_train = is_train
         self.rng = rng
+        self.replicas = replicas
 
 
 class Operator:
@@ -107,6 +112,12 @@ class Operator:
     @property
     def num_outputs(self) -> int:
         return len(self.list_outputs())
+
+    def couples_batch(self) -> bool:
+        """True where the op reduces over, or indexes across, the batch
+        axis in a way the replicas of a group bound over several contexts
+        cannot combine (an op that can defines ``apply_replicas``)."""
+        return False
 
     @property
     def draws_random(self) -> bool:

@@ -667,6 +667,10 @@ class _ReduceOp(Operator):
             return tuple(range(ndim))
         return tuple(a % ndim for a in self.axis)
 
+    def couples_batch(self):
+        # every axis, or the batch axis (0), is reduced
+        return self.axis is None or 0 in self.axis
+
     def infer_shape(self, in_shapes):
         data = in_shapes[0]
         if data is None:
@@ -878,6 +882,10 @@ class IdentityAttachKLSparseReg(Operator):
 
     def list_auxiliary_states(self):
         return ["moving_avg"]
+
+    def couples_batch(self):
+        # the mean activation is over the batch
+        return True
 
     def infer_shape(self, in_shapes):
         data = in_shapes[0]

@@ -40,6 +40,10 @@ class ROIPooling(Operator):
     def list_arguments(self):
         return ["data", "rois"]
 
+    def couples_batch(self):
+        # a roi names its image by its index in the whole batch
+        return True
+
     def infer_shape(self, in_shapes):
         data, rois = in_shapes
         if data is None or rois is None:
@@ -252,6 +256,10 @@ class SoftmaxCrossEntropy(Operator):
 
     def list_arguments(self):
         return ["data", "label"]
+
+    def couples_batch(self):
+        # one value, summed over the batch
+        return True
 
     def infer_shape(self, in_shapes):
         data = in_shapes[0]

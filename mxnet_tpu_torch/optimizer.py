@@ -175,6 +175,26 @@ class Optimizer:
         self.apply(structure, hyper, ws, [g.handle for _, _, g, _ in items],
                    [_state_tensors(s) for _, _, _, s in items])
 
+    def run_plan_replicas(self, items_by_replica, replicas):
+        """One step over every replica's copy of the parameters
+        (``items_by_replica``: a list of ``(index, weight, grad, state)``
+        a replica, in the same order): the host half once, from the first
+        replica's items (each index's update count moves once), then the
+        device half on every replica, each reading its own copy of the
+        rows."""
+        items = items_by_replica[0]
+        if not items:
+            return
+        structure = self.structure([i for i, _, _, _ in items])
+        rows = self.plan(items, structure)
+        for k, its in enumerate(items_by_replica):
+            with replicas.device(k):
+                ws = [w.handle for _, w, _, _ in its]
+                hyper = self.scalars(ws[0].device, rows.shape).copy(rows)
+                self.apply(structure, hyper, ws,
+                           [g.handle for _, _, g, _ in its],
+                           [_state_tensors(s) for _, _, _, s in its])
+
     # -- the host half --------------------------------------------------------
     def _row_key(self, index) -> tuple:
         """What makes two parameters' rows differ at some step: their lr

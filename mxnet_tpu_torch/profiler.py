@@ -28,9 +28,23 @@ from typing import List, Optional
 
 from .base import MXNetError
 
-__all__ = ["start", "stop", "annotate", "StepTimer", "is_running"]
+__all__ = ["start", "stop", "annotate", "StepTimer", "is_running",
+           "keep_cupti"]
 
 _active = None      # (logdir, torch.profiler.profile)
+
+
+def keep_cupti():
+    """Keep CUPTI, the card's tracing interface, set up from one
+    ``torch.profiler`` session to the next in this process (unless the
+    environment already says otherwise). Torn down after a session and
+    set up again for the next while CUDA graphs exist (the fused step's),
+    CUPTI can crash the process; PyTorch sets the same two variables
+    itself, but only for its compiler's CUDA graphs
+    (``torch/profiler/profiler.py``, ``TEARDOWN_CUPTI``). Call it before
+    a session that may trace a card."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
 
 
 def start(logdir: str):
@@ -44,6 +58,7 @@ def start(logdir: str):
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
+        keep_cupti()
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.__enter__()

@@ -901,7 +901,7 @@ class InferenceServer:
 
         if tp is not None and int(tp) > 1:
             raise MXNetError("tensor-parallel serving (tp=%d) is not "
-                             "ported yet: ROADMAP.md Queue A item 10" % tp)
+                             "ported yet: ROADMAP.md Queue A item 10e" % tp)
         if not module.binded or not module.params_initialized:
             raise MXNetError("InferenceServer needs a bound, "
                              "param-initialized module")

@@ -441,6 +441,9 @@ class AnomalyProfiler:
 
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
+            from .profiler import keep_cupti
+
+            keep_cupti()
             acts.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=acts)
         self._prof.start()

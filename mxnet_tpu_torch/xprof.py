@@ -342,6 +342,9 @@ def profile_breakdown(run, reps: int = 1, flops: Optional[dict] = None):
 
     if not torch.cuda.is_available():
         raise MXNetError("xprof.profile_breakdown needs a CUDA device")
+    from .profiler import keep_cupti
+
+    keep_cupti()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

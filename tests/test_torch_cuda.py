@@ -1280,3 +1280,68 @@ def test_fused_feed_captures_once_and_equals_classic(card, tmp_path):
                      for k, v in mod.get_params()[0].items()})
     for k in runs[0]:
         np.testing.assert_array_equal(runs[1][k], runs[0][k], err_msg=k)
+
+
+def _dp_fit(ctxs, kvstore, fused=None, batch=8, steps=3, seed=0):
+    """A small NHWC ResNet through fit over ``ctxs`` from seeded numpy
+    params: the params, moving statistics and module."""
+    rng = np.random.RandomState(9)
+    x = rng.randn(steps * batch, 16, 16, 3).astype(np.float32)
+    y = rng.randint(0, 10, steps * batch).astype(np.float32)
+    sym = tmx.models.get_resnet([1, 1], [8, 16, 16], num_classes=10,
+                                small_input=True, layout="NHWC")
+    shapes, _, aux_shapes = sym.infer_shape(data=(batch, 16, 16, 3))
+    prng = np.random.RandomState(seed)
+    args = {n: tmx.nd.array((prng.randn(*s) * 0.1).astype(np.float32),
+                            ctx=tmx.cpu())
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: tmx.nd.array(np.ones(s, np.float32) if n.endswith("var")
+                           else np.zeros(s, np.float32), ctx=tmx.cpu())
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    mod = tmx.mod.Module(sym, context=ctxs)
+    mod.fit(tmx.io.NDArrayIter(x, y, batch_size=batch), num_epoch=1,
+            arg_params=args, aux_params=aux, kvstore=kvstore,
+            optimizer="sgd", fused_step=fused,
+            optimizer_params={"learning_rate": 0.01, "momentum": 0.9})
+    a, b = mod.get_params()
+    return ({k: v.asnumpy().copy() for k, v in a.items()},
+            {k: v.asnumpy().copy() for k, v in b.items()}, mod)
+
+
+@pytest.mark.parametrize("kvstore,fused", [("device_sync", None),
+                                           ("device", True)])
+def test_device_stores_on_one_card_are_the_local_fit(card, kvstore, fused):
+    """One context keeps the one-card path: one capture, params and
+    moving statistics bit-equal to the local store's fused fit."""
+    want = _dp_fit([tmx.gpu(0)], "local", True)
+    got = _dp_fit([tmx.gpu(0)], kvstore, fused)
+    step = got[2]._fused_step
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 2)
+    for mine, theirs in zip(got[:2], want[:2]):
+        for k in theirs:
+            np.testing.assert_array_equal(mine[k], theirs[k], err_msg=k)
+
+
+def test_fused_fit_over_two_cards(card):
+    """Two cards in one process under device_sync: one CUDA graph over
+    both (one capture), the replicas bit-identical, the params within
+    rtol 1e-3 / atol 1e-5 of one card's fit at the same global batch
+    (float32 sums in another order; a small net, little chaos)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (%d visible)"
+                    % torch.cuda.device_count())
+    got = _dp_fit([tmx.gpu(0), tmx.gpu(1)], "device_sync")
+    want = _dp_fit([tmx.gpu(0)], "local", True)
+    mod = got[2]
+    step = mod._fused_step
+    assert (step.eager_steps, step.captures, step.dispatches) == (1, 1, 2)
+    first, second = mod._exec_group.execs
+    for name, arr in second.arg_dict.items():
+        if name not in ("data", "softmax_label"):
+            assert torch.equal(arr.handle.cpu(),
+                               first.arg_dict[name].handle.cpu()), name
+    for mine, theirs in zip(got[:2], want[:2]):
+        for k in theirs:
+            np.testing.assert_allclose(mine[k], theirs[k], rtol=1e-3,
+                                       atol=1e-5, err_msg=k)

@@ -76,3 +76,15 @@ def test_trace_holds_the_annotated_range(tmp_path):
     assert any(n.startswith("aten::") for n in names if n)
     with pytest.raises(tmx.MXNetError, match="not running"):
         tprof.stop()
+
+
+def test_keep_cupti_sets_its_switches_and_keeps_the_callers(monkeypatch):
+    """CUPTI stays set up between sessions (CUDA graphs and its teardown
+    crash together): both switches set, a value already there kept."""
+    import os
+
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    monkeypatch.setenv("DISABLE_CUPTI_LAZY_REINIT", "0")
+    tmx.profiler.keep_cupti()
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+    assert os.environ["DISABLE_CUPTI_LAZY_REINIT"] == "0"

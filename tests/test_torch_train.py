@@ -209,7 +209,7 @@ def test_kvstore_local_push_pull_and_dist_raises():
     out = tmx.nd.zeros((3,), ctx=tmx.cpu())
     kv.pull(3, out)
     np.testing.assert_array_equal(out.asnumpy(), [7.0, 7.0, 7.0])
-    for name in ("dist_sync", "dist_async", "device"):
+    for name in ("dist_sync", "dist_async"):
         with pytest.raises(tmx.MXNetError, match="ROADMAP"):
             tmx.kv.create(name)
     with pytest.raises(tmx.MXNetError, match="unknown kvstore"):
