@@ -332,13 +332,32 @@ Phases, in order; any failure exits non-zero before the last line:
    replicas bit-identical, one capture, K3, K4 and K5 on every card, the
    exchange's cross-card sum against a float64 sum, the planted
    per-card-statistics control outside the bound); with one card it
-   prints "17b: not run, 1 card visible" and claims nothing.
-18. report: one JSON line of kernel records, the card line, then
+   prints "17b: not run, 1 card visible" and claims nothing. 17b runs
+   last in the process, after phase 18.
+18. the dist stores (ROADMAP.md Queue A item 10b). (a) a one-worker
+   dist_sync (no launcher environment) on [gpu(0)]: fit takes the fused
+   step by default, one capture, launches (the eager step and the
+   capture) K3 210, K4 106, K5 106, two profiled replays the same,
+   params bit-equal to phase 6's, the update on the worker. (b)
+   dist_async with two workers on the card, started by tools/launch.py
+   (this script with --async-child): ResNet-50 NHWC at batch 32 each
+   from phase 6's weights, rank 0 hosting the parameter server thread on
+   the host; three pushes a worker (Module.update: push every gradient,
+   pull every weight) in a fixed order by the store's barriers; the
+   server's final weights bit-equal to a one-process replay of the same
+   pushes in the same order through the optimizer rank 0 shipped, on the
+   CPU; rescale_grad 1/64; num_dead_node() 0 after both close; the
+   push/pull round's ms. (c) with two or more cards visible,
+   tools/torch_dist_check.py's run() over every visible card (its
+   workers in their own processes); with one card it prints "18c: not
+   run, 1 card visible" and claims nothing.
+19. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
 breakdowns to PATH as JSON. ``--ckpt-child DIR`` is phase 8's child
-process, which the phase starts itself.
+process and ``--async-child DIR`` one of phase 18b's workers, which the
+phases start themselves.
 """
 import argparse
 import contextlib
@@ -6964,76 +6983,334 @@ def mirror_obs_main_path(torch, mx, kernels, card, images, labels,
 # 17. one process over several cards
 # ---------------------------------------------------------------------------
 def dp_one_card_fit(torch, mx, kernels, card, images, labels, classic_args,
-                    kvstore, fused):
-    """17a: phase 6's fused fit over [gpu(0)] under ``kvstore``: one
-    capture, the eager step's and the capture's launches, two profiled
-    replays' launches, params bit-equal to phase 6's."""
+                    kvstore, fused, label="17a"):
+    """17a (18a under ``dist_sync``): phase 6's fused fit over [gpu(0)]
+    under ``kvstore``: one capture, the eager step's and the capture's
+    launches, two profiled replays' launches, params bit-equal to phase
+    6's."""
     mod = train_module(mx, [mx.gpu(0)], BATCH, seed=0)
     run = fit_module(torch, mx, kernels, mod, images, labels, fused,
                      kvstore=kvstore)
     step = mod._fused_step
     check(mod._fused_step_active and step is not None,
-          "17a %s: the fit did not take the fused step" % kvstore)
+          "%s %s: the fit did not take the fused step" % (label, kvstore))
     counters = {"eager_steps": step.eager_steps, "captures": step.captures,
                 "dispatches": step.dispatches}
     check(counters == {"eager_steps": 1, "captures": 1,
                        "dispatches": TRAIN_STEPS - 1},
-          "17a %s: fused step counters %s" % (kvstore, counters))
+          "%s %s: fused step counters %s" % (label, kvstore, counters))
     want = dict(_resnet_launches(2), rtc=0)
-    check(run["launches"] == want, "17a %s: launches %s, want %s"
-          % (kvstore, run["launches"], want))
+    check(run["launches"] == want, "%s %s: launches %s, want %s"
+          % (label, kvstore, run["launches"], want))
     unequal = [k for k in classic_args
                if not np.array_equal(run["args"][k], classic_args[k])]
-    check(not unequal, "17a %s: params differ from phase 6's at %s"
-          % (kvstore, unequal[:5]))
+    check(not unequal, "%s %s: params differ from phase 6's at %s"
+          % (label, kvstore, unequal[:5]))
     breakdown = fused_breakdown(torch, mx, kernels, step, run["metric"],
                                 images[:BATCH], labels[:BATCH])
-    check_profiled_launches("17a %s" % kvstore, breakdown)
-    print("17a %s over [gpu(0)]: captures %d, launches %s, params bit-equal "
+    check_profiled_launches("%s %s" % (label, kvstore), breakdown)
+    print("%s %s over [gpu(0)]: captures %d, launches %s, params bit-equal "
           "to phase 6's, host step %.3f ms, device %.3f ms a replay  [%s]"
-          % (kvstore, step.captures, run["launches"], run["step_ms"],
+          % (label, kvstore, step.captures, run["launches"], run["step_ms"],
              breakdown["event_ms_per_step"], card))
     return {"counters": counters, "launches": run["launches"],
+            "update_on_kvstore": mod._update_on_kvstore,
             "replays_profiled": breakdown["launches"],
             "step_ms": run["step_ms"],
             "event_ms_per_step": breakdown["event_ms_per_step"]}
 
 
 def dp_main_path(torch, mx, kernels, card, images, labels, classic_args):
-    """Phase 17: 17a on one card; 17b over every visible card through
-    tools/torch_dp_check.py, or a line saying it did not run."""
+    """Phase 17a on one card (17b, over every visible card, runs last in
+    the process: :func:`dp_multi_path`)."""
     t0 = time.perf_counter()
     out = {"device_sync": dp_one_card_fit(torch, mx, kernels, card, images,
                                           labels, classic_args,
                                           "device_sync", None),
            "device": dp_one_card_fit(torch, mx, kernels, card, images,
                                      labels, classic_args, "device", True)}
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 17a: %.1f s" % out["seconds"])
+    return out
+
+
+def _tools_module(name):
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def dp_multi_path(torch, mx, kernels, card):
+    """17b: over every visible card through tools/torch_dp_check.py, or a
+    line saying it did not run."""
     n = torch.cuda.device_count()
     if n < 2:
         print("17b: not run, 1 card visible")
+        return None
+    t0 = time.perf_counter()
+    # in this process, after every earlier phase: a user's fit over
+    # several cards in a process that has done other card work
+    torch_dp_check = _tools_module("torch_dp_check")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = torch_dp_check.run(torch, mx, kernels, n)
+    check(not rec["failed"], "17b over %d cards: %s" % (n, rec["failed"]))
+    print("17b over %d cards: the fit within %.3g of one card's (bound "
+          "%.3g), replicas bit-identical, one capture, exchange %.3f ms, "
+          "statistics %.3f ms, %.1f img/s against %.1f on one card; "
+          "control (per-card statistics) %.3g, caught  [%s]"
+          % (n, rec["params_vs_one_card_normwise"], rec["params_bound"],
+             rec["exchange_graph_ms"], rec["statistics_graph_ms"],
+             rec["img_per_s"], rec["img_per_s_one_card"],
+             rec["control"]["params_vs_one_card_normwise"], card))
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 17b: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 18. the dist stores
+# ---------------------------------------------------------------------------
+ASYNC_WORKERS = 2              # 18b: dist_async workers on the one card
+ASYNC_PUSHES = 3               # pushes a worker, in a fixed order
+ASYNC_TIMEOUT_S = 300
+_LAUNCHER_ENV = ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS",
+                 "MXTPU_WORKER_RANK", "MXTPU_PS_PORT")
+
+
+def _free_port_pair():
+    """A port p with p and p + 1 free: the launcher's coordinator and the
+    parameter server (the coordinator's port + 1)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", p + 1))
+                except OSError:
+                    continue
+                return p
+    raise RuntimeError("no free port pair")
+
+
+def train_module_names(mx):
+    """ResNet-50 NHWC's parameter names in the Module's order."""
+    sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
+    return [n for n in sym.list_arguments()
+            if n not in ("data", "softmax_label")]
+
+
+def async_child(work):
+    """18b's worker (``tools/launch.py`` starts two): ResNet-50 NHWC at
+    batch 32 on gpu(0) from train_module's seed-0 weights under
+    ``dist_async`` (rank 0 hosts the server thread). In turn, ordered by
+    the store's barriers, each rank runs forward and backward on its own
+    batch and pushes every gradient through ``Module.update`` (push, then
+    pull the server's weights), ASYNC_PUSHES times. Each rank saves what
+    it pushed; rank 0 saves its first weights, the optimizer it shipped
+    to the server and the server's final weights; each rank times its
+    push/pull rounds. Rank 1 closes first; rank 0 then reads
+    num_dead_node() and closes (stopping the server)."""
+    import pickle
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    rank = int(os.environ["MXTPU_WORKER_RANK"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels = train_data(ASYNC_PUSHES * ASYNC_WORKERS)
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    names = mod._param_names
+    first = {n: v.asnumpy().copy() for n, v in mod.get_params()[0].items()}
+    kv = mx.kv.create("dist_async")
+    # rescale_grad left to the Module: 1 / (the batch x the workers)
+    mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                       optimizer_params=[p for p in TRAIN_OPT
+                                         if p[0] != "rescale_grad"])
+    ex = mod._exec_group.executor
+    pushed, rounds_ms = {}, []
+    for s in range(ASYNC_PUSHES):
+        for r in range(ASYNC_WORKERS):
+            if r == rank:
+                rows = slice((s * ASYNC_WORKERS + r) * BATCH,
+                             (s * ASYNC_WORKERS + r + 1) * BATCH)
+                mod.forward_backward(mx.io.DataBatch(
+                    [mx.nd.array(images[rows], ctx=mx.cpu())],
+                    [mx.nd.array(labels[rows], ctx=mx.cpu())]))
+                for i, n in enumerate(names):
+                    pushed["%d:%d" % (s, i)] = \
+                        ex.grad_dict[n].asnumpy().copy()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mod.update()
+                torch.cuda.synchronize()
+                rounds_ms.append(1e3 * (time.perf_counter() - t0))
+            kv.barrier()
+    np.savez(os.path.join(work, "pushed%d.npz" % rank), **pushed)
+    rec = {"rank": rank, "workers": kv.num_workers,
+           "update_on_kvstore": mod._update_on_kvstore,
+           "rescale_grad": mod._optimizer.rescale_grad,
+           "rounds_ms": rounds_ms, "server_thread": kv._server is not None}
+    if rank == 0:
+        final = {str(i): kv._client.call("pull", i)
+                 for i in range(len(names))}
+        np.savez(os.path.join(work, "server_final.npz"), **final)
+        np.savez(os.path.join(work, "first.npz"),
+                 **{str(i): first[n] for i, n in enumerate(names)})
+        with open(os.path.join(work, "optimizer.pkl"), "wb") as f:
+            f.write(pickle.dumps(mod._optimizer))
+    kv.barrier()
+    closed = os.path.join(work, "closed1")
+    if rank == 1:
+        kv.close()
+        open(closed, "w").close()
+    else:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(closed) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        rec["dead_after_close"] = kv.num_dead_node()
+        kv.close()
+    with open(os.path.join(work, "rank%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def async_replay(mx, work, n_params):
+    """18b's pushes replayed in one process on the CPU, in the order the
+    barriers gave them (push s of rank 0, then of rank 1, each key in
+    order, as the server applies them), through the optimizer rank 0
+    shipped, from rank 0's first weights."""
+    import pickle
+
+    with open(os.path.join(work, "optimizer.pkl"), "rb") as f:
+        opt = pickle.loads(f.read())
+    first = np.load(os.path.join(work, "first.npz"))
+    weights = {i: mx.nd.array(first[str(i)], ctx=mx.cpu())
+               for i in range(n_params)}
+    states = {}
+    pushed = [np.load(os.path.join(work, "pushed%d.npz" % r))
+              for r in range(ASYNC_WORKERS)]
+    for s in range(ASYNC_PUSHES):
+        for r in range(ASYNC_WORKERS):
+            for i in range(n_params):
+                g = mx.nd.array(pushed[r]["%d:%d" % (s, i)], ctx=mx.cpu())
+                if i not in states:
+                    states[i] = opt.create_state(i, weights[i])
+                opt.update(i, weights[i], g, states[i])
+    return {i: w.asnumpy() for i, w in weights.items()}
+
+
+def dist_async_path(torch, mx, card):
+    """18b: two dist_async workers on the card through tools/launch.py;
+    the server's final weights bit-equal to the replay of the same pushes
+    in the same order on the CPU; no dead node after both close."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, os.path.join(here, "tools", "launch.py"),
+               "-n", str(ASYNC_WORKERS), "--coordinator",
+               "127.0.0.1:%d" % _free_port_pair(), sys.executable,
+               os.path.abspath(__file__), "--async-child", work]
+        env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER_ENV}
+        env["PYTHONPATH"] = here
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=ASYNC_TIMEOUT_S)
+            rc, err = r.returncode, r.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, err = 124, str(e.stderr)
+        wall = time.perf_counter() - t0
+        left = [k for k in range(ASYNC_WORKERS) if not os.path.exists(
+            os.path.join(work, "rank%d.json" % k))]
+        check(rc == 0 and not left, "18b: the workers failed (launch.py rc "
+              "%s; ranks that left no result %s): %s"
+              % (rc, left, err[-3000:]))
+        recs = []
+        for k in range(ASYNC_WORKERS):
+            with open(os.path.join(work, "rank%d.json" % k)) as f:
+                recs.append(json.load(f))
+        for rec in recs:
+            check(rec["workers"] == ASYNC_WORKERS and rec["update_on_kvstore"]
+                  and abs(rec["rescale_grad"] - 1.0 / (BATCH * ASYNC_WORKERS))
+                  < 1e-12, "18b: rank %d's store %s" % (rec["rank"], rec))
+        check(recs[0]["server_thread"] and not recs[1]["server_thread"],
+              "18b: rank 0 did not host the server thread: %s" % recs)
+        check(recs[0]["dead_after_close"] == 0,
+              "18b: num_dead_node() %s after both closed"
+              % recs[0]["dead_after_close"])
+        names = train_module_names(mx)
+        t1 = time.perf_counter()
+        want = async_replay(mx, work, len(names))
+        replay_s = time.perf_counter() - t1
+        got = np.load(os.path.join(work, "server_final.npz"))
+        unequal = [names[i] for i in want
+                   if not np.array_equal(got[str(i)], want[i])]
+        check(not unequal, "18b: the server's weights differ from the "
+              "replay at %s" % unequal[:5])
+        first = np.load(os.path.join(work, "first.npz"))
+        moved = sum(not np.array_equal(got[str(i)], first[str(i)])
+                    for i in want)
+        check(moved == len(want), "18b: %d of %d weights moved"
+              % (moved, len(want)))
+        rounds = [ms for rec in recs for ms in rec["rounds_ms"]]
+        print("18b dist_async, %d workers on one card, ResNet-50 NHWC at "
+              "batch %d, %d pushes a worker in a fixed order: the server's "
+              "weights (%d tensors) bit-equal to the CPU replay of the same "
+              "pushes; num_dead_node 0 after both closed; push/pull round "
+              "%s ms (median %.1f); %.1f s of workers, %.1f s of replay  "
+              "[%s]" % (ASYNC_WORKERS, BATCH, ASYNC_PUSHES, len(want),
+                        ["%.1f" % ms for ms in rounds],
+                        float(np.median(rounds)), wall, replay_s, card))
+        return {"ranks": recs, "round_ms": rounds,
+                "round_ms_median": float(np.median(rounds)),
+                "workers_s": wall, "replay_s": replay_s,
+                "tensors": len(want)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_main_path(torch, mx, kernels, card, images, labels, classic_args):
+    """Phase 18: (a) a one-worker dist_sync (no launcher) on [gpu(0)],
+    which fit gives the fused step; (b) dist_async with two workers on
+    the card; (c) over every visible card, tools/torch_dist_check.py."""
+    t0 = time.perf_counter()
+    with _environ(**dict.fromkeys(_LAUNCHER_ENV)):
+        kv = mx.kv.create("dist_sync")
+        check(type(kv).__name__ == "KVStoreDist"
+              and (kv.rank, kv.num_workers) == (0, 1)
+              and kv.in_jit_gradient_exchange,
+              "18a: dist_sync without a launcher is not a one-worker world")
+        one = dp_one_card_fit(torch, mx, kernels, card, images, labels,
+                              classic_args, "dist_sync", None, label="18a")
+    check(not one["update_on_kvstore"], "18a: the update ran on the store")
+    out = {"one_worker": one, "async": dist_async_path(torch, mx, card)}
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("18c: not run, 1 card visible")
         out["multi"] = None
     else:
-        # in this process, after every earlier phase: a user's fit over
-        # several cards in a process that has done other card work
-        sys.path.insert(0, os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "tools"))
-        import torch_dp_check
-
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        rec = torch_dp_check.run(torch, mx, kernels, n)
-        check(not rec["failed"], "17b over %d cards: %s" % (n, rec["failed"]))
-        print("17b over %d cards: the fit within %.3g of one card's (bound "
-              "%.3g), replicas bit-identical, one capture, exchange %.3f ms, "
-              "statistics %.3f ms, %.1f img/s against %.1f on one card; "
-              "control (per-card statistics) %.3g, caught  [%s]"
-              % (n, rec["params_vs_one_card_normwise"], rec["params_bound"],
-                 rec["exchange_graph_ms"], rec["statistics_graph_ms"],
-                 rec["img_per_s"], rec["img_per_s_one_card"],
-                 rec["control"]["params_vs_one_card_normwise"], card))
+        torch_dist_check = _tools_module("torch_dist_check")
+        rec = torch_dist_check.run(torch, mx, kernels, n)
+        check(not rec["failed"], "18c over %d workers: %s"
+              % (n, rec["failed"]))
+        print("18c over %d workers: ranks bit-identical, params %.3g of the "
+              "reference's update away (bound %.3g), %.1f img/s against "
+              "%.1f on one card; control %.3g, caught  [%s]"
+              % (n, rec["params_vs_reference_normwise"],
+                 rec["bounds"]["params"], rec["img_per_s"],
+                 rec["img_per_s_one_card"],
+                 rec["control"]["params_vs_reference_normwise"], card))
         out["multi"] = rec
     out["seconds"] = time.perf_counter() - t0
-    print("phase 17: %.1f s" % out["seconds"])
+    print("phase 18: %.1f s" % out["seconds"])
     return out
 
 
@@ -7043,6 +7320,10 @@ def main():
     parser.add_argument("--ckpt-child", metavar="DIR",
                         help="run phase 8's SIGTERM child over DIR (the "
                         "phase starts it)")
+    parser.add_argument("--async-child", metavar="DIR",
+                        help="run one of phase 18b's dist_async workers "
+                        "over DIR (the phase starts them through "
+                        "tools/launch.py)")
     opts = parser.parse_args()
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -7067,6 +7348,8 @@ def main():
         return 2
     if opts.ckpt_child:
         return ckpt_child(opts.ckpt_child)
+    if opts.async_child:
+        return async_child(opts.async_child)
     # every phase profiles replays of CUDA graphs: CUPTI stays set up
     mx.profiler.keep_cupti()
 
@@ -7300,17 +7583,30 @@ def main():
     obs = mirror_obs_main_path(torch, mx, kernels, card, images, labels,
                                classic_params)
 
-    # 17. one process over several cards: device_sync and device on one
-    # card; over every visible card when there are two or more
+    # 17a. one process over several cards: device_sync and device on one
+    # card (17b, over every visible card, runs last)
     dp = dp_main_path(torch, mx, kernels, card, images, labels,
                       classic_params[0])
+
+    # 18. the dist stores: a one-worker dist_sync, dist_async with two
+    # workers on the card, dist_sync over every visible card
+    dist = dist_main_path(torch, mx, kernels, card, images, labels,
+                          classic_params[0])
     del classic_params
+
+    # 17b. one process over every visible card when there are two or more
+    dp["multi"] = dp_multi_path(torch, mx, kernels, card)
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         for kv in ("device_sync", "device"):
             model_paths[kernel].update({
                 "dp_%s_fused" % kv: dp[kv]["launches"][kernel],
                 "dp_%s_fused_2_replays_profiled" % kv:
                     dp[kv]["replays_profiled"][kernel]})
+        model_paths[kernel].update({
+            "dist_sync_one_worker_fused":
+                dist["one_worker"]["launches"][kernel],
+            "dist_sync_one_worker_fused_2_replays_profiled":
+                dist["one_worker"]["replays_profiled"][kernel]})
     mirror = obs["mirror"]
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         model_paths[kernel].update({
@@ -7323,7 +7619,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 18. report
+    # 19. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -7374,7 +7670,9 @@ def main():
                   "backward recomputes; dp_*: phase 17a's ResNet-50 NHWC "
                   "fused fits at batch 32 over [gpu(0)] under the "
                   "device_sync and device stores (the eager step and the "
-                  "capture; replays: two)")
+                  "capture; replays: two); dist_sync_one_worker_*: phase "
+                  "18a's fused fit under a one-worker dist_sync (the eager "
+                  "step and the capture; replays: two)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7631,7 +7929,8 @@ def main():
                        "detection_ocr_path": det,
                        "mixed_precision_path": mp,
                        "feed_path": feed, "mirror_obs_path": obs,
-                       "dp_path": dp}, f, indent=1, default=str)
+                       "dp_path": dp, "dist_path": dist}, f, indent=1,
+                      default=str)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

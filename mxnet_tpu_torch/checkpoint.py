@@ -647,5 +647,11 @@ def maybe_manager(module, eval_metric=None,
     directory = _env.get("MXNET_TPU_CKPT_DIR")
     if not directory or getattr(module, "_exec_group", None) is None:
         return None
+    if getattr(module, "_update_on_kvstore", False):
+        raise MXNetError(
+            "checkpoint manager: under a dist kvstore of several workers "
+            "the optimizer states live on the store (its updater, or the "
+            "parameter server), which a snapshot does not hold yet "
+            "(ROADMAP.md Queue A item 10b)")
     return CheckpointManager(module, eval_metric, train_data,
                              directory=directory)

@@ -96,7 +96,9 @@ def make_fused_step(module, eval_metric, monitor=None):
     its params and optimizer initialised. A configuration the step cannot
     run raises :class:`MXNetError` naming the reason (the JAX package
     warns and falls back to the classic loop; the port has no fallback):
-    a kvstore whose ``fused_step_compatible`` is false (a ``dist`` one),
+    a kvstore whose ``fused_step_compatible`` is false (a ``dist`` one of
+    several workers, or ``dist_async``: the message is its
+    ``fused_fallback`` reason),
     ``inputs_need_grad``, a monitor with
     a custom ``stat_func`` (``monitor``, or one installed on the
     executor), a grad_req other than ``"write"``, or an optimizer without
@@ -112,9 +114,12 @@ def make_fused_step(module, eval_metric, monitor=None):
                          "initialised")
     kv = module._kvstore
     if kv is not None and not getattr(kv, "fused_step_compatible", False):
-        raise MXNetError("fused train step: kvstore %r moves gradients "
-                         "between dispatches; use 'local', 'device', "
-                         "'device_sync' or None" % kv.type)
+        reason = getattr(kv, "fused_fallback", None)
+        raise MXNetError("fused train step: kvstore %r: %s; use 'local', "
+                         "'device', 'device_sync', a one-worker "
+                         "'dist_sync' or None"
+                         % (kv.type, reason[1] if reason else
+                            "it moves gradients between dispatches"))
     if module.inputs_need_grad:
         raise MXNetError("fused train step: inputs_need_grad=True needs "
                          "input gradients that the step does not keep")

@@ -47,7 +47,9 @@ BatchEndParam = namedtuple("BatchEndParam",
 
 def _asks_for_fused(kvstore) -> bool:
     """True for a store (or store name) whose gradient exchange is the
-    one inside the fused step (``device_sync``)."""
+    one inside the fused step: ``device_sync``, and a one-worker
+    ``dist_sync`` (its ``in_jit_gradient_exchange``; a name alone says
+    nothing of the world, so only ``device_sync`` asks by name)."""
     if isinstance(kvstore, str):
         return kvstore.lower() == "device_sync"
     return bool(getattr(kvstore, "in_jit_gradient_exchange", False))
@@ -275,8 +277,9 @@ class BaseModule:
         where the configuration cannot fuse), call the batch-end
         callbacks, log the metric, call the epoch-end callbacks with the
         params and score ``eval_data``. ``fused_step=None`` reads
-        ``MXNET_TPU_FUSED_STEP``, and under a ``device_sync`` kvstore
-        takes the fused step unless ``MXNET_TPU_DEVICE_SYNC_FUSED=0``;
+        ``MXNET_TPU_FUSED_STEP``, and under a ``device_sync`` kvstore or a
+        one-worker ``dist_sync`` takes the fused step unless
+        ``MXNET_TPU_DEVICE_SYNC_FUSED=0``;
         ``True`` or ``False`` wins over both.
         Under ``MXNET_TPU_CKPT_DIR`` the run resumes from the newest
         valid snapshot (mid-epoch: the metric and the iterator are not
@@ -289,22 +292,24 @@ class BaseModule:
         raises."""
         if num_epoch is None:
             raise MXNetError("num_epoch must be specified")
-        if fused_step is None:
-            # device_sync asks for the fused step: its gradient exchange
-            # is the one inside the step
-            fused_step = _env.get("MXNET_TPU_FUSED_STEP") or (
-                _asks_for_fused(kvstore)
-                and _env.get("MXNET_TPU_DEVICE_SYNC_FUSED"))
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
-        if monitor is not None and not fused_step:
-            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if fused_step is None:
+            # device_sync and a one-worker dist_sync ask for the fused
+            # step: their gradient exchange is the one inside the step.
+            # The store decides, so this follows init_optimizer
+            store = getattr(self, "_kvstore", None) or kvstore
+            fused_step = _env.get("MXNET_TPU_FUSED_STEP") or (
+                _asks_for_fused(store)
+                and _env.get("MXNET_TPU_DEVICE_SYNC_FUSED"))
+        if monitor is not None and not fused_step:
+            self.install_monitor(monitor)
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = _metric.create(eval_metric)

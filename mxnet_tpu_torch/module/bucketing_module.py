@@ -161,6 +161,7 @@ class BucketingModule(BaseModule):
             cur._updater = default._updater
             cur._updaters = default._updaters
             cur._kvstore = default._kvstore
+            cur._update_on_kvstore = default._update_on_kvstore
             cur.optimizer_initialized = True
         cur.update()
 

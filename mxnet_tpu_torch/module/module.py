@@ -69,6 +69,8 @@ class Module(BaseModule):
         self._updater = None
         # one updater a replica (the first is _updater): a state a card
         self._updaters = []
+        # the update runs on the kvstore (a dist store of several workers)
+        self._update_on_kvstore = False
         self._fused_step = None
         self._fused_step_active = False
 
@@ -206,10 +208,18 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer (``rescale_grad`` defaults to one over the
-        global batch size) and its updater, one a replica, and ``init``
-        every parameter in the kvstore: ``local``, ``device`` /
-        ``tpu_sync`` or ``device_sync`` (the executor group exchanges the
-        gradients; the store is not pushed to in training)."""
+        global batch size: this process's batch times the workers under a
+        ``dist`` store) and its updater, one a replica, and ``init`` every
+        parameter in the kvstore: ``local``, ``device`` / ``tpu_sync`` or
+        ``device_sync`` (the executor group exchanges the gradients; the
+        store is not pushed to in training), or a ``dist`` store. Under a
+        ``dist`` store of several workers the update runs on the store
+        (``_update_on_kvstore``: ``update`` pushes the gradients and pulls
+        the weights), as in the JAX package; a one-worker ``dist_sync``
+        keeps it here, so the fused step stays open to it. The store's
+        init broadcasts rank 0's values into the store and leaves this
+        module's weights as they are (no pull), as the JAX package's
+        does."""
         if not self.binded or not self.params_initialized:
             raise MXNetError("bind and init_params before init_optimizer")
         if self.optimizer_initialized and not force_init:
@@ -217,10 +227,13 @@ class Module(BaseModule):
         if isinstance(kvstore, str):
             kvstore = kvs.create(kvstore) if kvstore else None
         self._kvstore = kvstore
+        dist_store = bool(kvstore) and "dist" in kvstore.type
+        batch_size = self._exec_group.batch_size
+        if dist_store:
+            batch_size *= kvstore.num_workers
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
-            optimizer_params.setdefault(
-                "rescale_grad", 1.0 / self._exec_group.batch_size)
+            optimizer_params.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt.create(
                 optimizer, sym=self._symbol,
                 param_idx2name=dict(enumerate(self._param_names)),
@@ -229,9 +242,19 @@ class Module(BaseModule):
         self._updaters = [opt.get_updater(optimizer)
                           for _ in self._exec_group.execs]
         self._updater = self._updaters[0]
+        self._update_on_kvstore = (dist_store
+                                   and not kvstore.fused_step_compatible)
         if kvstore:
-            for i, name in enumerate(self._param_names):
-                kvstore.init(i, self._arg_params[name])
+            # a dist_sync store updating on the store keeps its copy where
+            # the weights are bound (the first replica's device)
+            on_device = (self._update_on_kvstore
+                         and isinstance(kvstore, kvs.KVStoreDist))
+            src = (self._exec_group.execs[0].arg_dict if on_device
+                   else self._arg_params)
+            kvstore.init(list(range(len(self._param_names))),
+                         [src[name] for name in self._param_names])
+            if self._update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
         self.optimizer_initialized = True
 
     # -- compute -----------------------------------------------------------
@@ -245,18 +268,34 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the optimizer to the gradients, every parameter in one
-        multi-tensor update. The store needs no push/pull: the gradients
-        are already the reduced ones (the one device's, or, over several
-        contexts, every replica's copy of the global batch's after the
-        group's exchange). Over several contexts the host half of the step
-        (the update counts, the schedule) runs once and the same update is
-        applied on every replica; an optimizer without a fusable update
-        updates the first replica and its weights are copied to the
-        others."""
+        multi-tensor update. Outside a ``dist`` store of several workers
+        the store needs no push/pull: the gradients are already the
+        reduced ones (the one device's, or, over several contexts, every
+        replica's copy of the global batch's after the group's exchange).
+        Over several contexts the host half of the step (the update
+        counts, the schedule) runs once and the same update is applied on
+        every replica; an optimizer without a fusable update updates the
+        first replica and its weights are copied to the others.
+
+        Under a ``dist`` store of several workers (``_update_on_kvstore``)
+        every gradient is pushed in one call and every weight pulled into
+        each replica. Over several contexts each card holds this process's
+        summed gradient after the group's exchange, so the first card's
+        copy alone is pushed: pushing every card's would count the batch
+        once a card."""
         if not self.optimizer_initialized:
             raise MXNetError("init_optimizer before update")
         self._params_dirty = True
         group = self._exec_group
+        if self._update_on_kvstore:
+            ex = group.execs[0]
+            named = [(i, name) for i, name in enumerate(self._param_names)
+                     if name in ex.grad_dict]
+            keys = [i for i, _ in named]
+            self._kvstore.push(keys, [ex.grad_dict[n] for _, n in named])
+            self._kvstore.pull(keys, out=[[e.arg_dict[n] for e in group.execs]
+                                          for _, n in named])
+            return
         items = [[(i, ex.grad_dict[name], ex.arg_dict[name])
                   for i, name in enumerate(self._param_names)
                   if name in ex.grad_dict] for ex in group.execs]
@@ -295,6 +334,11 @@ class Module(BaseModule):
         rename; either package reads them."""
         from ..checkpoint import atomic_write_bytes
 
+        if save_optimizer_states and self._update_on_kvstore:
+            raise MXNetError(
+                "save_checkpoint: under a dist kvstore of several workers "
+                "the optimizer states live on the store, which this file "
+                "does not hold yet (ROADMAP.md Queue A item 10b)")
         self._symbol.save("%s-symbol.json" % prefix)
         self.save_params("%s-%04d.params" % (prefix, epoch))
         if save_optimizer_states:

@@ -118,6 +118,17 @@ class Optimizer:
                 if "__wd_mult__" in a:
                     self.wd_mult[name] = float(a["__wd_mult__"])
 
+    def __getstate__(self):
+        """A pickle (a dist kvstore ships the optimizer to its workers and
+        its server) without the symbol, which ``__init__`` read the
+        multipliers from and nothing reads after, and without the
+        hyperparameter buffers, which live on a device and are made again
+        where the optimizer runs."""
+        state = dict(self.__dict__)
+        state["sym"] = None
+        state["_scalars"] = {}
+        return state
+
     @staticmethod
     def create_optimizer(name: str, **kwargs) -> "Optimizer":
         return _REG.get(name)(**kwargs)

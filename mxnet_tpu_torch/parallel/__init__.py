@@ -1,10 +1,12 @@
-"""Sequence parallelism over ``torch.distributed``.
+"""Sequence parallelism and several processes over ``torch.distributed``.
 
 Counterpart of the parts of ``mxnet_tpu/parallel/`` that long-context
-attention needs: the named mesh (:func:`make_mesh`,
-:func:`mesh_axis_sizes`) and ring / Ulysses attention
-(:mod:`.ring_attention`). Data parallelism in one process is the
-executor group's (several contexts, :mod:`mxnet_tpu_torch.replicas`);
+attention and the dist kvstores need: the named mesh (:func:`make_mesh`,
+:func:`mesh_axis_sizes`), ring / Ulysses attention
+(:mod:`.ring_attention`), the world of several processes
+(:mod:`.distributed`) and the asynchronous parameter server
+(:mod:`.ps`). Data parallelism in one process is the executor group's
+(several contexts, :mod:`mxnet_tpu_torch.replicas`);
 the fsdp and tp recipes of ``mxnet_tpu/parallel/sharding.py`` are not
 ported yet (ROADMAP Queue A, item 10c).
 """

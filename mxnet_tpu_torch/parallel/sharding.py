@@ -6,6 +6,11 @@ process is one rank: a launcher starts the processes and initialises the
 process group with its address, rank and world size. A one-rank mesh
 needs no launcher: :func:`make_mesh` then initialises a one-rank group
 itself from an in-process ``HashStore``, so nothing listens on a port.
+Under a launcher (``MXTPU_*`` in the environment) :func:`make_mesh`
+joins the launcher's world first
+(:func:`~mxnet_tpu_torch.parallel.distributed.init_distributed`), and
+an existing group is reused; a one-rank group made here gives way to a
+launcher's world joined later.
 """
 from __future__ import annotations
 
@@ -38,6 +43,10 @@ def make_mesh(axis_sizes: Dict[str, int], device_type: str = "cuda"):
     names = tuple(axis_sizes)
     sizes = tuple(int(s) for s in axis_sizes.values())
     n = math.prod(sizes)
+    if not dist.is_initialized():
+        from .distributed import init_distributed
+
+        init_distributed()
     if not dist.is_initialized():
         if n != 1:
             raise MXNetError(

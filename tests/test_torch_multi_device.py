@@ -85,10 +85,27 @@ def test_create_routes_each_name_as_the_reference(name):
             theirs.grad_reduce_sharding(None, "p") == "p"
 
 
-def test_dist_and_unknown_stores_raise_naming_the_item():
-    for name in ("dist_sync", "dist_async", "dist_sync_all"):
-        with pytest.raises(tmx.MXNetError, match="item 10b"):
-            tmx.kv.create(name)
+def _no_launcher_no_secret(monkeypatch):
+    from mxnet_tpu_torch.parallel import ps
+
+    for k in ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS", "MXTPU_WORKER_RANK",
+              "MXTPU_PS_SECRET", "MXTPU_PS_SECRET_FILE", "MXTPU_PS_INSECURE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(ps, "_SECRET_CACHE", False)
+
+
+def test_dist_and_unknown_stores_raise_naming_the_item(monkeypatch):
+    """The dist stores are ported (item 10b): without a launcher a
+    ``dist`` name is a one-worker ``dist_sync`` world, and ``dist_async``
+    refuses to start its parameter server without a frame secret, naming
+    the variable; an unknown name raises."""
+    _no_launcher_no_secret(monkeypatch)
+    for name in ("dist_sync", "dist_sync_all"):
+        kv = tmx.kv.create(name)
+        assert type(kv).__name__ == "KVStoreDist"
+        assert (kv.rank, kv.num_workers) == (0, 1)
+    with pytest.raises(tmx.MXNetError, match="MXTPU_PS_SECRET"):
+        tmx.kv.create("dist_async")
     with pytest.raises(tmx.MXNetError, match="unknown kvstore"):
         tmx.kv.create("bogus")
 

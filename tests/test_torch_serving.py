@@ -144,10 +144,12 @@ def test_no_silent_cpu_fallback(monkeypatch):
         assert tmx.nd.array(np.ones(3)).context == tmx.cpu()
 
 
-def test_training_entry_points_name_the_training_slice():
+def test_training_entry_points_name_the_training_slice(monkeypatch):
     """The training slice is ported: a train bind gets gradient arrays
-    and backward fills them; what is still to port (a dist kvstore)
-    raises naming ROADMAP.md."""
+    and backward fills them; the dist kvstores are ported too: without a
+    launcher ``dist_sync`` is a one-worker world, and ``dist_async``
+    refuses to start its parameter server without a frame secret, naming
+    the variable."""
     net = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=2,
                                  name="fc")
     mod = tmx.mod.Module(net, label_names=(), context=tmx.cpu())
@@ -164,9 +166,14 @@ def test_training_entry_points_name_the_training_slice():
     np.testing.assert_allclose(ex.grad_dict["fc_weight"].asnumpy(),
                                np.tile(x.sum(0), (2, 1)))
     np.testing.assert_allclose(ex.grad_dict["fc_bias"].asnumpy(), [2, 2])
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.kv.create("dist_sync")
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
+    from mxnet_tpu_torch.parallel import ps
+
+    for k in ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS", "MXTPU_WORKER_RANK",
+              "MXTPU_PS_SECRET", "MXTPU_PS_SECRET_FILE", "MXTPU_PS_INSECURE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(ps, "_SECRET_CACHE", False)
+    assert tmx.kv.create("dist_sync").num_workers == 1
+    with pytest.raises(tmx.MXNetError, match="MXTPU_PS_SECRET"):
         mod.init_params()
         mod.init_optimizer(kvstore="dist_async")
 

@@ -200,7 +200,7 @@ def test_metrics_match_jax():
     assert comp.get()[0] == ["accuracy", "cross-entropy"]
 
 
-def test_kvstore_local_push_pull_and_dist_raises():
+def test_kvstore_local_push_pull_and_dist_raises(monkeypatch):
     kv = tmx.kv.create("local")
     a = tmx.nd.array(np.ones(3), ctx=tmx.cpu())
     kv.init(3, a)
@@ -209,9 +209,17 @@ def test_kvstore_local_push_pull_and_dist_raises():
     out = tmx.nd.zeros((3,), ctx=tmx.cpu())
     kv.pull(3, out)
     np.testing.assert_array_equal(out.asnumpy(), [7.0, 7.0, 7.0])
-    for name in ("dist_sync", "dist_async"):
-        with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-            tmx.kv.create(name)
+    # the dist stores: a one-worker world without a launcher; dist_async's
+    # server refuses to start without a frame secret, naming the variable
+    from mxnet_tpu_torch.parallel import ps
+
+    for k in ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS", "MXTPU_WORKER_RANK",
+              "MXTPU_PS_SECRET", "MXTPU_PS_SECRET_FILE", "MXTPU_PS_INSECURE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(ps, "_SECRET_CACHE", False)
+    assert tmx.kv.create("dist_sync").num_workers == 1
+    with pytest.raises(tmx.MXNetError, match="MXTPU_PS_SECRET"):
+        tmx.kv.create("dist_async")
     with pytest.raises(tmx.MXNetError, match="unknown kvstore"):
         tmx.kv.create("bogus")
 
