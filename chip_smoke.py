@@ -351,7 +351,31 @@ Phases, in order; any failure exits non-zero before the last line:
    tools/torch_dist_check.py's run() over every visible card (its
    workers in their own processes); with one card it prints "18c: not
    run, 1 card visible" and claims nothing.
-19. report: one JSON line of kernel records, the card line, then
+19. the autotuner (ROADMAP.md Queue A item 11b). (a)
+   mxnet_tpu_torch.autotune.run_smoke over the distinct K3 products (42)
+   and K4/K5 shapes (12) of phase 6's step, in f32 and bf16: K3's split-K
+   chunk (the kernel's rule, no split, half and twice its splits), K4's
+   grid cap (its own, 2, 8, 16 and 32 blocks an SM), K5's row blocks
+   (its own, half, twice, four times), each candidate launched through
+   the wrapper and held against the plain version first (K3 within 1e-6
+   of sum|a||b| and bit-identical on a rerun, K4 bit-equal, K5 dx as
+   phase 3 and its sums bit-identical on a rerun: a wrong one raises),
+   timed by CUDA events (median of 10, L2 flushed), 5 s a search; rows
+   through the fence (no MFU over 100%, no time under the kernel's
+   bound), winners cached under the card's name; the default's and the
+   winner's ms a shape and summed over a step. (b) phase 6's fit with
+   MXNET_TPU_AUTOTUNE=1 over that cache: the classic loop, then the fused
+   step: one capture, bit-equal to the classic loop, launches 210/106/106
+   and two profiled replays the same, the 66 f32 signatures' tuned
+   configs applied; the untuned fused fit and its float32 floor (its
+   distance when the images move by 1 +- 2^-23): the tuned params and
+   moving statistics within 4 floors (at least 1e-4) of it, normwise;
+   device ms a replay tuned and untuned, in turns. 19b's fits start from
+   phase 6's weights with each residual block's last BatchNorm gamma at
+   0.25, as tools/torch_dp_check.py conditions them: with every gamma
+   at 1 the untuned fit moves 0.98 of its update when its images move
+   by one rounding, which leaves no bound.
+20. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -7314,6 +7338,234 @@ def dist_main_path(torch, mx, kernels, card, images, labels, classic_args):
     return out
 
 
+AUTOTUNE_BUDGET_S = 5.0        # 19a: each (site, signature) search's budget
+AUTOTUNE_REPS = 10             # 19a: timed launches a measured candidate
+AUTOTUNE_SITES = 2 * 42 + 2 * 2 * 12   # 19a: K3's 42 products, K4's and
+                                       # K5's 12 shapes, f32 and bf16
+
+
+def autotune_tune(torch, card, gemms, norms, tmp):
+    """19a: autotune.run_smoke over the distinct K3 products ``gemms``
+    and K4/K5 shapes ``norms`` of phase 6's step, in f32 and bf16, into a
+    cache and rows under ``tmp``; every measured candidate held against
+    the plain version (a wrong one raises), the rows fenced, every winner
+    keyed by the card's name."""
+    from mxnet_tpu_torch import autotune
+
+    cache = os.path.join(tmp, "cache.json")
+    rows_path = os.path.join(tmp, "rows.jsonl")
+    print("19a: tuning K3 at %d products, K4 and K5 at %d shapes, f32 and "
+          "bf16, %.1f s budget a search  [%s]"
+          % (len(gemms), len(norms), AUTOTUNE_BUDGET_S, card))
+    with _environ(MXNET_TPU_AUTOTUNE_BUDGET_S=str(AUTOTUNE_BUDGET_S)):
+        s = autotune.run_smoke(gemms, norms, jsonl_path=rows_path,
+                               cache_path=cache, reps=AUTOTUNE_REPS,
+                               log=print)
+    kind = torch.cuda.get_device_name(0)
+    results = [r for by_sig in s["sites"].values() for r in by_sig.values()]
+    check(len(results) == AUTOTUNE_SITES, "19a: %d searches, want %d"
+          % (len(results), AUTOTUNE_SITES))
+    check(all(r["best"] is not None for r in results),
+          "19a: a search measured no candidate")
+    entries = json.load(open(cache))["entries"]
+    check(len(entries) == AUTOTUNE_SITES
+          and all(key.endswith("|" + kind) for key in entries),
+          "19a: the cache holds %d entries, not all keyed by %r"
+          % (len(entries), kind))
+    with open(rows_path) as f:
+        rows = [json.loads(line) for line in f]
+    check(len(rows) == s["rows_written"] and all(r["valid"] for r in rows),
+          "19a: %d rows on disk, %d written" % (len(rows), s["rows_written"]))
+    for r in s["refused_rows"]:
+        print("19a refused: %s %s %s: %s" % (r["site"], r["sig"],
+                                             r["candidate"], r["refused"]))
+    print("19a: %d searches in %.1f s, %d rows written, %d refused, "
+          "non-default winners %d  [%s]"
+          % (len(results), s["seconds"], s["rows_written"],
+             s["rows_refused"], sum(bool(r.get("non_default"))
+                                    for r in results), card))
+    return s, cache
+
+
+def _tuned_step_ms(summary, kernel, dtype, counts):
+    """The kernel's ms a step at the default and at the winner, summed
+    over the step's launches (``counts`` by shape) from 19a's searches."""
+    from mxnet_tpu_torch import autotune
+
+    by_sig = {}
+    for key, n in counts.items():
+        if kernel == "conv_gemm":
+            sig = autotune.gemm_sig(*key[:3], dtype, key[3])
+        else:
+            sig = autotune.norm_sig("fwd" if kernel == "norm_act_fwd"
+                                    else "bwd", *key, dtype)
+        by_sig[sig] = n
+    site = "conv_backward" if kernel == "conv_gemm" else "norm_act"
+    out = {"default_ms": 0.0, "tuned_ms": 0.0, "non_default": 0,
+           "shapes": len(by_sig)}
+    for sig, n in by_sig.items():
+        r = summary["sites"][site][sig]
+        out["default_ms"] += n * r["default_ms"]
+        out["tuned_ms"] += n * r["best"]["step_time_ms"]
+        out["non_default"] += bool(r.get("non_default"))
+    return out
+
+
+def _conditioned_fit(torch, mx, kernels, images, labels, fused, gamma_b3):
+    """fit_module over TRAIN_STEPS batches from train_module's seed-0
+    weights with each residual block's last BatchNorm gamma at
+    ``gamma_b3`` (tools/torch_dp_check.py's conditioning: with every
+    gamma at 1 a random ResNet-50 trained in float32 moves most of its
+    update when its input moves by one rounding); the launches of every
+    step (classic) or of the eager step and the capture (fused) checked."""
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0)
+    args, aux = mod.get_params()
+    for name, arr in args.items():
+        if name.endswith("_b3_bn_gamma"):
+            arr[:] = np.full(arr.shape, gamma_b3, np.float32)
+    mod.set_params(args, aux)
+    start = (_host(args), _host(aux))
+    run = fit_module(torch, mx, kernels, mod, images, labels, fused)
+    want = dict(_resnet_launches(2 if fused else TRAIN_STEPS), rtc=0)
+    check(run["launches"] == want, "19b %s fit: launches %s, want %s"
+          % ("fused" if fused else "classic", run["launches"], want))
+    check(all(np.isfinite(run["losses"])), "19b: losses %s" % run["losses"])
+    run["start"] = start
+    return run
+
+
+def autotune_fit(torch, mx, kernels, card, images, labels, cache):
+    """19b: phase 6's fit, conditioned as tools/torch_dp_check.py's
+    (GAMMA_B3), with MXNET_TPU_AUTOTUNE=1 over 19a's cache: the classic
+    loop, then the fused step (one capture, bit-equal to the classic
+    loop, 105/53/53 launches a replay); the untuned fused fit and the
+    float32 floor (the untuned fit's distance when the images move by one
+    rounding, 1 +- 2^-23, as tools/torch_dp_check.py reckons it): the
+    tuned params within FLOOR_FACTOR floors (at least MIN_BOUND) of the
+    untuned ones, normwise; device ms a replay tuned and untuned, in
+    turns."""
+    from mxnet_tpu_torch import autotune
+
+    dp = _tools_module("torch_dp_check")
+
+    def fit(imgs, fused):
+        return _conditioned_fit(torch, mx, kernels, imgs, labels, fused,
+                                dp.GAMMA_B3)
+
+    saved = autotune.CACHE_FILE
+    autotune.CACHE_FILE = cache
+    autotune.reset()
+    try:
+        with _environ(MXNET_TPU_AUTOTUNE="1"):
+            classic = fit(images, False)
+            _drop(classic)
+            tuned = fit(images, True)
+        applied = dict(autotune._lookups)
+    finally:
+        autotune.CACHE_FILE = saved
+        autotune.reset()
+    kind = torch.cuda.get_device_name(0)
+    f32 = [cfg for (site, sig, chip), cfg in applied.items()
+           if chip == kind and sig.endswith("float32") and cfg is not None]
+    check(len(f32) == 42 + 12 + 12, "19b: %d tuned configs applied to the "
+          "f32 step, want 66 (42 K3, 12 K4, 12 K5)" % len(f32))
+    step = tuned["mod"]._fused_step
+    counters = {"eager_steps": step.eager_steps, "captures": step.captures,
+                "dispatches": step.dispatches}
+    check(counters == {"eager_steps": 1, "captures": 1,
+                       "dispatches": TRAIN_STEPS - 1},
+          "19b: tuned fused step counters %s" % counters)
+    for what in ("args", "aux"):
+        unequal = [k for k in classic[what]
+                   if not np.array_equal(tuned[what][k], classic[what][k])]
+        check(not unequal, "19b: tuned fused and classic %s differ at %s"
+              % (what, unequal[:5]))
+    check(tuned["losses"] == classic["losses"]
+          and tuned["accuracy"] == classic["accuracy"],
+          "19b: tuned fused losses/metric differ from the classic loop's")
+    breakdown = fused_breakdown(torch, mx, kernels, step, tuned["metric"],
+                                images[:BATCH], labels[:BATCH])
+    check_profiled_launches("19b tuned fused", breakdown)
+    untuned = fit(images, True)
+    args0, aux0 = untuned["start"]
+    floors = {"args": 0.0, "aux": 0.0}
+    for scale in (1 + 2.0 ** -23, 1 - 2.0 ** -23):
+        moved = fit(images * np.float32(scale), True)
+        _drop(moved)
+        for what, start_of in (("args", args0), ("aux", aux0)):
+            floors[what] = max(floors[what], dp._normwise(
+                moved[what], untuned[what], start_of))
+    dist, bounds = {}, {}
+    for what, start_of in (("args", args0), ("aux", aux0)):
+        dist[what] = dp._normwise(tuned[what], untuned[what], start_of)
+        bounds[what] = max(dp.FLOOR_FACTOR * floors[what], dp.MIN_BOUND)
+        check(dist[what] <= bounds[what], "19b: tuned %s %g of the untuned "
+              "update away, bound %g (%d x the float32 floor %g)"
+              % (what, dist[what], bounds[what], dp.FLOOR_FACTOR,
+                 floors[what]))
+    batch = mx.io.DataBatch([images[:BATCH]], [labels[:BATCH]])
+    ms = {"tuned": [], "untuned": []}
+    for which in ("tuned", "untuned", "untuned", "tuned"):
+        run = tuned if which == "tuned" else untuned
+        st, metric = run["mod"]._fused_step, run["metric"]
+        st.step(batch, metric)
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(10):
+            st.step(batch, metric)
+        t1.record()
+        torch.cuda.synchronize()
+        ms[which].append(t0.elapsed_time(t1) / 10)
+    print("19b: tuned fit over 19a's cache (residual blocks' last gamma "
+          "%g): one capture, classic and fused bit-equal, launches %s, two "
+          "profiled replays %s; params %.4g and moving statistics %.4g of "
+          "the untuned update away (float32 floors %.4g / %.4g, bounds %.4g "
+          "/ %.4g); device ms a replay tuned %s, untuned %s (in turns)  [%s]"
+          % (dp.GAMMA_B3, tuned["launches"], breakdown["launches"],
+             dist["args"], dist["aux"], floors["args"], floors["aux"],
+             bounds["args"], bounds["aux"],
+             ["%.3f" % v for v in ms["tuned"]],
+             ["%.3f" % v for v in ms["untuned"]], card))
+    out = {"counters": counters, "launches_classic": classic["launches"],
+           "launches_fused": tuned["launches"],
+           "replays_profiled": breakdown["launches"],
+           "normwise_vs_untuned": dist, "float32_floor": floors,
+           "bounds": bounds, "replay_ms": ms,
+           "applied_f32_configs": len(f32)}
+    for run in (tuned, untuned):
+        _drop(run)
+    return out
+
+
+def autotune_main_path(torch, mx, kernels, card, images, labels):
+    """Phase 19: tune K3, K4 and K5 on the card (19a), then fit ResNet-50
+    under the tuned cache (19b)."""
+    t0 = time.perf_counter()
+    gemms, norms = conv_gemm_shapes(mx), bn_shapes(mx)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    try:
+        summary, cache = autotune_tune(torch, card, gemms, norms, tmp)
+        fit = autotune_fit(torch, mx, kernels, card, images, labels, cache)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = {}
+    for kernel, counts in (("conv_gemm", gemms), ("norm_act_fwd", norms),
+                           ("norm_act_bwd", norms)):
+        for dtype in ("float32", "bfloat16"):
+            steps["%s_%s" % (kernel, dtype)] = t = _tuned_step_ms(
+                summary, kernel, dtype, counts)
+            print("19a %s %s a step: default %.4f ms, tuned %.4f ms, %d of "
+                  "%d shapes non-default  [%s]"
+                  % (kernel, dtype, t["default_ms"], t["tuned_ms"],
+                     t["non_default"], t["shapes"], card))
+    seconds = time.perf_counter() - t0
+    print("phase 19: %.1f s" % seconds)
+    return {"tune": {k: v for k, v in summary.items() if k != "sites"},
+            "searches": summary["sites"], "step_ms": steps, "fit": fit,
+            "seconds": seconds}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -7594,6 +7846,17 @@ def main():
                           classic_params[0])
     del classic_params
 
+    # 19. the autotuner: K3, K4 and K5 tuned on the card, then phase 6's
+    # fit under the tuned cache
+    tune = autotune_main_path(torch, mx, kernels, card, images, labels)
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update({
+            "autotune_tuned_classic":
+                tune["fit"]["launches_classic"][kernel],
+            "autotune_tuned_fused": tune["fit"]["launches_fused"][kernel],
+            "autotune_tuned_fused_2_replays_profiled":
+                tune["fit"]["replays_profiled"][kernel]})
+
     # 17b. one process over every visible card when there are two or more
     dp["multi"] = dp_multi_path(torch, mx, kernels, card)
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
@@ -7619,7 +7882,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 19. report
+    # 20. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -7672,7 +7935,10 @@ def main():
                   "device_sync and device stores (the eager step and the "
                   "capture; replays: two); dist_sync_one_worker_*: phase "
                   "18a's fused fit under a one-worker dist_sync (the eager "
-                  "step and the capture; replays: two)")
+                  "step and the capture; replays: two); autotune_tuned_*: "
+                  "phase 19b's fits with MXNET_TPU_AUTOTUNE=1 over 19a's "
+                  "cache (classic: 5 steps; fused: the eager step and the "
+                  "capture; replays: two)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7698,6 +7964,8 @@ def main():
         "bound_ms": fwd_tot["bound_ms"], "bound_by": "bytes",
         "library_ms": fwd_tot["library_ms"],
         "scope": "53 launches of one ResNet-50 NHWC forward, batch 32, f32",
+        "autotune": {d: tune["step_ms"]["norm_act_fwd_" + d]
+                     for d in ("float32", "bfloat16")},
     }, {
         "name": "norm_act_bwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -7725,6 +7993,8 @@ def main():
         "library_note": "no single PyTorch call computes dx, dscale and "
                         "dshift together",
         "scope": train_scope % BN_LAYERS,
+        "autotune": {d: tune["step_ms"]["norm_act_bwd_" + d]
+                     for d in ("float32", "bfloat16")},
     }, {
         "name": "conv_gemm", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/conv_gemm.cu",
@@ -7772,6 +8042,11 @@ def main():
         "library_ms": gemm_tot["library_ms"],
         "library_call": "torch.matmul on the same operands",
         "scope": train_scope % CONV_GEMMS,
+        "autotune": {d: tune["step_ms"]["conv_gemm_" + d]
+                     for d in ("float32", "bfloat16")},
+        "autotune_note": "phase 19a: the kernel's ms a step (default_ms: "
+                         "its own launch rule; tuned_ms: each shape's "
+                         "winner), summed over the step's launches",
     }, {
         "name": "linear", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/linear.cu",
@@ -7929,7 +8204,8 @@ def main():
                        "detection_ocr_path": det,
                        "mixed_precision_path": mp,
                        "feed_path": feed, "mirror_obs_path": obs,
-                       "dp_path": dp, "dist_path": dist}, f, indent=1,
+                       "dp_path": dp, "dist_path": dist,
+                       "autotune_path": tune}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": records}))
     print(card)

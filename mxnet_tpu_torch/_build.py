@@ -53,7 +53,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "norm_act": {
-        "norm_act_fwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _P], _I),
+        "norm_act_fwd": ([_P, _P, _P, _P, _LL, _I, _I, _I, _LL, _P], _I),
         "norm_act_bwd_row_blocks": ([_LL, _I], _I),
         "norm_act_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                           _I, _P], _I),

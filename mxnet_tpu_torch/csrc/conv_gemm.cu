@@ -192,8 +192,8 @@ extern "C" long long conv_gemm_k_chunk(long long m, long long n, long long k) {
   return k_chunk(m, n, k, kMinSplitK);
 }
 
-// The same for 16-bit operands: the same rule over the same tiles, a multiple of 64 (the
-// 16-bit mainloop's K block).
+// The same for 16-bit operands, by the 16-bit mainloop's own rule: gemm_wgmma16.cuh's
+// cost model of its persistent units (gemm16::k_chunk), a multiple of 64 (its K block).
 extern "C" long long conv_gemm16_k_chunk(long long m, long long n, long long k) {
   return gemm16::k_chunk(m, n, k, kMinSplitK);
 }

@@ -242,15 +242,21 @@ int num_sms() {
   return cached[dev];
 }
 
+// The forward's grid for `work` items: one item a thread, capped at max_blocks, or, for 0,
+// at kBlocksPerSm blocks an SM (the grid-stride loop covers the rest).
+long long fwd_blocks(long long work, long long max_blocks) {
+  long long blocks = (work + kThreads - 1) / kThreads;
+  const long long cap = max_blocks > 0 ? max_blocks : (long long)num_sms() * kBlocksPerSm;
+  return blocks > cap ? cap : blocks;
+}
+
 template <class E, bool RELU>
 void launch(const void* x, const float* sc, const float* sh, void* y, long long n, int C,
-            bool vec, cudaStream_t stream) {
+            bool vec, long long max_blocks, cudaStream_t stream) {
   const bool smem = C <= kMaxSmemChannels;
   const size_t smem_bytes = smem ? 2 * (size_t)C * sizeof(float) : 0;
   const long long work = vec ? n / E::kVec : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = (long long)num_sms() * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
+  const long long blocks = fwd_blocks(work, max_blocks);
   const dim3 grid((unsigned int)blocks);
   if (vec) {
     if (smem)
@@ -274,7 +280,9 @@ constexpr int kBwdBlocksPerSm = 8;     // 8 x 256 threads fill an SM
 constexpr int kReduceThreads = 256;
 
 // Row blocks of stage 1 for (rows, C): enough blocks to fill the card, at least
-// one row per warp. The caller sizes the partials scratch with this.
+// one row per warp. The caller sizes the partials scratch with this, or with another count
+// of row blocks (the autotuner's): any count from 1 to 65535 gives the same dx, and sums
+// whose order follows the count.
 int bwd_row_blocks(long long rows, int C) {
   if (rows <= 0 || C <= 0) return 0;
   const long long col_blocks = (C + kBwdLanes - 1) / kBwdLanes;
@@ -290,7 +298,8 @@ int bwd_row_blocks(long long rows, int C) {
 
 // Stage 1: dx for the block's tile, and the tile's per-channel partial sums,
 // written to partial[blockIdx.y][0][c] (sum g'x) and partial[blockIdx.y][1][c]
-// (sum g').
+// (sum g'). A block whose rows start past the last row (a count of row blocks that does
+// not divide the rows evenly) writes zeros.
 template <class E, bool RELU>
 __global__ void __launch_bounds__(kBwdLanes * kBwdWarps)
 norm_act_bwd_partial_kernel(const void* __restrict__ x, const float* __restrict__ scale,
@@ -368,9 +377,13 @@ void launch_bwd(const void* x, const float* sc, const float* sh, const void* g, 
 
 // x, y: (rows, channels) contiguous, float32 (dtype 0), bfloat16 (dtype 1) or float16
 // (dtype 2). scale, shift: (channels,) contiguous float32. relu: 0 = none, 1 = relu.
+// max_blocks caps the grid; 0 keeps the kernel's own cap (kBlocksPerSm blocks an SM).
 extern "C" int norm_act_fwd(const void* x, const void* scale, const void* shift, void* y,
-                            long long rows, int channels, int dtype, int relu, void* stream) {
-  if (rows < 0 || channels <= 0 || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+                            long long rows, int channels, int dtype, int relu,
+                            long long max_blocks, void* stream) {
+  if (rows < 0 || channels <= 0 || dtype < 0 || dtype > 2 || max_blocks < 0 ||
+      max_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const long long n = rows * (long long)channels;
   if (n == 0) return 0;
   const int vec_width = dtype == 0 ? F32::kVec : BF16::kVec;
@@ -380,14 +393,14 @@ extern "C" int norm_act_fwd(const void* x, const void* scale, const void* shift,
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (relu) launch<F32, true>(x, sc, sh, y, n, channels, vec, s);
-    else launch<F32, false>(x, sc, sh, y, n, channels, vec, s);
+    if (relu) launch<F32, true>(x, sc, sh, y, n, channels, vec, max_blocks, s);
+    else launch<F32, false>(x, sc, sh, y, n, channels, vec, max_blocks, s);
   } else if (dtype == 1) {
-    if (relu) launch<BF16, true>(x, sc, sh, y, n, channels, vec, s);
-    else launch<BF16, false>(x, sc, sh, y, n, channels, vec, s);
+    if (relu) launch<BF16, true>(x, sc, sh, y, n, channels, vec, max_blocks, s);
+    else launch<BF16, false>(x, sc, sh, y, n, channels, vec, max_blocks, s);
   } else {
-    if (relu) launch<F16, true>(x, sc, sh, y, n, channels, vec, s);
-    else launch<F16, false>(x, sc, sh, y, n, channels, vec, s);
+    if (relu) launch<F16, true>(x, sc, sh, y, n, channels, vec, max_blocks, s);
+    else launch<F16, false>(x, sc, sh, y, n, channels, vec, max_blocks, s);
   }
   return (int)cudaGetLastError();
 }
@@ -401,14 +414,14 @@ extern "C" int norm_act_bwd_row_blocks(long long rows, int channels) {
 // x, g, dx: (rows, channels) contiguous, float32 (dtype 0), bfloat16 (dtype 1) or
 // float16 (dtype 2).
 // scale, shift: (channels,) float32. dscale, dshift: (channels,) float32 outputs.
-// partial: (row_blocks, 2, channels) float32 scratch, row_blocks as
-// norm_act_bwd_row_blocks gives it. relu: 0 = none, 1 = relu.
+// partial: (row_blocks, 2, channels) float32 scratch, row_blocks from 1 to 65535
+// (norm_act_bwd_row_blocks gives the kernel's own count). relu: 0 = none, 1 = relu.
 extern "C" int norm_act_bwd(const void* x, const void* scale, const void* shift, const void* g,
                             void* dx, void* dscale, void* dshift, void* partial,
                             long long rows, int channels, int row_blocks, int dtype, int relu,
                             void* stream) {
-  if (rows <= 0 || channels <= 0 || dtype < 0 || dtype > 2 ||
-      row_blocks != bwd_row_blocks(rows, channels))
+  if (rows <= 0 || channels <= 0 || dtype < 0 || dtype > 2 || row_blocks < 1 ||
+      row_blocks > 65535)
     return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);

@@ -416,6 +416,21 @@ declare("MXNET_TPU_XPROF_RECORDS", int, 256,
         "dropped first (per-site summaries keep their totals).",
         section=_X)
 
+_AT = "Autotuning"
+declare("MXNET_TPU_AUTOTUNE", bool, False,
+        "Consult the autotuner's best-config cache "
+        "(`mxnet_tpu_torch/_autotune/cache.json`, written by "
+        "`autotune.run_smoke` on the card) where a kernel's launch "
+        "parameters are chosen: K3's split-K chunk, K4's grid cap and "
+        "K5's row blocks, keyed by the operands' signature and the CUDA "
+        "device name. Looked up once a signature on the host; a CUDA "
+        "graph's replay looks up nothing. Off: every launch takes the "
+        "kernels' own rules.", section=_AT)
+declare("MXNET_TPU_AUTOTUNE_BUDGET_S", float, 60.0,
+        "Wall-clock budget (seconds) for one `mxnet_tpu_torch.autotune` "
+        "search; candidates past the budget are recorded as pruned "
+        "(`budget exhausted`), never silently skipped.", section=_AT)
+
 
 # ---------------------------------------------------------------------------
 # docs generation

@@ -76,6 +76,7 @@ import time
 import numpy as np
 import torch
 
+from . import autotune as _autotune
 from . import env as _env
 from . import numwatch as _numwatch
 from . import telemetry as _tel
@@ -597,6 +598,11 @@ class FusedTrainStep:
             live, peak = self._eager_mem
             _xprof.preflight_check(2 * peak - live, device=self._ex._device,
                                    what="the fused step's capture")
+        # the kernels' wrappers apply the autotuner's launch parameters as
+        # the capture records them (looked up once a signature, the same
+        # ones the eager step and the classic loop took); this records the
+        # consultation, once a process, and a replay looks up nothing
+        _autotune.note_build("fused_step")
         t0 = time.perf_counter()
         if self._reps is not None:
             graph = CardGraph(self._reps, self._side_streams())

@@ -41,6 +41,13 @@ contracts of their plain versions. K3 with bfloat16 or float16 operands
 runs its own 16-bit mainloop, written for Hopper (``csrc/gemm_wgmma16.cuh``:
 TMA loads, wgmma, exact products, float32 sums), and K4/K5 take both
 16-bit types with float32 math.
+
+Launch parameters: K3's split-K chunk, K4's grid cap and K5's row blocks
+come from each kernel's own rule, or, with ``MXNET_TPU_AUTOTUNE`` on,
+from the autotuner's cache (``autotune.conv_k_chunk``,
+``norm_fwd_blocks``, ``norm_bwd_row_blocks``: looked up once a
+signature). K3's and K5's sums take their order from them; K4 is
+elementwise and gives the same bits under any cap.
 """
 from __future__ import annotations
 
@@ -250,13 +257,17 @@ def _norm_act_fwd(x, sc, sh, act):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    from .. import _build
+    from .. import _build, autotune
 
     lib = _build.load("norm_act")
+    rows = x.numel() // c
+    # the grid cap: the autotuner's where it is on and holds one, else 0
+    # (the kernel's own)
+    cap = autotune.norm_fwd_blocks(rows, c, x.dtype, x.device) or 0
     with torch.cuda.device(x.device):
         rc = lib.norm_act_fwd(x.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-                              y.data_ptr(), x.numel() // c, c,
-                              _DTYPES[x.dtype], _ACTS[act], _stream(x))
+                              y.data_ptr(), rows, c, _DTYPES[x.dtype],
+                              _ACTS[act], cap, _stream(x))
     if rc != 0:
         raise MXNetError("norm_act_fwd launch failed: CUDA error %d" % rc)
     _count("norm_act_fwd_launches", x.dtype)
@@ -289,11 +300,14 @@ def fused_norm_act_bwd(x: torch.Tensor, scale: torch.Tensor,
                 torch.zeros(c, dtype=torch.float32, device=x.device))
     dscale = torch.empty(c, dtype=torch.float32, device=x.device)
     dshift = torch.empty(c, dtype=torch.float32, device=x.device)
-    from .. import _build
+    from .. import _build, autotune
 
     lib = _build.load("norm_act")
     with torch.cuda.device(x.device):
-        blocks = lib.norm_act_bwd_row_blocks(rows, c)
+        # the row blocks (the partials' count and so the sums' order): the
+        # autotuner's where it is on and holds one, else the kernel's rule
+        blocks = (autotune.norm_bwd_row_blocks(rows, c, x.dtype, x.device)
+                  or lib.norm_act_bwd_row_blocks(rows, c))
         partial = torch.empty((blocks, 2, c), dtype=torch.float32,
                               device=x.device)
         rc = lib.norm_act_bwd(x.data_ptr(), scale.data_ptr(),
@@ -400,13 +414,17 @@ def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
         return torch.zeros((m, n), dtype=torch.float32, device=a.device)
     if not wide:
         a, b = _in_place16(a), _in_place16(b)
-    from .. import _build
+    from .. import _build, autotune
 
     lib = _build.load("conv_gemm")
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        chunk = (lib.conv_gemm_k_chunk if wide
-                 else lib.conv_gemm16_k_chunk)(m, n, k)
+        # the split-K chunk (and so the sum's order): the autotuner's where
+        # it is on and holds one, else the kernel's rule
+        chunk = (autotune.conv_k_chunk(m, n, k, a.dtype, transpose_a,
+                                       a.device)
+                 or (lib.conv_gemm_k_chunk if wide
+                     else lib.conv_gemm16_k_chunk)(m, n, k))
         splits = -(-k // chunk)
         ws = (torch.empty((splits, m, n), dtype=torch.float32,
                           device=a.device) if splits > 1 else None)

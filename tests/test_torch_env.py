@@ -45,7 +45,9 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_WATCHDOG_S", "MXNET_TPU_WATCHDOG_INTERVAL",
              "MXNET_TPU_XPROF", "MXNET_TPU_XPROF_OPS",
              "MXNET_TPU_XPROF_PREFLIGHT", "MXNET_TPU_XPROF_RECORDS",
-             "MXNET_TPU_TELEMETRY_FSYNC"]
+             "MXNET_TPU_TELEMETRY_FSYNC",
+             # the autotuner
+             "MXNET_TPU_AUTOTUNE", "MXNET_TPU_AUTOTUNE_BUDGET_S"]
 # read by the JAX package through base.getenv(name, default), outside its
 # registry: (name, the default it passes)
 PLAIN_VARS = [("MXNET_ENGINE_TYPE", "XLAEngine"),
