@@ -71,8 +71,11 @@ Phases, in order; any failure exits non-zero before the last line:
 7. entry points at full width, launch counts zeroed just before and
    read just after: parallel.make_ring_attention over a one-rank "sp"
    mesh at the demo's (1, 4096, 8, 32), causal, impl "ulysses" (K2 once
-   a call) and "ring" (K2 never), each against reference_attention, and
-   one backward through ulysses against autograd through the reference;
+   a call) and "ring" (K2 never), each against reference_attention,
+   ulysses_attention and ring_attention called with the reference's
+   signature (the axis name positional, resolved against that mesh: K2
+   once and never), and one backward through ulysses against autograd
+   through the reference;
    fused_linear at ResNet-50's head on the card's ResNet features
    against the FullyConnected output; two Rtc pushes.
 8. checkpoints at full width: ResNet-50 NHWC, batch 32, f32, phase 6's
@@ -375,7 +378,26 @@ Phases, in order; any failure exits non-zero before the last line:
    0.25, as tools/torch_dp_check.py conditions them: with every gamma
    at 1 the untuned fit moves 0.98 of its update when its images move
    by one rounding, which leaves no bound.
-20. report: one JSON line of kernel records, the card line, then
+20. fsdp, tp and the sharding API (ROADMAP.md Queue A item 10c). (a)
+   one card: parallel.build_sgd_train_step over a one-rank (dp, fsdp)
+   DeviceMesh, its params placed by fsdp_param_spec rules
+   (make_param_shardings, shard_args), one step of ResNet-50 NHWC at
+   batch 32 from phase 6's seed-0 weights with the residual blocks' last
+   BatchNorm gamma at 0.25, in f32 and in bf16 (compute_dtype), against
+   the same SGD step taken by the classic loop (lr 0.0125/32 with
+   rescale 1, momentum 0, wd 0): params and moving statistics within
+   one floor (the classic step's distance when its images move by one
+   rounding of the dtype, 1 +- 2^-23 or 1 +- 2^-8), at least 1e-6,
+   normwise as a share of its update; outputs finite, (32, 1000);
+   launches K3 105, K4 53, K5 53 a step. (b) with two or more cards
+   visible, tools/torch_shard_check.py's part (a) in this process over
+   every visible card (fit under MXNET_TPU_MESH_FSDP at the number of
+   cards and at 2 against dp and against one card at the global batch:
+   within 4 float32 floors, replicas bit-equal after the gather, one
+   capture, 105/53/53 a replay on every card, optimizer-state bytes a
+   card 1/fsdp of dp's); with one card it prints "20b: not run, 1 card
+   visible". 20b runs last in the process, after 17b.
+21. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -1169,6 +1191,28 @@ def entry_points_main_path(torch, mx, kernels):
             res["attention"][impl] = {"flash_attn_launches": launched,
                                       "max_abs_err": float(err.max()),
                                       "host_ms": ms}
+        # the reference's signature: the mesh axis by name, positionally,
+        # resolved against the mesh make_mesh built last
+        for impl, fn in (("ulysses", parallel.ulysses_attention),
+                         ("ring", parallel.ring_attention)):
+            before = kernels.flash_attn_launches
+            got = fn(q, k, v, "sp", True)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            bad = int((err > 2e-5 + 2e-4 * want.abs()).sum())
+            check(bad == 0, "%s_attention(q, k, v, 'sp', True): %d values "
+                  "beyond rtol 2e-4 / atol 2e-5 of reference_attention"
+                  % (impl, bad))
+            res["attention"][impl + "_axis_name"] = {
+                "flash_attn_launches": kernels.flash_attn_launches - before,
+                "max_abs_err": float(err.max())}
+        check(res["attention"]["ulysses_axis_name"]["flash_attn_launches"]
+              == 1 and res["attention"]["ring_axis_name"][
+                  "flash_attn_launches"] == 0,
+              "flash_attn launches by axis name: ulysses %d (want 1), ring "
+              "%d (want 0)"
+              % (res["attention"]["ulysses_axis_name"]["flash_attn_launches"],
+                 res["attention"]["ring_axis_name"]["flash_attn_launches"]))
         check(res["attention"]["ulysses"]["flash_attn_launches"] == 1
               and res["attention"]["ring"]["flash_attn_launches"] == 0,
               "flash_attn launches a call: ulysses %d (want 1), ring %d (want "
@@ -1217,10 +1261,11 @@ def entry_points_main_path(torch, mx, kernels):
              res["attention"]["ring"]["max_abs_err"], worst,
              tuple(feats.shape), fc_err, launches))
     want_counts = {"norm_act_fwd": 0, "norm_act_bwd": 0, "conv_gemm": 0,
-                   "linear": 1, "flash_attn": 2, "rtc": 2, "roi_pool": 0, "crop_norm": 0}
+                   "linear": 1, "flash_attn": 3, "rtc": 2, "roi_pool": 0, "crop_norm": 0}
     check(launches == want_counts, "entry-point launches %s, want %s (K2 "
-          "once for each ulysses forward, the forward and the one under the "
-          "backward)" % (launches, want_counts))
+          "once for each ulysses forward: make_ring_attention's, the one "
+          "by axis name and the one under the backward)"
+          % (launches, want_counts))
     res.update({"launches": launches, "head_vs_fc_max_abs": fc_err,
                 "head_max_abs_err": float(err.max())})
     return res
@@ -7566,6 +7611,154 @@ def autotune_main_path(torch, mx, kernels, card, images, labels):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 20. fsdp, tp and the sharding API
+# ---------------------------------------------------------------------------
+SHARD_LR = 0.0125 / BATCH      # 20a: the step sums the batch's gradients
+SHARD_UNIT = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -8}
+
+
+def shard_classic_step(torch, mx, kernels, images, labels, dtype, gamma_b3):
+    """One classic-loop SGD step of ResNet-50 NHWC at batch 32 from
+    train_module's seed-0 weights (residual gammas at ``gamma_b3``), at
+    lr SHARD_LR with rescale 1, momentum 0 and wd 0 (the sharded train
+    step's update): (start args, start aux, args, aux)."""
+    cd = None if dtype == "float32" else dtype
+    mod = train_module(mx, mx.gpu(0), BATCH, seed=0, compute_dtype=cd)
+    args, aux = mod.get_params()
+    for name, arr in args.items():
+        if name.endswith("_b3_bn_gamma"):
+            arr[:] = np.full(arr.shape, gamma_b3, np.float32)
+    mod.set_params(args, aux)
+    start = (_host(args), _host(aux))
+    import warnings
+
+    with warnings.catch_warnings():
+        # one step has no step time (the median of no intervals)
+        warnings.simplefilter("ignore", RuntimeWarning)
+        run = fit_module(torch, mx, kernels, mod, images[:BATCH],
+                         labels[:BATCH], False, optimizer_params=(
+                             ("learning_rate", SHARD_LR), ("momentum", 0.0),
+                             ("wd", 0.0), ("rescale_grad", 1.0)))
+    return start, run["args"], run["aux"]
+
+
+def shard_build_step(torch, mx, kernels, start, images, labels, dtype):
+    """20a's main path: parallel.build_sgd_train_step over a one-rank
+    (dp, fsdp) DeviceMesh, params placed by fsdp_param_spec rules through
+    make_param_shardings and shard_args, one step at batch 32; the
+    wrappers' counts zeroed just before the step and read just after."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel
+
+    sym = mx.models.get_resnet50(num_classes=1000, layout="NHWC")
+    args, aux = start
+    mesh = parallel.make_mesh({"dp": 1, "fsdp": 1})
+    try:
+        rules = [parallel.ShardingRule(".*", parallel.fsdp_param_spec(
+            (1,), mesh))]
+        params = parallel.shard_args(mesh, args, parallel.make_param_shardings(
+            mesh, {k: v.shape for k, v in args.items()}, rules))
+        aux_t = [torch.from_numpy(aux[n]).cuda()
+                 for n in sym.list_auxiliary_states()]
+        step, names = parallel.build_sgd_train_step(
+            sym, ["data"], ["softmax_label"], lr=SHARD_LR,
+            compute_dtype=None if dtype == "float32" else dtype)
+        data = {"data": torch.from_numpy(images[:BATCH]).cuda(),
+                "softmax_label": torch.from_numpy(labels[:BATCH]).cuda()}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, new, new_aux = step(params, data, aux_t, 0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = kernels.launch_counts()
+        got = {k: v.full_tensor().cpu().numpy() for k, v in new.items()}
+        got_aux = {n: a.cpu().numpy() for n, a in
+                   zip(sym.list_auxiliary_states(), new_aux)}
+        probs = outs[0]
+    finally:
+        dist.destroy_process_group()
+    check(bool(torch.isfinite(probs).all())
+          and tuple(probs.shape) == (BATCH, 1000),
+          "20a %s: outputs %s, finite %s" % (dtype, tuple(probs.shape),
+                                             bool(torch.isfinite(probs).all())))
+    return got, got_aux, launches, ms
+
+
+def shard_one_card(torch, mx, kernels, card, images, labels):
+    """20a: the sharded train step against the classic loop's step, in
+    f32 and bf16, within one floor of that dtype (the classic step's
+    distance when its images move by one rounding of the dtype, 1 +- u),
+    at least 1e-6, normwise as a share of the classic step's update."""
+    dp = _tools_module("torch_dp_check")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        start, want, want_aux = shard_classic_step(
+            torch, mx, kernels, images, labels, dtype, dp.GAMMA_B3)
+        floors = {"args": 0.0, "aux": 0.0}
+        for scale in (1 + SHARD_UNIT[dtype], 1 - SHARD_UNIT[dtype]):
+            _, moved, moved_aux = shard_classic_step(
+                torch, mx, kernels, images * np.float32(scale), labels,
+                dtype, dp.GAMMA_B3)
+            floors["args"] = max(floors["args"], dp._normwise(
+                moved, want, start[0]))
+            floors["aux"] = max(floors["aux"], dp._normwise(
+                moved_aux, want_aux, start[1]))
+        got, got_aux, launches, ms = shard_build_step(
+            torch, mx, kernels, start, images, labels, dtype)
+        rec = {"launches": launches, "host_ms": ms, "floor": floors}
+        want_l = dict(_resnet_launches(1), rtc=0)
+        check(launches == want_l, "20a %s: build_sgd_train_step launched %s, "
+              "want %s" % (dtype, launches, want_l))
+        for what, g, w, s0 in (("args", got, want, start[0]),
+                               ("aux", got_aux, want_aux, start[1])):
+            dist_ = dp._normwise(g, w, s0)
+            bound = max(floors[what], 1e-6)
+            rec["%s_vs_classic_normwise" % what] = dist_
+            rec["%s_bound" % what] = bound
+            check(dist_ <= bound, "20a %s: the sharded step's %s %g of the "
+                  "classic step's update away, bound %g (the floor)"
+                  % (dtype, what, dist_, bound))
+        print("20a build_sgd_train_step over a one-rank (dp, fsdp) mesh, %s: "
+              "params %.4g / moving statistics %.4g of the classic step's "
+              "update away (floors %.4g / %.4g), launches %s, host %.1f ms "
+              "(the first call)  [%s]"
+              % (dtype, rec["args_vs_classic_normwise"],
+                 rec["aux_vs_classic_normwise"], floors["args"],
+                 floors["aux"], launches, ms, card))
+        out[dtype] = rec
+    return out
+
+
+def shard_multi_path(torch, mx, kernels, card):
+    """20b: tools/torch_shard_check.py's part (a) in this process over
+    every visible card, or a line saying it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("20b: not run, 1 card visible")
+        return None
+    t0 = time.perf_counter()
+    check_tool = _tools_module("torch_shard_check")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = check_tool.run_a(torch, mx, kernels, n)
+    check(not rec["failed"], "20b over %d cards: %s" % (n, rec["failed"]))
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 20b: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
+def shard_main_path(torch, mx, kernels, card, images, labels):
+    """Phase 20a on one card (20b, over every visible card, runs last in
+    the process: :func:`shard_multi_path`)."""
+    t0 = time.perf_counter()
+    out = shard_one_card(torch, mx, kernels, card, images, labels)
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 20a: %.1f s" % out["seconds"])
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -7857,8 +8050,17 @@ def main():
             "autotune_tuned_fused_2_replays_profiled":
                 tune["fit"]["replays_profiled"][kernel]})
 
+    # 20a. the sharding API: build_sgd_train_step over a one-rank (dp,
+    # fsdp) mesh against the classic loop's step, f32 and bf16
+    shard = shard_main_path(torch, mx, kernels, card, images, labels)
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel].update({
+            "shard_build_step_%s" % d: shard[d]["launches"][kernel]
+            for d in ("float32", "bfloat16")})
     # 17b. one process over every visible card when there are two or more
     dp["multi"] = dp_multi_path(torch, mx, kernels, card)
+    # 20b. fsdp over every visible card, after 17b
+    shard["multi"] = shard_multi_path(torch, mx, kernels, card)
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         for kv in ("device_sync", "device"):
             model_paths[kernel].update({
@@ -7882,7 +8084,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 20. report
+    # 21. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -7938,7 +8140,9 @@ def main():
                   "step and the capture; replays: two); autotune_tuned_*: "
                   "phase 19b's fits with MXNET_TPU_AUTOTUNE=1 over 19a's "
                   "cache (classic: 5 steps; fused: the eager step and the "
-                  "capture; replays: two)")
+                  "capture; replays: two); shard_build_step_*: phase 20a's "
+                  "one parallel.build_sgd_train_step call at batch 32 over "
+                  "a one-rank (dp, fsdp) DeviceMesh, f32 and bf16")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -8205,7 +8409,8 @@ def main():
                        "mixed_precision_path": mp,
                        "feed_path": feed, "mirror_obs_path": obs,
                        "dp_path": dp, "dist_path": dist,
-                       "autotune_path": tune}, f, indent=1,
+                       "autotune_path": tune, "shard_path": shard}, f,
+                      indent=1,
                       default=str)
     print(json.dumps({"kernels": records}))
     print(card)

@@ -62,7 +62,6 @@ from . import ndarray as nd
 from . import telemetry as _tel
 from .base import MXNetError
 from .ndarray import _host_tensor, _to_numpy
-from .optimizer import _states_to_numpy
 
 __all__ = ["CheckpointError", "atomic_writer", "atomic_write_bytes",
            "atomic_ndarray_save", "param_digest", "snapshot", "restore",
@@ -182,7 +181,9 @@ def snapshot(module, eval_metric=None, train_data=None, *, step: int = 0,
     so no stream (the fused step's side stream included) is still writing
     what it reads. Over several contexts ``dp`` is their number and the
     values are the first replica's (the replicas are equal), the metric's
-    device sums those of every replica."""
+    device sums those of every replica. Under the fsdp recipe the params
+    and optimizer states are joined from the shards, and ``mesh`` records
+    the group's mesh."""
     group, ex = _bound(module)
     for other in group.execs:
         if other._device.type == "cuda":
@@ -191,15 +192,20 @@ def snapshot(module, eval_metric=None, train_data=None, *, step: int = 0,
         "format": FORMAT, "step": int(step), "epoch": int(epoch),
         "nbatch": int(nbatch), "dp": len(group.execs),
         "time": round(time.time(), 3)}
-    payload["params"] = {n: _fetch(ex.arg_dict[n].handle)
+    if group._mesh is not None:
+        # the mesh's factoring ("dp" alone, or "dp" and "fsdp"), so a
+        # resume can say which one the state re-shards from
+        from .parallel.sharding import mesh_axis_sizes
+
+        payload["mesh"] = mesh_axis_sizes(group._mesh)
+    payload["params"] = {n: _fetch(group.param_value(n))
                          for n in module._param_names if n in ex.arg_dict}
     payload["param_digests"] = {n: param_digest(v)
                                 for n, v in payload["params"].items()}
     payload["aux"] = {n: _fetch(a.handle)
                       for n, a in zip(group.aux_names, ex.aux_arrays)}
-    updater = getattr(module, "_updater", None)
-    payload["updater_states"] = (None if updater is None
-                                 else _states_to_numpy(updater.states))
+    payload["updater_states"] = (None if module._updater is None
+                                 else module._optimizer_states())
     optimizer = getattr(module, "_optimizer", None)
     payload["optimizer"] = (None if optimizer is None
                             else optimizer.get_checkpoint_state())
@@ -261,11 +267,19 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         raise CheckpointError("unsupported snapshot format %r"
                               % (payload.get("format"),))
     saved_dp = int(payload.get("dp") or 0)
-    if saved_dp != len(group.execs) or payload.get("mesh"):
-        _log.info("snapshot saved on %s restores onto %d device(s) (params "
-                  "and optimizer states are replicated there)",
-                  payload.get("mesh") or "dp=%d" % saved_dp,
-                  len(group.execs))
+    saved_mesh = payload.get("mesh") or ({"dp": saved_dp} if saved_dp
+                                         else {})
+    cur_mesh = {"dp": len(group.execs)}
+    if group._mesh is not None:
+        from .parallel.sharding import mesh_axis_sizes
+
+        cur_mesh = mesh_axis_sizes(group._mesh)
+    if saved_dp and saved_mesh != cur_mesh:
+        _log.info("elastic rejoin: snapshot saved on mesh %s restoring "
+                  "onto %s (params and optimizer states re-shard through "
+                  "host numpy)",
+                  "x".join("%s=%d" % kv for kv in saved_mesh.items()),
+                  "x".join("%s=%d" % kv for kv in cur_mesh.items()))
     params = {n: ex.arg_dict[n] for n in module._param_names
               if n in ex.arg_dict}
     aux = dict(zip(group.aux_names, ex.aux_arrays))
@@ -282,7 +296,7 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         # saved before its first update), so every one is checked here
         module._bound_states()
         try:
-            for index, saved in states.items():
+            for index, saved in module._replica_states(states, 0).items():
                 if int(index) in updater.states:
                     updater._check_state(int(index),
                                          updater.states[int(index)], saved)
@@ -302,14 +316,13 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
                      rng_torch.size, ex._device.type)
         rng_torch = None
 
+    for name, val in payload["params"].items():
+        group.write_param(name, _host_tensor(np.asarray(val)))
     for replica in group.execs:
-        for name, val in payload["params"].items():
-            _copy_in(replica.arg_dict[name], val)
         for name, val in (payload.get("aux") or {}).items():
             _copy_in(replica.aux_dict[name], val)
     if states is not None and updater is not None:
-        for each in getattr(module, "_updaters", None) or [updater]:
-            each.set_numpy_states(states)
+        module._set_optimizer_states(states)
     optimizer = getattr(module, "_optimizer", None)
     if payload.get("optimizer") is not None and optimizer is not None:
         optimizer.set_checkpoint_state(payload["optimizer"])
@@ -419,6 +432,8 @@ class SnapshotStore:
                  "dp": int(payload.get("dp", 0)), "sha256": digest,
                  "bytes": len(blob), "time": round(time.time(), 3),
                  "reason": reason}
+        if payload.get("mesh"):
+            entry["mesh"] = payload["mesh"]
         if payload.get("param_digests"):
             entry["param_digests"] = payload["param_digests"]
         manifest["snapshots"].append(entry)

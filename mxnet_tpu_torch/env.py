@@ -120,9 +120,22 @@ declare("MXNET_TPU_DEVICE_SYNC_FUSED", bool, True,
 declare("MXNET_TPU_MESH_FSDP", int, 0,
         "Size of the `fsdp` mesh axis. 0 or 1 keeps plain data "
         "parallelism over the contexts (every card a replica, params and "
-        "optimizer state replicated). Above 1 over several contexts the "
-        "bind raises: sharded params are ROADMAP.md Queue A item 10c.",
+        "optimizer state replicated). N>1 makes the executor group's mesh "
+        "`(dp, fsdp)` with dp = contexts/N (N must divide the contexts): "
+        "the batch splits over every context as before, while each param "
+        "with a gradient whose dim 0 divides by N keeps one shard of dim "
+        "0 a card, with its reduced gradient and optimizer state of the "
+        "shard's shape. The shards are all-gathered into every replica's "
+        "full-width params before each forward and the gradients are "
+        "reduce-scattered into them after the backward, inside the fused "
+        "step's one CUDA graph on cards.",
         section="Training")
+declare("MXNET_TPU_FSDP_PARAMS", bool, True,
+        "Set to 0 to keep every param and optimizer state replicated on a "
+        "`(dp, fsdp)` mesh (`MXNET_TPU_MESH_FSDP`): the batch still splits "
+        "over every context, so the run is plain data parallelism with "
+        "the mesh's shape. Params whose dim 0 does not divide by the "
+        "`fsdp` size are replicated regardless.", section="Training")
 declare("MXNET_TPU_FUSED_UPDATE", bool, True,
         "Set to 0 to make `Optimizer.update_multi` update the parameters "
         "one at a time through `update` instead of a few multi-tensor "

@@ -654,6 +654,14 @@ class ReplicatedExecutor:
     exchanged through a copy of that layout and then written or added.
     Input gradients are each replica's own slice's.
 
+    ``shards`` (:class:`~mxnet_tpu_torch.replicas.ShardedParams`, the
+    fsdp recipe) holds the parameters that are not in ``exchange`` but
+    sharded: every forward first gathers their shards into each
+    replica's full-width arrays, and every backward ends by reducing
+    their gradients into each card's shard (a reduce-scatter); their
+    full-width gradient arrays then hold the replica's own, unreduced
+    gradients.
+
     ``inputs`` maps each data and label argument to its batch axis. An
     output's batch axis is the one axis that is as long as the global
     batch over the global batch and ``n`` times shorter over a replica's
@@ -663,7 +671,8 @@ class ReplicatedExecutor:
     shape that does not follow the batch) cannot be joined or given a
     head gradient, and either raises."""
 
-    def __init__(self, execs, replicas, exchange, flats, inputs):
+    def __init__(self, execs, replicas, exchange, flats, inputs,
+                 shards=None):
         ex0 = execs[0]
         if any(ex._group2ctx for ex in execs):
             raise MXNetError("group2ctx placement over several contexts: "
@@ -684,6 +693,7 @@ class ReplicatedExecutor:
         self.output_names = ex0.output_names
         self._exchange = [self.arg_names.index(n) for n in exchange]
         self._flats = flats
+        self.shards = shards
         self._scratch = None
         self._local = {name: tuple(ex0.arg_dict[name].shape)
                        for name in inputs}
@@ -740,11 +750,28 @@ class ReplicatedExecutor:
 
     @property
     def arg_arrays(self):
-        return self.execs[0].arg_arrays
+        """The first replica's arguments; a fsdp-sharded parameter's
+        value joined from its master shards, since its bound array is
+        the walk's workspace (the packed gradients after a backward)."""
+        arrays = self.execs[0].arg_arrays
+        if self.shards is None:
+            return arrays
+        return self._joined(arrays, self.shards.gather_value)
 
     @property
     def grad_arrays(self):
-        return self.execs[0].grad_arrays
+        """The first replica's gradients; a fsdp-sharded parameter's
+        reduced gradient joined from its shards (its bound array holds
+        the replica's own, and the gathered weights after a forward)."""
+        arrays = self.execs[0].grad_arrays
+        if self.shards is None:
+            return arrays
+        return self._joined(arrays, self.shards.gather_grad)
+
+    def _joined(self, arrays, join):
+        return [NDArray(join(n), arr.context)
+                if arr is not None and n in self.shards.index else arr
+                for n, arr in zip(self.arg_names, arrays)]
 
     def set_monitor_callback(self, callback: Callable[[str, NDArray], None]):
         """``callback(name, array)`` on every op output of each forward,
@@ -755,6 +782,10 @@ class ReplicatedExecutor:
 
     def forward(self, is_train: bool = False):
         execs = self.execs
+        if self.shards is not None:
+            self.replicas.begin()
+            with torch.no_grad():
+                self.shards.gather()
         aux = [[a.handle for a in ex.aux_arrays] for ex in execs]
         internals = {} if self._monitor_callback is not None else None
         self._train = None
@@ -863,7 +894,10 @@ class ReplicatedExecutor:
         # one in-place cross-card sum a flat buffer (or its copy)
         bufs = self._scratch if staged else self._flats
         for j in range(len(bufs[0])):
-            reps.sum_([b[j] for b in bufs])
+            if bufs[0][j].numel():
+                reps.sum_([b[j] for b in bufs])
+        if self.shards is not None:
+            self.shards.reduce()
         for k, ex in enumerate(execs):
             with reps.on(k):
                 for i in exchanged:

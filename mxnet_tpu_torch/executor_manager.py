@@ -58,6 +58,13 @@ class DataParallelExecutorManager:
             symbol, self.ctx, train_data.provide_data,
             train_data.provide_label, self.param_names, for_training=True,
             inputs_need_grad=False, workload=work_load_list)
+        if self.execgrp.shards is not None:
+            raise MXNetError(
+                "DataParallelExecutorManager under MXNET_TPU_MESH_FSDP: the "
+                "manager hands out every replica's full-width param arrays "
+                "for the caller to update, which the fsdp recipe keeps as "
+                "the walk's workspace (the card's shards are the params); "
+                "train through Module, or unset MXNET_TPU_MESH_FSDP")
 
     @property
     def param_arrays(self):

@@ -88,8 +88,14 @@ from .ndarray import HostToDevice, NDArray
 from .optimizer import _state_tensors
 from .replicas import CardGraph
 
-__all__ = ["make_fused_step", "FusedTrainStep", "make_fused_infer",
-           "FusedInfer"]
+__all__ = ["enabled", "make_fused_step", "FusedTrainStep",
+           "make_fused_infer", "FusedInfer"]
+
+
+def enabled() -> bool:
+    """``MXNET_TPU_FUSED_STEP=1`` asks ``fit`` for the fused step
+    (default off)."""
+    return _env.get("MXNET_TPU_FUSED_STEP")
 
 
 def make_fused_step(module, eval_metric, monitor=None):
@@ -238,6 +244,15 @@ class FusedTrainStep:
     def _refuse_over_cards(self):
         """What the step does not run over several contexts."""
         what = None
+        if self._numwatch is not None \
+                and self._module._exec_group.shards is not None:
+            raise MXNetError(
+                "fused train step over a (dp, fsdp) mesh: the numerics "
+                "plane (MXNET_TPU_NUMWATCH or a default-stat Monitor) folds "
+                "the first card's whole weights and gradients, which fsdp "
+                "keeps only as shards (ROADMAP.md Queue A, the numerics "
+                "plane over fsdp shards); set MXNET_TPU_FSDP_PARAMS=0 or "
+                "disarm the plane")
         if self._numwatch is not None and self._numwatch.skip_guard:
             what = ("the numerics plane's skip guard (it restores the "
                     "first card's pre-step state only)")
@@ -254,12 +269,9 @@ class FusedTrainStep:
         """(updater index, weight, grad, state tensors) of every
         parameter with a gradient, in the updater's order, and the same
         items as NDArrays (the state as the updater keeps it)."""
-        ex, arrays = self._ex, []
-        for i, name in enumerate(self._module._param_names):
-            if name in ex.grad_dict:
-                w = ex.arg_dict[name]
-                arrays.append((i, w, ex.grad_dict[name],
-                               self._updater._state(i, w)))
+        arrays = []
+        for i, g, w in self._module._update_items()[0]:
+            arrays.append((i, w, g, self._updater._state(i, w)))
         return [(i, w.handle, g.handle, _state_tensors(s))
                 for i, w, g, s in arrays], arrays
 
@@ -322,13 +334,10 @@ class FusedTrainStep:
         tensors)``, a list a replica in the updater's order; the states
         are each replica's own updater's."""
         module = self._module
-        out = []
-        for updater, ex in zip(module._updaters, module._exec_group.execs):
-            out.append([(i, ex.arg_dict[n].handle, ex.grad_dict[n].handle,
-                         _state_tensors(updater._state(i, ex.arg_dict[n])))
-                        for i, n in enumerate(module._param_names)
-                        if n in ex.grad_dict])
-        return out
+        return [[(i, w.handle, g.handle, _state_tensors(updater._state(i, w)))
+                 for i, g, w in items]
+                for updater, items in zip(module._updaters,
+                                          module._update_items())]
 
     def _body_replicas(self, all_items, structure, hypers, feed):
         """The step function over every replica: the lock-step forward,

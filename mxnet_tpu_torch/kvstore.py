@@ -255,9 +255,10 @@ class DeviceSyncKVStore(TPUSyncKVStore):
         return True
 
     def grad_reduce_sharding(self, mesh, param_sharding):
-        """Where the exchanged gradient lands: on its param's placement.
-        Without fsdp (item 10c) every param is replicated, so this is the
-        identity, as in the JAX package."""
+        """Where the exchanged gradient lands: on its param's placement
+        (the executor group's ``param_sharding``: a reduce-scatter into
+        the shards of an fsdp-sharded param, an all-reduce for a
+        replicated one), the identity, as in the JAX package."""
         return param_sharding
 
 

@@ -28,6 +28,20 @@ axis on the first context's device, as the JAX package's global arrays
 read; the metric scores each replica against its slice of the labels.
 ``work_load_list`` is accepted and, as in the JAX package, ignored: the
 slices are equal.
+
+The contexts form the group's mesh (:class:`~mxnet_tpu_torch.parallel.
+sharding.ContextMesh`), ``("dp",)``, or ``("dp", "fsdp")`` under
+``MXNET_TPU_MESH_FSDP=N`` (ROADMAP.md Queue A item 10c), in the
+reference's grid order: context ``k`` sits at ``dp = k // N``, ``fsdp =
+k % N``. Under the fsdp recipe each parameter with a gradient whose dim
+0 divides by N (:meth:`param_sharding`) is kept as one shard of dim 0 a
+card (:class:`~mxnet_tpu_torch.replicas.ShardedParams`): the card's
+master rows, its rows of the reduced gradient and its optimizer state
+have the shard's shape. Every replica's full-width parameter array
+stays as the walk's workspace: the shards are all-gathered into it
+before each forward, and the gradients are reduce-scattered into the
+shards after the backward. ``MXNET_TPU_FSDP_PARAMS=0`` keeps the mesh
+and replicates every parameter.
 """
 from __future__ import annotations
 
@@ -103,6 +117,11 @@ class DataParallelExecutorGroup:
         #: the replica set and its executor (several contexts), else None
         self.replicas = None
         self.replicated = None
+        #: the named grid of the contexts (several contexts), else None
+        self._mesh = None
+        self._arg_shape: Dict[str, tuple] = {}
+        #: the fsdp storage of the sharded parameters, else None
+        self.shards = None
         if len(self.contexts) > 1:
             self._bind_replicas(devices, shared_group, compute_dtype)
             return
@@ -152,12 +171,7 @@ class DataParallelExecutorGroup:
         if self.batch_size % n:
             raise MXNetError("batch size %d not divisible by %d devices"
                              % (self.batch_size, n))
-        fsdp = _env.get("MXNET_TPU_MESH_FSDP")
-        if fsdp > 1:
-            raise MXNetError(
-                "MXNET_TPU_MESH_FSDP=%d over %d contexts: sharded params "
-                "(the fsdp axis) are ROADMAP.md Queue A item 10c; the port "
-                "replicates them" % (fsdp, n))
+        self._mesh = self._make_mesh()
         if shared_group is not None:
             raise MXNetError("a module bound over several contexts shares "
                              "no arrays with another (shared_module); bind "
@@ -172,10 +186,27 @@ class DataParallelExecutorGroup:
         exchange = [name for name in self.param_names
                     if self.grad_req.get(name, "null") != "null"]
         shape_of = dict(zip(self.arg_names, arg_shapes))
-        self.execs, flats = [], []
+        # a parameter's global shape: its bound one (params do not follow
+        # the batch)
+        self._arg_shape = {name: tuple(shape_of[name])
+                           for name in self.param_names}
+        sharded = [name for name in exchange
+                   if self._sharded_spec(name) is not None]
+        if sharded and "add" in {self.grad_req[nm] for nm in sharded}:
+            raise MXNetError(
+                "MXNET_TPU_MESH_FSDP: grad_req \"add\" on fsdp-sharded "
+                "params accumulates full-width gradients that the shards "
+                "do not keep; bind with grad_req \"write\" or set "
+                "MXNET_TPU_FSDP_PARAMS=0")
+        replicated = [name for name in exchange if name not in sharded]
+        self.execs, flats, works, sh_grads = [], [], [], []
         for ctx in self.contexts:
-            args = [zeros(s, ctx=ctx) for s in arg_shapes]
-            grads, flat = _flat_grads(exchange, shape_of, ctx)
+            work, work_flat = _flat_arrays(sharded, shape_of, ctx)
+            args = [work[name] if name in work else zeros(s, ctx=ctx)
+                    for name, s in zip(self.arg_names, arg_shapes)]
+            grads, flat = _flat_grads(replicated, shape_of, ctx)
+            sh, sh_flat = _flat_arrays(sharded, shape_of, ctx)
+            grads.update(sh)
             for name in self.data_names:
                 if self.grad_req[name] != "null":
                     grads[name] = zeros(shape_of[name], ctx=ctx)
@@ -184,12 +215,22 @@ class DataParallelExecutorGroup:
                 self.symbol, ctx, args, grads, self.grad_req, aux,
                 label_names=self.label_names, compute_dtype=compute_dtype))
             flats.append(flat)
+            works.append(work_flat)
+            sh_grads.append(sh_flat)
         self.executor = self.execs[0]
         self.replicas = Replicas(devices)
+        if sharded:
+            from ..replicas import ShardedParams
+
+            self.shards = ShardedParams(
+                self.replicas, self._mesh, sharded,
+                [shape_of[name] for name in sharded], works, sh_grads,
+                self.contexts)
         inputs = {d.name: self._batch_axis_of(d.name)
                   for d in self.data_shapes + self.label_shapes}
-        self.replicated = ReplicatedExecutor(self.execs, self.replicas,
-                                             exchange, flats, inputs)
+        self.replicated = ReplicatedExecutor(
+            self.execs, self.replicas, replicated, flats, inputs,
+            shards=self.shards)
 
     def _batch_axis_of(self, name: str) -> int:
         for d in self.data_shapes + self.label_shapes:
@@ -197,45 +238,148 @@ class DataParallelExecutorGroup:
                 return DataDesc.get_batch_axis(d.layout)
         return 0
 
+    def _make_mesh(self):
+        """The ``(dp,)`` or, under ``MXNET_TPU_MESH_FSDP=N``, ``(dp,
+        fsdp)`` grid of the contexts (the reference's
+        ``executor_group.py:86-105``)."""
+        from ..parallel.sharding import ContextMesh
+
+        n = len(self.contexts)
+        fsdp = int(_env.get("MXNET_TPU_MESH_FSDP") or 0)
+        if fsdp > 1:
+            if n % fsdp:
+                raise MXNetError(
+                    "MXNET_TPU_MESH_FSDP=%d does not divide the %d-device"
+                    " grid: the (dp, fsdp) mesh needs dp = devices/fsdp "
+                    "to be a whole number" % (fsdp, n))
+            return ContextMesh({"dp": n // fsdp, "fsdp": fsdp},
+                               self.contexts)
+        return ContextMesh({"dp": n}, self.contexts)
+
+    def _sharded_spec(self, name: str):
+        """The fsdp spec of parameter ``name`` when it is sharded (the
+        recipe armed, ``MXNET_TPU_FSDP_PARAMS`` on, dim 0 divides), else
+        None."""
+        from ..parallel.sharding import fsdp_param_spec
+
+        if self._mesh is None or name not in self.param_names \
+                or not _env.get("MXNET_TPU_FSDP_PARAMS"):
+            return None
+        spec = fsdp_param_spec(self._arg_shape[name], self._mesh)
+        return spec if spec else None
+
     def param_sharding(self, name: str):
-        """None: every parameter is replicated (fsdp is item 10c)."""
-        return None
+        """The NamedSharding of parameter ``name`` (and of its gradient
+        and optimizer state) on the group's mesh: dim 0 along ``fsdp``
+        where the parameter is sharded, replicated otherwise; None on one
+        context."""
+        from ..parallel.sharding import NamedSharding, PartitionSpec
+
+        if self._mesh is None:
+            return None
+        sharded = self.shards is not None and name in self.shards.index
+        spec = self._sharded_spec(name) if sharded else None
+        return NamedSharding(self._mesh, spec or PartitionSpec())
+
+    def shard_rows(self, name: Optional[str], k: int, shape=None):
+        """The rows of dim 0 that context ``k`` keeps of parameter
+        ``name`` (or of an optimizer state of its shape, ``shape``):
+        a slice, or None where it keeps the whole array."""
+        if self.shards is None or name not in self.shards.index:
+            return None
+        if shape is not None and tuple(shape) != self._arg_shape[name]:
+            return None
+        return self.shards.rows(name, k)
 
     def place_param(self, name: str, np_or_nd, dtype=None) -> List[NDArray]:
-        """A parameter (or a state of its shape) on every context: one
-        NDArray a context, in context order."""
+        """A parameter (or a state of its shape) on every context, one
+        NDArray a context in context order: its shard where the
+        parameter is sharded, the whole array otherwise."""
         if isinstance(np_or_nd, NDArray):
             src = np_or_nd.handle
         else:
             src = torch.from_numpy(np.ascontiguousarray(
                 np.asarray(np_or_nd, dtype=dtype)))
-        return [NDArray(src.to(ctx.torch_device(), copy=True), ctx)
-                for ctx in self.contexts]
+        out = []
+        for k, ctx in enumerate(self.contexts):
+            rows = self.shard_rows(name, k)
+            part = src if rows is None else src[rows]
+            out.append(NDArray(part.to(ctx.torch_device(), copy=True), ctx))
+        return out
 
     def place_like_param(self, name: Optional[str], np_or_nd,
                          dtype=None) -> List[NDArray]:
-        """As :meth:`place_param`: a replicated group places every state,
-        whatever its shape, on every context."""
-        return self.place_param(name, np_or_nd, dtype=dtype)
+        """As :meth:`place_param` where the array has the parameter's
+        shape (the optimizer-state contract), else the whole array on
+        every context."""
+        shape = self._arg_shape.get(name) if name else None
+        arr = np_or_nd.handle if isinstance(np_or_nd, NDArray) \
+            else np.asarray(np_or_nd, dtype=dtype)
+        if shape is not None and tuple(arr.shape) == shape:
+            return self.place_param(name, np_or_nd, dtype=dtype)
+        return self.place_param(None, np_or_nd, dtype=dtype)
+
+    def update_arrays(self, k: int):
+        """``(name, weight, grad)`` of every parameter with a gradient on
+        context ``k``, in ``param_names`` order: the card's shard views
+        where the parameter is sharded (what the update and its state
+        act on), the bound arrays otherwise."""
+        ex = self.execs[k]
+        out = []
+        for name in self.param_names:
+            if name not in ex.grad_dict:
+                continue
+            if self.shards is not None and name in self.shards.index:
+                out.append((name, self.shards.weight(name, k),
+                            self.shards.grad(name, k)))
+            else:
+                out.append((name, ex.arg_dict[name], ex.grad_dict[name]))
+        return out
 
     # -- params -----------------------------------------------------------------
+    def write_param(self, name: str, value):
+        """Parameter ``name`` (an NDArray, tensor or numpy array of its
+        whole shape) into every replica's array and, where it is
+        sharded, every card's master shard, in place."""
+        src = value.handle if isinstance(value, NDArray) else value
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.ascontiguousarray(np.asarray(src)))
+        with torch.no_grad():
+            for k, ex in enumerate(self.execs):
+                ex.arg_dict[name].handle.copy_(src)
+                rows = self.shard_rows(name, k)
+                if rows is not None:
+                    self.shards.weight(name, k).handle.copy_(src[rows])
+
+    def param_value(self, name: str) -> torch.Tensor:
+        """Parameter ``name``'s current value over its whole shape, on
+        the first context: the first fsdp group's master shards joined
+        where it is sharded (the full-width arrays are the walk's
+        workspace, refreshed at the next forward), the first replica's
+        array otherwise."""
+        if self.shards is not None and name in self.shards.index:
+            return self.shards.gather_value(name)
+        return self.executor.arg_dict[name].handle
+
     def set_params(self, arg_params: Dict[str, NDArray],
                    aux_params: Dict[str, NDArray]):
-        """Every replica's arrays, in place."""
+        """Every replica's arrays (and master shards), in place."""
+        for name, arr in arg_params.items():
+            if name in self.executor.arg_dict:
+                self.write_param(name, arr)
         for ex in self.execs:
-            for name, arr in arg_params.items():
-                if name in ex.arg_dict:
-                    ex.arg_dict[name][:] = arr
             for name, arr in (aux_params or {}).items():
                 if name in ex.aux_dict:
                     ex.aux_dict[name][:] = arr
 
     def get_params(self, arg_params: Dict[str, NDArray],
                    aux_params: Dict[str, NDArray]):
-        """From the first replica (the replicas are equal)."""
+        """From the first replica (the replicas are equal), a sharded
+        parameter from its shards."""
         for name in self.param_names:
             if name in self.executor.arg_dict:
-                arg_params[name][:] = self.executor.arg_dict[name]
+                arg_params[name][:] = NDArray(self.param_value(name),
+                                              self.context)
         for name, arr in zip(self.aux_names, self.executor.aux_arrays):
             if name in aux_params:
                 aux_params[name][:] = arr
@@ -362,14 +506,21 @@ def _take(src, axis, start, rows):
     return src[tuple(index)]
 
 
-def _flat_grads(names, shape_of, ctx):
-    """Gradient arrays for ``names``, views of one flat float32 buffer on
-    ``ctx`` (in order): ``({name: NDArray}, [flat])``."""
+def _flat_arrays(names, shape_of, ctx):
+    """Arrays for ``names``, views of one flat float32 buffer on ``ctx``
+    (in order): ``({name: NDArray}, flat)``."""
     dev = ctx.torch_device()
     sizes = [int(np.prod(shape_of[n])) for n in names]
     flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    grads = {n: NDArray(v.view(shape_of[n]), ctx)
-             for n, v in zip(names, flat.split(sizes))}
+    arrays = {n: NDArray(v.view(shape_of[n]), ctx)
+              for n, v in zip(names, flat.split(sizes))}
+    return arrays, flat
+
+
+def _flat_grads(names, shape_of, ctx):
+    """Gradient arrays for ``names``, views of one flat float32 buffer on
+    ``ctx`` (in order): ``({name: NDArray}, [flat])``."""
+    grads, flat = _flat_arrays(names, shape_of, ctx)
     return grads, [flat]
 
 

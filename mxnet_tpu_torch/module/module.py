@@ -5,7 +5,10 @@ several (one replica a context; ROADMAP.md Queue A item 10a)."""
 from __future__ import annotations
 
 import logging
+import pickle
 from typing import Dict, Optional
+
+import numpy as np
 
 from .. import env as _env
 from ..base import MXNetError
@@ -244,6 +247,13 @@ class Module(BaseModule):
         self._updater = self._updaters[0]
         self._update_on_kvstore = (dist_store
                                    and not kvstore.fused_step_compatible)
+        if self._update_on_kvstore and self._exec_group.shards is not None:
+            raise MXNetError(
+                "MXNET_TPU_MESH_FSDP with a dist kvstore of several "
+                "workers: the store updates whole weights from one card's "
+                "gradients, and fsdp-sharded params keep reduced gradients "
+                "only as shards; run fsdp under 'device_sync', 'device', "
+                "'tpu_sync' or 'local'")
         if kvstore:
             # a dist_sync store updating on the store keeps its copy where
             # the weights are bound (the first replica's device)
@@ -296,9 +306,7 @@ class Module(BaseModule):
             self._kvstore.pull(keys, out=[[e.arg_dict[n] for e in group.execs]
                                           for _, n in named])
             return
-        items = [[(i, ex.grad_dict[name], ex.arg_dict[name])
-                  for i, name in enumerate(self._param_names)
-                  if name in ex.grad_dict] for ex in group.execs]
+        items = self._update_items()
         if len(items) == 1:
             self._updater.update_multi(items[0])
             return
@@ -308,6 +316,13 @@ class Module(BaseModule):
                 [[(i, w, g, u._state(i, w)) for i, g, w in its]
                  for u, its in zip(self._updaters, items)], group.replicas)
             return
+        if group.shards is not None:
+            raise MXNetError(
+                "MXNET_TPU_MESH_FSDP: optimizer %s has no fusable update "
+                "plan (or MXNET_TPU_FUSED_UPDATE=0), so its update would "
+                "run on the first card's shards alone; use a fusable "
+                "optimizer or set MXNET_TPU_FSDP_PARAMS=0"
+                % type(optimizer).__name__)
         self._updater.update_multi(items[0])
         for its in items[1:]:
             for (_, _, w), (_, _, w0) in zip(its, items[0]):
@@ -316,14 +331,62 @@ class Module(BaseModule):
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
 
+    def _update_items(self):
+        """A replica, ``(updater index, grad, weight)`` of every parameter
+        with a gradient: the card's shards where the parameter is
+        fsdp-sharded."""
+        index = {name: i for i, name in enumerate(self._param_names)}
+        group = self._exec_group
+        return [[(index[name], g, w) for name, w, g in
+                 group.update_arrays(k)] for k in range(len(group.execs))]
+
     def _bound_states(self):
         """Create the optimizer state of every bound parameter with a
         gradient that has none yet, on every replica (a restore writes
-        into them)."""
-        for updater, ex in zip(self._updaters, self._exec_group.execs):
-            for i, name in enumerate(self._param_names):
-                if name in ex.grad_dict:
-                    updater._state(i, ex.arg_dict[name])
+        into them); a sharded parameter's state has its shard's shape."""
+        for updater, items in zip(self._updaters, self._update_items()):
+            for i, _, w in items:
+                updater._state(i, w)
+
+    def _optimizer_states(self):
+        """The updater's states by param index as numpy, each over its
+        parameter's whole shape: a sharded parameter's states joined
+        from the first fsdp group's cards along dim 0 (the form
+        ``get_states`` pickles)."""
+        from ..optimizer import _states_to_numpy
+
+        group = self._exec_group
+        states = _states_to_numpy(self._updater.states)
+        if group is None or group.shards is None:
+            return states
+        for i, name in enumerate(self._param_names):
+            if i not in states or group.shard_rows(name, 0) is None:
+                continue
+            parts = [_states_to_numpy(self._updaters[k].states[i])
+                     for k in group.shards.fsdp_groups[0]]
+            states[i] = _join_rows(parts)
+        return states
+
+    def _replica_states(self, states, k):
+        """``states`` (by param index, each over its parameter's whole
+        shape) as card ``k`` keeps them: a sharded parameter's rows of
+        dim 0."""
+        group = self._exec_group
+        if group is None or group.shards is None:
+            return states
+        out = {}
+        for index, saved in states.items():
+            i = int(index)
+            name = (self._param_names[i]
+                    if 0 <= i < len(self._param_names) else None)
+            out[index] = _take_rows(group, name, k, saved)
+        return out
+
+    def _set_optimizer_states(self, states):
+        """Write ``states`` (by param index, whole shapes) into every
+        replica's updater, each its rows."""
+        for k, updater in enumerate(self._updaters):
+            updater.set_numpy_states(self._replica_states(states, k))
 
     # -- checkpoints -------------------------------------------------------
     def save_checkpoint(self, prefix: str, epoch: int,
@@ -344,7 +407,8 @@ class Module(BaseModule):
         if save_optimizer_states:
             atomic_write_bytes(
                 "%s-%04d.states" % (prefix, epoch),
-                self._updater.get_states() if self._updater else b"")
+                pickle.dumps(self._optimizer_states()) if self._updater
+                else b"")
 
     def load_optimizer_states(self, fname: str):
         """The states of a ``.states`` file into this module's updater,
@@ -355,8 +419,11 @@ class Module(BaseModule):
         with open(fname, "rb") as f:
             blob = f.read()
         try:
-            for updater in self._updaters:
-                updater.set_states(blob)
+            states = pickle.loads(blob)
+            if not isinstance(states, dict):
+                raise MXNetError("optimizer states are a %s, not a dict by "
+                                 "param index" % type(states).__name__)
+            self._set_optimizer_states(states)
             self._bound_states()
         except Exception as e:
             raise MXNetError("invalid optimizer-states file %s: %s "
@@ -402,3 +469,26 @@ class Module(BaseModule):
 
     def get_input_grads(self, merge_multi_context=True):
         return self._exec_group.get_input_grads(merge_multi_context)
+
+
+def _join_rows(parts):
+    """The per-card numpy states of one parameter (None, an array or a
+    tuple of them, alike on every card) joined along dim 0."""
+    first = parts[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_join_rows([p[j] for p in parts])
+                           for j in range(len(first)))
+    if first is None:
+        return None
+    return np.concatenate(parts, axis=0)
+
+
+def _take_rows(group, name, k, saved):
+    """Card ``k``'s rows of a saved state of parameter ``name`` (whole
+    shape), recursing into tuples; other shapes pass through."""
+    if isinstance(saved, (tuple, list)):
+        return type(saved)(_take_rows(group, name, k, v) for v in saved)
+    if saved is None:
+        return None
+    rows = group.shard_rows(name, k, np.shape(saved))
+    return saved if rows is None else saved[rows]

@@ -469,7 +469,8 @@ class BatchNorm(Operator):
                 parts.append(torch.cat([x32.sum(dim=axes),
                                         (x32 * x32).sum(dim=axes)]))
         caxis, _ = self._axes(inputs[0][0])
-        count = sum(x.numel() // x.shape[caxis] for x, _, _ in inputs)
+        count = reps.procs * sum(x.numel() // x.shape[caxis]
+                                 for x, _, _ in inputs)
         totals = reps.all_sum(parts)
         outs, new_aux = [], []
         for k in range(reps.n):
@@ -719,7 +720,8 @@ class SoftmaxOutput(Operator):
         if self.normalization not in ("batch", "valid"):
             return reps.each(self.apply, ctxs, inputs, aux)
         if self.normalization == "batch":
-            norms = [sum(d.shape[0] for d, _ in inputs)] * reps.n
+            norms = [reps.procs * sum(d.shape[0] for d, _ in inputs)] \
+                * reps.n
         else:
             counts = []
             for k, (data, label) in enumerate(inputs):

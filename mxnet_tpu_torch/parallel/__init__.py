@@ -1,18 +1,24 @@
-"""Sequence parallelism and several processes over ``torch.distributed``.
+"""Meshes, sharding rules, sharded train steps, sequence parallelism and
+several processes over ``torch.distributed``.
 
-Counterpart of the parts of ``mxnet_tpu/parallel/`` that long-context
-attention and the dist kvstores need: the named mesh (:func:`make_mesh`,
-:func:`mesh_axis_sizes`), ring / Ulysses attention
-(:mod:`.ring_attention`), the world of several processes
-(:mod:`.distributed`) and the asynchronous parameter server
-(:mod:`.ps`). Data parallelism in one process is the executor group's
-(several contexts, :mod:`mxnet_tpu_torch.replicas`);
-the fsdp and tp recipes of ``mxnet_tpu/parallel/sharding.py`` are not
-ported yet (ROADMAP Queue A, item 10c).
+Counterpart of ``mxnet_tpu/parallel/``: the named mesh and the dp, fsdp
+and tp sharding rules with the one-function SGD step over them
+(:mod:`.sharding`), ring / Ulysses attention (:mod:`.ring_attention`),
+the world of several processes (:mod:`.distributed`) and the
+asynchronous parameter server (:mod:`.ps`). Data parallelism and the
+fsdp recipe in one process are the executor group's (several contexts,
+:mod:`mxnet_tpu_torch.replicas`). Pipeline and MoE
+(``parallel/pipeline.py``, ``moe.py``) are ROADMAP.md Queue A item 10d.
 """
-from .sharding import make_mesh, mesh_axis_sizes
+from .sharding import (make_mesh, make_param_shardings, shard_args,
+                       build_sgd_train_step, ShardingRule, mesh_axis_sizes,
+                       batch_spec, fsdp_param_spec, tp_param_spec,
+                       batch_shard_extent, DATA_AXES)
 from .ring_attention import (make_ring_attention, reference_attention,
                              ring_attention, ulysses_attention)
 
-__all__ = ["make_mesh", "mesh_axis_sizes", "make_ring_attention",
+__all__ = ["make_mesh", "make_param_shardings", "shard_args",
+           "build_sgd_train_step", "ShardingRule", "mesh_axis_sizes",
+           "batch_spec", "fsdp_param_spec", "tp_param_spec",
+           "batch_shard_extent", "DATA_AXES", "make_ring_attention",
            "reference_attention", "ring_attention", "ulysses_attention"]

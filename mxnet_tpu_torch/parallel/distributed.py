@@ -19,13 +19,15 @@ import datetime
 import os
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..base import MXNetError
 
 __all__ = ["init_distributed", "is_initialized", "rank", "num_workers",
-           "barrier", "all_reduce", "broadcast"]
+           "barrier", "all_reduce", "broadcast", "all_reduce_np",
+           "broadcast_np"]
 
 _TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -98,10 +100,34 @@ def num_workers() -> int:
     return dist.get_world_size() if _World.joined else 1
 
 
-def barrier():
-    """Wait for every process of the world (over gloo)."""
+def barrier(name: str = "mxtpu_barrier"):
+    """Wait for every process of the world (over gloo). ``name`` is the
+    reference's barrier name; gloo's barrier takes none, so it is
+    accepted and not used."""
     if num_workers() > 1:
         dist.barrier(group=_World.barrier_group)
+
+
+def all_reduce_np(arr: np.ndarray) -> np.ndarray:
+    """The sum of a host numpy array over every process (gloo on a host
+    tensor); ``arr`` itself in a one-worker world."""
+    if num_workers() <= 1:
+        return arr
+    t = torch.from_numpy(np.array(arr, copy=True))
+    dist.all_reduce(t, group=_World.barrier_group)
+    return t.numpy()
+
+
+def broadcast_np(arr: np.ndarray, root: int = 0) -> np.ndarray:
+    """Rank ``root``'s host numpy array on every process (gloo; the
+    reference's init broadcast, ``kvstore_dist.h:58-76``); ``arr`` itself
+    in a one-worker world. Every rank passes an array of the same shape
+    and dtype."""
+    if num_workers() <= 1:
+        return arr
+    t = torch.from_numpy(np.array(arr, copy=True))
+    dist.broadcast(t, src=root, group=_World.barrier_group)
+    return t.numpy()
 
 
 def all_reduce(tensors: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -73,11 +73,34 @@ class _RingShift(torch.autograd.Function):
         return None, gk, gv
 
 
-def ring_attention(q, k, v, group=None, causal: bool = False):
+def _resolve_group(axis_name, group, mesh):
+    """The process group of a call: ``group`` where given, else mesh
+    axis ``axis_name``'s group on ``mesh`` (or on the mesh
+    ``make_mesh`` built last), else None (the default group)."""
+    if group is not None or axis_name is None:
+        return group
+    if mesh is None:
+        from .sharding import last_mesh
+
+        mesh = last_mesh()
+    if mesh is None:
+        raise MXNetError("axis_name=%r: no mesh given and make_mesh has "
+                         "built none in this process" % (axis_name,))
+    if axis_name not in (mesh.mesh_dim_names or ()):
+        raise MXNetError("axis_name=%r is not an axis of the mesh %s"
+                         % (axis_name, mesh.mesh_dim_names))
+    return mesh.get_group(axis_name)
+
+
+def ring_attention(q, k, v, axis_name=None, causal: bool = False, *,
+                   group=None, mesh=None):
     """Ring attention over sequence-sharded Q/K/V: ``q/k/v`` are this
     rank's shards (B, T_local, H, D) of a sequence split in rank order
-    over ``group`` (the default group when None); returns this rank's
-    output shard."""
+    over mesh axis ``axis_name`` (of ``mesh``, or of the mesh
+    :func:`~mxnet_tpu_torch.parallel.make_mesh` built last), or over
+    ``group`` where given (the default group when neither is); returns
+    this rank's output shard."""
+    group = _resolve_group(axis_name, group, mesh)
     my, n = _group_rank_size(group)
     b, t_local, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -119,14 +142,17 @@ def _all_to_all(x, group):
     return all_to_all_single(torch.empty_like(x), x, group=group)
 
 
-def ulysses_attention(q, k, v, group=None, causal: bool = False):
+def ulysses_attention(q, k, v, axis_name=None, causal: bool = False, *,
+                      group=None, mesh=None):
     """All-to-all sequence parallelism (DeepSpeed-Ulysses): this rank's
-    shards (B, T_local, H, D), H divisible by the group's size, become
+    shards (B, T_local, H, D), H divisible by the axis's size, become
     the full sequence on H/n heads, run full-sequence attention there
-    and go back to sequence shards. float32 with D <= 256 runs the flash
+    and go back to sequence shards. The axis resolves as
+    :func:`ring_attention`'s. float32 with D <= 256 runs the flash
     kernel (K2) at any T; other dtypes and widths run
     :func:`reference_attention`, as the JAX package falls back for
     them."""
+    group = _resolve_group(axis_name, group, mesh)
     _, n = _group_rank_size(group)
     b, t_local, h, d = q.shape
     if h % n:

@@ -20,12 +20,24 @@ node by node, so that an op whose result depends on the whole batch
 * :meth:`Replicas.sum_` sums in place with no gradient: the executor
   group's gradient exchange after the backward (one flat buffer a
   card) and the ``valid`` label count.
+* :meth:`Replicas.reduce_scatter` and :meth:`Replicas.all_gather` are
+  the fsdp exchange over the group's ``(dp, fsdp)`` mesh (ROADMAP.md
+  Queue A item 10c): a shard-major flat buffer a card summed over every
+  card with each card keeping its fsdp shard, and each card's shard
+  gathered into every card of its fsdp group.
 
 On cards a sum is a single-process NCCL all-reduce (``torch.cuda.nccl``,
 one group call over every card's stream), which gives every card the
-same bytes. On the CPU, where every ``cpu(i)`` is torch's one CPU
-device, it adds the replicas' tensors in order, 0 to N-1, and copies
-the one result to each.
+same bytes; the fsdp sum is a reduce-scatter over each fsdp group's
+cards, then an all-reduce of the shards over each dp group's. On the
+CPU, where every ``cpu(i)`` is torch's one CPU device, it adds the
+replicas' tensors in order, 0 to N-1, and copies the one result (or
+its slice) to each, so that dp and fsdp give the same bytes there.
+
+:class:`ProcessReplicas` is one process's single replica of a batch
+sharded over the ranks of a process group (``parallel.sharding``'s
+train step over a DeviceMesh): its sums are ``torch.distributed``
+all-reduces over that group.
 
 A fused train step over several cards is one CUDA graph over every card
 (:class:`CardGraph`): NCCL refuses a group call whose streams are being
@@ -40,10 +52,11 @@ import threading
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .base import MXNetError
 
-__all__ = ["Replicas", "CardGraph"]
+__all__ = ["Replicas", "ProcessReplicas", "ShardedParams", "CardGraph"]
 
 
 class _On:
@@ -70,7 +83,11 @@ class Replicas:
     """The devices of a group bound over several contexts, one replica a
     device, in context order. ``streams`` are the streams of the current
     walk, one a card (recorded by :meth:`begin`), on which a collective's
-    backward and a recomputed segment launch from autograd's threads."""
+    backward and a recomputed segment launch from autograd's threads.
+    ``procs`` is the number of processes whose replicas a sum spans, each
+    holding ``n`` of them: 1 here."""
+
+    procs = 1
 
     def __init__(self, devices):
         self.devices = list(devices)
@@ -136,6 +153,83 @@ class Replicas:
         autograd node whose backward sums the gradients the same way."""
         return list(_AllSum.apply(self, *tensors))
 
+    def reduce_scatter(self, inputs, outputs, fsdp_groups, dp_groups,
+                       streams=None):
+        """The fsdp gradient exchange, with no gradient: ``inputs`` hold a
+        flat shard-major buffer a replica (``f`` shards of ``S``
+        elements, ``f`` the fsdp size), ``outputs`` one ``S``-element
+        buffer a replica. Replica ``k``, the ``j``-th of its fsdp group,
+        gets shard ``j`` of the sum of every replica's input.
+        ``fsdp_groups`` and ``dp_groups`` are the replica indices of each
+        line of the mesh along ``fsdp`` and along ``dp``."""
+        if self.cuda:
+            streams = streams if streams is not None else self.streams
+            nccl = torch.cuda.nccl
+            for g in fsdp_groups:
+                nccl.reduce_scatter([inputs[k] for k in g],
+                                    [outputs[k] for k in g],
+                                    streams=_pick(streams, g))
+            if len(dp_groups[0]) > 1:
+                for g in dp_groups:
+                    nccl.all_reduce([outputs[k] for k in g],
+                                    streams=_pick(streams, g))
+            return outputs
+        with torch.no_grad():
+            total = inputs[0].clone()
+            for t in inputs[1:]:
+                total += t
+            for g in fsdp_groups:
+                for j, k in enumerate(g):
+                    size = outputs[k].numel()
+                    outputs[k].copy_(total[j * size:(j + 1) * size])
+        return outputs
+
+    def all_gather(self, inputs, outputs, fsdp_groups, streams=None):
+        """Every replica's ``S``-element shard (``inputs``) into shard
+        ``j`` of the flat shard-major buffer (``outputs``) of every
+        replica of its fsdp group, ``j`` its index there."""
+        if self.cuda:
+            streams = streams if streams is not None else self.streams
+            for g in fsdp_groups:
+                torch.cuda.nccl.all_gather([inputs[k] for k in g],
+                                           [outputs[k] for k in g],
+                                           streams=_pick(streams, g))
+            return outputs
+        with torch.no_grad():
+            for g in fsdp_groups:
+                for j, src in enumerate(g):
+                    size = inputs[src].numel()
+                    for k in g:
+                        outputs[k][j * size:(j + 1) * size].copy_(
+                            inputs[src])
+        return outputs
+
+
+def _pick(streams, indices):
+    return None if streams is None else [streams[k] for k in indices]
+
+
+class ProcessReplicas(Replicas):
+    """This process's one replica (on ``device``) of a batch sharded over
+    the ``procs`` ranks of ``group``: the lock-step walk of
+    ``make_graph_eval`` over one replica, whose sums run over the group
+    (``torch.distributed`` all-reduces; NCCL on a card, gloo on the
+    CPU)."""
+
+    def __init__(self, device, group, procs):
+        super().__init__([torch.device(device)])
+        self.group = group
+        self.procs = int(procs)
+
+    def sum_(self, tensors, streams=None):
+        with torch.no_grad():
+            for t in tensors:
+                dist.all_reduce(t, group=self.group)
+        return tensors
+
+    def all_sum(self, tensors):
+        return list(_ProcessSum.apply(self, *tensors))
+
 
 class _AllSum(torch.autograd.Function):
     """One node over every replica: forward and backward are both the
@@ -163,6 +257,24 @@ class _AllSum(torch.autograd.Function):
             with reps.on(k, streams):
                 outs.append(g.contiguous().clone())
         return (None,) + tuple(reps.sum_(outs, streams))
+
+
+class _ProcessSum(torch.autograd.Function):
+    """The sum over the ranks of a process group, forward and backward:
+    each rank's loss reads its copy of the sum, so a part's gradient is
+    the sum of every rank's gradient of it."""
+
+    @staticmethod
+    def forward(ctx, reps, *xs):
+        ctx.reps = reps
+        return tuple(reps.sum_([x.contiguous().clone() for x in xs]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if any(g is None for g in grads):
+            raise MXNetError("cross-process sum: a gradient is missing")
+        return (None,) + tuple(ctx.reps.sum_(
+            [g.contiguous().clone() for g in grads]))
 
 
 class CardGraph:
@@ -253,3 +365,131 @@ class CardGraph:
             self.close()
         except Exception:
             pass
+
+
+class ShardedParams:
+    """The fsdp storage of a group's sharded parameters (ROADMAP.md Queue
+    A item 10c) over a ``(dp, fsdp)`` mesh of the replicas.
+
+    Parameter ``p`` (``names``, dim 0 divisible by the fsdp size ``f``)
+    is cut along dim 0 into ``f`` shards of ``m_p`` elements; the card
+    at fsdp index ``j`` keeps shard ``j``. A card's shards of every
+    parameter sit end to end in one flat buffer of ``S`` elements, in
+    ``names`` order: ``master`` (the weights the update writes) and
+    ``grads`` (the reduced gradient the update reads), both a card.
+    ``works`` and ``flat_grads`` are each card's full-width flat
+    buffers (``f * S`` elements), in ``names`` order, of which the
+    executors' parameter and gradient arrays are views (the walk's
+    workspace). Each serves in turn as the shard-major buffer (shard
+    ``j`` of every parameter at ``j * S``) that both collectives take,
+    while it holds nothing else:
+
+    * :meth:`gather` before a forward, while the gradients are spent:
+      every card's master into ``flat_grads`` of each card of its fsdp
+      group (one all-gather a group), then into ``works`` by one
+      ``torch.cat`` a card;
+    * :meth:`reduce` after a backward, once the walk is done with the
+      weights: ``flat_grads`` into ``works`` by one ``torch.cat`` a
+      card, then one reduce-scatter a fsdp group and one all-reduce of
+      the shards a dp group into ``grads``.
+
+    So between a backward and the next forward ``works`` holds the
+    packed gradients, not weights: the weights are the master shards
+    (:meth:`gather_value`)."""
+
+    def __init__(self, reps, mesh, names, shapes, works, flat_grads,
+                 contexts):
+        from .ndarray import NDArray
+
+        f = int(mesh.shape["fsdp"])
+        self.reps = reps
+        self.names = list(names)
+        self.fsdp_groups = mesh.groups("fsdp")
+        self.dp_groups = mesh.groups("dp")
+        self.at = [mesh.coords(k)["fsdp"] for k in range(reps.n)]
+        self.f = f
+        self.shapes = {n: tuple(s) for n, s in zip(names, shapes)}
+        sizes = [int(torch.Size(s).numel()) // f for s in shapes]
+        offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+        self.size = sum(sizes)
+        #: name -> (offset in a card's shard buffer, elements a shard)
+        self.index = {n: (o, m) for n, o, m in zip(names, offsets, sizes)}
+        self.works = list(works)
+        self.flat_grads = list(flat_grads)
+        self.master, self.grads = [], []
+        self._weights, self._grad_views = [], []
+        for k, ctx in enumerate(contexts):
+            dev = works[k].device
+            self.master.append(torch.zeros(self.size, dtype=torch.float32,
+                                           device=dev))
+            self.grads.append(torch.zeros(self.size, dtype=torch.float32,
+                                          device=dev))
+            self._weights.append({n: NDArray(self._view(self.master[k], n),
+                                             ctx) for n in names})
+            self._grad_views.append({n: NDArray(self._view(self.grads[k], n),
+                                                ctx) for n in names})
+        s = self.size
+        # torch.cat's pieces: gathered flat_grads -> works is
+        # parameter-major (each parameter's f shards in order),
+        # flat_grads -> packed works is shard-major (every parameter's
+        # shard j, then j + 1)
+        self._unpack = [[g[j * s + o:j * s + o + m]
+                         for n in names for o, m in [self.index[n]]
+                         for j in range(f)] for g in self.flat_grads]
+        starts = [f * o for o in offsets]
+        self._pack = [[g[st + j * m:st + (j + 1) * m]
+                       for j in range(f)
+                       for st, m in zip(starts, sizes)]
+                      for g in self.flat_grads]
+
+    def _view(self, flat, name):
+        o, m = self.index[name]
+        shape = self.shapes[name]
+        return flat[o:o + m].view((shape[0] // self.f,) + shape[1:])
+
+    def rows(self, name, k) -> slice:
+        """The rows of dim 0 of ``name`` that card ``k`` keeps."""
+        r = self.shapes[name][0] // self.f
+        j = self.at[k]
+        return slice(j * r, (j + 1) * r)
+
+    def weight(self, name, k):
+        """Card ``k``'s master shard of ``name`` (an NDArray view)."""
+        return self._weights[k][name]
+
+    def grad(self, name, k):
+        """Card ``k``'s shard of ``name``'s reduced gradient."""
+        return self._grad_views[k][name]
+
+    def gather_value(self, name) -> torch.Tensor:
+        """``name`` over its whole shape from the first fsdp group's
+        master shards, on the first card."""
+        return self._joined(self._weights, name)
+
+    def gather_grad(self, name) -> torch.Tensor:
+        """``name``'s reduced gradient over its whole shape, from the
+        first fsdp group's shards, on the first card."""
+        return self._joined(self._grad_views, name)
+
+    def _joined(self, views, name):
+        first = self.works[0].device
+        return torch.cat([views[k][name].handle.to(first)
+                          for k in self.fsdp_groups[0]])
+
+    def gather(self):
+        """Every card's master shards into its replicas' workspace."""
+        reps = self.reps
+        reps.all_gather(self.master, self.flat_grads, self.fsdp_groups)
+        for k in range(reps.n):
+            with reps.on(k):
+                torch.cat(self._unpack[k], out=self.works[k])
+
+    def reduce(self):
+        """Every card's full-width gradients, summed over all cards, into
+        the cards' reduced shards."""
+        reps = self.reps
+        for k in range(reps.n):
+            with reps.on(k):
+                torch.cat(self._pack[k], out=self.works[k])
+        reps.reduce_scatter(self.works, self.grads, self.fsdp_groups,
+                            self.dp_groups)

@@ -34,6 +34,8 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_FUSED_UPDATE", "MXNET_TPU_ENGINE_SYNC",
              # one process over several cards
              "MXNET_TPU_DEVICE_SYNC_FUSED", "MXNET_TPU_MESH_FSDP",
+             # the fsdp recipe's escape hatch
+             "MXNET_TPU_FSDP_PARAMS",
              # the serving tier's knobs
              "MXNET_TPU_SERVE_PORT", "MXNET_TPU_SERVE_MAX_BATCH",
              "MXNET_TPU_SERVE_MAX_WAIT_MS", "MXNET_TPU_SERVE_BUCKETS",

@@ -197,6 +197,17 @@ def test_dist_sync_push_pull_arithmetic_is_exact(world):
         assert res["sync_barrier"]
 
 
+def test_host_numpy_sum_and_broadcast_over_two_processes(world):
+    """Queue C item 14 at two ranks: ``all_reduce_np`` sums the ranks'
+    arrays (0 1 2 and 0 2 4), ``broadcast_np`` gives rank 1's array to
+    both, dtype kept, after a named barrier."""
+    _, arrays, _ = world
+    for res in arrays:
+        np.testing.assert_array_equal(res["all_reduce_np"], [0.0, 3.0, 6.0])
+        assert res["broadcast_np"].dtype == np.float32
+        np.testing.assert_array_equal(res["broadcast_np"], [6.0, 6.0])
+
+
 def test_mlp_fit_matches_the_jax_package(world):
     """The dist_util MLP, 2 ranks x batch 16, SGD momentum 0.9: the update
     runs on the store, rescale_grad is 1 / 32, the ranks are

@@ -446,12 +446,15 @@ def test_grad_req_over_contexts_matches_one_context(grad_req):
 
 
 def test_group_places_on_every_context_and_splits_along_batch_axes():
-    """param_sharding None (replicated), place_param / place_like_param
-    one copy a context, each array's batch axis from its layout, and the
-    unmerged outputs one slice a context."""
+    """param_sharding replicated on the dp mesh (an empty spec, as the JAX
+    package's), place_param / place_like_param one copy a context, each
+    array's batch axis from its layout, and the unmerged outputs one
+    slice a context."""
     mod = _bind(tmx, _ctxs(tmx, 4))
     group = mod._exec_group
-    assert group.param_sharding("fc1_weight") is None
+    assert tuple(group.param_sharding("fc1_weight").spec) == tuple(
+        _bind(jmx, _ctxs(jmx, 4))._exec_group.param_sharding(
+            "fc1_weight").spec) == ()
     value = np.arange(6, dtype=np.float32).reshape(2, 3)
     for placed in (group.place_param("fc1_bias", value),
                    group.place_like_param("fc1_bias", value)):
@@ -652,11 +655,27 @@ def test_duplicate_mixed_and_missing_contexts_raise():
         tmx.mod.Module(_net(tmx), context=[tmx.gpu(0), tmx.gpu(1)])
 
 
-def test_unported_parts_raise_naming_their_item(monkeypatch):
+def test_fsdp_over_four_contexts_binds_the_dp_fsdp_mesh(monkeypatch):
+    """MXNET_TPU_MESH_FSDP=2 over 4 contexts (item 10c, which raised
+    before it was ported): the (dp 2, fsdp 2) mesh of the contexts, as
+    the JAX package's group builds it, and every param of the small
+    ResNet whose dim 0 is even kept as shards."""
+    from mxnet_tpu_torch.parallel import mesh_axis_sizes
+
     monkeypatch.setenv("MXNET_TPU_MESH_FSDP", "2")
-    with pytest.raises(tmx.MXNetError, match="item 10c"):
-        _bind(tmx, _ctxs(tmx, 4))
-    monkeypatch.delenv("MXNET_TPU_MESH_FSDP")
+    mine, theirs = _bind(tmx, _ctxs(tmx, 4)), _bind(jmx, _ctxs(jmx, 4))
+    group = mine._exec_group
+    assert mesh_axis_sizes(group._mesh) == {"dp": 2, "fsdp": 2} == dict(
+        theirs._exec_group._mesh.shape)
+    for name in mine._param_names:
+        assert tuple(group.param_sharding(name).spec) == tuple(
+            theirs._exec_group.param_sharding(name).spec), name
+    assert sorted(group.shards.index) == sorted(
+        n for n in mine._param_names
+        if group.executor.arg_dict[n].shape[0] % 2 == 0)
+
+
+def test_unported_parts_raise_naming_their_item(monkeypatch):
     with fresh_names(tmx):
         data = tmx.sym.Variable("data")
         net = tmx.sym.MakeLoss(tmx.sym.sum(data), name="loss")

@@ -17,7 +17,9 @@ against the JAX package on the CPU:
    x scalar in either order, two numbers);
 11. ``EvalMetric(name, num=)``: per-output sums and names;
 12. ``Module`` and ``BucketingModule`` taking ``work_load_list``;
-13. ``InferenceServer.start``, whose second start raises.
+13. ``InferenceServer.start``, whose second start raises;
+14. ``parallel.distributed.barrier(name)``, ``all_reduce_np`` and
+   ``broadcast_np`` in a one-worker world, and ``fused_step.enabled()``.
 
 Forward values within rtol 1e-5 / atol 1e-6, gradients rtol 1e-4; item
 9's forward exactly, its gradient as stated there."""
@@ -568,3 +570,43 @@ def test_inference_server_start_is_the_double_start_guard():
                 srv.start()
             (idx,) = srv.infer([np.ones((2, 3), np.float32)])
             assert list(idx) == [1, 1]
+
+
+def _no_launcher(monkeypatch):
+    for k in ("MXTPU_COORDINATOR", "MXTPU_NUM_WORKERS", "MXTPU_WORKER_RANK"):
+        monkeypatch.delenv(k, raising=False)
+
+
+def test_distributed_host_helpers_match_jax_in_one_worker(monkeypatch):
+    """Item 14: ``barrier`` takes the reference's name, and the host numpy
+    sum and broadcast over a one-worker world return the array itself,
+    in both packages."""
+    import mxnet_tpu.parallel.distributed as jdist
+    import mxnet_tpu_torch.parallel.distributed as tdist
+
+    _no_launcher(monkeypatch)
+    arr = np.arange(3.0)
+    for pkg in (jdist, tdist):
+        assert pkg.num_workers() == 1
+        assert pkg.barrier() is None
+        assert pkg.barrier("x") is None
+        assert pkg.barrier(name="step_3") is None
+        got = pkg.all_reduce_np(arr)
+        assert got is arr
+        np.testing.assert_array_equal(got, [0.0, 1.0, 2.0])
+        assert pkg.broadcast_np(arr) is arr
+        assert pkg.broadcast_np(arr, root=0) is arr
+
+
+@pytest.mark.parametrize("value", [None, "0", "1"])
+def test_fused_step_enabled_reads_the_variable_as_jax(monkeypatch, value):
+    """Item 14: ``fused_step.enabled()`` reads ``MXNET_TPU_FUSED_STEP``
+    through the registry, as the reference's."""
+    import mxnet_tpu.fused_step as jfused
+    import mxnet_tpu_torch.fused_step as tfused
+
+    if value is None:
+        monkeypatch.delenv("MXNET_TPU_FUSED_STEP", raising=False)
+    else:
+        monkeypatch.setenv("MXNET_TPU_FUSED_STEP", value)
+    assert tfused.enabled() == jfused.enabled() == (value == "1")

@@ -121,6 +121,13 @@ def sync_arithmetic(res):
     res["list_sum_a"], res["list_sum_b"] = (o.asnumpy().copy() for o in outs)
     kv.barrier()
     res["sync_barrier"] = True
+    from mxnet_tpu_torch.parallel import distributed
+
+    distributed.barrier("arithmetic")
+    res["all_reduce_np"] = distributed.all_reduce_np(
+        np.arange(3.0) * (rank + 1))
+    res["broadcast_np"] = distributed.broadcast_np(
+        np.full(2, rank + 5.0, np.float32), root=1)
 
 
 def sync_fits(res, data, meta):
