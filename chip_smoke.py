@@ -336,7 +336,7 @@ Phases, in order; any failure exits non-zero before the last line:
    exchange's cross-card sum against a float64 sum, the planted
    per-card-statistics control outside the bound); with one card it
    prints "17b: not run, 1 card visible" and claims nothing. 17b runs
-   last in the process, after phase 18.
+   after every one-card phase (18, 19, 20a and 21a), before 20b and 21b.
 18. the dist stores (ROADMAP.md Queue A item 10b). (a) a one-worker
    dist_sync (no launcher environment) on [gpu(0)]: fit takes the fused
    step by default, one capture, launches (the eager step and the
@@ -396,8 +396,29 @@ Phases, in order; any failure exits non-zero before the last line:
    within 4 float32 floors, replicas bit-equal after the gather, one
    capture, 105/53/53 a replay on every card, optimizer-state bytes a
    card 1/fsdp of dp's); with one card it prints "20b: not run, 1 card
-   visible". 20b runs last in the process, after 17b.
-21. report: one JSON line of kernel records, the card line, then
+   visible". 20b runs after 17b.
+21. the fused step over several cards with the uint8 device feed and
+   with Dropout (ROADMAP.md Queue A, the two 10a leftovers). (a) one
+   card: AlexNet NCHW at batch 32 (224 x 224, Dropout as the zoo builds
+   it) through fit(fused_step=True) and the classic loop from the same
+   generator seed (mx.random.seed(0)), 3 steps: one capture, params,
+   moving statistics, outputs and losses bit-equal, each Dropout's keep
+   mask (read by a tap where its input is not zero) fresh at each
+   replay, the keep rate within 5 standard errors of 1 - p, K3 9 a
+   replay (profiled). (b) with two or more cards visible,
+   tools/torch_dp_feed_check.py's run() in this process over every
+   visible card, after 20b: ResNet-50 NHWC at 32 a card trained from a
+   seeded uint8 cache (1024 frames of 256^2) with each card cropping its
+   rows inside the one CUDA graph, against one card at the global batch
+   (within 4 float32 floors), the classic loop over the cards
+   (bit-equal) and fsdp over the cards; each card's crop bit-equal to
+   its rows of the one-card crop; crop_norm 1, K3 105, K4 53, K5 53 a
+   replay on every card; then AlexNet, VGG-16 and Inception-v3 with
+   Dropout over the cards, fused against classic bit-equal, masks fresh
+   each replay and different across cards; both planted controls
+   caught. With one card it prints "21b: not run, 1
+   card visible". 21b runs last in the process.
+22. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -6299,24 +6320,9 @@ def write_feed_cache(prefix, seed=0):
     """FEED_FRAMES seeded uint8 frames of FEED_STORE^2 x 3 with labels
     0-999 in the decoded cache's layout (mxnet_tpu_torch/io_cache.py):
     what build_decoded_cache writes, without the JPEG decode (PIL), which
-    the card's machine lacks."""
-    rng = np.random.RandomState(seed)
-    shape = (FEED_FRAMES, FEED_STORE, FEED_STORE, 3)
-    data = np.lib.format.open_memmap(prefix + ".data", mode="w+",
-                                     dtype=np.uint8, shape=shape)
-    for lo in range(0, FEED_FRAMES, 128):
-        rows = min(128, FEED_FRAMES - lo)
-        data[lo:lo + rows] = rng.randint(0, 256, (rows,) + shape[1:],
-                                         dtype=np.uint8)
-    data.flush()
-    del data
-    with open(prefix + ".label", "wb") as f:
-        np.save(f, (np.arange(FEED_FRAMES) % 1000).astype(np.float32)
-                .reshape(-1, 1))
-    with open(prefix + ".meta.json", "w") as f:
-        json.dump({"num": FEED_FRAMES, "height": FEED_STORE,
-                   "width": FEED_STORE, "channels": 3, "label_width": 1,
-                   "version": 1}, f)
+    the card's machine lacks (tools/torch_dp_feed_check.py's writer)."""
+    _tools_module("torch_dp_feed_check").write_cache(
+        prefix, FEED_FRAMES, FEED_STORE, seed)
 
 
 def feed_iter(mx, prefix, mode):
@@ -7759,6 +7765,52 @@ def shard_main_path(torch, mx, kernels, card, images, labels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. the fused step over several cards with the device feed and Dropout
+# ---------------------------------------------------------------------------
+def dropout_one_card(torch, mx, kernels, card):
+    """21a: tools/torch_dp_feed_check.py's Dropout part over [gpu(0)],
+    AlexNet only: what the multi-card path's "fused equals classic" holds
+    to on one card."""
+    t0 = time.perf_counter()
+    tool = _tools_module("torch_dp_feed_check")
+    rec = tool.run_b(torch, mx, kernels, 1, models={"alexnet": None})
+    check(not rec["failed"], "21a: %s" % rec["failed"])
+    m = rec["models"]["alexnet"]
+    print("21a AlexNet NCHW %s with Dropout on one card: captures %d, "
+          "fused == classic over %d steps (params, moving statistics, "
+          "outputs, losses) %s, masks differ between replays by %.3f, keep "
+          "rates %s, launches in two replays %s  [%s]"
+          % ("x".join(map(str, m["input"])), m["counters"]["captures"],
+             rec["steps"], m["fused_equals_classic"],
+             m["mask_disagreement_between_replays"][0],
+             ["%.4f" % v for v in m["keep_rate_by_card_and_node"]],
+             m["launches_per_card_2_replays"][0], card))
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 21a: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
+def dp_feed_multi_path(torch, mx, kernels, card):
+    """21b: tools/torch_dp_feed_check.py's run() in this process over
+    every visible card, or a line saying it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("21b: not run, 1 card visible")
+        return None
+    t0 = time.perf_counter()
+    tool = _tools_module("torch_dp_feed_check")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = tool.run(torch, mx, kernels, n)
+    check(not rec["failed"], "21b over %d cards: %s" % (n, rec["failed"]))
+    for line in tool.summary(rec, card):
+        print("21b " + line)
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 21b: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -8057,10 +8109,34 @@ def main():
         model_paths[kernel].update({
             "shard_build_step_%s" % d: shard[d]["launches"][kernel]
             for d in ("float32", "bfloat16")})
+    # 21a. Dropout through the fused step on one card, as the multi-card
+    # path holds it
+    drop = dropout_one_card(torch, mx, kernels, card)
+    alex = drop["models"]["alexnet"]["launches_per_card_2_replays"][0]
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel]["dropout_alexnet_one_card_2_replays_profiled"] \
+            = alex[kernel]
     # 17b. one process over every visible card when there are two or more
     dp["multi"] = dp_multi_path(torch, mx, kernels, card)
     # 20b. fsdp over every visible card, after 17b
     shard["multi"] = shard_multi_path(torch, mx, kernels, card)
+    # 21b. the device feed and Dropout over every visible card, after 20b
+    drop["multi"] = dp_feed_multi_path(torch, mx, kernels, card)
+    feed_cards = {}
+    if drop["multi"] is not None:
+        a = drop["multi"]["a"]
+        for d, counts in a["launches_per_card_2_replays"].items():
+            for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd",
+                           "crop_norm"):
+                feed_cards.setdefault(kernel, {})[
+                    "dp_feed_card%s_2_replays_profiled" % d] = counts[kernel]
+        for name, m in drop["multi"]["b"]["models"].items():
+            for d, counts in m["launches_per_card_2_replays"].items():
+                model_paths["conv_gemm"][
+                    "dp_dropout_%s_card%s_2_replays_profiled" % (name, d)] \
+                    = counts["conv_gemm"]
+        for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+            model_paths[kernel].update(feed_cards[kernel])
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         for kv in ("device_sync", "device"):
             model_paths[kernel].update({
@@ -8142,7 +8218,13 @@ def main():
                   "cache (classic: 5 steps; fused: the eager step and the "
                   "capture; replays: two); shard_build_step_*: phase 20a's "
                   "one parallel.build_sgd_train_step call at batch 32 over "
-                  "a one-rank (dp, fsdp) DeviceMesh, f32 and bf16")
+                  "a one-rank (dp, fsdp) DeviceMesh, f32 and bf16; "
+                  "dropout_alexnet_one_card_*: phase 21a's two profiled "
+                  "replays of AlexNet with Dropout at batch 32; "
+                  "dp_feed_card<k>_*: phase 21b's two profiled replays of "
+                  "ResNet-50 NHWC from the uint8 feed on card k (32 a "
+                  "card); dp_dropout_<net>_card<k>_*: 21b's two profiled "
+                  "replays of each Dropout network on card k")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -8369,10 +8451,19 @@ def main():
             "feed_classic": feed["classic"]["launches"]["crop_norm"],
             "feed_augment_fused": feed["augment"]["launches"]["crop_norm"],
             "feed_host_fused": feed["host"]["launches"]["crop_norm"],
-            "feed_resume_fused": feed["resume"]["launches"]["crop_norm"]},
+            "feed_resume_fused": feed["resume"]["launches"]["crop_norm"],
+            **feed_cards.get("crop_norm", {})},
         "launches_note": fused_note + "; a fused step launches crop_norm "
-                         "once, inside its graph; the classic loop once a "
-                         "batch when it materialises the feed",
+                         "once, inside its graph (over several cards once "
+                         "on each card, on its rows: dp_feed_card<k>_*, "
+                         "21b); the classic loop once a batch when it "
+                         "materialises the feed",
+        "ms_a_replay_by_card": (
+            None if drop["multi"] is None else
+            drop["multi"]["a"]["crop_norm_ms_a_replay_by_card"]),
+        "ms_a_replay_by_card_note": "21b: crop_norm's kernel time in a "
+                                    "replay of the fused step over the "
+                                    "cards, 32 rows a card (torch.profiler)",
         "max_abs_err": feed["crop_norm"]["max_abs_err"],
         "ms": feed["crop_norm"]["ms"], "plain_ms": feed["crop_norm"]["plain_ms"],
         "nchw_ms": feed["crop_norm"]["nchw_ms"],
@@ -8409,7 +8500,8 @@ def main():
                        "mixed_precision_path": mp,
                        "feed_path": feed, "mirror_obs_path": obs,
                        "dp_path": dp, "dist_path": dist,
-                       "autotune_path": tune, "shard_path": shard}, f,
+                       "autotune_path": tune, "shard_path": shard,
+                       "dp_feed_dropout_path": drop}, f,
                       indent=1,
                       default=str)
     print(json.dumps({"kernels": records}))

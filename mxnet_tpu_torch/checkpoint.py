@@ -7,16 +7,17 @@ states, the optimizer states (one tensor a param, a tuple of them for
 Adam, RMSProp and AdaDelta), the optimizer's update counts and schedule
 (so Adam's bias correction goes on from its count), the
 metric accumulators (host sums and the device ``(sum, count)``), the
-data cursor as a count of batches consumed, and the executor's torch
-generator. Its payload is numpy and Python only, in the JAX package's
-format (``FORMAT``, the same keys), so either package restores the
-other's snapshots: the port writes ``"rng": None`` (a torch generator
+data cursor as a count of batches consumed, and the executors' torch
+generators (every replica's over several contexts, where each card draws
+its own Dropout masks). Its payload is numpy and Python only, in the JAX
+package's format (``FORMAT``, the same keys), so either package restores
+the other's snapshots: the port writes ``"rng": None`` (a torch generator
 state means nothing to the JAX package) and keeps its generator under
 ``"rng_torch"``, which the JAX package ignores.
 
 A restore (:func:`restore`) first checks every name and shape, then
 copies into the tensors the module already holds: weights, aux states,
-optimizer states, the metric accumulators and the generator. It never rebinds a
+optimizer states, the metric accumulators and the generators. It never rebinds a
 tensor, because a fused train step's CUDA graph reads and writes those
 addresses and would go on updating replaced storage without a word.
 
@@ -221,8 +222,12 @@ def snapshot(module, eval_metric=None, train_data=None, *, step: int = 0,
                             "num_inst": leaf.num_inst, "device_acc": acc})
     payload["metrics"] = metrics
     payload["rng"] = None
+    # over several contexts each card draws its own Dropout masks: the
+    # other replicas' generators beside the first's
     payload["rng_torch"] = {
-        "executor": ex._generator().get_state().numpy().copy()}
+        "executor": ex._generator().get_state().numpy().copy(),
+        "replicas": [other._generator().get_state().numpy().copy()
+                     for other in group.execs[1:]]}
     get = getattr(train_data, "get_checkpoint_state", None)
     payload["data_iter"] = get() if callable(get) else None
     return payload
@@ -308,13 +313,23 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         if len(leaves) != len(payload["metrics"]):
             raise CheckpointError("snapshot has %d metric leaves, fit has %d"
                                   % (len(payload["metrics"]), len(leaves)))
-    gen = ex._generator()
-    rng_torch = (payload.get("rng_torch") or {}).get("executor")
-    if rng_torch is not None and rng_torch.size != gen.get_state().numel():
-        _log.warning("the snapshot's generator state (%d bytes) is not a %s "
+    gens = [other._generator() for other in group.execs]
+    saved_rng = payload.get("rng_torch") or {}
+    first, others = saved_rng.get("executor"), saved_rng.get("replicas")
+    rng_torch = [] if first is None else [first]
+    if rng_torch and len(gens) > 1:
+        if others is not None and len(others) == len(gens) - 1:
+            rng_torch += list(others)
+        else:
+            _log.warning("the snapshot holds %d replicas' generators, the "
+                         "module %d: only the first card's random stream "
+                         "is carried across", 1 + len(others or ()),
+                         len(gens))
+    if any(state.size != gens[0].get_state().numel() for state in rng_torch):
+        _log.warning("the snapshot's generator state is not a %s "
                      "generator's; the random stream is not carried across",
-                     rng_torch.size, ex._device.type)
-        rng_torch = None
+                     ex._device.type)
+        rng_torch = []
 
     for name, val in payload["params"].items():
         group.write_param(name, _host_tensor(np.asarray(val)))
@@ -347,8 +362,9 @@ def restore(payload: Dict[str, Any], module, eval_metric=None,
         _log.info("snapshot from the JAX package: its RNG stream is not "
                   "carried across; the executor's generator is left as it "
                   "is")
-    if rng_torch is not None:
-        gen.set_state(torch.from_numpy(np.ascontiguousarray(rng_torch)))
+    # into the generators themselves, which a captured graph holds
+    for gen, state in zip(gens, rng_torch):
+        gen.set_state(torch.from_numpy(np.ascontiguousarray(state)))
     seek = getattr(train_data, "set_checkpoint_state", None)
     if callable(seek):
         state = {"batches": int(payload.get("nbatch", -1)) + 1}

@@ -874,7 +874,16 @@ class ReplicatedExecutor:
             xs.extend(leaves[k][i] for i in want)
         grads = [None] * len(xs)
         if want and ys:
-            grads = torch.autograd.grad(ys, xs, heads, allow_unused=True)
+            # on cards the whole backward runs on this thread: with one
+            # autograd thread a card, a card's kernels and the first card's
+            # thread's NCCL group call (a cross-card sum's backward) would
+            # be launched into the same stream at once, which a fused
+            # step's capture does not survive (segfaults on four H100s)
+            single = (torch.autograd.set_multithreading_enabled(False)
+                      if reps.cuda else contextlib.nullcontext())
+            with single:
+                grads = torch.autograd.grad(ys, xs, heads,
+                                            allow_unused=True)
         # a grad_req="add" parameter accumulates: then this pass's
         # gradients are exchanged through a copy of the flat layout
         staged = any(execs[0]._grad_req[self.arg_names[i]] == "add"

@@ -29,19 +29,21 @@ package.
 
 A device-feed batch (``io_cache.CachedImageRecordIter(device_feed=
 True)``: raw uint8 frames, with the crop offsets, mirror flags, mean and
-scale in ``batch.aug``) is copied into step-owned device buffers, only
-its labels go through the group's loader, and the step function's first
-node is the ``crop_norm`` kernel, which crops, mirrors and normalises the
-frames into the bound data array: one graph serves every batch, mean
-and scale (``step.fused_feed_batches`` counts such batches). A graph with
-more than one data input materialises the batch instead, as the JAX
-package does. Under ``compute_dtype`` the feed still writes float32,
-which the executor's cast wrapper casts.
+scale in ``batch.aug``) is copied into step-owned device buffers
+(:class:`~mxnet_tpu_torch.io_cache.DeviceFeed`, one a card over several
+contexts, each holding its replica's rows), only its labels go through
+the group's loader, and the step function's first node on each card is
+the ``crop_norm`` kernel, which crops, mirrors and normalises the frames
+into the bound data array: one graph serves every batch, mean and scale
+(``step.fused_feed_batches`` counts such batches). A graph with more
+than one data input materialises the batch instead, as the JAX package
+does. Under ``compute_dtype`` the feed still writes float32, which the
+executor's cast wrapper casts.
 
 The graph reads and writes fixed addresses: the bound weights and
 gradients, the aux states, the optimizer states, the metric's device
 accumulator, the numerics pack with the pre-step copies, the feed's
-buffers, and the executor's generator. A checkpoint restore
+buffers, and the executors' generators. A checkpoint restore
 (:mod:`mxnet_tpu_torch.checkpoint`) therefore copies into those tensors
 and never replaces one, so the next replay runs on the restored values.
 The step captures again when the update's structure changes or when a
@@ -52,13 +54,16 @@ Over several contexts (ROADMAP.md Queue A item 10a) the step runs the
 group's replicas together: the lock-step forward, one backward with the
 gradient exchange (an all-reduce over a flat buffer a card) at its end,
 the host half of the update once and its device half on every card,
-and each card's metric fold into that card's accumulator. On cards the
-whole of it is one CUDA graph over every card
+and each card's metric fold into that card's accumulator, after each
+card's crop of its rows of a device-feed batch. On cards the whole of it
+is one CUDA graph over every card
 (:class:`~mxnet_tpu_torch.replicas.CardGraph`): one capture and one
-replay a step, with the exchange inside the replayed work. The numerics
-plane folds the first card's exchanged gradients and weights; its skip
-guard, the device feed and a graph that draws random numbers raise over
-several cards.
+replay a step, with the exchange inside the replayed work; a graph that
+draws random numbers (Dropout) draws on each card from that replica's
+own generator, registered for the capture under its card, so every
+replay draws fresh masks, each card its own. The numerics plane folds
+the first card's exchanged gradients and weights; its skip guard raises
+over several contexts.
 
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
@@ -84,7 +89,7 @@ from . import xprof as _xprof
 from .analysis import sanitizers as _san
 from .base import MXNetError
 from .metric import CompositeEvalMetric
-from .ndarray import HostToDevice, NDArray
+from .ndarray import NDArray
 from .optimizer import _state_tensors
 from .replicas import CardGraph
 
@@ -223,8 +228,9 @@ class FusedTrainStep:
         self._graph = None
         self._structure = None
         self._captured = []
-        #: the device feed's buffers and loaders (one set a frame shape,
-        #: crop and layout), and the set the graph was captured with
+        #: the device feed's buffers (a DeviceFeed, or one a card over
+        #: several contexts: one set a frame shape, crop and layout), and
+        #: the set the graph was captured with
         self._feed = None
         self._captured_feed = None
         self.eager_steps = 0
@@ -243,7 +249,6 @@ class FusedTrainStep:
 
     def _refuse_over_cards(self):
         """What the step does not run over several contexts."""
-        what = None
         if self._numwatch is not None \
                 and self._module._exec_group.shards is not None:
             raise MXNetError(
@@ -254,16 +259,11 @@ class FusedTrainStep:
                 "plane over fsdp shards); set MXNET_TPU_FSDP_PARAMS=0 or "
                 "disarm the plane")
         if self._numwatch is not None and self._numwatch.skip_guard:
-            what = ("the numerics plane's skip guard (it restores the "
-                    "first card's pre-step state only)")
-        elif self._reps.cuda and self._ex.draws_random():
-            what = ("a graph that draws random numbers (each card's "
-                    "generator would have to be registered with the one "
-                    "graph over every card)")
-        if what is not None:
-            raise MXNetError("fused train step over %d contexts: %s is not "
-                             "in this slice (ROADMAP.md Queue A item 10a)"
-                             % (self._reps.n, what))
+            raise MXNetError(
+                "fused train step over %d contexts: the numerics plane's "
+                "skip guard (it restores the first card's pre-step state "
+                "only) is not ported yet (ROADMAP.md Queue A, the skip "
+                "guard over several cards)" % self._reps.n)
 
     def _params(self):
         """(updater index, weight, grad, state tensors) of every
@@ -282,13 +282,8 @@ class FusedTrainStep:
         into the bound data array."""
         ex = self._ex
         if feed is not None:
-            from .ops import kernels
-
-            b, (_, crop, layout) = feed["bufs"], feed["key"]
             name = self._module._exec_group.data_names[0]
-            kernels.crop_norm(b["x"], b["tops"], b["lefts"], b["mirror"],
-                              b["mean"], b["scale"], crop, layout,
-                              out=ex.arg_dict[name].handle)
+            feed.crop(out=ex.arg_dict[name].handle)
         # an installed monitor is served from the pack, not by callback
         callback, ex._monitor_callback = ex._monitor_callback, None
         try:
@@ -340,13 +335,21 @@ class FusedTrainStep:
                                           module._update_items())]
 
     def _body_replicas(self, all_items, structure, hypers, feed):
-        """The step function over every replica: the lock-step forward,
-        the backward with the gradient exchange, and per card the
-        update from its own copy of the rows and the metric fold into
-        its own accumulator; the numerics plane folds the first card.
-        ``feed`` is None (the device feed is refused over cards)."""
+        """The step function over every replica: with ``feed`` (a
+        DeviceFeed a card) each card's crop of its rows into its bound
+        data array, then the lock-step forward (under fsdp its gather
+        first), the backward with the gradient exchange, and per card
+        the update from its own copy of the rows and the metric fold
+        into its own accumulator; the numerics plane folds the first
+        card."""
         group, reps = self._module._exec_group, self._reps
         rex = group.replicated
+        if feed is not None:
+            reps.begin()
+            name = group.data_names[0]
+            for k, (ex, f) in enumerate(zip(group.execs, feed)):
+                with reps.on(k):
+                    f.crop(out=ex.arg_dict[name].handle)
         callback, rex._monitor_callback = rex._monitor_callback, None
         try:
             rex.forward(is_train=True)
@@ -461,7 +464,10 @@ class FusedTrainStep:
         if aug is None:
             group.load_data_batch(data_batch)
         else:
-            feed = self._load_feed(data_batch, aug)
+            from .io_cache import load_device_feed
+
+            feed = self._feed = load_device_feed(self._feed, data_batch,
+                                                 self._ex._device)
             group.load_label_batch(data_batch)
             _tel.inc("step.fused_feed_batches")
         items, arrays = self._params()
@@ -473,17 +479,25 @@ class FusedTrainStep:
 
     def _load_replicas(self, data_batch):
         """:meth:`_load_one` over the replicas of a group bound over
-        several contexts: the batch copied in slice by slice, the host
-        half of the update once and its rows copied to every card. The
-        device feed is refused."""
+        several contexts: the batch copied in slice by slice (a
+        device-feed batch's rows each into its card's step-owned
+        buffers), the host half of the update once and its rows copied
+        to every card."""
         group, reps = self._module._exec_group, self._reps
-        if getattr(data_batch, "aug", None) is not None:
-            raise MXNetError(
-                "fused train step over %d contexts: the uint8 device feed "
-                "(io_cache device_feed) is not split across cards yet "
-                "(ROADMAP.md Queue A, the device feed over several cards)"
-                % reps.n)
-        group.load_data_batch(data_batch)
+        aug = getattr(data_batch, "aug", None)
+        feed = None
+        if aug is None or len(group.data_names) != 1:
+            group.load_data_batch(data_batch)
+        else:
+            feeds = group.load_feed(data_batch, self._feed)
+            # the same list while every card keeps its buffers, so a
+            # replay does not capture again
+            if self._feed is None or any(
+                    a is not b for a, b in zip(feeds, self._feed)):
+                self._feed = feeds
+            feed = self._feed
+            group.load_label_batch(data_batch)
+            _tel.inc("step.fused_feed_batches")
         all_items = self._replica_items()
         _, arrays = self._params()
         opt = self._optimizer
@@ -493,36 +507,7 @@ class FusedTrainStep:
         for k, ex in enumerate(group.execs):
             with reps.device(k):
                 hypers.append(opt.scalars(ex._device, rows.shape).copy(rows))
-        return all_items, structure, hypers, None
-
-    def _load_feed(self, data_batch, aug):
-        """Copy a device-feed batch's frames and augmentation into the
-        step's buffers (allocated for the first batch of a frame shape,
-        crop and layout; the same storage from then on)."""
-        frames = data_batch.data[0]
-        key = (tuple(frames.shape), tuple(int(v) for v in aug["crop"]),
-               aug["layout"])
-        feed = self._feed
-        if feed is None or feed["key"] != key:
-            dev = self._ex._device
-            b, c = key[0][0], key[0][3]
-            bufs = {"x": torch.empty(key[0], dtype=torch.uint8, device=dev),
-                    "tops": torch.empty(b, dtype=torch.int32, device=dev),
-                    "lefts": torch.empty(b, dtype=torch.int32, device=dev),
-                    "mirror": torch.empty(b, dtype=torch.uint8, device=dev),
-                    "mean": torch.empty(c, dtype=torch.float32, device=dev),
-                    "scale": torch.empty(1, dtype=torch.float32, device=dev)}
-            feed = self._feed = {"key": key, "bufs": bufs, "loaders": {
-                k: HostToDevice(v) for k, v in bufs.items()}}
-        host = {"x": frames,
-                "tops": np.asarray(aug["tops"], np.int32),
-                "lefts": np.asarray(aug["lefts"], np.int32),
-                "mirror": np.asarray(aug["mirror"], np.uint8),
-                "mean": np.asarray(aug["mean"], np.float32),
-                "scale": np.asarray(aug["scale"], np.float32).reshape(1)}
-        for k, loader in feed["loaders"].items():
-            loader.copy(host[k])
-        return feed
+        return all_items, structure, hypers, feed
 
     def _eager(self, *args):
         """The step function run eagerly; the first such step is
@@ -615,9 +600,15 @@ class FusedTrainStep:
         t0 = time.perf_counter()
         if self._reps is not None:
             graph = CardGraph(self._reps, self._side_streams())
+            # each replica draws from its own executor's generator, which
+            # the graph registers under that replica's card
+            execs = self._module._exec_group.execs
+            gens = ([ex._generator() for ex in execs]
+                    if self._ex.draws_random() else None)
             try:
                 with _san.intentional_transfer():
-                    graph.capture(lambda: self._step_fn(*args))
+                    graph.capture(lambda: self._step_fn(*args),
+                                  generators=gens)
             except RuntimeError as e:
                 raise MXNetError("fused train step: CUDA graph capture over "
                                  "%d cards failed: %s" % (self._reps.n, e)) \

@@ -60,10 +60,10 @@ from . import telemetry as _tel
 from .base import MXNetError
 from .context import Context, current_context
 from .io import _REG, DataBatch, DataDesc, DataIter, _batch_array
-from .ndarray import NDArray, _host_tensor
+from .ndarray import HostToDevice, NDArray, _host_tensor
 
 __all__ = ["build_decoded_cache", "CachedImageRecordIter",
-           "materialize_device_feed"]
+           "materialize_device_feed", "DeviceFeed", "load_device_feed"]
 
 
 def _decode_record(rec: bytes, store_hw: Tuple[int, int], channels: int):
@@ -582,8 +582,10 @@ def materialize_device_feed(batch: DataBatch, ctx: Optional[Context] = None
     same ``crop_norm`` the fused step runs inside its graph, launched on
     ``ctx``'s device (default: where the frames lie), returned as an
     ordinary batch of float32 data there. The classic loop and
-    ``score``/``predict`` take device-feed batches through this. A batch
-    without ``aug`` is returned as it is."""
+    ``score``/``predict`` on one context take device-feed batches
+    through this (over several contexts each replica crops its own rows:
+    :class:`DeviceFeed`). A batch without ``aug`` is returned as it
+    is."""
     aug = getattr(batch, "aug", None)
     if aug is None:
         return batch
@@ -605,6 +607,91 @@ def materialize_device_feed(batch: DataBatch, ctx: Optional[Context] = None
     return DataBatch([NDArray(y, ctx)], batch.label, pad=batch.pad,
                      index=batch.index, provide_data=batch.provide_data,
                      provide_label=batch.provide_label)
+
+
+def _feed_frames(batch: DataBatch, rows: Optional[slice],
+                 device: torch.device):
+    """The uint8 frames of ``rows`` (all of them for None) of a
+    device-feed batch: the part the staging put on ``device`` where it
+    split the batch so (``batch.feed_parts``: ``(rows, tensor)`` a
+    card), else those rows of the whole frames, wherever they lie."""
+    for part_rows, part in getattr(batch, "feed_parts", None) or ():
+        if part_rows == rows and part.device == device:
+            return part
+    x = batch.data[0]
+    x = x.handle if isinstance(x, NDArray) else x
+    return x if rows is None else x[rows]
+
+
+class DeviceFeed:
+    """A device-feed batch's frames and augmentation on one device, for
+    one frame shape, crop and layout (``key``), in buffers that keep
+    their storage from batch to batch, so a CUDA graph that reads them
+    serves every batch: the uint8 frames, the crop offsets and mirror
+    flags of its rows, the mean and the scale. Host data go through a
+    pinned :class:`~mxnet_tpu_torch.ndarray.HostToDevice` a buffer, on
+    the current stream; frames already on a card (a staged batch) are
+    copied device to device. :meth:`crop` launches ``crop_norm`` from
+    the buffers. The fused step keeps one (one a card over several
+    contexts), the classic loop over several contexts one a context:
+    :func:`load_device_feed` fills or replaces it."""
+
+    def __init__(self, device: torch.device, key):
+        self.device = device
+        self.key = key
+        (b, _, _, c), _, _ = key
+        self.bufs = {
+            "x": torch.empty(key[0], dtype=torch.uint8, device=device),
+            "tops": torch.empty(b, dtype=torch.int32, device=device),
+            "lefts": torch.empty(b, dtype=torch.int32, device=device),
+            "mirror": torch.empty(b, dtype=torch.uint8, device=device),
+            "mean": torch.empty(c, dtype=torch.float32, device=device),
+            "scale": torch.empty(1, dtype=torch.float32, device=device)}
+        self._loaders = {k: HostToDevice(v) for k, v in self.bufs.items()}
+
+    def load(self, frames, aug, rows: Optional[slice] = None):
+        """``frames`` (the rows' uint8 frames) and those rows of ``aug``
+        into the buffers."""
+        rows = slice(None) if rows is None else rows
+        host = {"x": frames,
+                "tops": np.asarray(aug["tops"], np.int32)[rows],
+                "lefts": np.asarray(aug["lefts"], np.int32)[rows],
+                "mirror": np.asarray(aug["mirror"], np.uint8)[rows],
+                "mean": np.asarray(aug["mean"], np.float32),
+                "scale": np.asarray(aug["scale"], np.float32).reshape(1)}
+        for k, loader in self._loaders.items():
+            loader.copy(host[k])
+
+    def crop(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The float32 crop of the buffers (one ``crop_norm`` launch on
+        a card), into ``out`` where given."""
+        from .ops import kernels
+
+        b = self.bufs
+        _, crop, layout = self.key
+        return kernels.crop_norm(b["x"], b["tops"], b["lefts"], b["mirror"],
+                                 b["mean"], b["scale"], crop, layout,
+                                 out=out)
+
+
+def load_device_feed(feed: Optional[DeviceFeed], batch: DataBatch,
+                     device: torch.device,
+                     rows: Optional[slice] = None) -> DeviceFeed:
+    """``rows`` (all for None) of a device-feed batch into ``feed`` on
+    ``device``, or into a new :class:`DeviceFeed` where ``feed`` is None
+    or was made for another frame shape, crop or layout (so a CUDA graph
+    over the old one is not replayed over the new): returns the feed
+    loaded. A replica's rows are ``k * B/N .. (k + 1) * B/N`` of the
+    batch whatever ``aug_replicas`` drew them, so its crop is those rows
+    of the one-device crop, bit for bit."""
+    aug = batch.aug
+    frames = _feed_frames(batch, rows, device)
+    key = (tuple(frames.shape), tuple(int(v) for v in aug["crop"]),
+           aug["layout"])
+    if feed is None or feed.key != key or feed.device != device:
+        feed = DeviceFeed(device, key)
+    feed.load(frames, aug, rows)
+    return feed
 
 
 _REG.register("CachedImageRecordIter")(CachedImageRecordIter)

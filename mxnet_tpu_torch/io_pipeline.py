@@ -28,7 +28,11 @@ rewritten only after the copy out of it has completed (its event). Every
 pinned buffer is allocated when the first batch is staged, before the
 first training step. On the CPU a staged batch is a copy of the base
 iterator's. A device-feed batch keeps its ``aug`` (the crop offsets,
-mirror flags, mean and scale, on the host) through staging.
+mirror flags, mean and scale, on the host) through staging; for a group
+bound over several contexts its uint8 frames are staged slice by slice,
+each replica's rows onto its own card by a stager of that card's
+(``batch.feed_parts``), and only the labels onto the first card, so no
+frame crosses from card to card and none goes back to the host.
 
 :class:`DeviceStagingIter` stages batch N+1 when it hands out batch N;
 :class:`FeedScheduler` keeps ``depth`` staged batches in flight from a
@@ -487,6 +491,13 @@ class _Stager:
         tensors = [_as_tensor(a) for a in arrays]
         if self.device.type != "cuda":
             return [t.cpu().clone() for t in tensors], None
+        from .replicas import capture_lock
+
+        # never during a capture over several cards (see capture_lock)
+        with capture_lock:
+            return self._stage_on_card(tensors)
+
+    def _stage_on_card(self, tensors):
         if self._ring is None:
             self._stream = torch.cuda.Stream(self.device)
             self._ring = [[[None if t.is_cuda else
@@ -525,26 +536,86 @@ class _Stager:
 
 
 def _hand_over(staged: DataBatch) -> DataBatch:
-    """Order the consumer's stream after the batch's copy and keep the
-    allocator from reusing its memory before the consumer's work ran."""
-    event = getattr(staged, "_staged_event", None)
-    if event is not None:
-        arrays = list(staged.data) + list(staged.label)
-        stream = torch.cuda.current_stream(arrays[0].handle.device)
+    """Order the consumer's stream on each card after the batch's copy
+    there and keep the allocator from reusing its memory before the
+    consumer's work ran."""
+    for event, tensors in getattr(staged, "_staged", None) or ():
+        if event is None:
+            continue
+        stream = torch.cuda.current_stream(tensors[0].device)
         stream.wait_event(event)
-        for arr in arrays:
-            arr.handle.record_stream(stream)
-        staged._staged_event = None
+        for t in tensors:
+            t.record_stream(stream)
+    staged._staged = None
     return staged
 
 
-class DeviceStagingIter(DataIter):
+class _Staging:
+    """What the staging wrappers share: a :class:`_Stager` a device of
+    ``ctx`` (or of the bound group's contexts, ``group``), each with
+    ``slots`` ring slots, and :meth:`_stage`."""
+
+    def _init_staging(self, ctx, group, slots):
+        if ctx is None:
+            ctx = group.context if group is not None else current_context()
+        self._ctx = ctx
+        contexts = (list(group.contexts) if group is not None
+                    and ctx == group.context else [ctx])
+        self._stagers = [_Stager(c.torch_device(), slots) for c in contexts]
+        self._stager = self._stagers[0]
+
+    def _stage(self, batch: DataBatch) -> DataBatch:
+        t0 = time.perf_counter() if _tel.enabled() else 0.0
+        n_data = len(batch.data)
+        # a device-feed batch's deferred augmentation: dropping it would
+        # feed the raw stored frames to the model
+        aug = getattr(batch, "aug", None)
+        split = (aug is not None and n_data == 1
+                 and len(self._stagers) > 1)
+        if split:
+            # each replica's rows of the frames onto its own card; the
+            # batch keeps the host frames as its data
+            frames = batch.data[0]
+            rows = frames.shape[0] // len(self._stagers)
+            parts, staged_events = [], []
+            for k, stager in enumerate(self._stagers):
+                sl = slice(k * rows, (k + 1) * rows)
+                (part,), event = stager.stage([frames[sl]])
+                parts.append((sl, part))
+                staged_events.append((event, [part]))
+            labels, event = self._stager.stage(list(batch.label or []))
+            arrays = [batch.data[0]] + [NDArray(t, self._ctx)
+                                        for t in labels]
+            staged_events.append((event, labels))
+        else:
+            tensors, event = self._stager.stage(
+                list(batch.data) + list(batch.label or []))
+            arrays = [NDArray(t, self._ctx) for t in tensors]
+            staged_events = [(event, tensors)]
+        if _tel.enabled():
+            _tel.observe("io.staging.h2d_ms",
+                         (time.perf_counter() - t0) * 1e3)
+            _tel.inc("io.staging.batches")
+        staged = DataBatch(arrays[:n_data], arrays[n_data:], batch.pad,
+                           batch.index, bucket_key=batch.bucket_key,
+                           provide_data=batch.provide_data,
+                           provide_label=batch.provide_label)
+        staged._staged = [(e, ts) for e, ts in staged_events if ts]
+        if aug is not None:
+            staged.aug = aug
+        if split:
+            staged.feed_parts = parts
+        return staged
+
+
+class DeviceStagingIter(_Staging, DataIter):
     """Double-buffered staging around any ``DataIter``: ``next()``
     returns the batch staged on the previous call and stages the
     following one at once, so its host-to-device copy runs on the copy
     stream while the card runs the step. ``ctx`` (or the bound executor
     group's context, ``group``) names the device; the default is the
-    current context.
+    current context. Given a ``group`` bound over several contexts, a
+    device-feed batch's frames are staged a replica's rows a card.
 
     Telemetry: ``io.staging.h2d_ms`` (the host time to stage a batch),
     ``io.staging.batches`` and ``ndarray.h2d_bytes``."""
@@ -552,11 +623,8 @@ class DeviceStagingIter(DataIter):
     def __init__(self, base: DataIter, ctx=None, group=None):
         super().__init__()
         self.base = base
-        if ctx is None:
-            ctx = group.context if group is not None else current_context()
-        self._ctx = ctx
         # two slots: the batch being handed out and the one staged ahead
-        self._stager = _Stager(ctx.torch_device(), 2)
+        self._init_staging(ctx, group, 2)
         self.batch_size = getattr(base, "batch_size", 0)
         self._staged: Optional[DataBatch] = None
         self._exhausted = False
@@ -586,28 +654,6 @@ class DeviceStagingIter(DataIter):
         st = getattr(self.base, "set_checkpoint_state", None)
         if callable(st):
             st(state)
-
-    def _stage(self, batch: DataBatch) -> DataBatch:
-        t0 = time.perf_counter() if _tel.enabled() else 0.0
-        n_data = len(batch.data)
-        tensors, event = self._stager.stage(
-            list(batch.data) + list(batch.label or []))
-        arrays = [NDArray(t, self._ctx) for t in tensors]
-        if _tel.enabled():
-            _tel.observe("io.staging.h2d_ms",
-                         (time.perf_counter() - t0) * 1e3)
-            _tel.inc("io.staging.batches")
-        staged = DataBatch(arrays[:n_data], arrays[n_data:], batch.pad,
-                           batch.index, bucket_key=batch.bucket_key,
-                           provide_data=batch.provide_data,
-                           provide_label=batch.provide_label)
-        staged._staged_event = event
-        # a device-feed batch's deferred augmentation: dropping it would
-        # feed the raw stored frames to the model
-        aug = getattr(batch, "aug", None)
-        if aug is not None:
-            staged.aug = aug
-        return staged
 
     def next(self) -> DataBatch:
         if self._staged is None:
@@ -668,14 +714,15 @@ def maybe_wrap_device_staging(data_iter: DataIter, group=None) -> DataIter:
     return DeviceStagingIter(data_iter, group=group)
 
 
-class FeedScheduler(DataIter):
+class FeedScheduler(_Staging, DataIter):
     """Keeps up to ``depth`` staged batches in flight ahead of the
     training loop: a worker thread pulls from the base iterator, stages
     each batch (its ring has ``depth + 2`` slots) and parks it in a
     bounded queue; ``next()`` pops. The time ``next()`` blocks on an
     empty queue is the ``io.feed_stall_ms`` histogram;
     ``io.feed.in_flight`` gauges the queue and ``io.feed.batches``
-    counts deliveries."""
+    counts deliveries. Given a ``group`` bound over several contexts, a
+    device-feed batch's frames are staged a replica's rows a card."""
 
     _END = object()
 
@@ -684,10 +731,7 @@ class FeedScheduler(DataIter):
         super().__init__()
         self.base = base
         self.depth = max(1, int(depth))
-        if ctx is None:
-            ctx = group.context if group is not None else current_context()
-        self._ctx = ctx
-        self._stager = _Stager(ctx.torch_device(), self.depth + 2)
+        self._init_staging(ctx, group, self.depth + 2)
         self.batch_size = getattr(base, "batch_size", 0)
         self._q = _queue.Queue(maxsize=self.depth)
         self._thread: Optional[threading.Thread] = None
@@ -703,8 +747,6 @@ class FeedScheduler(DataIter):
     @property
     def provide_label(self):
         return self.base.provide_label
-
-    _stage = DeviceStagingIter._stage
 
     def _worker(self):
         try:

@@ -114,6 +114,7 @@ class DataParallelExecutorGroup:
                 reqs[name] = grad_req
         self.grad_req = reqs
         self._loaders = None
+        self._feeds = None      # a DeviceFeed a replica (several contexts)
         #: the replica set and its executor (several contexts), else None
         self.replicas = None
         self.replicated = None
@@ -394,15 +395,47 @@ class DataParallelExecutorGroup:
         along the array's batch axis: host arrays through a pinned buffer
         a replica, on that card's stream; arrays already on a card (a
         staged batch) device to device. A device-feed batch (``aug``:
-        uint8 frames whose crop and normalisation are deferred) is
-        materialised first on this group's first device, through the
-        same ``crop_norm`` kernel the fused step runs in its graph."""
+        uint8 frames whose crop and normalisation are deferred) goes
+        through the same ``crop_norm`` kernel the fused step runs in its
+        graph: over several contexts each replica's rows of the frames
+        cross to its own card and are cropped into its bound data array
+        there (:meth:`load_feed`); on one context, or with more than one
+        data input, the batch is materialised on the first device."""
         if getattr(data_batch, "aug", None) is not None:
+            if self.replicas is not None and len(self.data_names) == 1:
+                name = self.data_names[0]
+                self._feeds = self.load_feed(data_batch, self._feeds)
+                for k, (ex, feed) in enumerate(zip(self.execs,
+                                                   self._feeds)):
+                    with self.replicas.device(k):
+                        feed.crop(out=ex.arg_dict[name].handle)
+                self.load_label_batch(data_batch)
+                return
             from ..io_cache import materialize_device_feed
 
             data_batch = materialize_device_feed(data_batch, self.context)
         self._load(self.data_shapes, data_batch.data, 0)
         self.load_label_batch(data_batch)
+
+    def load_feed(self, data_batch, feeds=None):
+        """Each replica's rows of a device-feed batch (``k * B/N .. (k +
+        1) * B/N``, as its data slice) into a
+        :class:`~mxnet_tpu_torch.io_cache.DeviceFeed` on its device, on
+        that device's current stream: ``feeds`` (one a replica) where
+        they fit, new ones where not. Returns the feeds, one a
+        replica."""
+        from ..io_cache import load_device_feed
+
+        n = len(self.execs)
+        rows = self.batch_size // n
+        feeds = feeds or [None] * n
+        out = []
+        for k, (ex, feed) in enumerate(zip(self.execs, feeds)):
+            with self.replicas.device(k):
+                out.append(load_device_feed(
+                    feed, data_batch, ex._device,
+                    slice(k * rows, (k + 1) * rows)))
+        return out
 
     def load_label_batch(self, data_batch):
         """Copy only the batch's labels into the bound label arrays: the

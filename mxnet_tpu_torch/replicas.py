@@ -56,7 +56,15 @@ import torch.distributed as dist
 
 from .base import MXNetError
 
-__all__ = ["Replicas", "ProcessReplicas", "ShardedParams", "CardGraph"]
+__all__ = ["Replicas", "ProcessReplicas", "ShardedParams", "CardGraph",
+           "capture_lock"]
+
+#: held for the whole of a capture over several cards (:class:`CardGraph`)
+#: and, by a staging thread, around its copies and allocations on a card
+#: (``io_pipeline._Stager``): every allocation on the other cards goes to
+#: the graph's pool during the capture, so a staged batch allocated then
+#: could share memory that the replays write
+capture_lock = threading.Lock()
 
 
 class _On:
@@ -283,10 +291,27 @@ class CardGraph:
     the capture with events, makes each its card's current stream while
     ``fn`` runs, and joins them back before the capture ends; the other
     cards' allocations go to a private pool of the graph's, as card 0's
-    do. :meth:`replay` launches it on card 0's current stream after every
-    card's current stream, and makes every card's current stream wait
-    for it. :meth:`close` (or the collector, through ``__del__``) waits
-    for every card, then frees the graph and its pools."""
+    do. :meth:`replay` launches it on card 0's
+    current stream after every card's current stream, and makes every
+    card's current stream wait for it. :meth:`close` (or the collector,
+    through ``__del__``) waits for every card, then frees the graph and
+    its pools.
+
+    ``generators`` (one a card) are the generators ``fn`` draws from on
+    each card (a Dropout's masks): each replay draws afresh, as eager
+    draws from the same generator would. PyTorch keeps a registered
+    generator's seed and offset for the graph in two tensors on the
+    device that is current when it is registered, and a replay first
+    fills them on that device's current stream. So card 0's generator is
+    registered with the graph under card 0, and card k's under card k
+    with a prologue graph of its own (``prologues``): captured on a side
+    stream of card k around the main capture, it holds no work of the
+    step (one mark), but its registration counts card k's draws and its
+    replay fills card k's seed and offset. :meth:`replay` replays every
+    prologue before it records the cards' ready events, so each card's
+    fill is ordered before the card's part of the graph; the main
+    graph's own fill for card 0 runs on card 0's stream just before the
+    launch."""
 
     def __init__(self, reps: Replicas, streams):
         self.reps = reps
@@ -294,8 +319,27 @@ class CardGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.pool = torch.cuda.graph_pool_handle()
         self._pools_held = False
+        #: ``(device, graph)`` a card past the first whose generator is
+        #: registered for the capture
+        self.prologues = []
 
-    def capture(self, fn, capture_error_mode="thread_local"):
+    def capture(self, fn, capture_error_mode="thread_local",
+                generators=None):
+        reps = self.reps
+        register = None
+        if generators is not None:
+            register = getattr(self.graph, "register_generator_state", None)
+            if register is None or len(generators) != reps.n:
+                raise MXNetError(
+                    "a CUDA graph over %d cards draws random numbers "
+                    "(Dropout): it needs a generator a card (got %d) and a "
+                    "PyTorch that can register one with a CUDA graph (this "
+                    "is %s), or every replay would reuse one mask"
+                    % (reps.n, len(generators), torch.__version__))
+        with capture_lock:
+            self._capture(fn, capture_error_mode, generators, register)
+
+    def _capture(self, fn, capture_error_mode, generators, register):
         reps, streams = self.reps, self.streams
         for d in reps.devices:
             torch.cuda.synchronize(d)
@@ -303,39 +347,91 @@ class CardGraph:
         prev = [torch.cuda.current_stream(d) for d in reps.devices]
         for s, p in zip(streams, prev):
             s.wait_stream(p)
-        for d in reps.devices[1:]:
-            torch._C._cuda_beginAllocateToPool(d.index, self.pool)
-        self._pools_held = True
-        try:
+        if generators is not None:
             with torch.cuda.device(reps.devices[0]):
-                torch.cuda.set_stream(streams[0])
-                self.graph.capture_begin(
-                    pool=self.pool, capture_error_mode=capture_error_mode)
+                register(generators[0])
+            self._begin_prologues(generators[1:])
+        try:
+            # every allocation on the other cards goes to the graph's pool
+            # until the capture ends (capture_lock keeps a staging
+            # thread's off the cards meanwhile)
+            for d in reps.devices[1:]:
+                torch._C._cuda_beginAllocateToPool(d.index, self.pool)
+            self._pools_held = True
             try:
-                fork = torch.cuda.Event()
-                fork.record(streams[0])
-                for s in streams[1:]:
-                    s.wait_event(fork)
-                for s in streams:
-                    torch.cuda.set_stream(s)
-                fn()
-                for s in streams[1:]:
-                    join = torch.cuda.Event()
-                    join.record(s)
-                    streams[0].wait_event(join)
-            finally:
                 with torch.cuda.device(reps.devices[0]):
                     torch.cuda.set_stream(streams[0])
-                    self.graph.capture_end()
+                    self.graph.capture_begin(
+                        pool=self.pool,
+                        capture_error_mode=capture_error_mode)
+                try:
+                    fork = torch.cuda.Event()
+                    fork.record(streams[0])
+                    for s in streams[1:]:
+                        s.wait_event(fork)
+                    for s in streams:
+                        torch.cuda.set_stream(s)
+                    fn()
+                    for s in streams[1:]:
+                        join = torch.cuda.Event()
+                        join.record(s)
+                        streams[0].wait_event(join)
+                finally:
+                    with torch.cuda.device(reps.devices[0]):
+                        torch.cuda.set_stream(streams[0])
+                        self.graph.capture_end()
+            finally:
+                for d in reps.devices[1:]:
+                    torch._C._cuda_endAllocateToPool(d.index, self.pool)
         finally:
-            for d in reps.devices[1:]:
-                torch._C._cuda_endAllocateToPool(d.index, self.pool)
+            self._end_prologues()
             for p in prev:
                 torch.cuda.set_stream(p)
+
+    def _begin_prologues(self, generators):
+        """Card k's prologue graph: ``generators[k - 1]`` registered
+        under card k, its capture begun on a side stream of card k (in
+        relaxed mode: the main capture's own calls stay allowed). The
+        generator counts every draw made on card k until
+        :meth:`_end_prologues` ends it."""
+        for d, gen in zip(self.reps.devices[1:], generators):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.device(d):
+                graph.register_generator_state(gen)
+                mark = torch.zeros(1, dtype=torch.int32, device=d)
+                side = torch.cuda.Stream(d)
+                side.wait_stream(torch.cuda.current_stream(d))
+                keep = torch.cuda.current_stream(d)
+                torch.cuda.set_stream(side)
+                try:
+                    graph.capture_begin(capture_error_mode="relaxed")
+                    mark.add_(1)    # the graph's one node
+                finally:
+                    torch.cuda.set_stream(keep)
+            self.prologues.append((d, graph, side, mark))
+
+    def _end_prologues(self):
+        """End every prologue capture begun (each on its own stream)."""
+        ended = []
+        for d, graph, side, mark in self.prologues:
+            with torch.cuda.device(d):
+                keep = torch.cuda.current_stream(d)
+                torch.cuda.set_stream(side)
+                try:
+                    graph.capture_end()
+                finally:
+                    torch.cuda.set_stream(keep)
+            ended.append((d, graph))
+        self.prologues = ended
 
     def replay(self):
         devs = self.reps.devices
         main = [torch.cuda.current_stream(d) for d in devs]
+        for d, prologue in self.prologues:
+            # card k's seed and offset filled on card k's current stream,
+            # before its ready event below
+            with torch.cuda.device(d):
+                prologue.replay()
         for s in main[1:]:
             ready = torch.cuda.Event()
             ready.record(s)
@@ -357,6 +453,9 @@ class CardGraph:
         for d in self.reps.devices:
             torch.cuda.synchronize(d)
         self.graph.reset()
+        for _, prologue in self.prologues:
+            prologue.reset()
+        self.prologues = []
         for d in self.reps.devices[1:]:
             torch._C._cuda_releasePool(d.index, self.pool)
 

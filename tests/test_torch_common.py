@@ -222,3 +222,48 @@ def assert_parity(got, want, rtol=1e-5, atol=1e-6, grad_rtol=1e-4,
     for k in j_aux:
         np.testing.assert_allclose(t_aux[k], j_aux[k], rtol=rtol, atol=atol,
                                    err_msg=k)
+
+
+def write_uint8_cache(prefix, frames, store, classes, seed=0):
+    """``frames`` seeded uint8 frames of ``store`` x ``store`` x 3 with
+    labels ``i % classes`` in the decoded cache's layout, which both
+    packages' ``CachedImageRecordIter`` read
+    (``tools/torch_dp_feed_check.write_cache``)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import torch_dp_feed_check
+
+    return torch_dp_feed_check.write_cache(prefix, frames, store, seed,
+                                           classes)
+
+
+def feed_iter(pkg, prefix, batch, crop, aug_replicas=1, layout="NHWC"):
+    """A device-feed ``CachedImageRecordIter`` of either package over
+    ``prefix``: random crops and mirrors, the upstream means, seed 7
+    (the port's on the CPU)."""
+    kw = dict(shuffle=True, seed=7, rand_crop=True, rand_mirror=True,
+              scale=1.0 / 255.0, mean_r=123.68, mean_g=116.779,
+              mean_b=103.939, device_feed=True, output_layout=layout,
+              aug_replicas=aug_replicas)
+    if pkg is tmx:
+        with tmx.cpu():
+            return pkg.io_cache.CachedImageRecordIter(
+                prefix, (3, crop, crop), batch, **kw)
+    from mxnet_tpu import io_cache
+
+    return io_cache.CachedImageRecordIter(prefix, (3, crop, crop), batch,
+                                          **kw)
+
+
+def dropout_mlp(pkg, p=0.5, hidden=32, classes=10):
+    """Flatten -> FullyConnected -> ReLU -> Dropout(p) -> FullyConnected
+    -> SoftmaxOutput."""
+    with fresh_names(pkg):
+        net = pkg.sym.Flatten(pkg.sym.Variable("data"))
+        net = pkg.sym.FullyConnected(net, num_hidden=hidden, name="fc1")
+        net = pkg.sym.Activation(net, act_type="relu")
+        net = pkg.sym.Dropout(net, p=p, name="drop")
+        net = pkg.sym.FullyConnected(net, num_hidden=classes, name="fc2")
+        return pkg.sym.SoftmaxOutput(net, name="softmax")

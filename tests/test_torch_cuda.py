@@ -1235,28 +1235,34 @@ def test_crop_norm_matches_plain(card, layout):
     assert torch.equal(out, want)
 
 
-def test_fused_feed_captures_once_and_equals_classic(card, tmp_path):
-    """A small NHWC ResNet trained from a device-feed cache on the card:
-    the fused step captures once, replays every later batch (crop_norm
-    inside the graph), and its params equal the classic loop's (which
-    materialises through crop_norm) bit for bit."""
+def _uint8_cache(prefix, n, side):
+    """``n`` seeded uint8 frames of ``side`` x ``side`` x 3, labels ``i %
+    10``, in the decoded cache's layout."""
     import json as _json
-
-    from mxnet_tpu_torch import io_cache
+    import os
 
     rng = np.random.RandomState(0)
-    prefix = str(tmp_path / "c")
-    n, side = 64, 40
     np.lib.format.open_memmap(prefix + ".data", mode="w+", dtype=np.uint8,
                               shape=(n, side, side, 3))[:] = \
         rng.randint(0, 256, (n, side, side, 3))
     np.save(prefix + ".label", (np.arange(n) % 10).astype(np.float32)
             .reshape(n, 1))
-    import os
     os.replace(prefix + ".label.npy", prefix + ".label")
     with open(prefix + ".meta.json", "w") as f:
         _json.dump({"num": n, "height": side, "width": side, "channels": 3,
                     "label_width": 1, "version": 1}, f)
+    return prefix
+
+
+def test_fused_feed_captures_once_and_equals_classic(card, tmp_path):
+    """A small NHWC ResNet trained from a device-feed cache on the card:
+    the fused step captures once, replays every later batch (crop_norm
+    inside the graph), and its params equal the classic loop's (which
+    materialises through crop_norm) bit for bit."""
+    from mxnet_tpu_torch import io_cache
+
+    n = 64
+    prefix = _uint8_cache(str(tmp_path / "c"), n, 40)
     runs = []
     for fused in (False, True):
         it = io_cache.CachedImageRecordIter(
@@ -1345,3 +1351,103 @@ def test_fused_fit_over_two_cards(card):
         for k in theirs:
             np.testing.assert_allclose(mine[k], theirs[k], rtol=1e-3,
                                        atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("cards", ["one", "every"])
+def test_card_graph_draws_afresh_from_each_cards_generator(card, cards):
+    """A CardGraph over the visible cards (one, and every one) that
+    captures torch.rand from each card's generator: each card's
+    generator is registered for the capture under that card and its
+    seed and offset are filled before that card's part of each replay,
+    so over 50 replays every card's draws are fresh and equal the eager
+    draws of a clone of its generator taken at the capture. Busy work
+    queued on each card's stream before every replay delays the fill
+    there; a fill ordered after the card's ready event would leave the
+    graph reading the previous replay's offset (a repeated draw)."""
+    from mxnet_tpu_torch.replicas import CardGraph, Replicas
+
+    n = 1 if cards == "one" else torch.cuda.device_count()
+    devs = [torch.device("cuda", k) for k in range(n)]
+    reps = Replicas(devs)
+    gens = [torch.Generator(device=d).manual_seed(100 + k)
+            for k, d in enumerate(devs)]
+    outs = [torch.empty(1 << 16, device=d) for d in devs]
+    busy = [torch.randn(2048, 2048, device=d) for d in devs]
+    for k, d in enumerate(devs):     # eager draws first: offsets move
+        torch.rand(1 << 16, generator=gens[k], device=d)
+    graph = CardGraph(reps, [torch.cuda.Stream(d) for d in devs])
+
+    def body():
+        for k, d in enumerate(devs):
+            with torch.cuda.device(d):
+                outs[k].copy_(torch.rand(1 << 16, generator=gens[k],
+                                         device=d))
+
+    graph.capture(body, generators=gens)
+    assert len(graph.prologues) == n - 1
+    clones = [g.clone_state() for g in gens]
+    seen = [set() for _ in devs]
+    for _ in range(50):
+        for k, d in enumerate(devs):
+            with torch.cuda.device(d):
+                for _ in range(4):
+                    busy[k] @ busy[k]
+        graph.replay()
+        for k, d in enumerate(devs):
+            want = torch.rand(1 << 16, generator=clones[k], device=d)
+            assert torch.equal(outs[k], want), k
+            seen[k].add(float(outs[k][:8].sum()))
+    assert all(len(s) == 50 for s in seen)
+    if n > 1:
+        assert not torch.equal(outs[0].cpu(), outs[1].cpu())
+    graph.close()
+    # the generators draw eagerly again after the graph
+    for g, d in zip(gens, devs):
+        torch.rand(4, generator=g, device=d)
+
+
+@pytest.mark.parametrize("depth", ["0", "2"])
+def test_fed_fused_step_over_the_cards_equals_the_classic_loop(
+        card, tmp_path, monkeypatch, depth):
+    """A small NHWC ResNet with Dropout before its head, trained from a
+    device-feed cache over every visible card under device_sync, with
+    the feed scheduler (depth 2: each card's rows staged on that card)
+    and without: the fused step captures once (crop_norm and each card's
+    Dropout draws inside the one graph) and equals the classic loop over
+    the same cards bit for bit, masks included."""
+    from mxnet_tpu_torch import io_cache
+
+    monkeypatch.setenv("MXNET_TPU_FEED_DEPTH", depth)
+    n_cards = torch.cuda.device_count()
+    batch, n = 8 * n_cards, 32 * n_cards
+    prefix = _uint8_cache(str(tmp_path / "c"), n, 36)
+    runs = []
+    for fused in (False, True):
+        it = io_cache.CachedImageRecordIter(
+            prefix, (3, 32, 32), batch, rand_crop=True, rand_mirror=True,
+            device_feed=True, output_layout="NHWC", mean_r=120.0,
+            mean_g=110.0, mean_b=100.0, scale=1 / 64.0,
+            aug_replicas=n_cards)
+        net = tmx.sym.Dropout(tmx.sym.Variable("data"), p=0.1)
+        net = tmx.sym.Convolution(net, num_filter=8, kernel=(3, 3),
+                                  pad=(1, 1), layout="NHWC", name="c0")
+        net = tmx.sym.Flatten(tmx.sym.Pooling(
+            net, kernel=(8, 8), stride=(8, 8), pool_type="max",
+            layout="NHWC"))
+        net = tmx.sym.Dropout(net, p=0.5)
+        net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+            net, num_hidden=10, name="fc"), name="softmax")
+        mod = tmx.mod.Module(net, context=[tmx.gpu(k)
+                                           for k in range(n_cards)])
+        tmx.random.seed(0)
+        mod.fit(it, num_epoch=1, kvstore="device_sync", fused_step=fused,
+                optimizer="sgd", initializer=tmx.init.Xavier(magnitude=2),
+                optimizer_params={"learning_rate": 0.01, "momentum": 0.9})
+        if fused:
+            step = mod._fused_step
+            assert (step.eager_steps, step.captures, step.dispatches) == \
+                (1, 1, n // batch - 1)
+        runs.append({k: v.asnumpy().copy()
+                     for k, v in mod.get_params()[0].items()})
+    for k in runs[0]:
+        np.testing.assert_array_equal(runs[1][k], runs[0][k], err_msg=k)
