@@ -35,8 +35,9 @@ Phases, in order; any failure exits non-zero before the last line:
    67 TFLOP/s CUDA-core bound beside it as simt_bound_ms), summed over
    the launches of one ResNet-50 forward (K4) or training step (K3, K5);
    K2 at the demo shape and at T=16384 (beside
-   scaled_dot_product_attention), K1 at three layers and the MNIST
-   MLP's three and five around the narrow tile's limit (beside addmm),
+   scaled_dot_product_attention), K1 at three layers, the MNIST MLP's
+   three, five around the narrow tile's limit and phase 22's pipeline
+   stage (beside addmm and its activation),
    the Rtc axpy and its float4 and __ldg bodies beside 2*x+y and
    torch.add.
 5. serving at full width: ResNet-50, 224x224, 1000 classes, NHWC,
@@ -417,8 +418,39 @@ Phases, in order; any failure exits non-zero before the last line:
    Dropout over the cards, fused against classic bit-equal, masks fresh
    each replay and different across cards; both planted controls
    caught. With one card it prints "21b: not run, 1
-   card visible". 21b runs last in the process.
-22. report: one JSON line of kernel records, the card line, then
+   card visible". 21b runs after 20b.
+22. pipeline and expert parallelism (ROADMAP.md Queue A item 10d). (a)
+   one card, TF32 off, seeded weights: parallel.pipeline_forward over a
+   one-rank pp mesh with one K1 stage, tanh(x @ w.T + b) at 4096 -> 4096
+   (w ~ N(0, 1/4096), b ~ N(0, 0.01)), 8 microbatches of 32 rows: K1 8
+   launches (counts zeroed just before, read just after), the output
+   bit-equal to sequential_reference and within linear parity's bound
+   of tanh(x @ w.T + b) in float64; one build_pipeline_train_step
+   step (mean squared error against seeded labels, lr 0.05) within one
+   float32 floor (normwise, as a share of the update; the oracle's
+   distance when its inputs move by 1 +- 2^-23) of the sequential
+   oracle's SGD step by autograd, K1 8 launches; the same step at 2 rows
+   a microbatch on the card against the port on the CPU, rtol 1e-5.
+   Switch-Base-8's expert layer (d_model 768, d_ff 3072, 8 experts)
+   through parallel.moe_ffn_local over a one-rank ep mesh at 4096 tokens
+   (with a common offset, so that top-1 at capacity factor 1.25
+   overflows experts): the zero rows equal the drops that _route's
+   positions give and the experts' counts over capacity; top-1 and
+   top-2 at capacity factor 8.0 (no drops) against moe_reference, rtol
+   and atol 1e-5; one top-2 backward against autograd through the dense
+   oracle (each gradient within 1e-5 normwise); 256 tokens on the card
+   against the port on the CPU; forward and forward+backward ms of both
+   layers (CUDA events). (b) with two or more cards visible,
+   tools/torch_pp_moe_check.py's run over every visible card, one NCCL
+   process a card, after 21b: pp = cards against the sequential oracle
+   on one card (outputs bit-equal, K1 8 + cards - 1 launches a forward
+   on every rank, one step within 4 float32 floors), pp = cards/2 x dp 2
+   on DTensor stages, ep = cards with Switch-Base-8 and 4096 tokens a
+   card against one card, eight SGD steps whose loss falls, the first
+   step's gradients against one card's, and the planted control (a
+   router gradient left unsummed) caught. With one card it prints "22b:
+   not run, 1 card visible". 22b runs last in the process.
+23. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -474,10 +506,12 @@ FLASH_SHAPES = [DEMO_ATTN, (2, 1024, 4, 64), (1, 512, 2, 128),
 FLASH_TIMED = [DEMO_ATTN + (False,), DEMO_ATTN + (True,),
                (1, 16384, 8, 128, True)]
 # (M, K, N, acts) of the fused linear: the JAX test's shape, ResNet-50's
-# classifier head (which the TPU gate refuses), a large layer, a ragged one
+# classifier head (which the TPU gate refuses), a large layer, a ragged
+# one, phase 22's pipeline stage
 LINEAR_ACTS = ("none", "relu", "tanh", "sigmoid")
 LINEAR_CASES = [(128, 256, 128, LINEAR_ACTS), (BATCH, 2048, 1000, ("none",)),
-                (8192, 4096, 4096, ("relu",)), (257, 1001, 33, LINEAR_ACTS)]
+                (8192, 4096, 4096, ("relu",)), (257, 1001, 33, LINEAR_ACTS),
+                (32, 4096, 4096, ("tanh",))]
 # timed: the first three cases, the MNIST MLP's layers at batch 128
 # (mxnet_tpu/models/mlp.py: 784 -> 128 relu -> 64 relu -> 10), then
 # layers with 32, 64, 96 and 128 wide tiles, around the narrow tile's
@@ -487,7 +521,8 @@ LINEAR_TIMED = [(128, 256, 128, "none"), (BATCH, 2048, 1000, "none"),
                 (128, 128, 64, "relu"), (128, 64, 10, "none"),
                 (512, 1024, 1024, "none"), (1024, 1024, 1024, "none"),
                 (768, 2048, 2048, "none"), (1024, 2048, 2048, "none"),
-                (4096, 1024, 512, "none")]
+                (4096, 1024, 512, "none"),
+                (32, 4096, 4096, "tanh")]     # phase 22's pipeline stage
 RTC_N = 1 << 24                # elements of each array of the Rtc bodies
 MNIST_TRAIN = 5120             # 40 batches of 128
 MNIST_TEST = 1024
@@ -1104,6 +1139,9 @@ def linear_timing(torch, kernels):
                                                                   act), flush)
         if act == "relu":
             lib = time_ms(torch, lambda: torch.relu(torch.addmm(b, x, wt)),
+                          flush)
+        elif act == "tanh":
+            lib = time_ms(torch, lambda: torch.tanh(torch.addmm(b, x, wt)),
                           flush)
         else:
             lib = time_ms(torch, lambda: torch.addmm(b, x, wt), flush)
@@ -7811,6 +7849,279 @@ def dp_feed_multi_path(torch, mx, kernels, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 22. pipeline and expert parallelism
+# ---------------------------------------------------------------------------
+PP_HID = 4096                  # 22a: VGG-16's fc7, 4096 -> 4096
+PP_MICROBATCHES, PP_ROWS = 8, 32
+MOE_TOKENS = 4096              # 22a: 8 sequences of 512
+MOE_SWITCH = (8, 768, 3072)    # Switch-Base-8: experts, d_model, d_ff
+MOE_TOL = 1e-5                 # y: rtol and atol; gradients: normwise
+MOE_CPU_TOKENS = 256
+
+
+def _cpu_mesh(torch, axis):
+    """A one-rank CPU DeviceMesh over a gloo group of its own: the
+    process group in place may be NCCL's alone."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    group = dist.new_group(ranks=[0], backend="gloo")
+    return DeviceMesh.from_group(group, "cpu", mesh_dim_names=(axis,))
+
+
+def pp_one_card(torch, mx, kernels, card):
+    """22a's pipeline: a one-rank pp mesh, one K1 stage at 4096, the
+    stage, oracle step and learning rate tools/torch_pp_moe_check.py's."""
+    from mxnet_tpu_torch import parallel
+
+    tool = _tools_module("torch_pp_moe_check")
+    dp, stage, lr = tool.dp, tool.ranks.stage_fn, tool.PP_LR
+    rng = np.random.RandomState(22)
+    w_np = (rng.randn(1, PP_HID, PP_HID) / np.sqrt(PP_HID)).astype(np.float32)
+    b_np = (rng.randn(1, PP_HID) * 0.1).astype(np.float32)
+    mb_np = rng.randn(PP_MICROBATCHES, PP_ROWS, PP_HID).astype(np.float32)
+    lab_np = rng.randn(PP_MICROBATCHES, PP_ROWS, PP_HID).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    w, b, mb, lab = (torch.from_numpy(a).to(dev)
+                     for a in (w_np, b_np, mb_np, lab_np))
+    mesh = parallel.make_mesh({"pp": 1})
+    out = {}
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = parallel.pipeline_forward(stage, {"w": w, "b": b}, mb, "pp",
+                                      mesh=mesh)
+    out["launches_forward"] = kernels.launch_counts()
+    check(out["launches_forward"]["linear"] == PP_MICROBATCHES,
+          "22a pipeline_forward launched K1 %d times, want %d"
+          % (out["launches_forward"]["linear"], PP_MICROBATCHES))
+    with torch.no_grad():
+        seq = torch.stack([parallel.sequential_reference(
+            stage, [{"w": w[0], "b": b[0]}], m) for m in mb])
+    check(y.shape == mb.shape and bool(torch.isfinite(y).all()),
+          "22a pipeline output %s, not finite or not %s"
+          % (tuple(y.shape), tuple(mb.shape)))
+    check(torch.equal(y, seq), "22a pipeline output not bit-equal to "
+          "sequential_reference: max abs err %g"
+          % float((y - seq).abs().max()))
+    # K1's output against its plain version in float64 on the same card
+    # tensors, at linear_parity's bound
+    pre = mb.double() @ w[0].double().t() + b[0].double()
+    mag = mb.double().abs() @ w[0].double().abs().t() + b[0].double().abs()
+    err = (y.double() - torch.tanh(pre)).abs()
+    check(bool((err <= 1e-6 * mag + 2e-7).all()), "22a pipeline output "
+          "off tanh(x @ w.T + b) by %g above 1e-6 * (sum|x||w| + |b|)"
+          % float((err - 1e-6 * mag - 2e-7).max()))
+    out["output_max_abs_err_vs_float64"] = float(err.max())
+    del pre, mag, err
+    step = parallel.build_pipeline_train_step(
+        stage, tool.ranks.mse, mesh, PP_MICROBATCHES, lr=lr)
+    kernels.reset_launch_counts()
+    loss, new = step({"w": w, "b": b}, mb, lab)
+    out["launches_step"] = kernels.launch_counts()
+    check(out["launches_step"]["linear"] == PP_MICROBATCHES,
+          "22a the train step launched K1 %d times, want %d"
+          % (out["launches_step"]["linear"], PP_MICROBATCHES))
+    got = {k: v.cpu().numpy() for k, v in new.items()}
+    start = {"w": w_np, "b": b_np}
+    _, want, floor = tool._oracle_floor(torch, parallel, (w_np, b_np, mb_np,
+                                                          lab_np), dev)
+    dist_ = dp._normwise(got, want, start)
+    check(dist_ <= floor, "22a the train step %g of the oracle's update "
+          "away, bound %g (one float32 floor)" % (dist_, floor))
+    out.update(loss=loss.item(), step_vs_oracle_normwise=dist_,
+               float32_floor_normwise=floor)
+    # the same step at 2 rows a microbatch, card against CPU
+    small = [a[:, :2].contiguous() for a in (mb, lab)]
+    _, card_new = step({"w": w, "b": b}, *small)
+    cpu_step = parallel.build_pipeline_train_step(
+        stage, tool.ranks.mse, _cpu_mesh(torch, "pp"), PP_MICROBATCHES,
+        lr=lr)
+    _, cpu_new = cpu_step({"w": w.cpu(), "b": b.cpu()},
+                          *(a.cpu() for a in small))
+    # rtol 1e-5, with an atol of 1e-5 of the tensor's largest entry for
+    # the entries near zero; gate: the largest error as a share of the
+    # error allowed
+    gate = 0.0
+    for k in ("w", "b"):
+        c, h = card_new[k].cpu(), cpu_new[k]
+        allowed = 1e-5 * (h.abs() + float(h.abs().max()))
+        gate = max(gate, float(((c - h).abs() / allowed).max()))
+        check(bool(((c - h).abs() <= allowed).all()), "22a the 2-row "
+              "step's %s on the card off the CPU's by %g"
+              % (k, float((c - h).abs().max())))
+    out["card_vs_cpu_err_share_of_allowed"] = gate
+    out["card_vs_cpu_update_normwise"] = dp._normwise(
+        {k: v.cpu().numpy() for k, v in card_new.items()},
+        {k: v.numpy() for k, v in cpu_new.items()}, start)
+    with torch.no_grad():
+        out["forward_ms"] = dp._event_ms(
+            torch, lambda: parallel.pipeline_forward(
+                stage, {"w": w, "b": b}, mb, "pp", mesh=mesh))
+    out["step_ms"] = dp._event_ms(torch, lambda: step({"w": w, "b": b}, mb,
+                                                      lab))
+    print("22a pipeline over a one-rank pp mesh, K1 stage %d -> %d tanh, %d "
+          "microbatches of %d: K1 %d launches a forward and %d a step, "
+          "output bit-equal to sequential_reference and %.3g off float64, "
+          "the step %.3g of the oracle's update away (one float32 floor %.3g), 2-row step card "
+          "vs CPU at %.3g of rtol 1e-5 (its update %.3g apart, normwise); "
+          "forward %.3f ms, forward+backward+update %.3f ms  [%s]"
+          % (PP_HID, PP_HID, PP_MICROBATCHES, PP_ROWS,
+             out["launches_forward"]["linear"],
+             out["launches_step"]["linear"],
+             out["output_max_abs_err_vs_float64"], dist_, floor, gate,
+             out["card_vs_cpu_update_normwise"], out["forward_ms"],
+             out["step_ms"], card))
+    return out
+
+
+def moe_one_card(torch, mx, kernels, card):
+    """22a's MoE: Switch-Base-8's expert layer over a one-rank ep mesh."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import moe
+
+    dp = _tools_module("torch_dp_check")
+    experts, d_model, d_ff = MOE_SWITCH
+    rng = np.random.RandomState(23)
+    params_np = parallel.init_moe_params(rng, experts, d_model, d_ff)
+    # a common offset skews the random router's choices, so that top-1
+    # at capacity factor 1.25 overflows some experts
+    x_np = (rng.randn(MOE_TOKENS, d_model)
+            + 0.5 * rng.randn(d_model)).astype(np.float32)
+    t_np = rng.randn(MOE_TOKENS, d_model).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in params_np.items()}
+    x, target = torch.from_numpy(x_np).to(dev), torch.from_numpy(t_np).to(dev)
+    mesh = parallel.make_mesh({"ep": 1})
+    out = {}
+    with torch.no_grad():
+        cap = parallel.expert_capacity(MOE_TOKENS, experts, 1, 1.25)
+        y, aux = parallel.moe_ffn_local(params, x, "ep", 1, 1.25, mesh=mesh)
+        token = moe._route(x, params["router"], experts, 1, cap)[0]
+        zero_rows = int((y.abs().sum(dim=1) == 0).sum())
+        assigned = torch.bincount(moe._softmax(x @ params["router"])
+                                  .argmax(dim=1), minlength=experts)
+    over = int((assigned - cap).clamp_min(0).sum())
+    out.update(capacity=cap, dropped=zero_rows,
+               dropped_by_route=MOE_TOKENS - int(token.numel()),
+               assigned_by_expert=assigned.tolist(),
+               dropped_by_counts=over)
+    check(zero_rows == out["dropped_by_route"] == over and over > 0,
+          "22a MoE top-1: %d zero rows, _route keeps %d of %d tokens, the "
+          "experts' counts %s over capacity %d drop %d (and some must)"
+          % (zero_rows, token.numel(), MOE_TOKENS, assigned.tolist(), cap,
+             over))
+    check(bool(torch.isfinite(y).all()) and float(aux) > 0,
+          "22a MoE top-1: y not finite or aux %g" % float(aux))
+    out["aux"] = float(aux)
+    for top_k in (1, 2):
+        with torch.no_grad():
+            y, _ = parallel.moe_ffn_local(params, x, "ep", top_k, 8.0,
+                                          mesh=mesh)
+            want = parallel.moe_reference(params, x, top_k)
+        ok = torch.allclose(y, want, rtol=MOE_TOL, atol=MOE_TOL)
+        err = float((y - want).abs().max())
+        check(ok, "22a MoE top-%d at capacity factor 8 off moe_reference by "
+              "%g" % (top_k, err))
+        out["top%d_vs_reference_max_abs_err" % top_k] = err
+
+    def grads(fn):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        xs = x.detach().requires_grad_(True)
+        torch.mean((fn(leaves, xs) - target) ** 2).backward()
+        return dict({k: v.grad.cpu().numpy() for k, v in leaves.items()},
+                    x=xs.grad.cpu().numpy())
+
+    got = grads(lambda p, t: parallel.moe_ffn_local(p, t, "ep", 2, 8.0,
+                                                    mesh=mesh)[0])
+    want = grads(lambda p, t: parallel.moe_reference(p, t, 2))
+    errs = {k: dp._normwise({k: got[k]}, {k: want[k]}, {k: 0})
+            for k in want}
+    check(all(v <= MOE_TOL for v in errs.values()), "22a MoE top-2 "
+          "gradients off the dense oracle's (normwise, bound %g): %s"
+          % (MOE_TOL, errs))
+    out["grads_vs_reference_normwise"] = errs
+    # 256 tokens, card against CPU
+    xs = x[:MOE_CPU_TOKENS]
+    with torch.no_grad():
+        yc, ac = parallel.moe_ffn_local(params, xs, "ep", 1, 1.25, mesh=mesh)
+        cpu = {k: v.cpu() for k, v in params.items()}
+        yh, ah = parallel.moe_ffn_local(cpu, xs.cpu(), "ep", 1, 1.25,
+                                        mesh=_cpu_mesh(torch, "ep"))
+    err = float((yc.cpu() - yh).abs().max())
+    check(torch.allclose(yc.cpu(), yh, rtol=MOE_TOL, atol=MOE_TOL)
+          and abs(float(ac) - float(ah)) <= MOE_TOL * abs(float(ah)),
+          "22a MoE %d tokens on the card off the CPU's by %g (aux %g vs %g)"
+          % (MOE_CPU_TOKENS, err, float(ac), float(ah)))
+    out["card_vs_cpu_max_abs_err"] = err
+
+    def fwd_bwd():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        y, aux = parallel.moe_ffn_local(leaves, x, "ep", 1, 1.25, mesh=mesh)
+        (torch.mean((y - target) ** 2) + 0.01 * aux).backward()
+
+    with torch.no_grad():
+        out["forward_ms"] = dp._event_ms(
+            torch, lambda: parallel.moe_ffn_local(params, x, "ep", 1, 1.25,
+                                                  mesh=mesh))
+    out["forward_backward_ms"] = dp._event_ms(torch, fwd_bwd)
+    print("22a Switch-Base-8 expert layer over a one-rank ep mesh, %d "
+          "tokens, d_model %d, d_ff %d, %d experts: top-1 at capacity "
+          "factor 1.25 (capacity %d, tokens by expert %s) drops %d tokens, "
+          "as _route's positions and the counts give; top-1/top-2 at 8.0 vs moe_reference max abs err %.3g / "
+          "%.3g; top-2 gradients vs the dense oracle (normwise) %s; %d "
+          "tokens card vs CPU %.3g; forward %.3f ms, forward+backward %.3f "
+          "ms  [%s]"
+          % (MOE_TOKENS, d_model, d_ff, experts, cap,
+             out["assigned_by_expert"], zero_rows,
+             out["top1_vs_reference_max_abs_err"],
+             out["top2_vs_reference_max_abs_err"],
+             {k: "%.3g" % v for k, v in errs.items()}, MOE_CPU_TOKENS, err,
+             out["forward_ms"], out["forward_backward_ms"], card))
+    return out
+
+
+def pp_moe_one_card(torch, mx, kernels, card):
+    """Phase 22a on one card (22b, over every visible card, runs last in
+    the process: :func:`pp_moe_multi_path`). The one-rank meshes' process
+    groups are destroyed at its end, as phases 7 and 20a destroy theirs,
+    so that no later phase runs beside them."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        out = {"pipeline": pp_one_card(torch, mx, kernels, card),
+               "moe": moe_one_card(torch, mx, kernels, card)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print("phase 22a: %.1f s" % out["seconds"])
+    return out
+
+
+def pp_moe_multi_path(torch, mx, kernels, card):
+    """22b: tools/torch_pp_moe_check.py's run over every visible card, one
+    process a card, or a line saying it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("22b: not run, 1 card visible")
+        return None
+    t0 = time.perf_counter()
+    tool = _tools_module("torch_pp_moe_check")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = tool.run(torch, n)
+    check(not rec["failed"], "22b over %d cards: %s" % (n, rec["failed"]))
+    for line in tool.summary(rec):
+        print("22b " + line)
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 22b: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -8116,12 +8427,32 @@ def main():
     for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
         model_paths[kernel]["dropout_alexnet_one_card_2_replays_profiled"] \
             = alex[kernel]
+    # 22a. pipeline and expert parallelism on one card: a K1 stage at 4096
+    # over a one-rank pp mesh, Switch-Base-8's expert layer over a
+    # one-rank ep mesh
+    pp_moe = pp_moe_one_card(torch, mx, kernels, card)
+    for kernel in ("linear", "flash_attn", "rtc"):
+        lm_paths[kernel].update({
+            "pp_one_card_forward":
+                pp_moe["pipeline"]["launches_forward"][kernel],
+            "pp_one_card_train_step":
+                pp_moe["pipeline"]["launches_step"][kernel]})
     # 17b. one process over every visible card when there are two or more
     dp["multi"] = dp_multi_path(torch, mx, kernels, card)
     # 20b. fsdp over every visible card, after 17b
     shard["multi"] = shard_multi_path(torch, mx, kernels, card)
     # 21b. the device feed and Dropout over every visible card, after 20b
     drop["multi"] = dp_feed_multi_path(torch, mx, kernels, card)
+    # 22b. pipeline and expert parallelism over every visible card, one
+    # process a card, after 21b
+    pp_moe["multi"] = pp_moe_multi_path(torch, mx, kernels, card)
+    if pp_moe["multi"] is not None:
+        for tag in ("pp", "pp_dp"):
+            if tag in pp_moe["multi"]:
+                p = pp_moe["multi"][tag]
+                name = "".join("%s%d" % kv for kv in p["mesh"].items())
+                for r, n in enumerate(p["k1_launches_a_forward_by_rank"]):
+                    lm_paths["linear"]["%s_rank%d_forward" % (name, r)] = n
     feed_cards = {}
     if drop["multi"] is not None:
         a = drop["multi"]["a"]
@@ -8160,7 +8491,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 21. report
+    # 23. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -8224,7 +8555,13 @@ def main():
                   "dp_feed_card<k>_*: phase 21b's two profiled replays of "
                   "ResNet-50 NHWC from the uint8 feed on card k (32 a "
                   "card); dp_dropout_<net>_card<k>_*: 21b's two profiled "
-                  "replays of each Dropout network on card k")
+                  "replays of each Dropout network on card k; "
+                  "pp_one_card_*: phase 22a's pipeline_forward over 8 "
+                  "microbatches and one build_pipeline_train_step step "
+                  "on a one-rank pp mesh (a K1 stage a tick); "
+                  "pp<n>[dp<m>]_rank<k>_forward: 22b's pipeline_forward "
+                  "on rank k of n stages (num_mb + n - 1 ticks, a K1 "
+                  "launch each)")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -8353,10 +8690,16 @@ def main():
         "small_layer_ms": linear_rows[0]["ms"],
         "small_layer_library_ms": linear_rows[0]["library_ms"],
         "small_layer_bound_ms": linear_rows[0]["bound_ms"],
+        "pipeline_stage_ms": linear_rows[-1]["ms"],
+        "pipeline_stage_plain_ms": linear_rows[-1]["plain_ms"],
+        "pipeline_stage_bound_ms": linear_rows[-1]["bound_ms"],
+        "pipeline_stage_bound_by": linear_rows[-1]["bound_by"],
+        "pipeline_stage_library_ms": linear_rows[-1]["library_ms"],
         "digests": digests,
         "scope": "one call at ResNet-50's head, (%d, 2048) -> 1000, f32, "
                  "the entry-point path's shape; small_layer_*: (128, 256) "
-                 "-> 128" % BATCH,
+                 "-> 128; pipeline_stage_*: phase 22's stage, (32, 4096) "
+                 "-> 4096 tanh (library: tanh(addmm))" % BATCH,
     }, {
         "name": "flash_attn", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn.cu",
@@ -8501,7 +8844,8 @@ def main():
                        "feed_path": feed, "mirror_obs_path": obs,
                        "dp_path": dp, "dist_path": dist,
                        "autotune_path": tune, "shard_path": shard,
-                       "dp_feed_dropout_path": drop}, f,
+                       "dp_feed_dropout_path": drop,
+                       "pp_moe_path": pp_moe}, f,
                       indent=1,
                       default=str)
     print(json.dumps({"kernels": records}))

@@ -22,74 +22,17 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from ..base import MXNetError
 from ..ops import kernels
 from ..ops.kernels import reference_attention
+from ._collectives import (_all_to_all, _group_rank_size, _resolve_axis,
+                           _shift)
 
 __all__ = ["ring_attention", "ulysses_attention", "reference_attention",
            "make_ring_attention"]
 
 _IMPLS = ("ring", "ulysses")
-
-
-def _group_rank_size(group):
-    return dist.get_rank(group), dist.get_world_size(group)
-
-
-def _exchange(tensors, group, step):
-    """Send each tensor to group rank (r + step) % n and receive its
-    counterpart from (r - step) % n, in one batch."""
-    rank, n = _group_rank_size(group)
-    g = dist.group.WORLD if group is None else group
-    to = dist.get_global_rank(g, (rank + step) % n)
-    frm = dist.get_global_rank(g, (rank - step) % n)
-    out, ops = [], []
-    for tag, t in enumerate(tensors):
-        t = t.contiguous()
-        buf = torch.empty_like(t)
-        ops.append(dist.P2POp(dist.isend, t, to, group, tag))
-        ops.append(dist.P2POp(dist.irecv, buf, frm, group, tag))
-        out.append(buf)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
-
-
-class _RingShift(torch.autograd.Function):
-    """K and V one step around the ring (``lax.ppermute`` with
-    ``perm = [(j, (j + 1) % n)]``); the backward sends the cotangents one
-    step back."""
-
-    @staticmethod
-    def forward(ctx, group, k, v):
-        ctx.group = group
-        return tuple(_exchange((k, v), group, 1))
-
-    @staticmethod
-    def backward(ctx, gk, gv):
-        gk, gv = _exchange((gk, gv), ctx.group, -1)
-        return None, gk, gv
-
-
-def _resolve_group(axis_name, group, mesh):
-    """The process group of a call: ``group`` where given, else mesh
-    axis ``axis_name``'s group on ``mesh`` (or on the mesh
-    ``make_mesh`` built last), else None (the default group)."""
-    if group is not None or axis_name is None:
-        return group
-    if mesh is None:
-        from .sharding import last_mesh
-
-        mesh = last_mesh()
-    if mesh is None:
-        raise MXNetError("axis_name=%r: no mesh given and make_mesh has "
-                         "built none in this process" % (axis_name,))
-    if axis_name not in (mesh.mesh_dim_names or ()):
-        raise MXNetError("axis_name=%r is not an axis of the mesh %s"
-                         % (axis_name, mesh.mesh_dim_names))
-    return mesh.get_group(axis_name)
 
 
 def ring_attention(q, k, v, axis_name=None, causal: bool = False, *,
@@ -100,7 +43,7 @@ def ring_attention(q, k, v, axis_name=None, causal: bool = False, *,
     :func:`~mxnet_tpu_torch.parallel.make_mesh` built last), or over
     ``group`` where given (the default group when neither is); returns
     this rank's output shard."""
-    group = _resolve_group(axis_name, group, mesh)
+    group = _resolve_axis(axis_name, group, mesh)[0]
     my, n = _group_rank_size(group)
     b, t_local, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -128,18 +71,10 @@ def ring_attention(q, k, v, axis_name=None, causal: bool = False, *,
         l = l * alpha + probs.sum(dim=-1)
         m = new_m
         if i + 1 < n:
-            k_blk, v_blk = _RingShift.apply(group, k_blk, v_blk)
+            # K and V one step around the ring, r to r + 1
+            k_blk, v_blk = _shift(group, k_blk, v_blk)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2)                          # (b, t, h, d)
-
-
-def _all_to_all(x, group):
-    """``all_to_all_single`` over dim 0 (chunk j to rank j; chunk j of
-    the result from rank j), differentiable."""
-    from torch.distributed.nn.functional import all_to_all_single
-
-    x = x.contiguous()    # empty_like would keep a permuted layout
-    return all_to_all_single(torch.empty_like(x), x, group=group)
 
 
 def ulysses_attention(q, k, v, axis_name=None, causal: bool = False, *,
@@ -152,7 +87,7 @@ def ulysses_attention(q, k, v, axis_name=None, causal: bool = False, *,
     kernel (K2) at any T; other dtypes and widths run
     :func:`reference_attention`, as the JAX package falls back for
     them."""
-    group = _resolve_group(axis_name, group, mesh)
+    group = _resolve_axis(axis_name, group, mesh)[0]
     _, n = _group_rank_size(group)
     b, t_local, h, d = q.shape
     if h % n:
