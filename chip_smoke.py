@@ -449,8 +449,23 @@ Phases, in order; any failure exits non-zero before the last line:
    card against one card, eight SGD steps whose loss falls, the first
    step's gradients against one card's, and the planted control (a
    router gradient left unsummed) caught. With one card it prints "22b:
-   not run, 1 card visible". 22b runs last in the process.
-23. report: one JSON line of kernel records, the card line, then
+   not run, 1 card visible". 22b runs after 21b.
+23. dp and tp serving (ROADMAP.md Queue A item 10e). (a) one card:
+   ResNet-50 NHWC at full width, batch 32, served by
+   InferenceServer(tp=1) through the (dp 1, tp 1) grid: outputs
+   bit-equal to the one-card FusedInfer on the same rows, K4 53 launches
+   (counts zeroed just before the request, read just after), the step
+   stale for the module bound again, one rebuild over two refreshes,
+   and the rebuilt server's outputs bit-equal again. (b) with two or
+   more cards visible, tools/torch_tp_serve_check.py's run() in this
+   process over every visible card, after 22b: ResNet-50 NHWC at dp N,
+   dp N/2 x tp 2 and tp N, 32 rows a dp group, within 1e-4 normwise of
+   one card's FusedInfer, argmax equal on the decisive rows, K4 53 a
+   forward on each card, param bytes a card as tp_param_spec predicts,
+   seeded requests and a re-bind through each server; VGG-16 at tp N
+   with its param bytes a card. With one card it prints "23b: not run,
+   1 card visible". 23b runs last in the process.
+24. report: one JSON line of kernel records, the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 ``--report PATH`` also writes the per-shape records and the main paths'
@@ -8122,6 +8137,90 @@ def pp_moe_multi_path(torch, mx, kernels, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 23. dp and tp serving
+# ---------------------------------------------------------------------------
+def tp_serve_one_card(torch, mx, kernels, card):
+    """23a: the server through the (dp 1, tp 1) grid on one card against
+    the one-card FusedInfer, then a re-bind."""
+    t0 = time.perf_counter()
+    mod = build_module(mx, mx.gpu(0), BATCH)
+    images = np.random.RandomState(23).randn(BATCH, *IMAGE) \
+        .astype(np.float32)
+    plain = mx.fused_step.make_fused_infer(mod._exec_group.executor,
+                                           ["data"])
+    ref = plain([images])[0][0].cpu().numpy()
+    srv = mx.serving.InferenceServer(mod, top_k=0, max_batch=BATCH, tp=1)
+    try:
+        check((srv.dp, srv.tp, srv._fused.mesh_key)
+              == (1, 1, (("dp", 1), ("tp", 1))),
+              "23a: the server is not on the (dp 1, tp 1) grid: dp %d tp "
+              "%d %s" % (srv.dp, srv.tp, srv._fused.mesh_key))
+        srv.infer([images], timeout=300)
+        kernels.reset_launch_counts()
+        (got,) = srv.infer([images], timeout=300)
+        launches = kernels.launch_counts()
+        check(np.array_equal(got, ref), "23a: the grid's outputs differ "
+              "from the one-card FusedInfer's by %g"
+              % float(np.abs(got - ref).max()))
+        check(launches["norm_act_fwd"] == BN_LAYERS, "23a: K4 launched %d "
+              "times a forward, want %d" % (launches["norm_act_fwd"],
+                                            BN_LAYERS))
+        args, aux = mod.get_params()
+        args = {n: a.asnumpy().copy() for n, a in args.items()}
+        aux = {n: a.asnumpy().copy() for n, a in aux.items()}
+        mod.bind(data_shapes=[("data", (BATCH,) + IMAGE)],
+                 for_training=False, force_rebind=True)
+        mod.set_params({n: mx.nd.array(v, ctx=mx.cpu())
+                        for n, v in args.items()},
+                       {n: mx.nd.array(v, ctx=mx.cpu())
+                        for n, v in aux.items()})
+        stale = srv._fused.stale_for(mod._exec_group.executor, srv._mesh)
+        check(stale, "23a: the serving step is not stale for the module "
+              "bound again")
+        srv.refresh_params()
+        srv.refresh_params()
+        check(srv.executable_rebuilds == 1, "23a: %d rebuilds over two "
+              "refreshes after a re-bind, want 1" % srv.executable_rebuilds)
+        (again,) = srv.infer([images], timeout=300)
+        check(np.array_equal(again, ref), "23a: the rebuilt server's "
+              "outputs differ from the one-card FusedInfer's")
+    finally:
+        srv.close()
+    rec = {"launches": launches, "bit_equal": True, "stale": stale,
+           "rebuilds": srv.executable_rebuilds,
+           "mesh_key": srv._fused.mesh_key}
+    print("23a ResNet-50 NHWC batch %d through InferenceServer(tp=1) on "
+          "the (dp 1, tp 1) grid: outputs bit-equal to the one-card "
+          "FusedInfer, K4 %d a forward, stale after a re-bind %s, %d "
+          "rebuild, bit-equal after it  [%s]"
+          % (BATCH, launches["norm_act_fwd"], stale,
+             srv.executable_rebuilds, card))
+    rec["seconds"] = time.perf_counter() - t0
+    print("phase 23a: %.1f s" % rec["seconds"])
+    return rec
+
+
+def tp_serve_multi_path(torch, mx, kernels, card):
+    """23b: tools/torch_tp_serve_check.py's run() in this process over
+    every visible card, or a line saying it did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("23b: not run, 1 card visible")
+        return None
+    t0 = time.perf_counter()
+    tool = _tools_module("torch_tp_serve_check")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = tool.run(torch, mx, kernels, n)
+    check(not rec["failed"], "23b over %d cards: %s" % (n, rec["failed"]))
+    for line in tool.summary(rec, card):
+        print("23b " + line)
+    rec["phase_seconds"] = time.perf_counter() - t0
+    print("phase 23b: %.1f s" % rec["phase_seconds"])
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", help="write the full record here (JSON)")
@@ -8437,6 +8536,12 @@ def main():
                 pp_moe["pipeline"]["launches_forward"][kernel],
             "pp_one_card_train_step":
                 pp_moe["pipeline"]["launches_step"][kernel]})
+    # 23a. dp and tp serving: the server through the (dp 1, tp 1) grid on
+    # one card
+    tp_serve = tp_serve_one_card(torch, mx, kernels, card)
+    for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+        model_paths[kernel]["tp_serve_one_card_grid_forward"] = \
+            tp_serve["launches"][kernel]
     # 17b. one process over every visible card when there are two or more
     dp["multi"] = dp_multi_path(torch, mx, kernels, card)
     # 20b. fsdp over every visible card, after 17b
@@ -8446,6 +8551,14 @@ def main():
     # 22b. pipeline and expert parallelism over every visible card, one
     # process a card, after 21b
     pp_moe["multi"] = pp_moe_multi_path(torch, mx, kernels, card)
+    # 23b. dp and tp serving over every visible card, after 22b
+    tp_serve["multi"] = tp_serve_multi_path(torch, mx, kernels, card)
+    if tp_serve["multi"] is not None:
+        for name, f in tp_serve["multi"]["resnet50"]["factorings"].items():
+            for d, counts in f["launches_a_forward_by_card"].items():
+                for kernel in ("conv_gemm", "norm_act_fwd", "norm_act_bwd"):
+                    model_paths[kernel]["tp_serve_%s_card%s_forward"
+                                        % (name, d)] = counts[kernel]
     if pp_moe["multi"] is not None:
         for tag in ("pp", "pp_dp"):
             if tag in pp_moe["multi"]:
@@ -8491,7 +8604,7 @@ def main():
             "mirror_fused": mirror["runs"]["mirror"]["launches"][kernel],
             "mirror_classic": mirror["classic"]["launches"][kernel]})
 
-    # 23. report
+    # 24. report
     train_scope = "%d launches of one ResNet-50 NHWC training step, batch " \
         "32, f32"
     fused_note = ("*_fused: the wrappers' counts over the fused fit, its "
@@ -8561,7 +8674,12 @@ def main():
                   "on a one-rank pp mesh (a K1 stage a tick); "
                   "pp<n>[dp<m>]_rank<k>_forward: 22b's pipeline_forward "
                   "on rank k of n stages (num_mb + n - 1 ticks, a K1 "
-                  "launch each)")
+                  "launch each); tp_serve_one_card_grid_forward: phase "
+                  "23a's served ResNet-50 NHWC forward at batch 32 "
+                  "through the (dp 1, tp 1) grid; "
+                  "tp_serve_dp<m>_tp<t>_card<k>_forward: 23b's served "
+                  "ResNet-50 NHWC forward (32 rows a dp group) on card k "
+                  "at each factoring of the cards, from the kernel events")
     records = [{
         "name": "norm_act_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/norm_act.cu",
@@ -8845,7 +8963,8 @@ def main():
                        "dp_path": dp, "dist_path": dist,
                        "autotune_path": tune, "shard_path": shard,
                        "dp_feed_dropout_path": drop,
-                       "pp_moe_path": pp_moe}, f,
+                       "pp_moe_path": pp_moe, "tp_serve_path": tp_serve},
+                      f,
                       indent=1,
                       default=str)
     print(json.dumps({"kernels": records}))

@@ -491,6 +491,15 @@ declare("MXNET_TPU_SERVE_BATCH_DEADLINE_MS", float, 0.0,
         "interactive default. Batch-lane requests ride along in the "
         "capacity the interactive lane leaves free and are shed first "
         "under overload.", section=_S)
+declare("MXNET_TPU_SERVE_TP", int, 0,
+        "Tensor-parallel degree of an `InferenceServer` (read when the "
+        "server is built without `tp=`): the module's contexts are "
+        "factored into a `(dp, tp)` grid, each card of a tp group keeps "
+        "only its shard of every param that `tp_param_spec` splits "
+        "(the largest dim that divides by tp) and computes only its "
+        "share of every FullyConnected and Convolution product, and a "
+        "batch's rows split over dp. Must divide the number of "
+        "contexts. `0`/`1`: no tensor split.", section=_S)
 
 
 DOC_BEGIN = ("<!-- BEGIN MXNET_TPU_TORCH ENV REGISTRY (generated from "

@@ -59,7 +59,8 @@ __all__ = ["Executor", "ReplicatedExecutor", "make_graph_eval",
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def make_graph_eval(symbol, node_device=None, remat=False, replicas=None):
+def make_graph_eval(symbol, node_device=None, remat=False, replicas=None,
+                    node_apply=None):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
     aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
     tensors; a dict passed as ``internals`` receives every op output as
@@ -74,7 +75,11 @@ def make_graph_eval(symbol, node_device=None, remat=False, replicas=None):
     node runs once for all the replicas (its op's ``apply_replicas``, or
     ``apply`` replica by replica on its device), and the outputs and new
     aux states come back one list a replica (``internals`` get a list over
-    the replicas a name).
+    the replicas a name). ``node_apply(node, octx, ins, aux)``, where
+    given, runs first for every node of that walk and returns its
+    ``(outputs, new aux)`` in the same form, or None to leave the node to
+    the op (the tensor-parallel forward's split products,
+    :mod:`mxnet_tpu_torch.parallel.tp_infer`).
 
     ``remat=True`` is the mirrored backward (``MXNET_BACKWARD_DO_MIRROR``,
     the JAX package's segmented remat): the op nodes, in topological
@@ -111,7 +116,10 @@ def make_graph_eval(symbol, node_device=None, remat=False, replicas=None):
             slots = aux_slots.get(n.uid, ())
             aux_in = [aux_out[s] for s in slots]
             if replicas is not None:
-                outs, new_aux = _apply_replicas(n.op, octx, ins, aux_in)
+                done = (node_apply(n, octx, ins, aux_in)
+                        if node_apply is not None else None)
+                outs, new_aux = done if done is not None \
+                    else _apply_replicas(n.op, octx, ins, aux_in)
             else:
                 dev = node_device(n) if node_device is not None else None
                 if dev is not None:
@@ -689,6 +697,8 @@ class ReplicatedExecutor:
                 % replicas.n)
         self.execs = list(execs)
         self.replicas = replicas
+        #: each data and label argument's batch axis
+        self.inputs = dict(inputs)
         self.arg_names = ex0.arg_names
         self.output_names = ex0.output_names
         self._exchange = [self.arg_names.index(n) for n in exchange]

@@ -1,7 +1,10 @@
 """Fused steps, counterparts of ``mxnet_tpu/fused_step.py``: the train
 step (on one device, or over the cards of a group bound over several
-contexts) and the inference step (tensor-parallel serving is ROADMAP.md
-Queue A item 10e).
+contexts) and the inference step (on one device, or over a grid of a
+group's contexts: each batch's rows split over ``dp``, and on a
+``(dp, tp)`` grid every param that ``tp_param_spec`` splits kept as one
+shard a card, its FullyConnected and Convolution products split,
+:mod:`mxnet_tpu_torch.parallel.tp_infer`).
 
 :class:`FusedTrainStep` runs a training batch as one unit: the train
 forward, the backward, the optimizer's update (every kind whose plan
@@ -70,7 +73,9 @@ auxiliary states onto the device once, then serves each batch with one
 call: place the batch on the device, run the forward and the argmax or
 top-k under ``torch.inference_mode()``, and hand back device tensors. A
 delta refresh (``refresh_params(host_params, digests)``) copies only the
-params whose digest changed into the packed tensors, in place.
+params whose digest changed into the packed tensors, in place. Over a
+grid of cards the call walks the cards in lock-step, each on its rows,
+and joins the outputs on the first card.
 """
 from __future__ import annotations
 
@@ -709,47 +714,90 @@ def _refuse_host_callbacks(what, symbol):
                          "through the classic loop" % (what, names))
 
 
-def make_fused_infer(executor, data_names, top_k=0):
-    """A :class:`FusedInfer` over a bound executor. ``data_names`` are
-    the per-batch argument slots; every other argument is packed.
+def make_fused_infer(executor, data_names, top_k=0, mesh=None):
+    """A :class:`FusedInfer` over a bound executor (an ``Executor``, or a
+    group's ``ReplicatedExecutor`` over several contexts). ``data_names``
+    are the per-batch argument slots; every other argument is packed.
     ``top_k=0`` returns the raw outputs only, ``1`` adds the argmax over
     the last axis of the first output, ``>1`` its top-k values and
-    indices. A graph with a Custom node raises, naming it; a sample op
-    draws from the executor's generator."""
-    _refuse_host_callbacks("fused inference step", executor._symbol)
-    return FusedInfer(executor, data_names, top_k=top_k)
+    indices. ``mesh`` (a ``ContextMesh`` over the executor's contexts, in
+    their order) splits each batch's rows over its data axes; on a
+    ``(dp, tp)`` grid each card also keeps only its shard of every param
+    that ``tp_param_spec`` splits and computes its share of the split
+    products (:mod:`mxnet_tpu_torch.parallel.tp_infer`). A graph with a
+    Custom node raises, naming it; a sample op draws from the executor's
+    generator."""
+    execs = getattr(executor, "execs", None) or [executor]
+    _refuse_host_callbacks("fused inference step", execs[0]._symbol)
+    return FusedInfer(executor, data_names, top_k=top_k, mesh=mesh)
+
+
+def _labels(ex):
+    """The label arguments of executor ``ex``: packed with the params but
+    not params (never split, not counted as a param's bytes): its label
+    names, and any argument named ``*label``."""
+    return set(ex._label_names) | {n for n in ex.arg_names
+                                   if n.endswith("label")}
+
+
+class _Placed(list):
+    """A batch placed over the cards of a grid: one list of data tensors
+    a card, and ``sig``, the batch's whole shapes and dtypes."""
+
+    sig = ()
 
 
 class FusedInfer:
     """One call per batch. ``dispatches`` counts calls; ``compiles`` is
-    the number of distinct batch shapes seen (PyTorch compiles nothing;
-    the count mirrors the JAX package's, whose executable cache it
-    bounds, and under the serving ladder it stays at most the number of
-    buckets). The forward runs the executor's graph function, so a
-    ``compute_dtype`` bind serves in that dtype with float32 outputs.
+    the number of distinct (mesh factoring, batch shapes) seen (PyTorch
+    compiles nothing; the count mirrors the JAX package's, whose
+    executable cache it bounds, and under the serving ladder it stays at
+    most the number of buckets). The forward runs the executor's graph
+    function, so a ``compute_dtype`` bind serves in that dtype with
+    float32 outputs.
+
+    Over several contexts, or with a ``mesh``, the step serves on a grid
+    of the executor's contexts: card ``k`` gets its batch shard's rows
+    (:func:`~mxnet_tpu_torch.parallel.sharding.batch_shard_index`; every
+    card of a tp line the same rows), the replicas run in lock-step as
+    ``ReplicatedExecutor.forward`` runs them, and the outputs of one card
+    a batch shard are joined along the batch axis on the first card,
+    where the argmax or top-k runs. The params pack is one list a card
+    (``_param_vals[k]``): the whole of every param, or on a tp grid the
+    card's shard of each split one. Auxiliary states stay whole on every
+    card, as the reference replicates them.
 
     The serving surface of ``mxnet_tpu/fused_step.py:693-1029``:
-    :attr:`idempotent`, :meth:`stale_for`, :meth:`place_batch` and
-    :meth:`refresh_params`' delta refresh."""
+    :attr:`idempotent`, :attr:`mesh_key`, :meth:`factoring_key`,
+    :meth:`stale_for`, :meth:`place_batch` and :meth:`refresh_params`'
+    delta refresh."""
 
     #: a call reads the packed params and writes nothing they hold, so
     #: serving a retried request twice is harmless: the scheduler's
     #: request-id dedup of completed requests keys off this
     idempotent = True
 
-    def __init__(self, executor, data_names, top_k=0):
+    def __init__(self, executor, data_names, top_k=0, mesh=None):
         self._ex = executor
-        arg_pos = {n: i for i, n in enumerate(executor.arg_names)}
+        execs = getattr(executor, "execs", None)
+        self._execs = list(execs) if execs is not None else [executor]
+        ex0 = self._execs[0]
+        arg_pos = {n: i for i, n in enumerate(ex0.arg_names)}
         missing = [n for n in data_names if n not in arg_pos]
         if missing:
             raise MXNetError("fused_infer data args %s not in the "
                              "executor's arguments" % (missing,))
         self._data_names = list(data_names)
         self._d_idx = [arg_pos[n] for n in data_names]
-        self._p_idx = [i for i in range(len(executor.arg_names))
+        self._p_idx = [i for i in range(len(ex0.arg_names))
                        if i not in set(self._d_idx)]
         self._top_k = int(top_k)
-        self._device = executor._device
+        self._device = ex0._device
+        self._mesh = mesh
+        self._grid = None
+        if execs is not None or mesh is not None:
+            self._grid = _Grid(executor, self._execs, mesh, self._p_idx,
+                               self._data_names)
         self._seen_sigs = set()
         self.dispatches = 0
         self._param_vals = None
@@ -768,47 +816,86 @@ class FusedInfer:
     def compiles(self) -> int:
         return len(self._seen_sigs)
 
-    def stale_for(self, executor) -> bool:
+    @property
+    def mesh_key(self):
+        """The factoring this step serves on (``(("dp", 2), ("tp",
+        2))``), None off a mesh: a re-bind across factorings misses it."""
+        return self.factoring_key(self._mesh)
+
+    @staticmethod
+    def factoring_key(mesh):
+        """The :attr:`mesh_key` of a step built over ``mesh``."""
+        if mesh is None:
+            return None
+        from .parallel.sharding import mesh_axis_sizes
+
+        return tuple(mesh_axis_sizes(mesh).items())
+
+    @property
+    def tp_gathers(self) -> int:
+        """Transient whole params gathered by the split forward so far."""
+        plan = None if self._grid is None else self._grid.plan
+        return 0 if plan is None else plan.gathers
+
+    def stale_for(self, executor, mesh=None) -> bool:
         """True when ``executor`` is not the one this step packs and runs
-        (the module was bound again): serve through a new step."""
-        return executor is not self._ex
+        (the module was bound again), or ``mesh`` factors the contexts
+        otherwise: serve through a new step."""
+        return (executor is not self._ex
+                or self.factoring_key(mesh) != self.mesh_key)
+
+    def param_bytes(self, k: int = 0) -> int:
+        """Bytes of the packed params resident on card ``k`` (labels
+        excepted): a tp grid's shards, else whole params."""
+        ex0 = self._execs[0]
+        labels = _labels(ex0)
+        vals = self._param_vals if self._grid is None \
+            else self._param_vals[k]
+        return sum(v.numel() * v.element_size()
+                   for v, i in zip(vals, self._p_idx)
+                   if ex0.arg_names[i] not in labels)
 
     def refresh_params(self, host_params=None, digests=None):
         """Repack the non-data arguments and auxiliary states.
 
         * With no arguments (after ``module.set_params``): a copy of every
-          argument and aux array on the device, so later writes to the
-          executor's arrays reach serving only through this call (as with
-          the JAX package). The resident digests become unknown.
+          argument and aux array on the device (on a tp grid each card's
+          shard of a split param), so later writes to the executor's
+          arrays reach serving only through this call (as with the JAX
+          package). The resident digests become unknown.
         * With ``host_params`` (name -> host array) and optionally
           ``digests`` (name -> sha256, a snapshot's ``param_digests``;
           hashed here where missing): the delta refresh. Only params
           whose digest differs from the resident pack's are copied, in
-          place, into the packed tensors and through to the executor's
-          arrays; names that are not packed params are ignored.
+          place, into the packed tensors (each card's shard of a split
+          one) and through to the executors' arrays; names that are not
+          packed params are ignored.
 
-        ``last_refresh_bytes`` / ``_changed`` / ``_skipped`` / ``_ms``
-        describe the call; telemetry ``infer.refresh_bytes``,
-        ``infer.refresh_changed``, ``infer.refresh_skipped`` and
-        ``infer.refresh_ms``."""
-        import time
-
+        ``last_refresh_bytes`` (host bytes of the whole params moved) /
+        ``_changed`` / ``_skipped`` / ``_ms`` describe the call;
+        telemetry ``infer.refresh_bytes``, ``infer.refresh_changed``,
+        ``infer.refresh_skipped`` and ``infer.refresh_ms``."""
         from .checkpoint import param_digest
 
-        ex = self._ex
         t0 = time.perf_counter()
         moved = changed = skipped = 0
+        grid = self._grid
         if host_params is None:
-            self._param_vals = [ex.arg_arrays[i].handle.detach().clone()
-                                for i in self._p_idx]
-            self._aux_vals = [a.handle.detach().clone()
-                              for a in ex.aux_arrays]
-            changed = len(self._param_vals)
-            moved = sum(v.numel() * v.element_size()
-                        for v in self._param_vals)
+            if grid is None:
+                ex = self._ex
+                self._param_vals = [ex.arg_arrays[i].handle.detach().clone()
+                                    for i in self._p_idx]
+                self._aux_vals = [a.handle.detach().clone()
+                                  for a in ex.aux_arrays]
+                moved = sum(v.numel() * v.element_size()
+                            for v in self._param_vals)
+            else:
+                self._param_vals, self._aux_vals, moved = grid.pack()
+            changed = len(self._p_idx)
             self._digests = None
         else:
-            pos_of = {ex.arg_names[i]: pos
+            ex0 = self._execs[0]
+            pos_of = {ex0.arg_names[i]: pos
                       for pos, i in enumerate(self._p_idx)}
             known = self._digests
             new_digests = dict(known or {})
@@ -821,14 +908,19 @@ class FusedInfer:
                     skipped += 1
                     continue
                 host = np.ascontiguousarray(np.asarray(host))
-                dst = self._param_vals[pos]
-                if tuple(host.shape) != tuple(dst.shape):
+                i = self._p_idx[pos]
+                whole = tuple(ex0.arg_arrays[i].shape)
+                if tuple(host.shape) != whole:
                     raise MXNetError("refresh_params: '%s' is %s, the "
                                      "served param %s" % (
-                                         name, host.shape, tuple(dst.shape)))
-                src = torch.from_numpy(host).to(dst.device, dst.dtype)
-                dst.copy_(src)
-                ex.arg_arrays[self._p_idx[pos]].handle.copy_(src)
+                                         name, host.shape, whole))
+                if grid is None:
+                    dst = self._param_vals[pos]
+                    src = torch.from_numpy(host).to(dst.device, dst.dtype)
+                    dst.copy_(src)
+                    self._ex.arg_arrays[i].handle.copy_(src)
+                else:
+                    grid.write(self._param_vals, pos, name, host)
                 new_digests[name] = digest
                 changed += 1
                 moved += int(host.nbytes)
@@ -843,8 +935,11 @@ class FusedInfer:
         _tel.observe("infer.refresh_ms", self.last_refresh_ms)
 
     def place_batch(self, arrays):
-        """Host arrays (or tensors) of one batch -> tensors on the
-        device."""
+        """Host arrays (or tensors) of one batch -> tensors on the device;
+        on a grid, each card's rows on that card (a batch placed already
+        passes through)."""
+        if self._grid is not None:
+            return self._grid.place(arrays)
         placed = []
         for a in arrays:
             if not isinstance(a, torch.Tensor):
@@ -855,20 +950,25 @@ class FusedInfer:
     def __call__(self, arrays):
         """One batch -> ``(outputs, post)``: ``post`` is ``()`` for
         top_k=0, ``(argmax,)`` for top_k=1, ``(values, indices)``
-        otherwise. Results stay on the device."""
+        otherwise. Results stay on the (first) card."""
         d_vals = self.place_batch(arrays)
-        sig = tuple((tuple(v.shape), str(v.dtype)) for v in d_vals)
-        if sig not in self._seen_sigs:
-            self._seen_sigs.add(sig)
+        sig = d_vals.sig if self._grid is not None else tuple(
+            (tuple(v.shape), str(v.dtype)) for v in d_vals)
+        key = (self.mesh_key, sig)
+        if key not in self._seen_sigs:
+            self._seen_sigs.add(key)
             _tel.inc("infer.recompiles")
         self.dispatches += 1
         _tel.inc("infer.dispatches")
-        full = [None] * len(self._ex.arg_names)
-        for pos, i in enumerate(self._p_idx):
-            full[i] = self._param_vals[pos]
-        for pos, i in enumerate(self._d_idx):
-            full[i] = d_vals[pos]
-        outs = self._ex.run(full, self._aux_vals, is_train=False)
+        if self._grid is not None:
+            outs = self._grid.run(self._param_vals, d_vals, self._aux_vals)
+        else:
+            full = [None] * len(self._ex.arg_names)
+            for pos, i in enumerate(self._p_idx):
+                full[i] = self._param_vals[pos]
+            for pos, i in enumerate(self._d_idx):
+                full[i] = d_vals[pos]
+            outs = self._ex.run(full, self._aux_vals, is_train=False)
         post = ()
         head = outs[0] if outs else None
         if self._top_k and head is not None and head.dim() >= 2 \
@@ -879,3 +979,166 @@ class FusedInfer:
                 else:
                     post = tuple(torch.topk(head, self._top_k, dim=-1))
         return tuple(outs), post
+
+
+class _Grid:
+    """:class:`FusedInfer` over the cards of a grid: the mesh, the replica
+    set, the split forward's plan on a tp grid, and each card's rows."""
+
+    def __init__(self, executor, execs, mesh, p_idx, data_names):
+        from .executor import _cast_graph, make_graph_eval
+        from .parallel.sharding import (ContextMesh, batch_shard_extent,
+                                        batch_shard_index)
+        from .replicas import Replicas
+
+        ex0 = execs[0]
+        if any(ex._group2ctx for ex in execs):
+            raise MXNetError("fused inference over a grid: group2ctx "
+                             "placement runs a replica's graph across "
+                             "contexts; bind placed graphs without a mesh")
+        ctxs = [ex._ctx for ex in execs]
+        if mesh is None:
+            mesh = ContextMesh({"dp": len(execs)}, ctxs)
+        if list(mesh.devices.flat) != ctxs:
+            raise MXNetError("fused inference: the mesh's contexts %s are "
+                             "not the executor's %s, in order"
+                             % ([str(c) for c in mesh.devices.flat],
+                                [str(c) for c in ctxs]))
+        self.ex, self.execs, self.mesh = executor, execs, mesh
+        self.reps = getattr(executor, "replicas", None) \
+            or Replicas([ex0._device])
+        self.p_idx = p_idx
+        self.d_idx = [ex0.arg_names.index(n) for n in data_names]
+        self.data_names = data_names
+        self.extent = batch_shard_extent(mesh)
+        self.tp = int(mesh.shape.get("tp", 1))
+        axes = getattr(executor, "inputs", {})
+        self.axes = [axes.get(n, 0) for n in data_names]
+        self.index = [batch_shard_index(mesh, k) for k in range(mesh.size)]
+        #: one card a batch shard, in shard order: the outputs joined
+        self.heads = [self.index.index(b) for b in range(self.extent)]
+        self.plan = None
+        node_apply = None
+        if self.tp > 1:
+            from .parallel.tp_infer import TensorParallel
+
+            labels = _labels(ex0)
+            shapes = {ex0.arg_names[i]: tuple(ex0.arg_arrays[i].shape)
+                      for i in p_idx if ex0.arg_names[i] not in labels}
+            self.plan = TensorParallel(ex0._symbol, mesh, self.reps, shapes)
+            node_apply = self.plan.apply
+        eval_graph, _ = make_graph_eval(ex0._symbol, replicas=self.reps,
+                                        node_apply=node_apply)
+        if ex0.compute_dtype is not None:
+            eval_graph = _cast_graph(eval_graph, ex0.arg_names,
+                                     set(ex0._label_names),
+                                     ex0.compute_dtype, self.reps)
+        self.eval_graph = eval_graph
+
+    def _whole(self, k, i):
+        """Argument ``i``'s whole value on card ``k``: the executor's
+        array (a fsdp-sharded param joined from its master shards)."""
+        name = self.execs[0].arg_names[i]
+        shards = getattr(self.ex, "shards", None)
+        if shards is not None and name in shards.index:
+            return shards.gather_value(name).to(self.execs[k]._device)
+        return self.execs[k].arg_arrays[i].handle
+
+    def _local(self, k, name, value):
+        """Card ``k``'s part of param ``name``'s whole ``value``."""
+        if self.plan is None or self.plan.split_dim(name) is None:
+            return value
+        from .parallel.sharding import tp_shard
+
+        return tp_shard(value, self.mesh, k)
+
+    def pack(self):
+        """``(params a card, aux a card, whole bytes)`` copied from the
+        executors' arrays."""
+        names = self.execs[0].arg_names
+        params, aux = [], []
+        for k, ex in enumerate(self.execs):
+            with self.reps.device(k):
+                params.append([self._local(k, names[i], self._whole(k, i))
+                               .detach().clone() for i in self.p_idx])
+                aux.append([a.handle.detach().clone()
+                            for a in ex.aux_arrays])
+        arrays = self.execs[0].arg_arrays
+        moved = sum(arrays[i].handle.numel() * arrays[i].handle.element_size()
+                    for i in self.p_idx)
+        return params, aux, moved
+
+    def write(self, params, pos, name, host):
+        """The delta refresh of packed param ``pos`` (``name``) from its
+        whole host value: each card's part into its pack, in place, and
+        the whole value through to each executor's array."""
+        i = self.p_idx[pos]
+        shards = getattr(self.ex, "shards", None)
+        whole = torch.from_numpy(host)
+        for k, ex in enumerate(self.execs):
+            dst = params[k][pos]
+            part = np.ascontiguousarray(self._local(k, name, host))
+            with self.reps.device(k):
+                dst.copy_(torch.from_numpy(part).to(dst.device, dst.dtype))
+                if shards is not None and name in shards.index:
+                    view = shards.weight(name, k).handle
+                    view.copy_(whole[shards.rows(name, k)].to(
+                        view.device, view.dtype))
+                else:
+                    arr = ex.arg_arrays[i].handle
+                    arr.copy_(whole.to(arr.device, arr.dtype))
+
+    def place(self, arrays):
+        """Each card's rows of the batch on that card."""
+        if isinstance(arrays, _Placed):
+            return arrays
+        whole = [a if isinstance(a, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(a))
+                 for a in arrays]
+        placed = _Placed()
+        placed.sig = tuple((tuple(v.shape), str(v.dtype)) for v in whole)
+        for k, ex in enumerate(self.execs):
+            row = []
+            for v, axis, name in zip(whole, self.axes, self.data_names):
+                n = v.shape[axis]
+                if n % self.extent:
+                    raise MXNetError(
+                        "fused inference: '%s' has %d rows, not a multiple "
+                        "of the mesh's %d batch shards (serve through the "
+                        "bucket ladder)" % (name, n, self.extent))
+                rows = n // self.extent
+                part = v.narrow(axis, self.index[k] * rows, rows)
+                with self.reps.device(k):
+                    row.append(part.to(ex._device))
+            placed.append(row)
+        return placed
+
+    def run(self, params, placed, aux):
+        """The lock-step forward over the cards; the outputs of one card
+        a batch shard joined along their batch axis on the first card."""
+        execs = self.execs
+        n_args = len(execs[0].arg_names)
+        full = []
+        for k in range(len(execs)):
+            f = [None] * n_args
+            for pos, i in enumerate(self.p_idx):
+                f[i] = params[k][pos]
+            for pos, i in enumerate(self.d_idx):
+                f[i] = placed[k][pos]
+            full.append(f)
+        rngs = [ex._generator() if ex._draws else None for ex in execs]
+        with torch.inference_mode():
+            outs, _ = self.eval_graph(full, aux, rngs, False)
+            if len(self.heads) == 1:
+                return list(outs[self.heads[0]])
+            dev0 = execs[0]._device
+            joined = []
+            for i, name in enumerate(execs[0].output_names):
+                axis = self.ex._out_axes.get(name)
+                if axis == -1:
+                    joined.append(outs[0][i])
+                    continue
+                axis = self.ex.output_axis(i)
+                joined.append(torch.cat([outs[k][i].to(dev0)
+                                         for k in self.heads], dim=axis))
+            return joined

@@ -15,6 +15,11 @@ launcher's world joined later.
 The executor group's mesh is a :class:`ContextMesh`: the grid of the
 contexts of one process, named ``("dp",)`` or ``("dp", "fsdp")`` as the
 reference's group names its device grid (``MXNET_TPU_MESH_FSDP``).
+:func:`make_mesh` given contexts for ``devices`` builds one too: the
+serving grid ``make_mesh({"dp": n // tp, "tp": tp}, devices=contexts)``
+(``serving.InferenceServer(tp=)``), on which :func:`tp_shard` gives a
+context its shard of a param and :func:`batch_shard_index` the rows of a
+batch it serves.
 
 The spec layer is pure functions of a mesh's axis names and sizes, so it
 takes either kind of mesh: :func:`batch_spec`, :func:`fsdp_param_spec`
@@ -35,9 +40,12 @@ statistics are those of the global batch (one autograd-aware all-reduce
 of the partial sums a BatchNorm over the data axes), and each gradient
 is summed over the data axes onto its param's placements: ``Partial`` to
 ``Shard`` is a reduce-scatter, ``Partial`` to ``Replicate`` an
-all-reduce. A ``tp`` placement shards the storage of a param and its
-gradient; the computation is not split along ``tp`` (ROADMAP.md Queue
-A, item 10e).
+all-reduce. A ``tp`` placement there shards the storage of a param and
+its gradient; the training step's computation is not split along
+``tp`` (ROADMAP.md Queue A, the 10e leftover). Serving splits it: on a
+``(dp, tp)`` grid of contexts each card computes its share of every
+FullyConnected and Convolution product
+(:mod:`mxnet_tpu_torch.parallel.tp_infer`).
 """
 from __future__ import annotations
 
@@ -56,8 +64,9 @@ from ..base import DeviceUnavailableError, MXNetError
 __all__ = ["make_mesh", "mesh_axis_sizes", "make_param_shardings",
            "shard_args", "build_sgd_train_step", "ShardingRule",
            "batch_spec", "fsdp_param_spec", "tp_param_spec",
-           "batch_shard_extent", "DATA_AXES", "PartitionSpec",
-           "NamedSharding", "ContextMesh"]
+           "batch_shard_extent", "batch_shard_index", "tp_shard",
+           "tp_shard_dim", "DATA_AXES", "PartitionSpec", "NamedSharding",
+           "ContextMesh"]
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -154,7 +163,16 @@ def make_mesh(axis_sizes: Dict[str, int], devices: Optional[Sequence] = None,
     ``devices``, the world ranks it spans in grid order (default: the
     ranks of the default process group, whose number must then equal the
     mesh's size). Every rank of the world calls it. It runs on the card
-    unless ``device_type="cpu"`` is asked for."""
+    unless ``device_type="cpu"`` is asked for.
+
+    ``devices`` given as contexts (``mx.gpu(k)``, ``mx.cpu(k)``) gives
+    the :class:`ContextMesh` of those contexts instead: one process's
+    grid, which needs no process group."""
+    from ..context import Context
+
+    if devices is not None and len(devices) \
+            and all(isinstance(d, Context) for d in devices):
+        return ContextMesh(axis_sizes, devices)
     if device_type not in _BACKENDS:
         raise MXNetError("make_mesh: device_type must be one of %s, got %r"
                          % (sorted(_BACKENDS), device_type))
@@ -251,6 +269,45 @@ def batch_shard_extent(mesh) -> int:
         return 1
     sizes = mesh_axis_sizes(mesh)
     return math.prod(sizes[a] for a in DATA_AXES if a in sizes)
+
+
+def batch_shard_index(mesh, k: int) -> int:
+    """Which of the :func:`batch_shard_extent` slices of a batch context
+    ``k`` of a :class:`ContextMesh` serves: its index over the data axes
+    (row-major). The contexts of one ``tp`` line share it."""
+    at = mesh.coords(k)
+    index = 0
+    for a in DATA_AXES:
+        if a in mesh.shape:
+            index = index * mesh.shape[a] + at[a]
+    return index
+
+
+def tp_shard_dim(shape, mesh, axis: str = "tp") -> Optional[int]:
+    """The dim of a param of ``shape`` that :func:`tp_param_spec` splits
+    along ``axis``; None where the param stays whole (no dim divides, a
+    ``tp`` of 1, no such axis)."""
+    spec = tp_param_spec(tuple(shape), mesh, axis)
+    for d, a in enumerate(spec or ()):
+        if a == axis:
+            return d
+    return None
+
+
+def tp_shard(value, mesh, k: int, axis: str = "tp"):
+    """Context ``k``'s local shard of a param (a numpy array or a tensor,
+    its whole value) on ``mesh``, a :class:`ContextMesh`: the ``j``-th
+    of the ``tp`` equal slices along the dim :func:`tp_param_spec`
+    picks, ``j`` the context's ``tp`` coordinate; ``value`` itself where
+    the param stays whole. A view, not a copy."""
+    d = tp_shard_dim(value.shape, mesh, axis)
+    if d is None:
+        return value
+    size = value.shape[d] // mesh.shape[axis]
+    j = mesh.coords(k)[axis]
+    index = [slice(None)] * len(value.shape)
+    index[d] = slice(j * size, (j + 1) * size)
+    return value[tuple(index)]
 
 
 def tp_param_spec(shape, mesh, axis: str = "tp") -> Optional[PartitionSpec]:

@@ -25,6 +25,12 @@ node by node, so that an op whose result depends on the whole batch
   Queue A item 10c): a shard-major flat buffer a card summed over every
   card with each card keeping its fsdp shard, and each card's shard
   gathered into every card of its fsdp group.
+* :meth:`Replicas.gather_along` and :meth:`Replicas.sum_groups` are the
+  tensor-parallel forward's exchange within each ``tp`` line of a
+  serving grid (:mod:`mxnet_tpu_torch.parallel.tp_infer`): the cards'
+  pieces of an activation (or of a param) joined along any axis on every
+  card of the line, and the cards' partial products summed. Serving has
+  no backward, so neither records one.
 
 On cards a sum is a single-process NCCL all-reduce (``torch.cuda.nccl``,
 one group call over every card's stream), which gives every card the
@@ -211,6 +217,58 @@ class Replicas:
                         outputs[k][j * size:(j + 1) * size].copy_(
                             inputs[src])
         return outputs
+
+    def gather_along(self, tensors, axis: int, groups, streams=None):
+        """Every line ``g`` of ``groups`` (replica indices): the
+        replicas' ``tensors`` of the line (one a replica, one shape)
+        joined along ``axis`` in the line's order, as ``torch.cat``
+        would, on each of its replicas. Returns the joined tensor a
+        replica. No gradient."""
+        out = [None] * self.n
+        axis = axis % tensors[0].dim()
+        if self.cuda:
+            streams = streams if streams is not None else self.streams
+            for g in groups:
+                shape = tensors[g[0]].shape
+                ins, bufs = [], []
+                for k in g:
+                    with self.on(k, streams):
+                        ins.append(tensors[k].contiguous())
+                        bufs.append(torch.empty(
+                            (len(g),) + tuple(shape), dtype=ins[-1].dtype,
+                            device=ins[-1].device))
+                torch.cuda.nccl.all_gather(ins, bufs,
+                                           streams=_pick(streams, g))
+                merged = list(shape)
+                merged[axis] *= len(g)
+                for k, buf in zip(g, bufs):
+                    with self.on(k, streams):
+                        out[k] = buf.movedim(0, axis).reshape(merged)
+            return out
+        for g in groups:
+            joined = torch.cat([tensors[k] for k in g], dim=axis)
+            for k in g:
+                out[k] = joined
+        return out
+
+    def sum_groups(self, tensors, groups, streams=None):
+        """Every line ``g`` of ``groups``: each of its replicas' tensors
+        (contiguous, one shape) becomes the sum of the line's, in place
+        (in the line's order on the CPU). No gradient."""
+        if self.cuda:
+            streams = streams if streams is not None else self.streams
+            for g in groups:
+                torch.cuda.nccl.all_reduce([tensors[k] for k in g],
+                                           streams=_pick(streams, g))
+            return tensors
+        with torch.no_grad():
+            for g in groups:
+                total = tensors[g[0]].clone()
+                for k in g[1:]:
+                    total += tensors[k]
+                for k in g:
+                    tensors[k].copy_(total)
+        return tensors
 
 
 def _pick(streams, indices):

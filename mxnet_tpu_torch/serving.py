@@ -1,10 +1,11 @@
 """Batched inference serving, counterpart of ``mxnet_tpu/serving.py``
-(tensor-parallel serving, distributed-trace spans and injected faults
-wait for later slices, ROADMAP.md Queue A items 10 and 12).
+(distributed-trace spans and injected faults wait for a later slice,
+ROADMAP.md Queue A item 12).
 
 * :func:`bucket_ladder` — the padded batch sizes: each dispatched batch
   is padded with zero rows up to the next rung, so the served batch
-  shapes are few and fixed.
+  shapes are few and fixed; every rung is a multiple of the batch's
+  shards (``dp``).
 * :class:`BatchScheduler` — a deadline-aware continuous batcher. Every
   request carries a ``priority`` lane (interactive or batch) and a
   ``deadline_ms`` (given, or the lane's default from the SLO). One
@@ -25,7 +26,13 @@ wait for later slices, ROADMAP.md Queue A items 10 and 12).
 * :class:`InferenceServer` — a bound Module behind a scheduler, through
   :class:`~mxnet_tpu_torch.fused_step.FusedInfer`, with the SLO probe and
   the controller state on the metrics server's ``/healthz``, and the
-  delta refresh from a checkpoint snapshot.
+  delta refresh from a checkpoint snapshot. A module bound over several
+  contexts serves over them: as dp replicas, each card serving its rows
+  of every padded batch, or with ``tp`` (``MXNET_TPU_SERVE_TP``) on a
+  ``(dp, tp)`` grid of the same contexts, each card of a tp line keeping
+  its shard of every split param and computing its share of every
+  FullyConnected and Convolution product
+  (:mod:`mxnet_tpu_torch.parallel.tp_infer`).
 
 ``close()`` stops intake, serves what is queued, and joins the worker.
 """
@@ -67,11 +74,20 @@ class RequestShed(MXNetError):
     past its deadline. Safe to retry elsewhere."""
 
 
-def bucket_ladder(max_batch: int, spec=None) -> Tuple[int, ...]:
+def bucket_ladder(max_batch: int, dp: int = 1, spec=None,
+                  mesh=None) -> Tuple[int, ...]:
     """Padded batch sizes: powers of two up to ``max_batch`` (which is
-    always the top rung), or the rungs of ``spec`` (a sequence, or a
-    comma list as ``MXNET_TPU_SERVE_BUCKETS`` gives it, which is read when
-    ``spec`` is None)."""
+    always covered by the top rung), or the rungs of ``spec`` (a
+    sequence, or a comma list as ``MXNET_TPU_SERVE_BUCKETS`` gives it,
+    which is read when ``spec`` is None). Every rung is rounded up to a
+    multiple of the batch-sharding extent, so the batch always splits
+    evenly: ``mesh``'s data axes (``dp``, ``dp x fsdp``; on a ``(dp,
+    tp)`` grid just ``dp``), or ``dp`` given directly."""
+    if mesh is not None:
+        from .parallel.sharding import batch_shard_extent
+
+        dp = batch_shard_extent(mesh)
+    dp = max(1, int(dp))
     if spec is None:
         spec = _env.get("MXNET_TPU_SERVE_BUCKETS")
     if isinstance(spec, str):
@@ -84,11 +100,11 @@ def bucket_ladder(max_batch: int, spec=None) -> Tuple[int, ...]:
             rungs.append(b)
             b *= 2
         rungs.append(max_batch)
-    ladder = sorted(set(rungs))
-    if not ladder or ladder[0] <= 0:
-        raise MXNetError("invalid bucket ladder %r" % (ladder,))
+    if not rungs or min(rungs) <= 0:
+        raise MXNetError("invalid bucket ladder %r" % (sorted(rungs),))
+    ladder = sorted({max(dp, -(-r // dp) * dp) for r in rungs})
     if ladder[-1] < max_batch:
-        ladder.append(int(max_batch))
+        ladder.append(-(-int(max_batch) // dp) * dp)
     return tuple(ladder)
 
 
@@ -257,7 +273,8 @@ def _to_host(r) -> np.ndarray:
 class BatchScheduler:
     """Deadline-aware continuous batcher in front of an infer callable
     ``infer_fn(placed_arrays) -> (outputs, post)``, dispatched once a
-    batch.
+    batch. ``dp``, the batch's shards over the cards, rounds
+    ``max_batch`` and every rung of the ladder up to a multiple of it.
 
     The dispatch decision (``_decide``) fires on the first of:
 
@@ -284,19 +301,21 @@ class BatchScheduler:
                  max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None,
                  buckets: Optional[Sequence[int]] = None,
-                 slo_ms: Optional[float] = None, place=None,
+                 slo_ms: Optional[float] = None, dp: int = 1, place=None,
                  slo_window: int = 512, adaptive: Optional[bool] = None,
                  default_deadline_ms: Optional[float] = None,
                  batch_deadline_ms: Optional[float] = None,
                  clock=time.perf_counter, autostart: bool = True):
         self._infer = infer_fn
         self._data_shapes = [tuple(s) for s in data_shapes]
+        dp = max(1, int(dp))
         if max_batch is None:
             max_batch = _env.get("MXNET_TPU_SERVE_MAX_BATCH")
-        self.max_batch = int(max_batch)
+        # a multiple of dp, so the top rung splits over the batch shards
+        self.max_batch = max(dp, -(-int(max_batch) // dp) * dp)
         self.max_wait_ms = float(_env.get("MXNET_TPU_SERVE_MAX_WAIT_MS")
                                  if max_wait_ms is None else max_wait_ms)
-        self.buckets = bucket_ladder(self.max_batch, buckets)
+        self.buckets = bucket_ladder(self.max_batch, dp=dp, spec=buckets)
         self._rung_set = frozenset(self.buckets)
         self.slo_ms = float(_env.get("MXNET_TPU_SERVE_SLO_MS")
                             if slo_ms is None else slo_ms)
@@ -876,6 +895,12 @@ class BatchScheduler:
         self.close()
 
 
+def _group_executor(group):
+    """What a group serves through: its replicated executor over several
+    contexts, else its one executor."""
+    return group.replicated or group.executor
+
+
 class InferenceServer:
     """A bound, initialized Module served behind a :class:`BatchScheduler`
     through a :class:`~mxnet_tpu_torch.fused_step.FusedInfer`.
@@ -885,7 +910,17 @@ class InferenceServer:
     ``/healthz`` degraded on a breach, and ``health_info`` adds the
     in-flight count and the controller state to every ``/healthz``
     payload. ``port`` (default ``MXNET_TPU_SERVE_PORT``) starts a metrics
-    server; unset, a running one is reused."""
+    server; unset, a running one is reused.
+
+    A module bound over several contexts serves over all of them, on the
+    group's mesh (dp replicas: each card serves its rows of every padded
+    batch). ``tp`` (default ``MXNET_TPU_SERVE_TP``; given, 1 included)
+    factors the contexts into the ``(dp, tp)`` grid (:meth:`_tp_mesh`):
+    each card of a tp line serves its dp group's rows, keeps only its
+    shard of every param that ``tp_param_spec`` splits and computes its
+    share of every FullyConnected and Convolution product. ``dp`` and
+    ``tp`` say how the server serves; the ladder's rungs are multiples of
+    ``dp``."""
 
     def __init__(self, module, top_k: int = 0,
                  max_batch: Optional[int] = None,
@@ -898,23 +933,35 @@ class InferenceServer:
                  batch_deadline_ms: Optional[float] = None,
                  tp: Optional[int] = None):
         from .fused_step import make_fused_infer
+        from .parallel.sharding import batch_shard_extent
 
-        if tp is not None and int(tp) > 1:
-            raise MXNetError("tensor-parallel serving (tp=%d) is not "
-                             "ported yet: ROADMAP.md Queue A item 10e" % tp)
         if not module.binded or not module.params_initialized:
             raise MXNetError("InferenceServer needs a bound, "
                              "param-initialized module")
         group = module._exec_group
+        mesh = group._mesh
+        if tp is None:
+            tp = _env.get("MXNET_TPU_SERVE_TP") or None
+        #: a tp was asked for (1 included): serve on the (dp, tp) grid
+        self._factor = tp is not None
+        self.tp = tp = max(1, int(tp or 1))
+        if self._factor:
+            mesh = self._tp_mesh(group, mesh, tp)
         self._module = module
+        self._mesh = mesh
         self._top_k = top_k
-        self._fused = make_fused_infer(group.executor, module.data_names,
-                                       top_k=top_k)
+        #: the batch's shards: rungs round to dp, never to dp x tp
+        self.dp = dp = batch_shard_extent(mesh)
+        #: serving steps rebuilt after a re-bind (serve.executable_rebuilds)
+        self.executable_rebuilds = 0
+        self._fused = make_fused_infer(_group_executor(group),
+                                       module.data_names, top_k=top_k,
+                                       mesh=mesh)
         self.scheduler = BatchScheduler(
             self._fused, [d.shape for d in group.data_shapes],
             max_batch=max_batch, max_wait_ms=max_wait_ms, buckets=buckets,
-            slo_ms=slo_ms, place=self._fused.place_batch, adaptive=adaptive,
-            default_deadline_ms=default_deadline_ms,
+            slo_ms=slo_ms, dp=dp, place=self._fused.place_batch,
+            adaptive=adaptive, default_deadline_ms=default_deadline_ms,
             batch_deadline_ms=batch_deadline_ms)
         self._metrics = None
         self._own_metrics = False
@@ -932,6 +979,31 @@ class InferenceServer:
         _tracing.register_health_info(self._info_name, self.health_info)
         self._closed = False
         self._close_lock = threading.Lock()
+        _log.info("serving: buckets=%s max_wait_ms=%s adaptive=%s dp=%d "
+                  "tp=%d slo_ms=%s%s",
+                  self.scheduler.buckets, self.scheduler.max_wait_ms,
+                  self.scheduler.adaptive, dp, tp,
+                  self.scheduler.slo_ms or "off",
+                  " metrics on :%d" % self._metrics.port
+                  if self._metrics else "")
+
+    @staticmethod
+    def _tp_mesh(group, mesh, tp: int):
+        """The ``(dp, tp)`` serving grid of the group's contexts (the
+        mesh's, where it has one): ``tp`` of them split the model, the
+        ``dp`` lines split the batch. Raises, naming the knob, when ``tp``
+        does not divide the contexts, rather than serve on fewer cards
+        than the module was bound on."""
+        from .parallel.sharding import make_mesh
+
+        contexts = (list(mesh.devices.flat) if mesh is not None
+                    else list(group.contexts))
+        n = len(contexts)
+        if n % tp:
+            raise MXNetError(
+                "MXNET_TPU_SERVE_TP=%d does not divide the %d-device "
+                "group; pick a tp that factors the device count" % (tp, n))
+        return make_mesh({"dp": n // tp, "tp": tp}, devices=contexts)
 
     @property
     def port(self) -> Optional[int]:
@@ -990,17 +1062,28 @@ class InferenceServer:
 
     def _ensure_executable(self):
         """Rebuild the FusedInfer when the module was bound again since
-        it was built, and repoint the scheduler (and its stager) at it;
-        a dispatch already running finishes on the old one."""
+        it was built, or its contexts factor otherwise (a re-bound group
+        under tp is factored again), and repoint the scheduler (and its
+        stager) at it; a dispatch already running finishes on the old
+        one."""
         group = self._module._exec_group
-        if not self._fused.stale_for(group.executor):
+        ex = _group_executor(group)
+        mesh = self._mesh
+        if not self._factor:
+            mesh = group._mesh
+        elif self._fused.stale_for(ex, self._mesh):
+            mesh = self._tp_mesh(group, group._mesh, self.tp)
+        if not self._fused.stale_for(ex, mesh):
             return
         from .fused_step import make_fused_infer
+        from .parallel.sharding import batch_shard_extent
 
-        self._fused = make_fused_infer(group.executor,
-                                       self._module.data_names,
-                                       top_k=self._top_k)
+        self._mesh = mesh
+        self.dp = batch_shard_extent(mesh)
+        self._fused = make_fused_infer(ex, self._module.data_names,
+                                       top_k=self._top_k, mesh=mesh)
         self.scheduler.rebind_infer(self._fused, self._fused.place_batch)
+        self.executable_rebuilds += 1
         _tel.inc("serve.executable_rebuilds")
 
     def health_info(self) -> dict:
@@ -1008,7 +1091,8 @@ class InferenceServer:
         served counts and the controller state."""
         info = {"in_flight": self.scheduler.in_flight(),
                 "requests_served":
-                    self.scheduler.occupancy_snapshot()["served"]}
+                    self.scheduler.occupancy_snapshot()["served"],
+                "dp": self.dp, "tp": self.tp}
         info.update(self.scheduler.controller_state())
         return info
 
@@ -1025,6 +1109,8 @@ class InferenceServer:
         out["dispatches"] = self._fused.dispatches
         out["buckets"] = list(self.buckets)
         out["in_flight"] = self.scheduler.in_flight()
+        out["dp"] = self.dp
+        out["tp"] = self.tp
         return out
 
     def close(self):

@@ -42,6 +42,8 @@ PORT_VARS = ["MXNET_TPU_FUSED_STEP", "MXNET_TPU_TELEMETRY",
              "MXNET_TPU_SERVE_SLO_MS", "MXNET_TPU_SERVE_ADAPTIVE",
              "MXNET_TPU_SERVE_DEADLINE_MS",
              "MXNET_TPU_SERVE_BATCH_DEADLINE_MS",
+             # tensor-parallel serving over the (dp, tp) grid
+             "MXNET_TPU_SERVE_TP",
              # device observability: the sanitizers and the registry
              "MXNET_TPU_SANITIZE", "MXNET_TPU_SANITIZE_WARMUP",
              "MXNET_TPU_WATCHDOG_S", "MXNET_TPU_WATCHDOG_INTERVAL",

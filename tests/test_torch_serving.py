@@ -117,7 +117,13 @@ def test_argmax_ties_take_the_first_maximum():
 
 
 def test_tensor_parallel_serving_raises():
-    with pytest.raises(tmx.MXNetError, match="tensor-parallel"):
+    """tp=2 on a module bound over one context: the tp does not divide the
+    group, and the server raises naming the knob, as the reference's
+    ``_tp_mesh`` does (tp serving over several contexts:
+    tests/test_torch_tp_serve.py)."""
+    with pytest.raises(tmx.MXNetError,
+                       match="MXNET_TPU_SERVE_TP=2 does not divide the "
+                             "1-device group"):
         tmx.serving.InferenceServer(_tie_module(tmx.cpu()), tp=2)
 
 
