@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from . import env as _env
 from .base import MXNetError
 from .context import Context
+from .batch_layout import derive, follows_batch, join, part
 from .ndarray import NDArray
 from .ops.registry import OpContext
 
@@ -60,7 +61,7 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def make_graph_eval(symbol, node_device=None, remat=False, replicas=None,
-                    node_apply=None):
+                    node_apply=None, layouts=None):
     """The graph-eval function of a symbol: ``eval_graph(arg_list,
     aux_list, rng, is_train, internals=None) -> (outputs, new_aux)`` over
     tensors; a dict passed as ``internals`` receives every op output as
@@ -79,7 +80,10 @@ def make_graph_eval(symbol, node_device=None, remat=False, replicas=None,
     given, runs first for every node of that walk and returns its
     ``(outputs, new aux)`` in the same form, or None to leave the node to
     the op (the tensor-parallel forward's split products,
-    :mod:`mxnet_tpu_torch.parallel.tp_infer`).
+    :mod:`mxnet_tpu_torch.parallel.tp_infer`). ``layouts`` (``{(node
+    uid, output): layout or None}``, :func:`~mxnet_tpu_torch.batch_layout.
+    derive`) gives each op's ``apply_replicas`` its inputs' batch
+    layouts; without it every input's batch is its axis 0.
 
     ``remat=True`` is the mirrored backward (``MXNET_BACKWARD_DO_MIRROR``,
     the JAX package's segmented remat): the op nodes, in topological
@@ -118,8 +122,15 @@ def make_graph_eval(symbol, node_device=None, remat=False, replicas=None,
             if replicas is not None:
                 done = (node_apply(n, octx, ins, aux_in)
                         if node_apply is not None else None)
-                outs, new_aux = done if done is not None \
-                    else _apply_replicas(n.op, octx, ins, aux_in)
+                if done is None:
+                    lays = None if layouts is None else [
+                        layouts.get((src.uid, i)) for src, i in n.inputs]
+                    try:
+                        done = _apply_replicas(n.op, octx, ins, aux_in, lays)
+                    except MXNetError as e:
+                        raise MXNetError("node %s: %s" % (n.name, e)) \
+                            from None
+                outs, new_aux = done
             else:
                 dev = node_device(n) if node_device is not None else None
                 if dev is not None:
@@ -206,10 +217,11 @@ def make_graph_eval(symbol, node_device=None, remat=False, replicas=None,
     return eval_graph_remat, n_aux
 
 
-def _apply_replicas(op, ctxs, ins, aux_in):
+def _apply_replicas(op, ctxs, ins, aux_in, layouts=None):
     """One node over every replica: ``ins`` and ``aux_in`` hold a list
     over the replicas a slot, and so do the outputs and new aux states
-    returned."""
+    returned; ``layouts`` are the inputs' batch layouts (None: each
+    input's batch is its axis 0)."""
     reps = ctxs[0].replicas
     ins_r = [[x[k] for x in ins] for k in range(reps.n)]
     aux_r = [[a[k] for a in aux_in] for k in range(reps.n)]
@@ -217,7 +229,7 @@ def _apply_replicas(op, ctxs, ins, aux_in):
     if fn is None:
         outs_r, aux_new_r = reps.each(op.apply, ctxs, ins_r, aux_r)
     else:
-        outs_r, aux_new_r = fn(ctxs, ins_r, aux_r)
+        outs_r, aux_new_r = fn(ctxs, ins_r, aux_r, layouts)
     return ([list(o) for o in zip(*outs_r)],
             [list(a) for a in zip(*aux_new_r)])
 
@@ -670,14 +682,17 @@ class ReplicatedExecutor:
     full-width gradient arrays then hold the replica's own, unreduced
     gradients.
 
-    ``inputs`` maps each data and label argument to its batch axis. An
-    output's batch axis is the one axis that is as long as the global
-    batch over the global batch and ``n`` times shorter over a replica's
-    slice (:meth:`merge` joins the replicas' slices along it, and
-    :meth:`backward` slices head gradients along it); an output with no
-    such axis (a time-major output flattened over time and batch, a
-    shape that does not follow the batch) cannot be joined or given a
-    head gradient, and either raises."""
+    ``inputs`` maps each data and label argument to its batch axis. From
+    them every array of the graph gets its layout at bind
+    (:func:`~mxnet_tpu_torch.batch_layout.derive`): how its rows follow
+    the batch, along one axis or flattened with other axes (a time-major
+    ``(T * N, C)`` output). :attr:`outputs` joins the replicas' slices of
+    each output in the global order, and :meth:`backward` cuts each
+    global head gradient the same way; an output that does not follow
+    the batch (a value the cross-card form of an op made global) is the
+    first replica's, and its head gradient goes to the first replica
+    alone, as the gradients of the replicas' parameters are summed. An
+    output whose layout cannot be derived raises, naming its node."""
 
     def __init__(self, execs, replicas, exchange, flats, inputs,
                  shards=None):
@@ -687,37 +702,36 @@ class ReplicatedExecutor:
                              "the lock-step walk runs each replica's graph "
                              "on its own context; bind placed graphs on "
                              "one context")
-        if ex0.mirror and replicas.cuda:
-            raise MXNetError(
-                "MXNET_BACKWARD_DO_MIRROR over %d cards: the mirrored "
-                "backward over several cards (segments recomputed from "
-                "autograd's device threads) has not run on the card yet "
-                "(ROADMAP.md Queue A, the mirror over several cards); it "
-                "runs over several CPU contexts and on one card"
-                % replicas.n)
         self.execs = list(execs)
         self.replicas = replicas
         #: each data and label argument's batch axis
         self.inputs = dict(inputs)
         self.arg_names = ex0.arg_names
         self.output_names = ex0.output_names
+        self._exchange_names = list(exchange)
         self._exchange = [self.arg_names.index(n) for n in exchange]
         self._flats = flats
         self.shards = shards
         self._scratch = None
-        self._local = {name: tuple(ex0.arg_dict[name].shape)
-                       for name in inputs}
-        self._global = {}
+        local = {name: tuple(ex0.arg_dict[name].shape) for name in inputs}
+        whole = {}
         for name, axis in inputs.items():
-            shape = list(self._local[name])
+            shape = list(local[name])
             shape[axis] *= replicas.n
-            self._global[name] = tuple(shape)
-        first = next(iter(inputs))
-        self._batch = self._global[first][inputs[first]]
-        self._out_axes = self._batch_axes(ex0._symbol)
-        self._internal_axes = None
-        eval_graph, _ = make_graph_eval(ex0._symbol, remat=ex0.mirror,
-                                        replicas=replicas)
+            whole[name] = tuple(shape)
+        symbol = ex0._symbol
+        layouts = derive(symbol, local, whole, self.inputs, replicas.n)
+        self._out_layouts = [(node.name, layouts[(node.uid, i)])
+                             for node, i in symbol._outputs]
+        internals = symbol.get_internals()
+        self._internal_layouts = dict(zip(
+            internals.list_outputs(),
+            [(node.name, layouts[(node.uid, i)])
+             for node, i in internals._outputs]))
+        #: every array's batch layout, by (node uid, output)
+        self.layouts = layouts
+        eval_graph, _ = make_graph_eval(
+            symbol, remat=ex0.mirror, replicas=replicas, layouts=layouts)
         if ex0.compute_dtype is not None:
             eval_graph = _cast_graph(eval_graph, ex0.arg_names,
                                      set(ex0._label_names),
@@ -726,37 +740,23 @@ class ReplicatedExecutor:
         self._train = None
         self._monitor_callback: Optional[Callable] = None
 
-    def _batch_axes(self, symbol):
-        """``{output name: its batch axis}`` for ``symbol``'s outputs:
-        -1 for an output whose shape does not depend on the batch, None
-        where no axis follows the batch alone."""
-        _, local, _ = symbol.infer_shape(**self._local)
-        _, whole, _ = symbol.infer_shape(**self._global)
-        axes = {}
-        for name, mine, glob in zip(symbol.list_outputs(), local, whole):
-            diff = [a for a, (x, y) in enumerate(zip(mine, glob)) if x != y]
-            if len(mine) == len(glob) and not diff:
-                axes[name] = -1
-            elif len(mine) == len(glob) and len(diff) == 1 \
-                    and glob[diff[0]] == self._batch \
-                    and glob[diff[0]] == self.replicas.n * mine[diff[0]]:
-                axes[name] = diff[0]
-            else:
-                axes[name] = None
-        return axes
-
-    def output_axis(self, i) -> int:
-        """Output ``i``'s batch axis; raises where it has none."""
-        name = self.output_names[i]
-        axis = self._out_axes.get(name)
-        if axis is None or axis < 0:
+    def output_layout(self, i):
+        """Output ``i``'s layout; raises where it cannot be derived."""
+        name, layout = self._out_layouts[i]
+        if layout is None:
             raise MXNetError(
-                "output %s has no batch axis over %d contexts (its shape "
-                "follows the batch along no single axis as long as the "
-                "batch): its replicas' slices cannot be joined or given "
-                "head gradients; read them with merge_multi_context=False, "
-                "or bind it on one context" % (name, self.replicas.n))
-        return axis
+                "output %s (node %s) over %d contexts: how its rows follow "
+                "the batch cannot be derived from the graph, so its "
+                "replicas' slices cannot be joined or given head gradients;"
+                " read them with merge_multi_context=False, or bind it on "
+                "one context" % (self.output_names[i], name,
+                                 self.replicas.n))
+        return layout
+
+    def join_output(self, i, tensors, device=None) -> torch.Tensor:
+        """Output ``i``'s parts (one a replica, or a batch shard) joined in
+        the global order, on ``device`` (the first part's)."""
+        return join(tensors, self.output_layout(i), device)
 
     @property
     def arg_arrays(self):
@@ -818,21 +818,14 @@ class ReplicatedExecutor:
         for ex, o in zip(execs, outs):
             ex._train = None
             ex._outputs = [NDArray(t.detach(), ex._ctx) for t in o]
-        if internals:
-            if self._internal_axes is None:
-                self._internal_axes = self._batch_axes(
-                    execs[0]._symbol.get_internals())
         for name, values in (internals or {}).items():
-            values = [v.detach() for v in values]
-            axis = self._internal_axes.get(name)
-            if axis == -1:
-                self._monitor_callback(name, NDArray(values[0],
-                                                     execs[0]._ctx))
-            elif axis is None:
-                raise MXNetError("monitor: op output %s has no batch axis "
-                                 "over %d contexts" % (name, len(execs)))
-            else:
-                self._monitor_callback(name, self.merge(values, axis))
+            node, layout = self._internal_layouts[name]
+            if layout is None:
+                raise MXNetError("monitor: op output %s (node %s) over %d "
+                                 "contexts: its layout cannot be derived"
+                                 % (name, node, len(execs)))
+            self._monitor_callback(name, NDArray(
+                join([v.detach() for v in values], layout), execs[0]._ctx))
 
     def merge(self, tensors, axis: int) -> NDArray:
         """The replicas' slices of one array, joined along ``axis`` on the
@@ -844,16 +837,22 @@ class ReplicatedExecutor:
     @property
     def outputs(self) -> List[NDArray]:
         """Every output over the whole batch, on the first replica's
-        device (raises for an output with no batch axis)."""
+        device, in the global order (raises for an output whose layout
+        cannot be derived)."""
         per = [ex.outputs for ex in self.execs]
-        return [self.merge([o[i].handle for o in per], self.output_axis(i))
-                for i in range(len(per[0]))]
+        ctx = self.execs[0]._ctx
+        return [NDArray(self.join_output(i, [o[i].handle for o in per]),
+                        ctx) for i in range(len(per[0]))]
 
     def backward(self, out_grads=None):
         """Every replica's gradients by ``grad_req``, the parameters'
         summed across the replicas, then the moving statistics. Head
-        gradients (over the global batch) are sliced along each output's
-        batch axis."""
+        gradients (over the global batch) are cut into each replica's
+        part by each output's layout; an output that does not follow the
+        batch takes its head gradient (or ones) on the first replica
+        alone: the cross-card op that made it whole carries it to the
+        others, so a loss over it (MakeLoss, which ignores its head
+        gradient) counts once."""
         if self._train is None:
             raise MXNetError("backward called without forward(is_train=True)")
         outs, leaves, new_aux = self._train
@@ -865,7 +864,8 @@ class ReplicatedExecutor:
             if len(out_grads) != len(outs[0]):
                 raise MXNetError("backward: %d head gradients for %d outputs"
                                  % (len(out_grads), len(outs[0])))
-            axes = [self.output_axis(i) for i in range(len(outs[0]))]
+        layouts = [self.output_layout(i) if out_grads is not None
+                   else self._out_layouts[i][1] for i in range(len(outs[0]))]
         want = execs[0]._wanted()
         ys, heads, xs = [], [], []
         for k in range(reps.n):
@@ -873,12 +873,17 @@ class ReplicatedExecutor:
                 for i, o in enumerate(outs[k]):
                     if not o.requires_grad:
                         continue
+                    whole = layouts[i] is not None \
+                        and not follows_batch(layouts[i])
+                    if whole and k > 0:
+                        continue
                     if out_grads is None:
                         h = torch.ones_like(o)
                     else:
-                        rows = o.shape[axes[i]]
-                        h = out_grads[i].handle.narrow(
-                            axes[i], k * rows, rows).to(o.device, o.dtype)
+                        g = out_grads[i].handle
+                        if not whole:
+                            g = part(g, layouts[i], k, reps.n)
+                        h = g.to(o.device, o.dtype)
                     ys.append(o)
                     heads.append(h)
             xs.extend(leaves[k][i] for i in want)
@@ -902,12 +907,19 @@ class ReplicatedExecutor:
             self._scratch = [[torch.empty_like(f) for f in flats]
                              for flats in self._flats]
         exchanged = set(self._exchange) if staged else ()
+        # a fsdp-sharded parameter's full-width gradient is written: the
+        # reduce adds it into the shard where its grad_req is "add"
+        sharded = ({i for i, n in enumerate(self.arg_names)
+                    if n in self.shards.index}
+                   if self.shards is not None else ())
         for k, ex in enumerate(execs):
             g_k = grads[k * len(want):(k + 1) * len(want)]
             with reps.on(k):
                 for i, g in zip(want, g_k):
                     if i in exchanged:
                         ex._grad_req_write(i, g, self._scratch_view(k, i))
+                    elif i in sharded:
+                        ex._grad_req_write(i, g, ex.grad_arrays[i].handle)
                     else:
                         ex._write_grad(i, g)
         # one in-place cross-card sum a flat buffer (or its copy)

@@ -64,9 +64,14 @@ is one CUDA graph over every card
 replay a step, with the exchange inside the replayed work; a graph that
 draws random numbers (Dropout) draws on each card from that replica's
 own generator, registered for the capture under its card, so every
-replay draws fresh masks, each card its own. The numerics plane folds
-the first card's exchanged gradients and weights; its skip guard raises
-over several contexts.
+replay draws fresh masks, each card its own. The numerics plane folds on
+every card (:meth:`~mxnet_tpu_torch.numwatch.NumWatch.fold_replicas`):
+each card its exchanged gradients and its weights, or under fsdp its
+shards, with the partial statistics combined across each fsdp line and
+the head's summed over every card, so that every card's pack is the
+whole batch's and every card computes the same skip predicate; the skip
+guard then restores each card's own pre-step weights (master shards
+under fsdp), optimizer states and metric sums.
 
 A :class:`FusedInfer` packs the bound executor's non-data arguments and
 auxiliary states onto the device once, then serves each batch with one
@@ -225,9 +230,10 @@ class FusedTrainStep:
         self._numwatch = _numwatch.maybe_plane(
             names, [self._ex.arg_dict[n].handle.numel() for n in names],
             monitor)
-        self._w_old = None      # pre-update weights, flat (numerics plane)
-        self._s_old = None      # pre-step optimizer states, flat (skip guard)
-        self._acc_old = None    # pre-step metric sums (skip guard)
+        #: card -> [pre-update weights, flat (numerics plane); pre-step
+        #: optimizer states, flat, and metric sums (skip guard)]
+        self._old = {}
+        self._w_old = None      # the first card's pre-update weights
         self._stream = None
         self._outs = None
         self._graph = None
@@ -249,26 +255,6 @@ class FusedTrainStep:
         self._donation = _san.enabled("donation")
         self._held = None           # (tensor, data_ptr) the graph writes
         self._streams = None        # a side stream a card (several)
-        if self._reps is not None:
-            self._refuse_over_cards()
-
-    def _refuse_over_cards(self):
-        """What the step does not run over several contexts."""
-        if self._numwatch is not None \
-                and self._module._exec_group.shards is not None:
-            raise MXNetError(
-                "fused train step over a (dp, fsdp) mesh: the numerics "
-                "plane (MXNET_TPU_NUMWATCH or a default-stat Monitor) folds "
-                "the first card's whole weights and gradients, which fsdp "
-                "keeps only as shards (ROADMAP.md Queue A, the numerics "
-                "plane over fsdp shards); set MXNET_TPU_FSDP_PARAMS=0 or "
-                "disarm the plane")
-        if self._numwatch is not None and self._numwatch.skip_guard:
-            raise MXNetError(
-                "fused train step over %d contexts: the numerics plane's "
-                "skip guard (it restores the first card's pre-step state "
-                "only) is not ported yet (ROADMAP.md Queue A, the skip "
-                "guard over several cards)" % self._reps.n)
 
     def _params(self):
         """(updater index, weight, grad, state tensors) of every
@@ -365,6 +351,7 @@ class FusedTrainStep:
             self._outs = [[torch.empty_like(o.handle) for o in ex._outputs]
                           for ex in group.execs]
         nw = self._numwatch
+        kept, folds, labels_all = [], [], []
         for k, (ex, items, hyper) in enumerate(zip(group.execs, all_items,
                                                    hypers)):
             with reps.on(k):
@@ -373,41 +360,67 @@ class FusedTrainStep:
                 ws = [w for _, w, _, _ in items]
                 gs = [g for _, _, g, _ in items]
                 ss = [s for _, _, _, s in items]
-                if k == 0 and nw is not None:
-                    self._keep_pre_step(ws, ss)
+                if nw is not None:
+                    kept.append(self._keep_pre_step(ws, ss, k))
+                    folds.append((self._old[k][0], gs, ws))
                 self._optimizer.apply(structure, hyper, ws, gs, ss)
                 labels = [ex.arg_dict[n].handle for n in group.label_names]
+                labels_all.append(labels)
                 if self._fold is not None:
                     self._fold.device_fold(labels, self._outs[k], k)
-                if k == 0 and nw is not None:
-                    nw.fold(self._w_old, gs, ws, self._outs[0], labels)
+        if nw is None:
+            return
+        shards = group.shards
+        owned = fsdp = None
+        if shards is not None:
+            # a parameter fsdp does not shard is whole on every card:
+            # counted once a fsdp line, by its first card
+            names = [name for name, _, _ in group.update_arrays(0)]
+            owned = [[name in shards.index or shards.at[k] == 0
+                      for name in names] for k in range(reps.n)]
+            fsdp = shards.fsdp_groups
+        oks = nw.fold_replicas(reps, folds, self._outs, labels_all, owned,
+                               fsdp)
+        if nw.skip_guard:
+            # every card computes the same predicate from the exchanged
+            # gradients, so every card keeps or restores its own state
+            for k, ((live, old), ok) in enumerate(zip(kept, oks)):
+                with reps.on(k):
+                    for new, prev in zip(live, old):
+                        torch.where(ok, new, prev, out=new)
 
-    def _keep_pre_step(self, ws, ss):
-        """Copy the weights (and, under the skip guard, every optimizer
-        state tensor and the metric's device sums) into step-owned
-        tensors before the update: the weights and the states each into
-        one flat float32 buffer by one batched copy. Returns the live
-        tensors the skip guard restores and their copies."""
-        self._w_old = _flat_copy(self._w_old, ws)
-        live, kept = list(ws), _views(self._w_old, ws)
+    def _keep_pre_step(self, ws, ss, k=0):
+        """Copy card ``k``'s weights (and, under the skip guard, every
+        optimizer state tensor and the metric's device sums) into
+        step-owned tensors of that card before the update: the weights
+        and the states each into one flat float32 buffer by one batched
+        copy. Returns the live tensors the skip guard restores and their
+        copies."""
+        old = self._old.setdefault(k, [None, None, None])
+        old[0] = _flat_copy(old[0], ws)
+        if k == 0:
+            self._w_old = old[0]
+        live, kept = list(ws), _views(old[0], ws)
         if not self._numwatch.skip_guard:
             return live, kept
         states = [t for s in ss for t in s]
         if states:
-            self._s_old = _flat_copy(self._s_old, states)
+            old[1] = _flat_copy(old[1], states)
             live += states
-            kept += _views(self._s_old, states)
+            kept += _views(old[1], states)
         if self._fold is not None:
             leaves = (self._fold.metrics
                       if isinstance(self._fold, CompositeEvalMetric)
                       else [self._fold])
-            accs = [leaf.accumulator(ws[0].device) for leaf in leaves]
-            if self._acc_old is None:
-                self._acc_old = [torch.empty_like(a) for a in accs]
-            for dst, a in zip(self._acc_old, accs):
+            dev = ws[0].device
+            accs = [leaf.accumulator(dev) if k == 0
+                    else leaf.replica_accumulator(k, dev) for leaf in leaves]
+            if old[2] is None:
+                old[2] = [torch.empty_like(a) for a in accs]
+            for dst, a in zip(old[2], accs):
                 dst.copy_(a)
             live += accs
-            kept += self._acc_old
+            kept += old[2]
         return live, kept
 
     def step(self, data_batch, eval_metric):
@@ -981,6 +994,29 @@ class FusedInfer:
         return tuple(outs), post
 
 
+def _batch_spanning_nodes(symbol, layouts):
+    """The nodes whose cross-card form combines rows of the whole batch
+    in a forward: a reduction over the batch's axis (by its input's
+    layout; one whose layout is not known counts), softmax_cross_entropy
+    and ROIPooling."""
+    from .batch_layout import batch_axis
+    from .ops.tensor import _ReduceOp
+    from .ops.vision import ROIPooling, SoftmaxCrossEntropy
+
+    out = []
+    for node in symbol._topo():
+        op = None if node.is_variable else node.op
+        if isinstance(op, (ROIPooling, SoftmaxCrossEntropy)):
+            out.append(node.name)
+        elif isinstance(op, _ReduceOp):
+            src, i = node.inputs[0]
+            lay = None if layouts is None else layouts.get((src.uid, i))
+            if lay is None or batch_axis(lay, op.op_name) in op._axes(
+                    len(lay)):
+                out.append(node.name)
+    return out
+
+
 class _Grid:
     """:class:`FusedInfer` over the cards of a grid: the mesh, the replica
     set, the split forward's plan on a tp grid, and each card's rows."""
@@ -1019,8 +1055,18 @@ class _Grid:
         self.heads = [self.index.index(b) for b in range(self.extent)]
         self.plan = None
         node_apply = None
+        layouts = getattr(executor, "layouts", None)
         if self.tp > 1:
             from .parallel.tp_infer import TensorParallel
+
+            spans = _batch_spanning_nodes(ex0._symbol, layouts)
+            if spans:
+                raise MXNetError(
+                    "fused inference over a (dp %d, tp %d) grid: %s combine "
+                    "rows of the whole batch, and their cross-card form "
+                    "runs over every card of the grid, the copies of a "
+                    "batch shard on its tp line too; serve them at tp 1"
+                    % (self.extent, self.tp, ", ".join(spans)))
 
             labels = _labels(ex0)
             shapes = {ex0.arg_names[i]: tuple(ex0.arg_arrays[i].shape)
@@ -1028,7 +1074,8 @@ class _Grid:
             self.plan = TensorParallel(ex0._symbol, mesh, self.reps, shapes)
             node_apply = self.plan.apply
         eval_graph, _ = make_graph_eval(ex0._symbol, replicas=self.reps,
-                                        node_apply=node_apply)
+                                        node_apply=node_apply,
+                                        layouts=layouts)
         if ex0.compute_dtype is not None:
             eval_graph = _cast_graph(eval_graph, ex0.arg_names,
                                      set(ex0._label_names),
@@ -1132,13 +1179,6 @@ class _Grid:
             if len(self.heads) == 1:
                 return list(outs[self.heads[0]])
             dev0 = execs[0]._device
-            joined = []
-            for i, name in enumerate(execs[0].output_names):
-                axis = self.ex._out_axes.get(name)
-                if axis == -1:
-                    joined.append(outs[0][i])
-                    continue
-                axis = self.ex.output_axis(i)
-                joined.append(torch.cat([outs[k][i].to(dev0)
-                                         for k in self.heads], dim=axis))
-            return joined
+            return [self.ex.join_output(i, [outs[k][i] for k in self.heads],
+                                        dev0)
+                    for i in range(len(execs[0].output_names))]

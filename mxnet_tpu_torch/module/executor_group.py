@@ -12,6 +12,10 @@ One context binds one executor over the whole batch. Bound with a
 ``shared_group``, the group takes that group's arrays (parameters,
 gradients, aux states and inputs) wherever the shapes agree: the same
 tensors, as the bucketing module's buckets share one set of weights.
+Over several contexts the shared group must be bound over the same
+contexts: each replica takes the owner's replica's arrays, its flat
+gradient buffers (which the exchange sums) and, under fsdp, its
+sharded storage.
 
 Several contexts (ROADMAP.md Queue A item 10a) bind one executor a
 context, each on an equal slice of the batch along every array's batch
@@ -24,8 +28,10 @@ are those of the global batch, and a backward after which every
 replica holds the gradients of the global batch. ``executor`` is the
 first replica's, from which ``get_params`` reads; ``set_params`` writes
 every replica. Outputs come back joined along each output's batch
-axis on the first context's device, as the JAX package's global arrays
-read; the metric scores each replica against its slice of the labels.
+axis (or time-major rows: each output's layout is derived from the
+graph, :mod:`~mxnet_tpu_torch.batch_layout`) on the first context's
+device, as the JAX package's global arrays read; the metric scores each
+replica against its slice of the labels.
 ``work_load_list`` is accepted and, as in the JAX package, ignored: the
 slices are equal.
 
@@ -173,11 +179,16 @@ class DataParallelExecutorGroup:
             raise MXNetError("batch size %d not divisible by %d devices"
                              % (self.batch_size, n))
         self._mesh = self._make_mesh()
+        owner = None
         if shared_group is not None:
-            raise MXNetError("a module bound over several contexts shares "
-                             "no arrays with another (shared_module); bind "
-                             "the buckets on one context")
-        _refuse_batch_coupled(self.symbol)
+            if shared_group.contexts != self.contexts \
+                    or shared_group.replicated is None:
+                raise MXNetError(
+                    "shared module on %s, this one on %s: a module bound "
+                    "over several contexts shares its owner's arrays only "
+                    "over the same contexts, in the same order"
+                    % (shared_group.contexts, self.contexts))
+            owner = shared_group
         shapes = {}
         for d in self.data_shapes + self.label_shapes:
             shape = list(d.shape)
@@ -193,13 +204,28 @@ class DataParallelExecutorGroup:
                            for name in self.param_names}
         sharded = [name for name in exchange
                    if self._sharded_spec(name) is not None]
-        if sharded and "add" in {self.grad_req[nm] for nm in sharded}:
-            raise MXNetError(
-                "MXNET_TPU_MESH_FSDP: grad_req \"add\" on fsdp-sharded "
-                "params accumulates full-width gradients that the shards "
-                "do not keep; bind with grad_req \"write\" or set "
-                "MXNET_TPU_FSDP_PARAMS=0")
         replicated = [name for name in exchange if name not in sharded]
+        self.replicas = owner.replicas if owner is not None \
+            else Replicas(devices)
+        if owner is not None:
+            flats = self._share(owner, replicated, sharded, shape_of,
+                                arg_shapes, aux_shapes, compute_dtype)
+        else:
+            flats = self._bind_fresh(replicated, sharded, shape_of,
+                                     arg_shapes, aux_shapes, compute_dtype)
+        self.executor = self.execs[0]
+        inputs = {d.name: self._batch_axis_of(d.name)
+                  for d in self.data_shapes + self.label_shapes}
+        self.replicated = ReplicatedExecutor(
+            self.execs, self.replicas, replicated, flats, inputs,
+            shards=self.shards)
+
+    def _bind_fresh(self, replicated, sharded, shape_of, arg_shapes,
+                    aux_shapes, compute_dtype):
+        """An executor a context over arrays of its own: the replicated
+        parameters' gradients views of one flat buffer a card, and under
+        fsdp the sharded parameters' storage. Returns the flat buffers, a
+        list a replica."""
         self.execs, flats, works, sh_grads = [], [], [], []
         for ctx in self.contexts:
             work, work_flat = _flat_arrays(sharded, shape_of, ctx)
@@ -218,20 +244,64 @@ class DataParallelExecutorGroup:
             flats.append(flat)
             works.append(work_flat)
             sh_grads.append(sh_flat)
-        self.executor = self.execs[0]
-        self.replicas = Replicas(devices)
         if sharded:
             from ..replicas import ShardedParams
 
+            adds = {name for name in sharded
+                    if self.grad_req[name] == "add"}
             self.shards = ShardedParams(
                 self.replicas, self._mesh, sharded,
                 [shape_of[name] for name in sharded], works, sh_grads,
-                self.contexts)
-        inputs = {d.name: self._batch_axis_of(d.name)
-                  for d in self.data_shapes + self.label_shapes}
-        self.replicated = ReplicatedExecutor(
-            self.execs, self.replicas, replicated, flats, inputs,
-            shards=self.shards)
+                self.contexts, adds=adds)
+        return flats
+
+    def _share(self, owner, replicated, sharded, shape_of, arg_shapes,
+               aux_shapes, compute_dtype):
+        """An executor a context over the owner group's arrays (a bucket
+        of a BucketingModule): its parameters, their gradients (views of
+        the owner's flat buffers, which its exchange sums), its aux
+        states and, under fsdp, its sharded storage; inputs whose shapes
+        agree are shared too. The parameters with a gradient must be the
+        owner's, in the owner's order: the exchange sums whole flat
+        buffers. Returns the owner's flat buffers."""
+        theirs = owner.replicated._exchange_names + (
+            [] if owner.shards is None else owner.shards.names)
+        if replicated + sharded != theirs:
+            raise MXNetError(
+                "shared module: this module's parameters with a gradient "
+                "%s are not its owner's %s; every bucket's symbol must "
+                "train the same parameters" % (replicated + sharded, theirs))
+        inputs = set(self.data_names) | set(self.label_names)
+        self.execs = []
+        for k, ctx in enumerate(self.contexts):
+            ex = owner.execs[k]
+            args, grads = [], {}
+            for name, shape in zip(self.arg_names, arg_shapes):
+                shared = ex.arg_dict.get(name)
+                if shared is not None and shared.shape == tuple(shape):
+                    args.append(shared)
+                elif shared is not None and name not in inputs:
+                    raise MXNetError(
+                        "shared param '%s' changes shape across buckets "
+                        "(%s vs %s); every bucket's symbol must give a "
+                        "param the same shape"
+                        % (name, shared.shape, tuple(shape)))
+                else:
+                    args.append(zeros(shape, ctx=ctx))
+                if self.grad_req[name] == "null":
+                    continue
+                g = ex.grad_dict.get(name)
+                grads[name] = (g if g is not None and name not in inputs
+                               and g.shape == tuple(shape)
+                               else zeros(shape, ctx=ctx))
+            aux = [ex.aux_dict[a] if a in ex.aux_dict
+                   and ex.aux_dict[a].shape == tuple(s) else zeros(s, ctx=ctx)
+                   for a, s in zip(self.aux_names, aux_shapes)]
+            self.execs.append(Executor(
+                self.symbol, ctx, args, grads, self.grad_req, aux,
+                label_names=self.label_names, compute_dtype=compute_dtype))
+        self.shards = owner.shards
+        return owner.replicated.flats
 
     def _batch_axis_of(self, name: str) -> int:
         for d in self.data_shapes + self.label_shapes:
@@ -555,17 +625,3 @@ def _flat_grads(names, shape_of, ctx):
     ``ctx`` (in order): ``({name: NDArray}, [flat])``."""
     grads, flat = _flat_arrays(names, shape_of, ctx)
     return grads, [flat]
-
-
-def _refuse_batch_coupled(symbol):
-    """Raise naming the nodes whose op reduces over, or indexes across,
-    the batch in a way the replicas cannot combine (``couples_batch``):
-    each replica would compute its own slice's value."""
-    coupled = ["%s (%s)" % (n.name, n.op.op_name) for n in symbol._topo()
-               if not n.is_variable and n.op.couples_batch()]
-    if coupled:
-        raise MXNetError(
-            "node(s) %s reduce over or index across the batch, which a "
-            "group bound over several contexts splits; bind them on one "
-            "context (the cross-card forms of BatchNorm and SoftmaxOutput "
-            "are the ported ones)" % coupled)

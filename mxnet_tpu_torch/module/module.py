@@ -285,7 +285,9 @@ class Module(BaseModule):
         Over several contexts the host half of the step (the update
         counts, the schedule) runs once and the same update is applied on
         every replica; an optimizer without a fusable update updates the
-        first replica and its weights are copied to the others.
+        first replica and its weights are copied to the others (under
+        fsdp, each card of the first fsdp line its own shards:
+        :meth:`_update_shards`).
 
         Under a ``dist`` store of several workers (``_update_on_kvstore``)
         every gradient is pushed in one call and every weight pulled into
@@ -317,16 +319,46 @@ class Module(BaseModule):
                  for u, its in zip(self._updaters, items)], group.replicas)
             return
         if group.shards is not None:
-            raise MXNetError(
-                "MXNET_TPU_MESH_FSDP: optimizer %s has no fusable update "
-                "plan (or MXNET_TPU_FUSED_UPDATE=0), so its update would "
-                "run on the first card's shards alone; use a fusable "
-                "optimizer or set MXNET_TPU_FSDP_PARAMS=0"
-                % type(optimizer).__name__)
+            self._update_shards(items)
+            return
         self._updater.update_multi(items[0])
         for its in items[1:]:
             for (_, _, w), (_, _, w0) in zip(its, items[0]):
                 w[:] = w0
+
+    def _update_shards(self, items):
+        """An optimizer without a fusable update under fsdp: each card of
+        the first fsdp line runs its updater's classic ``update`` on its
+        own shards (the first card on the parameters fsdp does not shard
+        too), each from the same update counts, as one update of the
+        whole arrays would; every other card then takes the weights and
+        states of the card that holds the same rows."""
+        group = self._exec_group
+        shards = group.shards
+        opt_ = self._optimizer
+        lead = shards.fsdp_groups[0]
+        before = (opt_.num_update, dict(opt_._index_update_count))
+        after = None
+        for k in lead:
+            its = [(i, g, w) for i, g, w in items[k]
+                   if self._param_names[i] in shards.index or k == lead[0]]
+            opt_.num_update, opt_._index_update_count = \
+                before[0], dict(before[1])
+            self._updaters[k].update_multi(its)
+            after = after or (opt_.num_update,
+                              dict(opt_._index_update_count))
+        opt_.num_update, opt_._index_update_count = after[0], dict(after[1])
+        by_index = [{i: w for i, _, w in its} for its in items]
+        for k in range(len(group.execs)):
+            for i, _, w in items[k]:
+                src = (lead[shards.at[k]]
+                       if self._param_names[i] in shards.index else lead[0])
+                if src == k:
+                    continue
+                w0 = by_index[src][i]
+                w.handle.copy_(w0.handle)
+                _copy_state(self._updaters[k]._state(i, w),
+                            self._updaters[src]._state(i, w0))
 
     def update_metric(self, eval_metric, labels):
         self._exec_group.update_metric(eval_metric, labels)
@@ -469,6 +501,15 @@ class Module(BaseModule):
 
     def get_input_grads(self, merge_multi_context=True):
         return self._exec_group.get_input_grads(merge_multi_context)
+
+
+def _copy_state(dst, src):
+    """An optimizer state (None, an NDArray or a tuple of them) into
+    another of the same form, in place."""
+    from ..optimizer import _state_tensors
+
+    for d, t in zip(_state_tensors(dst), _state_tensors(src)):
+        d.copy_(t)
 
 
 def _join_rows(parts):

@@ -125,8 +125,7 @@ class NumWatch:
 
     def __init__(self, names, sizes, monitor=None):
         self.names = list(names)
-        self._numels = [int(s) for s in sizes]
-        self.sizes = [max(s, 1) for s in self._numels]
+        self.sizes = [max(int(s), 1) for s in sizes]
         self.n = len(self.names)
         guard = str(_env.get("MXNET_TPU_NUMWATCH_GUARD") or "")
         modes = {m.strip() for m in guard.split(",") if m.strip()}
@@ -143,6 +142,8 @@ class NumWatch:
             _env.get("MXNET_TPU_NUMWATCH_ROLLBACK_COOLDOWN"))
         self._monitor = monitor
         self._pack: Optional[torch.Tensor] = None
+        self._copies = {}            # the other cards' packs, by card
+        self._masks = {}             # card -> its counted rows (fsdp)
         self._folded = False         # a step has folded since the reset
         self._host_step = 0
         self._loss_available = False
@@ -156,44 +157,50 @@ class NumWatch:
         self._warned_no_ckpt = False
 
     # -- in the step ---------------------------------------------------------
-    def device_pack(self, device) -> torch.Tensor:
-        """The pack, zeroed and placed on ``device`` on first use; the same
-        storage from then on (a captured graph writes it)."""
-        if self._pack is None:
-            self._pack = torch.zeros((self.n + 1, NCOLS),
-                                     dtype=torch.float32, device=device)
-        return self._pack
+    def device_pack(self, device, card=0) -> torch.Tensor:
+        """The pack on ``device``, zeroed and placed there on first use;
+        the same storage from then on (a captured graph writes it). Over
+        several cards every card after the first (``card``) keeps a copy
+        of its own; the first card's is the one the host reads."""
+        if card == 0:
+            if self._pack is None:
+                self._pack = torch.zeros((self.n + 1, NCOLS),
+                                         dtype=torch.float32, device=device)
+            return self._pack
+        if card not in self._copies:
+            self._copies[card] = torch.zeros((self.n + 1, NCOLS),
+                                             dtype=torch.float32,
+                                             device=device)
+        return self._copies[card]
 
     def stepped(self):
         """The host's note that a step folded (replays run no Python)."""
         self._folded = True
 
     def reset_pack(self):
-        """Zero the pack in place (after a rollback: the sticky stamps
-        describe the abandoned timeline); the captured graph keeps
-        writing the same storage."""
-        if self._pack is not None:
-            self._pack.zero_()
+        """Zero the pack (every card's copy) in place (after a rollback:
+        the sticky stamps describe the abandoned timeline); the captured
+        graph keeps writing the same storage."""
+        for pack in [self._pack] + list(self._copies.values()):
+            if pack is not None:
+                pack.zero_()
         self._folded = False
         self._known_skips = 0
         self._last_body = None
         self._last_prov = None
         self._skip_cap_hit = False
 
-    def fold(self, w_old, grads, w_new, outs, labels) -> torch.Tensor:
-        """Fold this step into the pack, in place and with no host sync:
-        ``w_old`` the weights before the update (a list, or their
-        elements end to end in one float32 tensor), ``w_new`` after it.
-        Returns a 0-d bool tensor, True where every gradient is finite
-        (the skip guard's predicate)."""
-        pack = self.device_pack(grads[0].device)
-        n = self.n
-        body = pack[:n]
-        step_no = pack[n, M_STEP] + 1.0
+    @staticmethod
+    def partials(w_old, grads, w_new) -> torch.Tensor:
+        """Each tensor's columns ``g_sumsq`` .. ``upd_sumsq`` (the pack's
+        first seven) as one ``(len(grads), 7)`` float32 tensor: ``w_old``
+        the weights before the update (a list, or their elements end to
+        end in one float32 tensor), ``w_new`` after it."""
+        numels = [g.numel() for g in grads]
 
         def per_tensor(flat, order):
-            return torch.stack(torch._foreach_norm(
-                flat.split(self._numels), order))
+            return torch.stack(torch._foreach_norm(flat.split(numels),
+                                                   order))
 
         # x_safe != x exactly where x is NaN or Inf; an order-1 norm of a
         # 0/1 mask counts (exactly below 2^24 elements a tensor)
@@ -208,39 +215,120 @@ class NumWatch:
         w_nonfin = per_tensor((w_safe != w).float(), 1)
         w_sumsq = per_tensor(w_safe, 2) ** 2
         upd_sumsq = per_tensor(_finite_only(_flat(w_new) - w), 2) ** 2
-        fb_p = torch.where((w_nonfin > 0) & (body[:, FB_PARAM] == 0),
-                           step_no, body[:, FB_PARAM])
-        fb_g = torch.where((g_nonfin > 0) & (body[:, FB_GRAD] == 0),
-                           step_no, body[:, FB_GRAD])
-        grads_ok = g_nonfin.sum() == 0
+        return torch.stack([g_sumsq, g_maxabs, g_nonfin, g_zero, w_sumsq,
+                            w_nonfin, upd_sumsq], dim=1)
 
-        # META: the loss (mean NLL against the first label where the head
-        # is a 2-d probability output, the SoftmaxOutput family), the
-        # head's nonfinite count and the skip counter
-        zero = torch.zeros((), dtype=torch.float32, device=pack.device)
-        loss = zero
+    def _head(self, outs, labels):
+        """The head's ``(NLL a row, rows, nonfinite count)``, float32:
+        the NLL against the first label where the head is a 2-d
+        probability output (the SoftmaxOutput family), else a 0-d zero
+        (and 0 rows)."""
         out0 = outs[0] if outs else None
         lab0 = labels[0] if labels else None
+        dev = next((t.device for t in (out0, lab0) if t is not None), None)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
         self._loss_available = (out0 is not None and lab0 is not None
                                 and out0.dim() == 2 and lab0.dim() == 1
                                 and out0.is_floating_point())
+        nll, rows = zero, zero
         if self._loss_available:
             p = out0.float()
             idx = lab0.long().clamp(0, p.shape[1] - 1)
             picked = p.gather(1, idx[:, None])[:, 0]
-            loss = -torch.log(picked.clamp_min(1e-12)).mean()
+            nll = -torch.log(picked.clamp_min(1e-12))
+            rows = torch.full((), float(nll.numel()), device=dev)
         out_nonfin = zero
         if out0 is not None and out0.is_floating_point():
             out_nonfin = (~torch.isfinite(out0)).sum().float()
+        return nll, rows, out_nonfin
+
+    def _finish(self, pack, part, loss, out_nonfin) -> torch.Tensor:
+        """``part`` (:meth:`partials` over the whole arrays), the stamps
+        and the META row into ``pack``; the skip guard's predicate."""
+        n = self.n
+        body = pack[:n]
+        step_no = pack[n, M_STEP] + 1.0
+        fb_p = torch.where((part[:, W_NONFIN] > 0) & (body[:, FB_PARAM] == 0),
+                           step_no, body[:, FB_PARAM])
+        fb_g = torch.where((part[:, G_NONFIN] > 0) & (body[:, FB_GRAD] == 0),
+                           step_no, body[:, FB_GRAD])
+        grads_ok = part[:, G_NONFIN].sum() == 0
         skips = pack[n, M_SKIPS]
         if self.skip_guard:
             skips = skips + (~grads_ok).float()
         meta = torch.stack([step_no, loss, out_nonfin, skips])
-        body.copy_(torch.stack([g_sumsq, g_maxabs, g_nonfin, g_zero,
-                                w_sumsq, w_nonfin, upd_sumsq, fb_p, fb_g],
-                               dim=1))
+        body.copy_(torch.cat([part, fb_p[:, None], fb_g[:, None]], dim=1))
         pack[n, :len(META)].copy_(meta)
         return grads_ok
+
+    def fold(self, w_old, grads, w_new, outs, labels) -> torch.Tensor:
+        """Fold this step into the pack, in place and with no host sync:
+        ``w_old`` the weights before the update (a list, or their
+        elements end to end in one float32 tensor), ``w_new`` after it.
+        Returns a 0-d bool tensor, True where every gradient is finite
+        (the skip guard's predicate)."""
+        pack = self.device_pack(grads[0].device)
+        part = self.partials(w_old, grads, w_new)
+        nll, _, out_nonfin = self._head(outs, labels)
+        loss = nll.mean() if self._loss_available else nll
+        return self._finish(pack, part, loss, out_nonfin)
+
+    def _owned_mask(self, k, owned, device):
+        """Card ``k``'s ``(n, 1)`` bool mask of the rows it counts,
+        made at the first fold (a capture may not copy from the host)
+        and kept."""
+        mask = self._masks.get(k)
+        if mask is None:
+            mask = self._masks[k] = torch.tensor(
+                [[bool(o)] for o in owned], device=device)
+        return mask
+
+    def fold_replicas(self, reps, cards, outs, labels, owned=None,
+                      fsdp_groups=None):
+        """The fold over the cards of a group bound over several contexts
+        (inside the walk's streams, no host sync): ``cards`` holds, a
+        card, its ``(w_old, grads, w_new)`` as :meth:`fold` takes them,
+        over each parameter's rows that the card keeps (its shard where
+        fsdp shards the parameter); ``outs`` and ``labels`` its slice of
+        the batch. ``owned`` (a card, a bool a parameter; default all)
+        says which rows a card counts: under fsdp a replicated parameter
+        is counted once in each ``fsdp_groups`` line. Each card folds its
+        partial statistics, the lines of ``fsdp_groups`` combine them in
+        place (sums, and the max of the max-abs), and every card's head
+        NLL, rows and nonfinite count are summed; then every card writes
+        the same pack (the first card's is the one the host reads) and
+        returns the same predicate. Returns the predicates, one a
+        card."""
+        heads, parts = [], []
+        for k, (w_old, grads, w_new) in enumerate(cards):
+            with reps.on(k):
+                part = self.partials(w_old, grads, w_new)
+                if owned is not None and not all(owned[k]):
+                    part = torch.where(
+                        self._owned_mask(k, owned[k], part.device), part,
+                        0.0)
+                parts.append(part.contiguous())
+                nll, rows, out_nonfin = self._head(outs[k], labels[k])
+                heads.append(torch.stack([nll.sum(), rows, out_nonfin]))
+        if fsdp_groups is not None and len(fsdp_groups[0]) > 1:
+            maxabs = []
+            for k, part in enumerate(parts):
+                with reps.on(k):
+                    maxabs.append(part[:, G_MAXABS].contiguous())
+            reps.sum_groups(parts, fsdp_groups)
+            reps.extreme_(maxabs, groups=fsdp_groups)
+            for k, (part, m) in enumerate(zip(parts, maxabs)):
+                with reps.on(k):
+                    part[:, G_MAXABS] = m
+        reps.sum_(heads)
+        oks = []
+        for k, (part, head) in enumerate(zip(parts, heads)):
+            with reps.on(k):
+                loss = (head[0] / head[1].clamp_min(1.0)
+                        if self._loss_available else head[0])
+                oks.append(self._finish(self.device_pack(part.device, k),
+                                        part, loss, head[2]))
+        return oks
 
     # -- on the host ---------------------------------------------------------
     def bind_ckpt(self, manager):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..batch_layout import batch_axis
 from .kernels import conv2d, fused_norm_act
 from .registry import Operator, Param, REQUIRED, register_op
 
@@ -451,7 +452,7 @@ class BatchNorm(Operator):
                                    (x32 * x32).mean(dim=axes))
         return self._normalize(False, inputs, aux)
 
-    def apply_replicas(self, ctxs, inputs, aux):
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
         """The replicas of a group bound over several contexts. In train
         mode each replica's float32 ``sum x`` and ``sum x^2`` by channel
         (one (2C,) tensor) are summed across the replicas by one
@@ -711,17 +712,22 @@ class SoftmaxOutput(Operator):
     def apply(self, ctx, inputs, aux):
         return [_SoftmaxOutput.apply(inputs[0], inputs[1], self)], []
 
-    def apply_replicas(self, ctxs, inputs, aux):
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
         """The replicas of a group bound over several contexts: the
         ``batch`` and ``valid`` normalizations divide by the global batch's
         rows and valid labels (the latter summed across the replicas in
-        the forward); ``null`` is each replica's own."""
+        the forward); ``null`` is each replica's own. ``batch`` is the
+        global data's first axis: the replicas' lengths summed where that
+        axis holds the batch, one replica's where it does not."""
         reps = ctxs[0].replicas
         if self.normalization not in ("batch", "valid"):
             return reps.each(self.apply, ctxs, inputs, aux)
         if self.normalization == "batch":
-            norms = [reps.procs * sum(d.shape[0] for d, _ in inputs)] \
-                * reps.n
+            axis = batch_axis(layouts[0] if layouts is not None else 0,
+                              self.op_name)
+            rows = inputs[0][0].shape[0] if axis != 0 else \
+                reps.procs * sum(d.shape[0] for d, _ in inputs)
+            norms = [rows] * reps.n
         else:
             counts = []
             for k, (data, label) in enumerate(inputs):

@@ -59,9 +59,13 @@ class OpContext:
     the ``torch.Generator`` of the random ops (None where the graph draws
     nothing) and the replica set of an executor group bound over several
     contexts (:class:`~mxnet_tpu_torch.replicas.Replicas`; None with one
-    context). An op whose result depends on the whole batch defines
-    ``apply_replicas(ctxs, inputs, aux)``: one context, inputs and aux
-    list a replica, called once for all of them in the lock-step walk."""
+    context). An op whose result depends on the whole batch (it reduces
+    over it, or indexes across it) defines ``apply_replicas(ctxs, inputs,
+    aux, layouts)``: one context, inputs and aux list a replica, called
+    once for all of them in the lock-step walk; ``layouts`` holds each
+    input's batch layout (:mod:`~mxnet_tpu_torch.batch_layout`; an entry
+    None where the graph does not determine it), or is None where the
+    walk has none and every input's batch is its axis 0."""
 
     __slots__ = ("is_train", "rng", "replicas")
 
@@ -112,12 +116,6 @@ class Operator:
     @property
     def num_outputs(self) -> int:
         return len(self.list_outputs())
-
-    def couples_batch(self) -> bool:
-        """True where the op reduces over, or indexes across, the batch
-        axis in a way the replicas of a group bound over several contexts
-        cannot combine (an op that can defines ``apply_replicas``)."""
-        return False
 
     @property
     def draws_random(self) -> bool:

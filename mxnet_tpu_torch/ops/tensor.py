@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
+from ..batch_layout import batch_axis
 from .registry import Operator, Param, REQUIRED, register_op, same_shape_binary
 
 
@@ -667,9 +668,6 @@ class _ReduceOp(Operator):
             return tuple(range(ndim))
         return tuple(a % ndim for a in self.axis)
 
-    def couples_batch(self):
-        # every axis, or the batch axis (0), is reduced
-        return self.axis is None or 0 in self.axis
 
     def infer_shape(self, in_shapes):
         data = in_shapes[0]
@@ -689,6 +687,83 @@ class _ReduceOp(Operator):
         if r.dim() == 0:
             r = r.reshape((1,))
         return [r], []
+
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
+        """The replicas of a group bound over several contexts: a
+        reduction over the axis that holds the batch (by the input's
+        layout, alone or flattened with others) gives every replica the
+        global batch's value, ``sum`` by one autograd-aware cross-card sum
+        of the replicas' partial sums, ``max`` and ``min`` by
+        :class:`_CrossExtreme`; any other, and one over an input every
+        replica holds whole, is each replica's own."""
+        reps = ctxs[0].replicas
+        axis = batch_axis(layouts[0] if layouts is not None else 0,
+                          self.op_name)
+        if axis not in self._axes(inputs[0][0].dim()):
+            return reps.each(self.apply, ctxs, inputs, aux)
+        xs = [ins[0] for ins in inputs]
+        if type(self).fn is torch.sum:
+            parts = []
+            for k, x in enumerate(xs):
+                with reps.on(k):
+                    parts.append(self.apply(ctxs[k], [x], [])[0][0])
+            outs = reps.all_sum(parts)
+        else:
+            outs = _CrossExtreme.apply(self, reps, *xs)
+        return [[o] for o in outs], [[] for _ in xs]
+
+
+class _CrossExtreme(torch.autograd.Function):
+    """``max`` or ``min`` over the batch across the replicas: forward each
+    replica's own extreme, then the extreme over the replicas on every
+    replica; backward the replicas' incoming gradients summed (each
+    holds a part of the one value's), shared equally among the
+    positions, on every replica, that hold the extreme, as one
+    reduction over the whole batch shares it among ties."""
+
+    @staticmethod
+    def forward(ctx, op, reps, *xs):
+        dims = op._axes(xs[0].dim())
+        largest = type(op).fn is torch.amax
+        ext, masks, counts = [], [], []
+        for k, x in enumerate(xs):
+            with reps.on(k):
+                ext.append(type(op).fn(x, dim=dims, keepdim=True)
+                           .contiguous())
+        reps.extreme_(ext, largest)
+        for k, x in enumerate(xs):
+            with reps.on(k):
+                m = x == ext[k]
+                masks.append(m)
+                counts.append(m.sum(dim=dims, keepdim=True)
+                              .to(torch.float32).contiguous())
+        reps.sum_(counts)
+        ctx.reps, ctx.streams, ctx.dims = reps, reps.streams, dims
+        ctx.keep = ext[0].shape
+        ctx.save_for_backward(*masks, *counts)
+        outs = []
+        for k, e in enumerate(ext):
+            with reps.on(k):
+                r = e if op.keepdims else e.squeeze(dims)
+                outs.append(r.reshape((1,)) if r.dim() == 0 else r.clone())
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        reps, streams = ctx.reps, ctx.streams
+        saved = ctx.saved_tensors
+        masks, counts = saved[:reps.n], saved[reps.n:]
+        total = []
+        for k, g in enumerate(grads):
+            with reps.on(k, streams):
+                total.append(g.reshape(ctx.keep).float().contiguous()
+                             .clone())
+        reps.sum_(total, streams)
+        out = []
+        for k, (m, c, g) in enumerate(zip(masks, counts, total)):
+            with reps.on(k, streams):
+                out.append((m * (g / c)).to(grads[k].dtype))
+        return (None, None) + tuple(out)
 
 
 for _name, _fn in (("sum", torch.sum), ("max", torch.amax),
@@ -883,10 +958,6 @@ class IdentityAttachKLSparseReg(Operator):
     def list_auxiliary_states(self):
         return ["moving_avg"]
 
-    def couples_batch(self):
-        # the mean activation is over the batch
-        return True
-
     def infer_shape(self, in_shapes):
         data = in_shapes[0]
         if data is None:
@@ -895,9 +966,40 @@ class IdentityAttachKLSparseReg(Operator):
 
     def apply(self, ctx, inputs, aux):
         x = inputs[0]
-        moving = aux[0]
         rho_hat = x.detach().mean(
             dim=tuple(i for i in range(x.dim()) if i != 1))
+        return self._attach(ctx, x, aux[0], rho_hat)
+
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
+        """The replicas of a group bound over several contexts: the mean
+        activation (and so the penalty and the moving average) is the
+        global batch's, each replica's float32 sums by channel summed
+        across the replicas; an input whose batch is its channel axis (1)
+        raises."""
+        reps = ctxs[0].replicas
+        if batch_axis(layouts[0] if layouts is not None else 0,
+                      self.op_name) == 1:
+            raise MXNetError("%s over %d contexts: the input's batch is "
+                             "its channel axis (1), so the mean activation "
+                             "by channel does not span the batch; bind it "
+                             "on one context" % (self.op_name, reps.n))
+        sums = []
+        for k, (x,) in enumerate(inputs):
+            with reps.on(k):
+                sums.append(x.detach().float().sum(
+                    dim=tuple(i for i in range(x.dim()) if i != 1)))
+        reps.sum_(sums)
+        count = reps.procs * sum(x.numel() // x.shape[1] for x, in inputs)
+        outs, new_aux = [], []
+        for k, ((x,), (moving,)) in enumerate(zip(inputs, aux)):
+            with reps.on(k):
+                o, a = self._attach(ctxs[k], x, moving,
+                                    (sums[k] / count).to(x.dtype))
+            outs.append(o)
+            new_aux.append(a)
+        return outs, new_aux
+
+    def _attach(self, ctx, x, moving, rho_hat):
         if ctx.is_train:
             new_aux = [moving * self.momentum
                        + rho_hat.to(moving.dtype) * (1 - self.momentum)]

@@ -40,10 +40,6 @@ class ROIPooling(Operator):
     def list_arguments(self):
         return ["data", "rois"]
 
-    def couples_batch(self):
-        # a roi names its image by its index in the whole batch
-        return True
-
     def infer_shape(self, in_shapes):
         data, rois = in_shapes
         if data is None or rois is None:
@@ -55,6 +51,20 @@ class ROIPooling(Operator):
         data, rois = inputs
         return [roi_pool(data, rois.to(data.dtype), self.pooled_size,
                          self.spatial_scale)], []
+
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
+        """The replicas of a group bound over several contexts: a roi
+        names its image by its index in the whole batch, so every replica
+        pools its own rois from the whole batch's feature maps, gathered
+        across the replicas (an all-gather whose backward is a
+        reduce-scatter)."""
+        reps = ctxs[0].replicas
+        maps = reps.all_gather_rows([data for data, _ in inputs])
+        outs = []
+        for k, ((_, rois), whole) in enumerate(zip(inputs, maps)):
+            with reps.on(k):
+                outs.append(self.apply(ctxs[k], [whole, rois], [])[0])
+        return outs, [[] for _ in inputs]
 
 
 def _linspace(n: int, device) -> torch.Tensor:
@@ -257,10 +267,6 @@ class SoftmaxCrossEntropy(Operator):
     def list_arguments(self):
         return ["data", "label"]
 
-    def couples_batch(self):
-        # one value, summed over the batch
-        return True
-
     def infer_shape(self, in_shapes):
         data = in_shapes[0]
         if data is None:
@@ -275,6 +281,17 @@ class SoftmaxCrossEntropy(Operator):
         lab = torch.where(lab < 0, lab + k, lab).clamp(0, k - 1)
         nll = -logp.gather(-1, lab[:, None])[:, 0]
         return [nll.sum().reshape(1)], []
+
+    def apply_replicas(self, ctxs, inputs, aux, layouts):
+        """The replicas of a group bound over several contexts: each
+        replica's sum over its rows, summed across the replicas by one
+        autograd-aware cross-card sum, on every replica."""
+        reps = ctxs[0].replicas
+        parts = []
+        for k, ins in enumerate(inputs):
+            with reps.on(k):
+                parts.append(self.apply(ctxs[k], ins, [])[0][0])
+        return [[o] for o in reps.all_sum(parts)], [[] for _ in inputs]
 
 
 __all__ = ["ROIPooling", "SpatialTransformer", "Correlation",

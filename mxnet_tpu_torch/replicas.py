@@ -19,7 +19,12 @@ node by node, so that an op whose result depends on the whole batch
   gradients).
 * :meth:`Replicas.sum_` sums in place with no gradient: the executor
   group's gradient exchange after the backward (one flat buffer a
-  card) and the ``valid`` label count.
+  card) and the ``valid`` label count; :meth:`Replicas.extreme_` takes
+  the max or min the same way (``max``/``min`` over the batch, the
+  numerics plane's max-abs under fsdp).
+* :meth:`Replicas.all_gather_rows` is autograd-aware: the replicas'
+  rows joined on every replica (ROIPooling's feature maps, whose rois
+  name images in the whole batch), its backward a reduce-scatter.
 * :meth:`Replicas.reduce_scatter` and :meth:`Replicas.all_gather` are
   the fsdp exchange over the group's ``(dp, fsdp)`` mesh (ROADMAP.md
   Queue A item 10c): a shard-major flat buffer a card summed over every
@@ -71,6 +76,9 @@ __all__ = ["Replicas", "ProcessReplicas", "ShardedParams", "CardGraph",
 #: the graph's pool during the capture, so a staged batch allocated then
 #: could share memory that the replays write
 capture_lock = threading.Lock()
+
+#: NCCL's ncclMax and ncclMin, the ``op`` of ``torch.cuda.nccl.all_reduce``
+_NCCL_MAX, _NCCL_MIN = 2, 3
 
 
 class _On:
@@ -166,6 +174,37 @@ class Replicas:
         """The sum of the replicas' tensors on every replica, as an
         autograd node whose backward sums the gradients the same way."""
         return list(_AllSum.apply(self, *tensors))
+
+    def extreme_(self, tensors, largest=True, groups=None, streams=None):
+        """Every tensor (one a replica, contiguous, one shape) becomes the
+        elementwise max (``largest``) or min over the replicas of its
+        line of ``groups`` (default: all of them), in place, with no
+        gradient."""
+        groups = groups or [list(range(self.n))]
+        if self.cuda:
+            streams = streams if streams is not None else self.streams
+            for g in groups:
+                torch.cuda.nccl.all_reduce(
+                    [tensors[k] for k in g],
+                    op=_NCCL_MAX if largest else _NCCL_MIN,
+                    streams=_pick(streams, g))
+            return tensors
+        pick = torch.maximum if largest else torch.minimum
+        with torch.no_grad():
+            for g in groups:
+                total = tensors[g[0]].clone()
+                for k in g[1:]:
+                    total = pick(total, tensors[k])
+                for k in g:
+                    tensors[k].copy_(total)
+        return tensors
+
+    def all_gather_rows(self, tensors):
+        """Every replica's tensor (one shape) joined along dim 0 in
+        replica order, on every replica, as an autograd node: replica
+        ``k``'s gradient is the sum over the replicas of their gradients'
+        rows of ``k`` (a reduce-scatter)."""
+        return list(_AllGatherRows.apply(self, *tensors))
 
     def reduce_scatter(self, inputs, outputs, fsdp_groups, dp_groups,
                        streams=None):
@@ -296,6 +335,16 @@ class ProcessReplicas(Replicas):
     def all_sum(self, tensors):
         return list(_ProcessSum.apply(self, *tensors))
 
+    def extreme_(self, tensors, largest=True, groups=None, streams=None):
+        op = dist.ReduceOp.MAX if largest else dist.ReduceOp.MIN
+        with torch.no_grad():
+            for t in tensors:
+                dist.all_reduce(t, op=op, group=self.group)
+        return tensors
+
+    def all_gather_rows(self, tensors):
+        return list(_ProcessGatherRows.apply(self, *tensors))
+
 
 class _AllSum(torch.autograd.Function):
     """One node over every replica: forward and backward are both the
@@ -323,6 +372,76 @@ class _AllSum(torch.autograd.Function):
             with reps.on(k, streams):
                 outs.append(g.contiguous().clone())
         return (None,) + tuple(reps.sum_(outs, streams))
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """One node over every replica: forward the all-gather of the
+    replicas' rows onto every replica, backward the reduce-scatter of the
+    gathered gradients."""
+
+    @staticmethod
+    def forward(ctx, reps, *xs):
+        ctx.reps, ctx.streams = reps, reps.streams
+        ctx.rows = xs[0].shape[0]
+        if not reps.cuda:
+            joined = torch.cat(xs)
+            return tuple(joined.clone() for _ in xs)
+        ins, outs = [], []
+        for k, x in enumerate(xs):
+            with reps.on(k):
+                ins.append(x.contiguous())
+                outs.append(torch.empty((reps.n * x.shape[0],)
+                                        + tuple(x.shape[1:]),
+                                        dtype=x.dtype, device=x.device))
+        torch.cuda.nccl.all_gather(ins, outs, streams=reps.streams)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        reps, streams, rows = ctx.reps, ctx.streams, ctx.rows
+        if any(g is None for g in grads):
+            raise MXNetError("cross-card gather: a replica's gradient is "
+                             "missing")
+        if not reps.cuda:
+            total = grads[0].clone()
+            for g in grads[1:]:
+                total += g
+            return (None,) + tuple(total[k * rows:(k + 1) * rows].clone()
+                                   for k in range(reps.n))
+        ins, outs = [], []
+        for k, g in enumerate(grads):
+            with reps.on(k, streams):
+                ins.append(g.contiguous())
+                outs.append(torch.empty((rows,) + tuple(g.shape[1:]),
+                                        dtype=g.dtype, device=g.device))
+        torch.cuda.nccl.reduce_scatter(ins, outs, streams=streams)
+        return (None,) + tuple(outs)
+
+
+class _ProcessGatherRows(torch.autograd.Function):
+    """The ranks' rows joined in rank order on every rank; backward each
+    rank's rows of the gradients summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, reps, *xs):
+        ctx.reps = reps
+        outs = []
+        for x in xs:
+            parts = [torch.empty_like(x) for _ in range(reps.procs)]
+            dist.all_gather(parts, x.contiguous(), group=reps.group)
+            outs.append(torch.cat(parts))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        reps = ctx.reps
+        rank = dist.get_rank(reps.group)
+        out = []
+        for g in grads:
+            total = g.contiguous().clone()
+            dist.all_reduce(total, group=reps.group)
+            out.append(total.chunk(reps.procs)[rank].clone())
+        return (None,) + tuple(out)
 
 
 class _ProcessSum(torch.autograd.Function):
@@ -555,7 +674,7 @@ class ShardedParams:
     (:meth:`gather_value`)."""
 
     def __init__(self, reps, mesh, names, shapes, works, flat_grads,
-                 contexts):
+                 contexts, adds=()):
         from .ndarray import NDArray
 
         f = int(mesh.shape["fsdp"])
@@ -573,6 +692,10 @@ class ShardedParams:
         self.index = {n: (o, m) for n, o, m in zip(names, offsets, sizes)}
         self.works = list(works)
         self.flat_grads = list(flat_grads)
+        #: the parameters bound with grad_req "add": each backward's
+        #: reduced shard is added to the shard's gradient
+        self.adds = set(adds)
+        self._incoming = None
         self.master, self.grads = [], []
         self._weights, self._grad_views = [], []
         for k, ctx in enumerate(contexts):
@@ -643,10 +766,26 @@ class ShardedParams:
 
     def reduce(self):
         """Every card's full-width gradients, summed over all cards, into
-        the cards' reduced shards."""
+        the cards' reduced shards: written, or added where the parameter
+        is in :attr:`adds` (through a shard buffer a card)."""
         reps = self.reps
         for k in range(reps.n):
             with reps.on(k):
                 torch.cat(self._pack[k], out=self.works[k])
-        reps.reduce_scatter(self.works, self.grads, self.fsdp_groups,
+        if not self.adds:
+            reps.reduce_scatter(self.works, self.grads, self.fsdp_groups,
+                                self.dp_groups)
+            return
+        if self._incoming is None:
+            self._incoming = [torch.empty_like(g) for g in self.grads]
+        reps.reduce_scatter(self.works, self._incoming, self.fsdp_groups,
                             self.dp_groups)
+        for k in range(reps.n):
+            with reps.on(k):
+                for name, (o, m) in self.index.items():
+                    dst = self.grads[k][o:o + m]
+                    src = self._incoming[k][o:o + m]
+                    if name in self.adds:
+                        dst.add_(src)
+                    else:
+                        dst.copy_(src)

@@ -340,21 +340,41 @@ def test_mirrored_and_bfloat16_fits_over_contexts(monkeypatch):
 
 
 def test_mirror_over_cards_is_refused():
-    """The mirrored backward over several cards has not run on a card:
-    a replica set on cards refuses it (on the CPU it runs, above)."""
+    """No longer refused: a replica set on cards takes the mirrored
+    backward (its segments replay their BatchNorms' cross-card sums on
+    the one thread that runs the backward); over 2 CPU contexts the
+    mirrored step's gradients equal the plain step's bit for bit."""
     from mxnet_tpu_torch.executor import ReplicatedExecutor
     from mxnet_tpu_torch.replicas import Replicas
 
-    mp = pytest.MonkeyPatch()
-    mp.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
-    try:
-        group = _bind(tmx, _ctxs(tmx, 2))._exec_group
-    finally:
-        mp.undo()
+    grads = {}
+    for mirror in ("0", "1"):
+        mp = pytest.MonkeyPatch()
+        mp.setenv("MXNET_BACKWARD_DO_MIRROR", mirror)
+        try:
+            mod = _bind(tmx, _ctxs(tmx, 2))
+        finally:
+            mp.undo()
+        group = mod._exec_group
+        assert group.executor.mirror == (mirror == "1")
+        args, aux = _params()
+        mod.init_params(arg_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                                    for k, v in args.items()},
+                        aux_params={k: tmx.nd.array(v, ctx=tmx.cpu())
+                                    for k, v in aux.items()})
+        x, y = _data()
+        mod.forward_backward(tmx.io.DataBatch(
+            [tmx.nd.array(x[:BATCH], ctx=tmx.cpu())],
+            [tmx.nd.array(y[:BATCH], ctx=tmx.cpu())]))
+        grads[mirror] = {k: g.asnumpy().copy()
+                         for k, g in group.execs[1].grad_dict.items()}
+    for k in grads["0"]:
+        np.testing.assert_array_equal(grads["1"][k], grads["0"][k],
+                                      err_msg=k)
     cards = Replicas(group.replicas.devices)
     cards.cuda = True
-    with pytest.raises(tmx.MXNetError, match="mirror over several cards"):
-        ReplicatedExecutor(group.execs, cards, [], [], {"data": 0})
+    rex = ReplicatedExecutor(group.execs, cards, [], [], {"data": 0})
+    assert rex.execs[0].mirror
 
 
 def _normwise(got, want, start):
@@ -558,17 +578,36 @@ def test_time_major_output_joins_and_slices_along_its_batch_axis():
 
 
 def test_output_without_a_batch_axis_is_refused():
-    """A (T * N, C) output, flattened time-major, has no axis that
-    follows the batch alone: joining it or slicing a head gradient for
-    it raises; its per-replica slices are still there."""
-    mod = _seq_module(tmx, _ctxs(tmx, 2), flat=True)
+    """A (T * N, C) output, flattened time-major, now joins in the global
+    order and takes a global head gradient cut the same way, as one
+    context gives (rtol 1e-6); an output whose layout the graph does not
+    determine (a reshape that cuts the batch) still raises, naming its
+    node, while its per-replica slices are still there."""
+    rng = np.random.RandomState(6)
+    head = rng.randn(T_STEPS * BATCH, CH).astype(np.float32)
+    runs = []
+    for ctxs in (_ctxs(tmx, 2), [tmx.cpu()]):
+        mod = _seq_module(tmx, ctxs, flat=True)
+        mod.forward(_seq_batch(tmx), is_train=True)
+        out = mod.get_outputs()[0].asnumpy().copy()
+        mod.backward([tmx.nd.array(head, ctx=tmx.cpu())])
+        runs.append((out, mod.get_input_grads()[0].asnumpy().copy()))
+    for got, want in zip(*runs):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    with fresh_names(tmx):
+        net = tmx.sym.Reshape(tmx.sym.Variable("data") * 3, shape=(2, -1),
+                              name="cut")
+    mod = tmx.mod.Module(net, label_names=[], context=_ctxs(tmx, 2))
+    mod.bind([tmx.io.DataDesc("data", (T_STEPS, BATCH, CH), layout="TNC")])
+    mod.init_params()
     mod.forward(_seq_batch(tmx), is_train=True)
-    with pytest.raises(tmx.MXNetError, match="no batch axis"):
+    with pytest.raises(tmx.MXNetError, match="node cut"):
         mod.get_outputs()
     parts = mod.get_outputs(merge_multi_context=False)[0]
-    assert [p.shape for p in parts] == [(T_STEPS * BATCH // 2, CH)] * 2
-    with pytest.raises(tmx.MXNetError, match="no batch axis"):
-        mod.backward([tmx.nd.zeros((T_STEPS * BATCH, CH), ctx=tmx.cpu())])
+    assert [p.shape for p in parts] == [(2, T_STEPS * BATCH * CH // 4)] * 2
+    with pytest.raises(tmx.MXNetError, match="cannot be derived"):
+        mod.backward([tmx.nd.zeros((2, T_STEPS * BATCH * CH // 2),
+                                   ctx=tmx.cpu())])
 
 
 def _scores(pkg, ctxs):
@@ -676,17 +715,46 @@ def test_fsdp_over_four_contexts_binds_the_dp_fsdp_mesh(monkeypatch):
 
 
 def test_unported_parts_raise_naming_their_item(monkeypatch):
-    with fresh_names(tmx):
-        data = tmx.sym.Variable("data")
-        net = tmx.sym.MakeLoss(tmx.sym.sum(data), name="loss")
-    mod = tmx.mod.Module(net, label_names=[], context=_ctxs(tmx, 2))
-    with pytest.raises(tmx.MXNetError, match="across the batch"):
-        mod.bind([("data", (4, 3))])
+    """What was refused is ported: a loss over the batch's sum (one value
+    every replica holds) trains over 2 contexts as on one (the input
+    gradient is grad_scale, counted once), and a module shares its
+    owner's arrays over the same contexts. What stays refused raises
+    naming it: a shared module over other contexts, and group2ctx
+    placement over several contexts."""
+    from mxnet_tpu_torch.executor import ReplicatedExecutor
+
+    grads = []
+    for ctxs in (_ctxs(tmx, 2), [tmx.cpu()]):
+        with fresh_names(tmx):
+            data = tmx.sym.Variable("data")
+            net = tmx.sym.MakeLoss(tmx.sym.sum(data * data), grad_scale=0.5,
+                                   name="loss")
+        mod = tmx.mod.Module(net, label_names=[], context=ctxs)
+        mod.bind([("data", (4, 3))], inputs_need_grad=True)
+        mod.init_params()
+        x = np.arange(12, dtype=np.float32).reshape(4, 3)
+        mod.forward_backward(tmx.io.DataBatch(
+            [tmx.nd.array(x, ctx=tmx.cpu())], []))
+        assert mod.get_outputs()[0].asnumpy().tolist() == [float(
+            (x * x).sum())]
+        grads.append(mod.get_input_grads()[0].asnumpy())
+    np.testing.assert_array_equal(grads[0], grads[1])
+    np.testing.assert_array_equal(grads[0], np.float32(0.5) * 2 * x)
+    owner = _bind(tmx, _ctxs(tmx, 2))
+    shared = tmx.mod.Module(_net(tmx), context=_ctxs(tmx, 2))
+    shared.bind([("data", (BATCH, HW, HW, 3))], [("softmax_label", (BATCH,))],
+                shared_module=owner)
+    assert shared._exec_group.execs[1].arg_dict["fc1_weight"] is \
+        owner._exec_group.execs[1].arg_dict["fc1_weight"]
     one = _bind(tmx, _ctxs(tmx, 1))
-    with pytest.raises(tmx.MXNetError, match="shares no arrays"):
+    with pytest.raises(tmx.MXNetError, match="same contexts"):
         tmx.mod.Module(_net(tmx), context=_ctxs(tmx, 2)).bind(
             [("data", (BATCH, HW, HW, 3))], [("softmax_label", (BATCH,))],
             shared_module=one)
+    group = owner._exec_group
+    group.execs[1]._group2ctx = {"dev": tmx.cpu(1)}
+    with pytest.raises(tmx.MXNetError, match="group2ctx"):
+        ReplicatedExecutor(group.execs, group.replicas, [], [], {"data": 0})
 
 
 # ---------------------------------------------------------------------------

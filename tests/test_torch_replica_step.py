@@ -396,9 +396,7 @@ def _bound_mlp(ctxs):
 
 def test_a_dropout_graph_over_cards_is_no_longer_refused():
     """The step over a replica set on cards takes a graph that draws
-    random numbers (its generators are registered at the capture); the
-    skip guard still raises naming its item, and the numerics plane
-    over fsdp shards too."""
+    random numbers (its generators are registered at the capture)."""
     from mxnet_tpu_torch.fused_step import FusedTrainStep
 
     mod = _bound_mlp(_ctxs(tmx, 2))
@@ -411,13 +409,33 @@ def test_a_dropout_graph_over_cards_is_no_longer_refused():
 
 
 def test_skip_guard_and_numwatch_over_fsdp_still_raise(monkeypatch):
+    """No longer refused: the skip guard over 2 contexts, and the plane
+    under fsdp 2, build their step and fold one batch: the fold's pack
+    under fsdp equals the dp pack (counts and stamps exact, sums rtol
+    1e-5), and each card keeps its own pack, equal to the first's."""
     monkeypatch.setenv("MXNET_TPU_NUMWATCH", "1")
     monkeypatch.setenv("MXNET_TPU_NUMWATCH_GUARD", "skip")
-    mod = _bound_mlp(_ctxs(tmx, 2))
-    with pytest.raises(tmx.MXNetError, match="skip guard over several"):
-        mod._fused_train_step(tmx.metric.create("acc"))
-    monkeypatch.delenv("MXNET_TPU_NUMWATCH_GUARD")
-    monkeypatch.setenv("MXNET_TPU_MESH_FSDP", "2")
-    mod = _bound_mlp(_ctxs(tmx, 2))
-    with pytest.raises(tmx.MXNetError, match="numerics plane over fsdp"):
-        mod._fused_train_step(tmx.metric.create("acc"))
+    x = np.random.RandomState(1).randn(BATCH, CROP, CROP, 3).astype(
+        np.float32)
+    y = np.arange(BATCH, dtype=np.float32) % CLASSES
+    packs = []
+    for fsdp in (None, "2"):
+        if fsdp:
+            monkeypatch.setenv("MXNET_TPU_MESH_FSDP", fsdp)
+        tmx.random.seed(0)
+        mod = _bound_mlp(_ctxs(tmx, 2))
+        step = mod._fused_train_step(tmx.metric.create("acc"))
+        assert step._numwatch.skip_guard
+        step.step(next(iter(tmx.io.NDArrayIter(x, y, batch_size=BATCH))),
+                  tmx.metric.create("acc"))
+        pack = step._numwatch._pack.numpy().copy()
+        for copy in step._numwatch._copies.values():
+            np.testing.assert_array_equal(copy.numpy(), pack)
+        packs.append(pack)
+    from mxnet_tpu_torch import numwatch as tnw
+
+    assert mod._exec_group.shards is not None
+    exact = [tnw.G_NONFIN, tnw.G_ZERO, tnw.W_NONFIN, tnw.FB_PARAM,
+             tnw.FB_GRAD]
+    np.testing.assert_array_equal(packs[1][:, exact], packs[0][:, exact])
+    np.testing.assert_allclose(packs[1], packs[0], rtol=1e-5, atol=1e-7)

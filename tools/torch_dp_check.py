@@ -235,7 +235,7 @@ def per_card_statistics():
 
     cross = nn.BatchNorm.apply_replicas
 
-    def each_alone(self, ctxs, inputs, aux):
+    def each_alone(self, ctxs, inputs, aux, layouts):
         return ctxs[0].replicas.each(self.apply, ctxs, inputs, aux)
 
     nn.BatchNorm.apply_replicas = each_alone
